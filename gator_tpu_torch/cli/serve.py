@@ -1,0 +1,112 @@
+"""Batch serving CLI: 2D poses (.npy) -> SMPL meshes (.npy), on one device.
+
+Loads [N, 17, 2-or-3] raw pixel keypoints, preprocesses them with the
+datasets' crop/normalize, and runs the serving path
+(`gator_tpu_torch.serving.make_serving_fn`) in chunks of --batch_size.
+
+    python -m gator_tpu_torch.cli.serve --input_poses poses.npy \
+        --joint_set coco --output meshes.npy
+
+--weights takes a state dict saved with torch.save (a bare dict, or the
+reference's {"model_state_dict": ...} layout, with any DataParallel
+"module." prefix); without it the weights are random (seed 0).
+The default device is cuda; there is no fallback to the CPU.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from ..assets import build_assets
+from ..data import processing
+from ..models import GATOR, GatorSpec, build_gator
+from ..serving import make_serving_fn
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="GATOR batch serving (PyTorch)")
+    p.add_argument("--input_poses", type=str, required=True,
+                   help=".npy of [N, 17, 2or3] pixel keypoints")
+    p.add_argument("--joint_set", type=str, default="coco",
+                   choices=("coco", "human36"))
+    p.add_argument("--weights", type=str, default=None)
+    p.add_argument("--output", type=str, default="meshes.npy")
+    p.add_argument("--joints_output", type=str, default=None,
+                   help="optional .npy for the lifted 3D joints")
+    p.add_argument("--batch_size", type=int, default=256)
+    p.add_argument("--dtype", type=str, default="bfloat16",
+                   choices=("bfloat16", "float32"))
+    p.add_argument("--device", type=str, default="cuda")
+    return p.parse_args(argv)
+
+
+def load_weights(model: GATOR, path: str) -> GATOR:
+    state = torch.load(path, map_location="cpu", weights_only=False)
+    state = state.get("model_state_dict", state)
+    state = {k[len("module."):] if k.startswith("module.") else k: v
+             for k, v in state.items()}
+    model.load_state_dict(state, strict=True)
+    return model
+
+
+def run_serve(pose_path: str, joint_set: str = "coco",
+              weights: str | None = None, output: str = "meshes.npy",
+              joints_output: str | None = None,
+              batch_size: int = 256, dtype: str = "bfloat16",
+              device: str = "cuda", assets=None):
+    device = torch.device(device)
+    assets = assets or build_assets(joint_set)
+    spec = GatorSpec.from_assets(assets)
+    model = build_gator(spec, seed=0)
+    if weights:
+        load_weights(model, weights)
+    else:
+        print("WARNING: serving randomly initialized weights")
+    model = model.to(device)
+    fn = make_serving_fn(model, dtype=getattr(torch, dtype))
+
+    poses = np.load(pose_path).astype(np.float32)
+    poses = poses.reshape(len(poses), 17, -1)
+    if poses.shape[-1] == 2:
+        poses = np.concatenate(
+            [poses, np.ones(poses.shape[:2] + (1,), np.float32)], axis=-1)
+    if joint_set == "coco":
+        poses = processing.add_pelvis_neck_scores(
+            poses, list(assets.joint_set.joints_name))
+    n = len(poses)
+    pose2d = processing.batch_crop_and_normalize(poses[..., :2])
+
+    meshes = np.empty((n, spec.mdr.full_num, 3), np.float32)
+    joints3d = np.empty((n, spec.gat.num_joint, 3), np.float32)
+    t0 = time.perf_counter()
+    for lo in range(0, n, batch_size):
+        chunk = torch.from_numpy(pose2d[lo:lo + batch_size]).to(device)
+        mesh, pose3d = fn(chunk)
+        meshes[lo:lo + len(chunk)] = mesh.float().cpu().numpy()
+        joints3d[lo:lo + len(chunk)] = pose3d.float().cpu().numpy()
+    dt = time.perf_counter() - t0
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    print(f"served {n} poses in {dt:.2f}s ({n / max(dt, 1e-9):,.0f} "
+          f"poses/s on {name}, {dtype}, batch {batch_size}, "
+          "host clock incl. transfers)")
+
+    np.save(output, meshes)
+    print(f"meshes -> {output}  [{n}, {spec.mdr.full_num}, 3] (meters)")
+    if joints_output:
+        np.save(joints_output, joints3d)
+        print(f"3D joints -> {joints_output} (mm)")
+    return {"meshes": meshes, "joints3d": joints3d}
+
+
+def main(argv=None):
+    a = parse_args(argv)
+    return run_serve(a.input_poses, a.joint_set, a.weights, a.output,
+                     a.joints_output, a.batch_size, a.dtype, a.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,79 @@
+"""Weights from the JAX package's flax variables into the port's state dict.
+
+The key rules are those of the reference-checkpoint converter
+(gator_tpu/convert/torch_loader.py:20-61), restated here because the port
+imports nothing of the JAX package:
+  * a TorchDense `<mod>/linear/{kernel,bias}` is torch `<mod>.{weight,bias}`
+    with the kernel transposed ([in, out] -> [out, in]);
+  * `scale` (LayerNorm / GroupNorm / BatchNorm) is `weight`;
+  * `GLinear_i`, `blocks_i`, `linears_i` are the ModuleList entries `.i`;
+  * embedding tables are `<table>.weight`;
+  * batch_stats `mean` / `var` are `running_mean` / `running_var`; a torch
+    BatchNorm also carries `num_batches_tracked`, set to 0.
+Everything else (W, b, M, adj2, bias, weight, a_2, b_2) carries over as is.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+
+_INDEXED = ("GLinear", "blocks", "linears")
+_EMBED_LEAVES = ("pos_id_embed", "pos_num_embed", "pos_j_id_embed",
+                 "pos_v_id_embed", "spatial_pos_encoder")
+
+
+def _module_path(path: Tuple[str, ...]) -> str:
+    parts = []
+    for name in path:
+        for base in _INDEXED:
+            idx = name[len(base) + 1:]
+            if name.startswith(base + "_") and idx.isdigit():
+                name = f"{base}.{idx}"
+                break
+        parts.append(name)
+    return ".".join(parts)
+
+
+def _key(path: Tuple[str, ...], leaf: str,
+         collection: str) -> Tuple[str, bool]:
+    """-> (torch key, whether the value is transposed)."""
+    if collection == "batch_stats":
+        name = {"mean": "running_mean", "var": "running_var"}[leaf]
+        return f"{_module_path(path)}.{name}", False
+    if path and path[-1] == "linear":
+        mod = _module_path(path[:-1])
+        return (f"{mod}.weight", True) if leaf == "kernel" \
+            else (f"{mod}.bias", False)
+    mod = _module_path(path)
+    prefix = f"{mod}." if mod else ""
+    if leaf == "scale":
+        return f"{prefix}weight", False
+    if leaf in _EMBED_LEAVES:
+        return f"{prefix}{leaf}.weight", False
+    return f"{prefix}{leaf}", False
+
+
+def _walk(tree: Dict[str, Any], path=()) -> Iterator:
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _walk(val, path + (key,))
+        else:
+            yield path, key, val
+
+
+def state_dict_from_jax(variables: Dict[str, Any]
+                        ) -> Dict[str, torch.Tensor]:
+    """flax variables ({'params': ..., 'batch_stats': ...}, leaves as numpy
+    arrays) -> the port's state dict, loadable with strict=True."""
+    out: Dict[str, torch.Tensor] = {}
+    for collection, tree in variables.items():
+        for path, leaf, val in _walk(tree):
+            key, transpose = _key(path, leaf, collection)
+            arr = np.array(val, dtype=np.float32)
+            out[key] = torch.from_numpy(arr.T.copy() if transpose else arr)
+            if collection == "batch_stats" and leaf == "mean":
+                bn = key[:-len("running_mean")]
+                out[bn + "num_batches_tracked"] = torch.tensor(0)
+    return out

@@ -1,0 +1,175 @@
+"""K2: the MDR LBF stack of the serving path (3 layers, inference only).
+
+`lbf_stack` runs the hand-written CUDA kernels of `csrc/lbf_stack.cu` on a
+CUDA tensor and the plain PyTorch version `lbf_stack_ref` on a CPU tensor.
+It replaces gator_tpu/nn/pallas_mdr.py:352 `lbf_stack_fused`; the math of
+one layer is gator_tpu/nn/pallas_mdr.py:87 `_layer_math` (reference:
+lib/models/MDR.py:139-153).
+
+Per layer the kernel path makes two launches: `lbf_rows` (everything that
+is local to a vertex row) and `lbf_selfattn` (the Nv x Nv self-attention
+with an online softmax, then L3 and the residual). The residual stream
+between layers stays f32; the result is cast to the working dtype once.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from . import cuda_lib
+from .layers import layer_norm32, std_layer_norm
+
+# Field order of one layer's packed weights; must match `enum Field` in
+# csrc/lbf_stack.cu. Matrices are [in, out] (y = x @ W).
+STACK_FIELDS = (
+    "ln1_w", "ln1_b", "wq", "wk", "wv", "proj_w", "proj_b",
+    "ln2_w", "ln2_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b", "a2", "b2",
+    "l0_w", "l0_b", "l1_w", "l1_b", "l2_w", "l2_b", "l3_w", "l3_b",
+)
+
+EMBED, HEADS, JOINTS_MAX = 64, 2, 32
+
+_SIGNATURE = {
+    "lbf_rows_launch": [ctypes.c_int] + [ctypes.c_void_p] * 8
+    + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "lbf_selfattn_launch": [ctypes.c_int] + [ctypes.c_void_p] * 7
+    + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+}
+
+
+def fold_stack_weights(mdr, dtype: torch.dtype, device) -> cuda_lib.Packed:
+    """Pack the LBF layers of an `MDR` module (encoder[_i], norm[_i],
+    selfatt[_i]) for the kernels, linear weights as [in, out]."""
+    layers = []
+    with torch.no_grad():
+        for enc, norm, sa in mdr.lbf_layers():
+            lin = sa.linears
+            layers.append({
+                "ln1_w": enc.norm1.weight, "ln1_b": enc.norm1.bias,
+                "wq": enc.attn.wq.weight.T, "wk": enc.attn.wk.weight.T,
+                "wv": enc.attn.wv.weight.T,
+                "proj_w": enc.attn.proj.weight.T,
+                "proj_b": enc.attn.proj.bias,
+                "ln2_w": enc.norm2.weight, "ln2_b": enc.norm2.bias,
+                "fc1_w": enc.mlp.fc1.weight.T, "fc1_b": enc.mlp.fc1.bias,
+                "fc2_w": enc.mlp.fc2.weight.T, "fc2_b": enc.mlp.fc2.bias,
+                "a2": norm.a_2, "b2": norm.b_2,
+                **{f"l{i}_w": lin[i].weight.T for i in range(4)},
+                **{f"l{i}_b": lin[i].bias for i in range(4)},
+            })
+    return cuda_lib.pack(layers, STACK_FIELDS, dtype, device)
+
+
+def _heads(t: torch.Tensor, h: int) -> torch.Tensor:
+    b, n, c = t.shape
+    return t.reshape(b, n, h, c // h).transpose(1, 2)      # [B, H, N, D]
+
+
+def _merge(t: torch.Tensor) -> torch.Tensor:
+    b, h, n, d = t.shape
+    return t.transpose(1, 2).reshape(b, n, h * d)
+
+
+def lbf_stack_ref(verts: torch.Tensor, joints: torch.Tensor,
+                  weights: cuda_lib.Packed, num_heads: int) -> torch.Tensor:
+    """Plain PyTorch version of the kernels, rounding to the working dtype
+    at the same places: verts [B, Nv, C], joints [B, J, C] (dtype of
+    `weights`). The self-attention probabilities stay f32, as the kernel's
+    online softmax never holds them normalised."""
+    dt = weights.dtype
+
+    def rnd(t):
+        return t.to(dt).float()
+
+    h = num_heads
+    scale = (verts.shape[-1] // h) ** -0.5
+    x = verts.float()
+    jf = joints.float()
+    for w in weights.layers:
+        p = {k: v.float() for k, v in w.items()}
+        yj = rnd(layer_norm32(jf, p["ln1_w"], p["ln1_b"]))
+        k = _heads(rnd(yj @ p["wk"]), h)
+        v = _heads(rnd(yj @ p["wv"]), h)
+        q = _heads(rnd(rnd(layer_norm32(x, p["ln1_w"], p["ln1_b"]))
+                       @ p["wq"]), h)
+        prob = rnd(torch.softmax(q @ k.transpose(-1, -2) * scale, dim=-1))
+        o = rnd(_merge(prob @ v))
+        x = x + o @ p["proj_w"] + p["proj_b"]
+        y2 = rnd(layer_norm32(x, p["ln2_w"], p["ln2_b"]))
+        hid = rnd(F.gelu(y2 @ p["fc1_w"] + p["fc1_b"]))
+        x = x + hid @ p["fc2_w"] + p["fc2_b"]
+        y3 = std_layer_norm(x, p["a2"], p["b2"])
+        y3d = rnd(y3)
+        q2, k2, v2 = (_heads(rnd(y3d @ p[f"l{i}_w"] + p[f"l{i}_b"]), h)
+                      for i in range(3))
+        prob = torch.softmax(q2 @ k2.transpose(-1, -2) * scale, dim=-1)
+        o = rnd(_merge(prob @ v2))
+        x = y3 + o @ p["l3_w"] + p["l3_b"]
+    return x.to(dt)
+
+
+def lbf_stack_cuda(verts: torch.Tensor, joints: torch.Tensor,
+                   weights: cuda_lib.Packed) -> torch.Tensor:
+    """Launch csrc/lbf_stack.cu (two kernels per layer) on CUDA tensors."""
+    b, nv, c = verts.shape
+    nj = joints.shape[1]
+    if c != EMBED or joints.shape != (b, nj, c) or not 1 <= nj <= JOINTS_MAX:
+        raise ValueError(f"lbf_stack kernels take C={EMBED} and 1..."
+                         f"{JOINTS_MAX} joints: verts {tuple(verts.shape)}, "
+                         f"joints {tuple(joints.shape)}")
+    if not verts.dtype == joints.dtype == weights.dtype:
+        raise TypeError(f"verts {verts.dtype}, joints {joints.dtype}, "
+                        f"weights {weights.dtype} must agree")
+    for t in (joints, weights.flat, weights.offsets):
+        if t.device != verts.device:
+            raise ValueError("lbf_stack: all tensors must be on verts' "
+                             "device")
+    if b > 65535:
+        raise ValueError("lbf_stack kernels take at most 65535 samples")
+    out = torch.empty_like(verts)
+    if b == 0 or nv == 0:
+        return out
+    lib = cuda_lib.load("lbf_stack", _SIGNATURE)
+    code = cuda_lib.kernel_dtype(verts.dtype)
+    stream = cuda_lib.stream_ptr(verts)
+    joints = joints.contiguous()
+    # a fresh f32 copy: the layers ping-pong between x and x_next
+    x = verts.to(torch.float32, memory_format=torch.contiguous_format,
+                 copy=True)
+    x_next = torch.empty_like(x)
+    y3 = torch.empty_like(x)
+    q2, k2, v2 = (torch.empty_like(verts) for _ in range(3))
+    offs = weights.offsets.data_ptr()
+    for layer in weights.flat:
+        err = lib.lbf_rows_launch(
+            code, x.data_ptr(), joints.data_ptr(), layer.data_ptr(), offs,
+            y3.data_ptr(), q2.data_ptr(), k2.data_ptr(), v2.data_ptr(), b,
+            nv, nj, stream)
+        cuda_lib.check(err, "lbf_rows_launch")
+        lbf_stack.launches += 1
+        err = lib.lbf_selfattn_launch(
+            code, q2.data_ptr(), k2.data_ptr(), v2.data_ptr(), y3.data_ptr(),
+            layer.data_ptr(), offs, x_next.data_ptr(), b, nv, stream)
+        cuda_lib.check(err, "lbf_selfattn_launch")
+        lbf_stack.launches += 1
+        x, x_next = x_next, x
+    return out.copy_(x)
+
+
+def lbf_stack(verts: torch.Tensor, joints: torch.Tensor,
+              weights: cuda_lib.Packed, num_heads: int) -> torch.Tensor:
+    """The LBF stack: the CUDA kernels for a CUDA tensor, the plain version
+    for a CPU tensor (and nothing else: no fallback between the two)."""
+    if verts.device.type == "cuda":
+        if num_heads != HEADS:
+            raise ValueError(f"lbf_stack kernels take {HEADS} heads")
+        return lbf_stack_cuda(verts, joints, weights)
+    if verts.device.type == "cpu":
+        return lbf_stack_ref(verts, joints, weights, num_heads)
+    raise ValueError(f"lbf_stack: unsupported device {verts.device}")
+
+
+# launches of the CUDA kernels (two per layer); the CPU path never counts
+lbf_stack.launches = 0
