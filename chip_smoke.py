@@ -14,11 +14,35 @@ Phases, one line each:
      launch counts are read from (reset just before, read just after);
   7. times at B=2048, bf16: K1, K2 and the whole serving call, each kernel
      path beside its plain version (CUDA events, median of 5).
+The training path (K4 csrc/lbf_stack_train.cu, K5 csrc/gat_trunk_train.cu):
+  8. (a) K4 and K5 are built with the others in phase 2;
+  9. (b) K5 at full width (depth 6, B=64 and 512) and K4 (3 layers,
+     Nv=431, B=16 and 512), J=17 and 19, default rates, mask export on;
+     B=512 is the main path's batch, at which K4's grid-stride CTAs loop
+     over many row tiles: every exported mask equals the plain hash bit for
+     bit; output, dx, dbias or djoints and every parameter gradient
+     against the plain version fed those masks (f32 within 1e-4, gradients
+     scaled by their max; bf16 reported); keep fractions;
+ 10. (c) determinism at B=512: two runs with one seed are bit-identical,
+     another seed differs;
+ 11. (d) a stage-2 step on the kernels against the plain step, zero rates,
+     f32, B=16 (loss rtol 1e-5, gradients scaled within 1e-4);
+ 12. (e) the main training path: 20 stage-2 steps, full width, bf16,
+     default rates, B=512, one fixed batch of bench.py's shapes, human36
+     (alpha False) and coco (alpha True): losses finite and falling, every
+     K4/K5 forward and backward counter above 0 (reset just before, read
+     just after);
+ 13. (f) 10 stage-1 steps at B=256 (configs/gat_synthetic_e2e.yml), the same
+     checks;
+ 14. (g) times at B=512, bf16: the stage-2 and stage-1 steps, and K4/K5
+     forward and backward, each beside the plain version.
 Then a JSON line with each kernel's numbers, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without a CUDA device the
 script fails at once; there is no CPU fallback.
 """
+import concurrent.futures
+import copy
 import json
 import os
 import subprocess
@@ -37,7 +61,14 @@ KERNELS = {
                   "gator_tpu/nn/pallas_gat.py:266"),
     "lbf_stack": ("gator_tpu_torch/csrc/lbf_stack.cu",
                   "gator_tpu/nn/pallas_mdr.py:352"),
+    "gat_trunk_train": ("gator_tpu_torch/csrc/gat_trunk_train.cu",
+                        "gator_tpu/nn/pallas_gat_train.py:530"),
+    "lbf_stack_train": ("gator_tpu_torch/csrc/lbf_stack_train.cu",
+                        "gator_tpu/nn/pallas_mdr_train.py:592"),
 }
+# one H100 SXM (NVIDIA's data sheet): HBM rate and dense bf16 tensor rate
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
 
 
 def say(phase, msg):
@@ -72,6 +103,418 @@ def time_ms(torch, fn, reps=5, calls=3):
     return float(np.median(times))
 
 
+# parameters of one GAT block (C=128) and one LBF layer (C=64)
+GAT_BLOCK_WEIGHTS = 266_000
+LBF_LAYER_WEIGHTS = 61_000
+
+
+def fma_gat_block(j, c=128, hid=512, c2=16):
+    """FMA of one GAT block's forward for one sample: qkv, scores and
+    probabilities times v, projection, MGCN (two products and the
+    adjacency), XFeat (two projections, ring sums, back projection), MLP."""
+    return (j * c * 3 * c + 2 * j * j * c + j * c * c + 2 * j * c * c
+            + j * j * c + j * c * c + j * c * c2 + j * j * (c + c2)
+            + j * (c + c2) * c + 2 * j * c * hid)
+
+
+def fma_lbf_layer(nv, j, c=64, hid=256):
+    """FMA of one LBF layer's forward for one sample: q, k, v, cross
+    attention, projection, MLP, q2/k2/v2, the Nv x Nv self-attention, L3."""
+    return (nv * c * c + 2 * j * c * c + 2 * nv * j * c + nv * c * c
+            + 2 * nv * c * hid + 3 * nv * c * c + 2 * nv * nv * c
+            + nv * c * c)
+
+
+def bound(fma, nbytes):
+    """(least ms on one H100 for `fma` bf16 FMA moving `nbytes`, what
+    bounds it)."""
+    t_ops = 2.0 * fma / BF16_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def scaled_err(got, want):
+    scale = max(want.float().abs().max().item(), 1e-6)
+    return (got.float() - want.float()).abs().max().item() / scale
+
+
+def grads_of(module):
+    return {n: p.grad.detach().clone() for n, p in module.named_parameters()
+            if p.grad is not None}
+
+
+def compare_grads(tag, got, want, bar, zero_bias):
+    """Max scaled error over every parameter gradient; `zero_bias(name)`
+    gives the slice of a gradient that is zero in exact arithmetic (an
+    attention key bias), which is reported as an absolute value instead."""
+    check(set(got) == set(want) and got, f"{tag}: the same gradients")
+    worst, noise = 0.0, 0.0
+    for name, w in want.items():
+        g = got[name]
+        zero = zero_bias(name, g)
+        if zero is not None:
+            noise = max(noise, g[zero].abs().max().item(),
+                        w[zero].abs().max().item())
+            keep = g.new_ones(g.shape).bool()
+            keep[zero] = False
+            g, w = g[keep], w[keep]
+            if g.numel() == 0:
+                continue
+        e = scaled_err(g, w)
+        check(np.isfinite(e), f"{tag}: grad {name} finite")
+        if bar is not None:
+            check(e <= bar, f"{tag}: grad {name} scaled err {e} <= {bar}")
+        worst = max(worst, e)
+    return worst, noise
+
+
+def zero_bias(name, g):
+    """The key slice of the GAT qkv bias, the MDR self-attention key bias."""
+    if name.endswith("attn.qkv.bias"):
+        c = g.shape[0] // 3
+        return slice(c, 2 * c)
+    if "selfatt" in name and name.endswith("linears.1.bias"):
+        return slice(0, g.shape[0])
+    return None
+
+
+def masks_equal(got, want):
+    """An exported mask against the plain hash's (None = rate 0 = keep
+    all); -> (bitwise equal, keep fraction)."""
+    if want is None:
+        return bool((got == 1).all()), 1.0
+    return (bool(got.shape == want.shape and (got == want).all()),
+            (want > 0).float().mean().item())
+
+
+def train_phases(torch, dev, card, randn):
+    """Phases 8-14 (a-g): K4 and K5 against their plain versions, the
+    training steps on the card, and their times."""
+    from gator_tpu_torch import losses
+    from gator_tpu_torch.assets import build_assets
+    from gator_tpu_torch.models import GatorSpec, build_gator
+    from gator_tpu_torch.nn.gat_trunk_train import (extract_block_params,
+                                                    gat_trunk_train,
+                                                    gat_trunk_train_ref)
+    from gator_tpu_torch.nn.lbf_stack_train import (DEFAULT_RATES,
+                                                    ZERO_RATES,
+                                                    extract_layer_params,
+                                                    lbf_stack_train,
+                                                    lbf_stack_train_ref)
+    from gator_tpu_torch.train import (Adam, TrainState, make_gat_train_step,
+                                       make_gator_train_step)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    out = {"errs": {}, "launches": {}, "ms": {}, "bounds": {}}
+    assets = {js: build_assets(js, data_dirs=[], synthetic_vertex_num=6890,
+                               seed=0) for js in ("human36", "coco")}
+    alphas = {"human36": False, "coco": True}
+    models = {js: build_gator(GatorSpec.from_assets(assets[js],
+                                                    alpha=alphas[js]),
+                              seed=11, device=dev) for js in assets}
+
+    def run_k5(model, x0, cot, seed, kernel=True):
+        gat = model.pose_lifter
+        x = x0.clone().requires_grad_(True)
+        bias = gat.get_hop_path_encoding().detach().float().requires_grad_(
+            True)
+        gat.zero_grad(set_to_none=True)
+        export = []
+        fn = gat_trunk_train if kernel else gat_trunk_train_ref
+        y = fn(x, bias, [extract_block_params(b) for b in gat.blocks],
+               gat.spec.masks_xfeat, 8, seed, export=export)
+        y.backward(cot)
+        torch.cuda.synchronize()
+        return {"out": y.detach(), "dx": x.grad, "dbias": bias.grad,
+                "grads": grads_of(gat.blocks), "masks": export}
+
+    def run_k4(model, x0, j0, cot, seed, kernel=True, rates=DEFAULT_RATES):
+        mdr = model.pose2mesh
+        x = x0.clone().requires_grad_(True)
+        jt = j0.clone().requires_grad_(True)
+        mdr.zero_grad(set_to_none=True)
+        export = []
+        fn = lbf_stack_train if kernel else lbf_stack_train_ref
+        y = fn(x, jt, [extract_layer_params(mdr, i) for i in range(3)], 2,
+               seed, rates=rates, export=export)
+        y.backward(cot)
+        torch.cuda.synchronize()
+        grads = {n: g for n, g in grads_of(mdr).items()
+                 if n.startswith(("encoder", "norm", "selfatt"))}
+        return {"out": y.detach(), "dx": x.grad, "djt": jt.grad,
+                "grads": grads, "masks": export}
+
+    def hold(tag, k, p, dt, extra):
+        """kernel run k against plain run p: masks bit for bit, output and
+        gradients (f32 bars, bf16 reported) -> output's max abs err."""
+        for li, (km, pm) in enumerate(zip(k["masks"], p["masks"])):
+            for name in km:
+                same, _ = masks_equal(km[name], pm[name])
+                check(same, f"{tag}: unit {li} mask {name} equals the hash")
+        keep = {name: round(masks_equal(k["masks"][-1][name],
+                                        p["masks"][-1][name])[1], 4)
+                for name in k["masks"][-1]}
+        bar = 1e-4 if dt == f32 else None
+        e_out = max_err(k["out"], p["out"])
+        errs = {name: scaled_err(k[name], p[name]) for name in extra}
+        errs["out"] = scaled_err(k["out"], p["out"])
+        for name, e in errs.items():
+            check(np.isfinite(e), f"{tag}: {name} finite")
+            if bar is not None:
+                check(e <= bar, f"{tag}: {name} scaled err {e} <= {bar}")
+        worst, noise = compare_grads(tag, k["grads"], p["grads"], bar,
+                                     zero_bias)
+        say(9, f"{tag} {str(dt)[6:]}: masks equal the hash in all "
+               f"{len(k['masks'])} units; out max abs err {e_out:.3e}; "
+               f"scaled errs " + ", ".join(f"{n} {e:.2e}"
+                                            for n, e in errs.items())
+               + f"; {len(k['grads'])} param grads worst {worst:.2e}"
+               + f" (zero-true-grad key biases {noise:.1e} abs)"
+               + (" (bars 1e-4)" if bar else " (reported)")
+               + f"; keep fractions (last unit) {keep}")
+        return e_out
+
+    # 9 (b) and 10 (c): K5 and K4 against their plain versions, at a small
+    # batch and at the main path's (B=512: K4's grid-stride CTAs then loop
+    # over ~27 row tiles each and its joints CTAs over ~2 samples)
+    err5 = err4 = 0.0
+    for js, model in models.items():
+        j = model.spec.gat.num_joint
+        for b5, dt in ((64, f32), (64, bf16), (512, f32), (512, bf16)):
+            x0, cot = randn(b5, j, 128).to(dt), randn(b5, j, 128).to(dt)
+            k = run_k5(model, x0, cot, 1234)
+            p = run_k5(model, x0, cot, 1234, kernel=False)
+            e = hold(f"K5 {js} J={j} B={b5} depth 6", k, p, dt,
+                     ("dx", "dbias"))
+            del p
+            if dt == f32:
+                err5 = max(err5, e)
+            if dt == f32 and b5 == 512:
+                k2 = run_k5(model, x0, cot, 1234)
+                same = all(torch.equal(k[n], k2[n])
+                           for n in ("out", "dx", "dbias")) and all(
+                    torch.equal(k["grads"][n], k2["grads"][n])
+                    for n in k["grads"])
+                other = run_k5(model, x0, cot, 1235)
+                check(same, "K5 repeat run bit-identical")
+                check(not torch.equal(k["out"], other["out"]),
+                      "K5 another seed differs")
+                say(10, f"K5 {js} B={b5}: two runs with one seed "
+                        f"bit-identical (out, dx, dbias, "
+                        f"{len(k['grads'])} grads); another seed differs")
+                del k2, other
+            del k
+        nv = model.spec.mdr.coarse_num
+        for b4, dt in ((16, f32), (16, bf16), (512, f32), (512, bf16)):
+            x0, j0 = randn(b4, nv, 64).to(dt), randn(b4, j, 64).to(dt)
+            cot = randn(b4, nv, 64).to(dt)
+            k = run_k4(model, x0, j0, cot, 4321)
+            p = run_k4(model, x0, j0, cot, 4321, kernel=False)
+            e = hold(f"K4 {js} J={j} B={b4} Nv={nv} 3 layers", k, p, dt,
+                     ("dx", "djt"))
+            del p
+            if dt == f32:
+                err4 = max(err4, e)
+            if dt == f32 and b4 == 512:
+                k2 = run_k4(model, x0, j0, cot, 4321)
+                same = all(torch.equal(k[n], k2[n])
+                           for n in ("out", "dx", "djt")) and all(
+                    torch.equal(k["grads"][n], k2["grads"][n])
+                    for n in k["grads"])
+                other = run_k4(model, x0, j0, cot, 4322)
+                check(same, "K4 repeat run bit-identical")
+                check(not torch.equal(k["out"], other["out"]),
+                      "K4 another seed differs")
+                say(10, f"K4 {js} B={b4}: two runs with one seed "
+                        f"bit-identical (out, dx, djt, {len(k['grads'])} "
+                        f"grads); another seed differs")
+                del k2, other
+            del k
+    out["errs"] = {"gat_trunk_train": err5, "lbf_stack_train": err4}
+
+    def batch_of(js, b, seed):
+        v = models[js].spec.mdr.full_num
+        j = models[js].spec.gat.num_joint
+        rng = np.random.default_rng(seed)
+        arrays = {
+            "pose2d": rng.normal(size=(b, j, 2)),
+            "mesh": rng.normal(size=(b, v, 3)) * 0.1,
+            "lift_pose3d": rng.normal(size=(b, j, 3)) * 100,
+            "reg_pose3d": rng.normal(size=(b, 17, 3)) * 100,
+            "mesh_valid": np.ones((b, v, 1)),
+            "lift_valid": np.ones((b, j, 1)),
+            "reg_valid": np.ones((b, 17, 1)),
+        }
+        return {k: torch.from_numpy(a.astype(np.float32)).to(dev)
+                for k, a in arrays.items()}
+
+    def stage2(js, model, dt, lr, use_kernels=True, **kw):
+        st = TrainState(model, Adam(model.parameters(), lr=lr))
+        step = make_gator_train_step(
+            model.spec, assets[js].faces, assets[js].j_regressor_h36m,
+            losses.LossWeights(), dtype=dt, use_kernels=use_kernels, **kw)
+        return st, step
+
+    # 11 (d): a kernel step against a plain step, zero rates, f32, B=16
+    zero = dict(drop_rate=0.0, attn_drop_rate=0.0, drop_path_rate=0.0)
+    for js in ("human36", "coco"):
+        mk = build_gator(GatorSpec.from_assets(assets[js], alpha=alphas[js],
+                                               **zero), seed=5, device=dev)
+        mp = copy.deepcopy(mk)
+        batch = batch_of(js, 16, 2)
+        res = {}
+        for name, m, use in (("kernel", mk, True), ("plain", mp, False)):
+            st, step = stage2(js, m, f32, 0.0, use, rates=ZERO_RATES,
+                              gat_mlp_rate=0.0)
+            res[name] = float(step(st, batch, 0, 1.0)["loss"])
+        torch.cuda.synchronize()
+        rel = abs(res["kernel"] - res["plain"]) / abs(res["plain"])
+        check(rel <= 1e-5, f"step loss kernel {res['kernel']} vs plain "
+                           f"{res['plain']}: rel {rel} <= 1e-5")
+        worst, noise = compare_grads("stage-2 step", grads_of(mk),
+                                     grads_of(mp), 1e-4, zero_bias)
+        say(11, f"stage-2 step {js} f32 B=16 zero rates: loss kernel "
+                f"{res['kernel']:.7f} plain {res['plain']:.7f} (rel "
+                f"{rel:.1e}, bar 1e-5); {len(grads_of(mk))} param grads "
+                f"worst scaled err {worst:.2e} (bar 1e-4; key biases "
+                f"{noise:.1e} abs)")
+
+    # 12 (e): the main training path, 20 stage-2 steps at B=512, bf16
+    from gator_tpu_torch.nn import gat_trunk_train as k5mod
+    from gator_tpu_torch.nn import lbf_stack_train as k4mod
+    k5 = k5mod.gat_trunk_train
+    k4 = k4mod.lbf_stack_train
+    batches = {js: batch_of(js, 512, 1) for js in models}
+    k5.launches_fwd = k5.launches_bwd = 0
+    k4.launches_fwd = k4.launches_bwd = 0
+    for js, model in models.items():
+        st, step = stage2(js, model, bf16, 1e-3)
+        t0 = time.perf_counter()
+        curve = [float(step(st, batches[js], 7, 1.0)["loss"])
+                 for _ in range(20)]
+        torch.cuda.synchronize()
+        check(all(np.isfinite(curve)), f"stage-2 {js} losses finite")
+        check(curve[-1] < curve[0], f"stage-2 {js} loss falls: {curve}")
+        say(12, f"stage-2 {js} alpha={alphas[js]} B=512 bf16 default rates:"
+                f" 20 steps in {time.perf_counter() - t0:.1f} s, loss "
+                f"{curve[0]:.4f} -> {curve[-1]:.4f} "
+                f"({' '.join(f'{c:.4f}' for c in curve)})")
+    torch.cuda.synchronize()
+    counts = {"K5 fwd": k5.launches_fwd, "K5 bwd": k5.launches_bwd,
+              "K4 fwd": k4.launches_fwd, "K4 bwd": k4.launches_bwd}
+    check(all(n > 0 for n in counts.values()),
+          f"every K4/K5 counter above 0 on the stage-2 path: {counts}")
+    say(12, f"launches on the stage-2 path (40 steps): {counts}")
+    out["launches"] = {
+        "gat_trunk_train": k5.launches_fwd + k5.launches_bwd,
+        "lbf_stack_train": k4.launches_fwd + k4.launches_bwd}
+
+    # 13 (f): 10 stage-1 steps at B=256
+    k5.launches_fwd = k5.launches_bwd = 0
+    gat = build_gator(GatorSpec.from_assets(assets["human36"]), seed=12,
+                      device=dev).pose_lifter
+    rng = np.random.default_rng(3)
+    b1 = {"pose2d": rng.normal(size=(256, 17, 2)),
+          "joint_cam": rng.normal(0, 100, size=(256, 17, 3)),
+          "joint_valid": np.ones((256, 17, 1))}
+    b1 = {k: torch.from_numpy(a.astype(np.float32)).to(dev)
+          for k, a in b1.items()}
+    st1 = TrainState(gat, Adam(gat.parameters(), lr=8e-4))
+    step1 = make_gat_train_step(gat.spec, dtype=bf16)
+    curve = [float(step1(st1, b1, 3)["loss"]) for _ in range(10)]
+    torch.cuda.synchronize()
+    check(all(np.isfinite(curve)) and curve[-1] < curve[0],
+          f"stage-1 losses finite and falling: {curve}")
+    check(k5.launches_fwd > 0 and k5.launches_bwd > 0,
+          "K5 launched on the stage-1 path")
+    say(13, f"stage-1 human36 B=256 bf16: loss {curve[0]:.3f} -> "
+            f"{curve[-1]:.3f} over 10 steps; K5 launches fwd "
+            f"{k5.launches_fwd} bwd {k5.launches_bwd}")
+
+    # 14 (g): times at B=512, bf16
+    js, model = "human36", models["human36"]
+    b = 512
+    st_k, step_k = stage2(js, model, bf16, 1e-4)
+    mp = copy.deepcopy(model)
+    st_p, step_p = stage2(js, mp, bf16, 1e-4, use_kernels=False)
+    gp = copy.deepcopy(gat)
+    s1k = TrainState(gat, Adam(gat.parameters(), lr=1e-4))
+    s1p = TrainState(gp, Adam(gp.parameters(), lr=1e-4))
+    step1p = make_gat_train_step(gat.spec, dtype=bf16, use_kernels=False)
+    rng = np.random.default_rng(4)
+    b512 = {"pose2d": rng.normal(size=(b, 17, 2)),
+            "joint_cam": rng.normal(0, 100, size=(b, 17, 3)),
+            "joint_valid": np.ones((b, 17, 1))}
+    b512 = {k: torch.from_numpy(a.astype(np.float32)).to(dev)
+            for k, a in b512.items()}
+    t = {
+        "stage2": time_ms(torch, lambda: step_k(st_k, batches[js], 7, 1.0),
+                          calls=1),
+        "stage2_plain": time_ms(
+            torch, lambda: step_p(st_p, batches[js], 7, 1.0), calls=1),
+        "stage1": time_ms(torch, lambda: step1(s1k, b512, 3), calls=1),
+        "stage1_plain": time_ms(torch, lambda: step1p(s1p, b512, 3),
+                                calls=1),
+    }
+    gatm = model.pose_lifter
+    x5 = randn(b, 17, 128).to(bf16).requires_grad_(True)
+    g5 = randn(b, 17, 128).to(bf16)
+    bias5 = gatm.get_hop_path_encoding().detach().float().requires_grad_(True)
+    bp5 = [extract_block_params(blk) for blk in gatm.blocks]
+    mdr = model.pose2mesh
+    nv = mdr.spec.coarse_num
+    x4 = randn(b, nv, 64).to(bf16).requires_grad_(True)
+    j4 = randn(b, 17, 64).to(bf16).requires_grad_(True)
+    g4 = randn(b, nv, 64).to(bf16)
+    lp4 = [extract_layer_params(mdr, i) for i in range(3)]
+    for name, fns in (("k5", (gat_trunk_train, gat_trunk_train_ref)),
+                      ("k4", (lbf_stack_train, lbf_stack_train_ref))):
+        for fn, sfx in zip(fns, ("", "_plain")):
+            if name == "k5":
+                def fwd(fn=fn):
+                    return fn(x5, bias5, bp5, gatm.spec.masks_xfeat, 8, 9)
+                g = g5
+            else:
+                def fwd(fn=fn):
+                    return fn(x4, j4, lp4, 2, 9)
+                g = g4
+            t[f"{name}_fwd{sfx}"] = time_ms(torch, fwd, calls=1)
+            y = fwd()
+            t[f"{name}_bwd{sfx}"] = time_ms(
+                torch, lambda y=y, g=g: y.backward(g, retain_graph=True),
+                calls=1)
+            del y
+    for name, what in (("stage2", "stage-2 step (K4 + K5 + the rest)"),
+                       ("stage1", "stage-1 step (K5 + the rest)"),
+                       ("k5_fwd", "K5 forward, 6 blocks"),
+                       ("k5_bwd", "K5 backward, 6 blocks"),
+                       ("k4_fwd", "K4 forward, 3 layers"),
+                       ("k4_bwd", "K4 backward, 3 layers")):
+        k, p = t[name], t[name + "_plain"]
+        say(14, f"{what} B={b} bf16 on {card}: kernel path {k:.3f} ms, "
+                f"plain {p:.3f} ms" + (
+                    f" ({b / k * 1e3:,.0f} vs {b / p * 1e3:,.0f} poses/s)"
+                    if name.startswith("stage") else ""))
+    out["ms"] = {
+        "gat_trunk_train": t["k5_fwd"] + t["k5_bwd"],
+        "gat_trunk_train_plain": t["k5_fwd_plain"] + t["k5_bwd_plain"],
+        "lbf_stack_train": t["k4_fwd"] + t["k4_bwd"],
+        "lbf_stack_train_plain": t["k4_fwd_plain"] + t["k4_bwd_plain"],
+    }
+    # a train step's work: the forward and a backward of twice its FMA
+    out["bounds"] = {
+        "gat_trunk_train": bound(
+            3 * b * 6 * fma_gat_block(17),
+            4 * b * 17 * 128 * 2 + 6 * GAT_BLOCK_WEIGHTS * (2 + 4)),
+        "lbf_stack_train": bound(
+            3 * b * 3 * fma_lbf_layer(nv, 17),
+            (4 * b * nv * 64 + 2 * b * 17 * 64) * 2
+            + 3 * LBF_LAYER_WEIGHTS * (2 + 4)),
+    }
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -102,12 +545,13 @@ def main():
     say(1, f"card {card}; torch {torch.__version__}, CUDA "
            f"{torch.version.cuda}; TF32 off")
 
-    # 2. build
-    for name in KERNELS:
-        t0 = time.perf_counter()
-        path, nvcc_s = cuda_lib.build(name)
-        say(2, f"{name}: {os.path.relpath(path, ROOT)} (nvcc {nvcc_s:.1f} s,"
-               f" {time.perf_counter() - t0:.1f} s in all)")
+    # 2. build: one nvcc per source, all started together
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        built = dict(zip(KERNELS, pool.map(cuda_lib.build, KERNELS)))
+    for name, (path, nvcc_s) in built.items():
+        say(2, f"{name}: {os.path.relpath(path, ROOT)} (nvcc {nvcc_s:.1f} s)")
+    say(2, f"all built in {time.perf_counter() - t0:.1f} s")
 
     gen = torch.Generator(device="cpu").manual_seed(0)
 
@@ -262,13 +706,33 @@ def main():
                f"({b / k * 1e3:,.0f} poses/s), plain {p:.3f} ms "
                f"({b / p * 1e3:,.0f} poses/s)")
 
+    j_full = 17
+    bounds = {
+        "gat_trunk": bound(
+            b * 6 * fma_gat_block(j_full),
+            2 * b * j_full * 128 * 2 + 6 * GAT_BLOCK_WEIGHTS * 2),
+        "lbf_stack": bound(
+            b * 3 * fma_lbf_layer(coarse_v, j_full),
+            (2 * b * coarse_v * 64 + b * j_full * 64) * 2
+            + 3 * LBF_LAYER_WEIGHTS * 2),
+    }
+
+    # 8-14: the training path
+    with torch.enable_grad():
+        train = train_phases(torch, dev, card, randn)
+    errs.update(train["errs"])
+    launches.update(train["launches"])
+    ms.update(train["ms"])
+    bounds.update(train["bounds"])
+
     check("jax" not in sys.modules and "gator_tpu" not in sys.modules,
           "no JAX imported")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src_path,
          "replaces": replaces, "launches": launches[name],
          "max_abs_err": errs[name], "ms": ms[name],
-         "plain_ms": ms[name + "_plain"]}
+         "plain_ms": ms[name + "_plain"], "bound_ms": bounds[name][0],
+         "bound_by": bounds[name][1], "library_ms": None}
         for name, (src_path, replaces) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -60,7 +60,7 @@ def run_serve(pose_path: str, joint_set: str = "coco",
     device = torch.device(device)
     assets = assets or build_assets(joint_set)
     spec = GatorSpec.from_assets(assets)
-    model = build_gator(spec, seed=0)
+    model = build_gator(spec, seed=0, device="cpu")
     if weights:
         load_weights(model, weights)
     else:

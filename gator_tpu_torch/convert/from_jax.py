@@ -66,7 +66,10 @@ def _walk(tree: Dict[str, Any], path=()) -> Iterator:
 def state_dict_from_jax(variables: Dict[str, Any]
                         ) -> Dict[str, torch.Tensor]:
     """flax variables ({'params': ..., 'batch_stats': ...}, leaves as numpy
-    arrays) -> the port's state dict, loadable with strict=True."""
+    arrays) -> the port's state dict, loadable with strict=True. A gradient
+    tree of the params converts by the same names and transposes
+    (`state_dict_from_jax({'params': grads})`), so gradients compare by
+    name with the port's `param.grad`."""
     out: Dict[str, torch.Tensor] = {}
     for collection, tree in variables.items():
         for path, leaf, val in _walk(tree):

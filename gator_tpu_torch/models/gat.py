@@ -29,6 +29,9 @@ class GatSpec:
     depth: int = 6
     num_heads: int = 8
     mlp_ratio: float = 4.0
+    drop_rate: float = 0.4          # BiasAttention proj dropout (training)
+    attn_drop_rate: float = 0.4     # BiasAttention prob dropout (training)
+    drop_path_rate: float = 0.2     # DropPath, linspace over the blocks
     num_spatial: int = 10
     adjacency: np.ndarray = None
     degree: np.ndarray = None

@@ -98,8 +98,9 @@ def init_gator_(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 def build_gator(spec: GatorSpec, seed: int = 0,
-                device="cpu") -> GATOR:
-    """A GATOR with seeded random weights, in eval mode, on `device`."""
+                device="cuda") -> GATOR:
+    """A GATOR with seeded random weights, in eval mode, on `device` (the
+    card unless the caller asks for the CPU)."""
     model = GATOR(spec)
     init_gator_(model, torch.Generator().manual_seed(seed))
     return model.eval().to(device)

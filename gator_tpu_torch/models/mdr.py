@@ -31,6 +31,7 @@ class MdrSpec:
     num_heads: int = 2
     num_basis: int = 20          # motion-basis size
     alpha: bool = False          # learned scale + LayerNorm vs BatchNorm
+    dropout: float = 0.1         # self-attention and its residual (training)
     init_verts_coarse: np.ndarray = None    # [V2, 3]
     init_verts_full: np.ndarray = None      # [V0, 3]
     vj_relation: np.ndarray = None          # [V2] nearest-joint indices

@@ -111,25 +111,40 @@ class Packed:
         return self.flat.dtype
 
 
+def field_offsets(numels: Sequence[int]) -> Tuple[List[int], int]:
+    """-> (element offset of each field, stride of the packed fields):
+    every field starts on an 8-element boundary so the kernels can load
+    16-byte vectors."""
+    offsets, pos = [], 0
+    for n in numels:
+        offsets.append(pos)
+        pos += -(-int(n) // 8) * 8
+    return offsets, pos
+
+
+def pack_fields(tensors: Sequence[torch.Tensor], offsets: Sequence[int],
+                stride: int, dtype: torch.dtype, device=None) -> torch.Tensor:
+    """Copy `tensors` (detached) into one flat [stride] tensor at
+    `offsets`, zero between the fields. The training Functions pack inside
+    their forward and return the parameters' gradients themselves."""
+    device = tensors[0].device if device is None else device
+    flat = torch.zeros(stride, dtype=dtype, device=device)
+    for t, off in zip(tensors, offsets):
+        flat[off:off + t.numel()] = t.detach().reshape(-1).to(device=device,
+                                                              dtype=dtype)
+    return flat
+
+
 def pack(layers: List[Dict[str, torch.Tensor]], fields: Sequence[str],
          dtype: torch.dtype, device) -> Packed:
     """Pack each layer's tensors (all the same shapes across layers) in
-    `fields` order; every field starts on an 8-element boundary so the
-    kernels can load 16-byte vectors."""
-    offsets, shapes, pos = [], [], 0
-    for name in fields:
-        offsets.append(pos)
-        shapes.append(tuple(layers[0][name].shape))
-        pos += -(-layers[0][name].numel() // 8) * 8
-    flat = torch.zeros(len(layers), pos, dtype=dtype, device=device)
-    views = []
-    for li, layer in enumerate(layers):
-        view = {}
-        for name, off, shape in zip(fields, offsets, shapes):
-            n = layer[name].numel()
-            flat[li, off:off + n] = layer[name].detach().reshape(-1).to(
-                device=device, dtype=dtype)
-            view[name] = flat[li, off:off + n].view(shape)
-        views.append(view)
+    `fields` order, as `pack_fields` lays them out."""
+    offsets, stride = field_offsets(layers[0][n].numel() for n in fields)
+    flat = torch.stack([pack_fields([layer[n] for n in fields], offsets,
+                                    stride, dtype, device)
+                        for layer in layers])
+    views = [{n: flat[li, off:off + layer[n].numel()].view(layer[n].shape)
+              for n, off in zip(fields, offsets)}
+             for li, layer in enumerate(layers)]
     return Packed(flat, torch.tensor(offsets, dtype=torch.int32,
                                      device=device), views)

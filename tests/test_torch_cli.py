@@ -75,7 +75,8 @@ def test_serve_cli_random_weights(tmp_path, coco_assets):
     assert np.isfinite(out["meshes"]).all()
     np.testing.assert_array_equal(np.load(tmp_path / "meshes.npy"),
                                   out["meshes"])
-    model = build_gator(GatorSpec.from_assets(coco_assets), seed=0)
+    model = build_gator(GatorSpec.from_assets(coco_assets), seed=0,
+                        device="cpu")
     mesh, pose3d = _expected(model, coco_assets, poses)
     np.testing.assert_allclose(out["meshes"], mesh, atol=1e-5)
     np.testing.assert_allclose(np.load(tmp_path / "joints.npy"), pose3d,
@@ -83,7 +84,8 @@ def test_serve_cli_random_weights(tmp_path, coco_assets):
 
 
 def test_serve_cli_loads_reference_layout_weights(tmp_path, coco_assets):
-    model = build_gator(GatorSpec.from_assets(coco_assets), seed=9)
+    model = build_gator(GatorSpec.from_assets(coco_assets), seed=9,
+                        device="cpu")
     ckpt = tmp_path / "ckpt.pth.tar"
     torch.save({"epoch": 1, "model_state_dict": {
         f"module.{k}": v for k, v in model.state_dict().items()}}, ckpt)
