@@ -36,6 +36,27 @@ The training path (K4 csrc/lbf_stack_train.cu, K5 csrc/gat_trunk_train.cu):
      checks;
  14. (g) times at B=512, bf16: the stage-2 and stage-1 steps, and K4/K5
      forward and backward, each beside the plain version.
+The evaluation path (K3 csrc/fused_attention.cu, the MDR vertex
+self-attention of the module form):
+ 15. (h) K3 is built with the others in phase 2;
+ 16. (i) K3 against its plain version: B=16 and the eval batch B=512 at
+     Nq=Nk=431, 2 heads of 32, no bias; with a bias at 431x431 and at the
+     GAT shape 17x17, 8 heads of 16; f32 within 1e-4, bf16 reported; the
+     autograd Function's dq, dk, dv, dbias against autograd through the
+     plain version (f32, scaled by their max, within 1e-4);
+ 17. (j) the main eval path, every kernel counter reset just before and
+     read just after: `gator_tpu_torch.cli.test.main` on
+     configs/gator_synthetic_e2e.yml --synthetic at full width (human36),
+     the same session with coco input and alpha True, the GAT config
+     configs/gat_synthetic_e2e.yml (no kernel), and a Session/run_eval run
+     over 2048 samples at B=512 (four batches): K3 launched 3 times per
+     GATOR batch, K1/K2/K4/K5 never; then the 2048-sample run with plain
+     attention: every predicted mesh within 1e-4 m, MPJPE and MPVPE within
+     1e-3 mm, all finite;
+ 18. (k) times at B=512 (CUDA events, median of 5): K3 beside its plain
+     version and scaled_dot_product_attention (f32 and bf16), the eval
+     step; the eval loop in poses/s on the host clock and the share of it
+     that GT synthesis alone takes.
 Then a JSON line with each kernel's numbers, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without a CUDA device the
@@ -65,10 +86,14 @@ KERNELS = {
                         "gator_tpu/nn/pallas_gat_train.py:530"),
     "lbf_stack_train": ("gator_tpu_torch/csrc/lbf_stack_train.cu",
                         "gator_tpu/nn/pallas_mdr_train.py:592"),
+    "fused_attention": ("gator_tpu_torch/csrc/fused_attention.cu",
+                        "gator_tpu/nn/pallas_attention.py:142"),
 }
-# one H100 SXM (NVIDIA's data sheet): HBM rate and dense bf16 tensor rate
+# one H100 SXM (NVIDIA's data sheet): HBM rate, dense bf16 tensor rate and
+# the f32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12
 
 
 def say(phase, msg):
@@ -125,10 +150,10 @@ def fma_lbf_layer(nv, j, c=64, hid=256):
             + nv * c * c)
 
 
-def bound(fma, nbytes):
-    """(least ms on one H100 for `fma` bf16 FMA moving `nbytes`, what
-    bounds it)."""
-    t_ops = 2.0 * fma / BF16_FLOP_PER_S
+def bound(fma, nbytes, flop_per_s=BF16_FLOP_PER_S):
+    """(least ms on one H100 for `fma` FMA at `flop_per_s` (bf16 by
+    default) moving `nbytes`, what bounds it)."""
+    t_ops = 2.0 * fma / flop_per_s
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -515,6 +540,188 @@ def train_phases(torch, dev, card, randn):
     return out
 
 
+def eval_phases(torch, dev, card, randn):
+    """Phases 16-18 (i-k): K3 against its plain version, the eval path on
+    the card, and its times."""
+    import torch.nn.functional as F
+
+    from gator_tpu_torch.cli import test as test_cli
+    from gator_tpu_torch.cli.common import Session
+    from gator_tpu_torch.config import load_config
+    from gator_tpu_torch.nn import gat_trunk, lbf_stack
+    from gator_tpu_torch.nn.fused_attention import (fused_attention,
+                                                    fused_attention_ref)
+    from gator_tpu_torch.nn.gat_trunk_train import gat_trunk_train as k5
+    from gator_tpu_torch.nn.lbf_stack_train import lbf_stack_train as k4
+    from gator_tpu_torch.train import run_eval
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    out = {}
+
+    # 16 (i): K3 against its plain version
+    def qkv(b, nq, nk, h, d, dt, with_bias):
+        q, k, v = (randn(b, n, h, d).to(dt) for n in (nq, nk, nk))
+        return q, k, v, (randn(h, nq, nk) if with_bias else None)
+
+    err3 = 0.0
+    for b, nq, h, d, with_bias in ((16, 431, 2, 32, False),
+                                   (512, 431, 2, 32, False),
+                                   (16, 431, 2, 32, True),
+                                   (64, 17, 8, 16, True)):
+        for dt in (f32, bf16):
+            q, k, v, bias = qkv(b, nq, nq, h, d, dt, with_bias)
+            got = fused_attention(q, k, v, bias, d ** -0.5)
+            ref = fused_attention_ref(q, k, v, bias, d ** -0.5)
+            torch.cuda.synchronize()
+            err = max_err(got, ref)
+            check(np.isfinite(err), f"K3 {dt} finite")
+            if dt == f32:
+                check(err <= 1e-4, f"K3 f32 B={b} {nq}x{nq} err {err} "
+                                   f"<= 1e-4")
+                err3 = max(err3, err)
+            say(16, f"K3 fused_attention B={b} {nq}x{nq} H={h} D={d} "
+                    f"{'bias' if with_bias else 'no bias'} {str(dt)[6:]}: "
+                    f"max abs err {err:.3e} vs plain"
+                    + (" (bar 1e-4)" if dt == f32 else " (reported)"))
+    out["errs"] = {"fused_attention": err3}
+    with torch.enable_grad():
+        q, k, v, bias = qkv(16, 431, 431, 2, 32, f32, True)
+        cot = randn(16, 431, 2, 32)
+        grads = []
+        for fn in (fused_attention, fused_attention_ref):
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v, bias)]
+            fn(*leaves, 32 ** -0.5).backward(cot)
+            grads.append([t.grad for t in leaves])
+        torch.cuda.synchronize()
+    errs = {name: scaled_err(g, w) for name, g, w in
+            zip(("dq", "dk", "dv", "dbias"), *grads)}
+    check(all(e <= 1e-4 for e in errs.values()),
+          f"K3 Function gradients scaled within 1e-4: {errs}")
+    say(16, "K3 Function backward (plain recompute) vs autograd through the "
+            "plain version, f32 B=16 431x431 with bias: scaled errs "
+            + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+            + " (bar 1e-4)")
+
+    # 17 (j): the main eval path; every counter reset just before
+    e2e = os.path.join(ROOT, "configs", "gator_synthetic_e2e.yml")
+    gat_cfg = os.path.join(ROOT, "configs", "gat_synthetic_e2e.yml")
+    counters = {"gat_trunk": (gat_trunk, ("launches",)),
+                "lbf_stack": (lbf_stack, ("launches",)),
+                "gat_trunk_train": (k5, ("launches_fwd", "launches_bwd")),
+                "lbf_stack_train": (k4, ("launches_fwd", "launches_bwd")),
+                "fused_attention": (fused_attention, ("launches",))}
+
+    def read_counts():
+        return {n: sum(getattr(fn, a) for a in attrs)
+                for n, (fn, attrs) in counters.items()}
+
+    for fn, attrs in counters.values():
+        for a in attrs:
+            setattr(fn, a, 0)
+    gator_batches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        res = test_cli.main(["--cfg", e2e, "--synthetic",
+                             "--vis_dir", tmp])
+        check(np.isfinite(res["mpjpe"]), "CLI human36 MPJPE finite")
+        gator_batches += 1
+        coco_cfg = load_config(e2e, overrides={
+            "DATASET": {"input_joint_set": "coco"}, "MODEL": {"alpha": True}})
+        res_c, full_c = test_cli.run_test(coco_cfg, synthetic=True,
+                                          vis_dir=tmp)
+        check(np.isfinite(res_c["mpjpe"]) and np.isfinite(
+            full_c["surface_err"]), "CLI coco MPJPE/MPVPE finite")
+        gator_batches += 1
+        res_g = test_cli.main(["--cfg", gat_cfg, "--synthetic",
+                               "--vis_dir", tmp])
+        check(np.isfinite(res_g["mpjpe"]), "GAT eval MPJPE finite")
+    gat_counts = read_counts()
+    check(gat_counts["fused_attention"] == 3 * gator_batches,
+          f"the GAT eval launched no kernel: {gat_counts}")
+    cfg = load_config(e2e)
+    sess = Session(cfg, synthetic=True, synthetic_n=2048)
+    model = sess.build_model()
+    step_k = sess.make_eval_step()
+    kern = run_eval(step_k, model, sess.pipeline,
+                    collect_out=("pred_mesh_mm",))
+    torch.cuda.synchronize()
+    gator_batches += len(sess.pipeline)
+    counts = read_counts()
+    check(len(sess.pipeline) == 4 and kern["count"] == 2048,
+          "2048 samples in four batches of 512")
+    check(counts["fused_attention"] == 3 * gator_batches,
+          f"K3 launched 3 times per eval batch ({gator_batches}): {counts}")
+    check(all(n == 0 for name, n in counts.items()
+              if name != "fused_attention"),
+          f"no serving or training kernel on the eval path: {counts}")
+    say(17, f"eval CLI human36 MPJPE {res['mpjpe']:.3f} mm; coco alpha=True "
+            f"MPJPE {res_c['mpjpe']:.3f} MPVPE {full_c['surface_err']:.3f} "
+            f"mm; GAT MPJPE {res_g['mpjpe']:.3f} mm; Session/run_eval "
+            f"2048 at B=512: MPJPE {kern['joint_err']:.4f} MPVPE "
+            f"{kern['surface_err']:.4f} mm; launches {counts} "
+            f"({gator_batches} GATOR batches)")
+    step_p = sess.make_eval_step(use_kernels=False)
+    plain = run_eval(step_p, model, sess.pipeline,
+                     collect_out=("pred_mesh_mm",))
+    e_mesh = float(np.abs(kern["pred_mesh_mm"]
+                          - plain["pred_mesh_mm"]).max()) / 1000.0
+    e_j = abs(kern["joint_err"] - plain["joint_err"])
+    e_s = abs(kern["surface_err"] - plain["surface_err"])
+    check(np.isfinite(kern["pred_mesh_mm"]).all() and np.isfinite(e_mesh),
+          "kernel-path meshes finite")
+    check(e_mesh <= 1e-4, f"eval meshes kernel vs plain {e_mesh} <= 1e-4 m")
+    check(e_j <= 1e-3 and e_s <= 1e-3,
+          f"MPJPE/MPVPE kernel vs plain {e_j}, {e_s} <= 1e-3 mm")
+    say(17, f"kernel path vs plain attention, 2048 samples: meshes within "
+            f"{e_mesh:.3e} m (bar 1e-4), MPJPE {e_j:.2e} mm, MPVPE "
+            f"{e_s:.2e} mm (bars 1e-3)")
+    out["launches"] = {"fused_attention": counts["fused_attention"]}
+
+    # 18 (k): times at B=512
+    ms = {}
+    for dt, tag in ((f32, ""), (bf16, "_bf16")):
+        q, k, v, _ = qkv(512, 431, 431, 2, 32, dt, False)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        ms["fused_attention" + tag] = time_ms(
+            torch, lambda: fused_attention(q, k, v, None, 32 ** -0.5))
+        ms["fused_attention_plain" + tag] = time_ms(
+            torch, lambda: fused_attention_ref(q, k, v, None, 32 ** -0.5))
+        ms["fused_attention_sdpa" + tag] = time_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, scale=32 ** -0.5))
+        say(18, f"K3 B=512 431x431 H=2 D=32 {str(dt)[6:]} on {card}: "
+                f"kernel {ms['fused_attention' + tag]:.3f} ms, plain "
+                f"{ms['fused_attention_plain' + tag]:.3f} ms, "
+                f"scaled_dot_product_attention "
+                f"{ms['fused_attention_sdpa' + tag]:.3f} ms")
+    batch = next(iter(sess.pipeline))
+    ms["eval_step"] = time_ms(torch, lambda: step_k(model, batch), calls=1)
+    ms["eval_step_plain"] = time_ms(torch, lambda: step_p(model, batch),
+                                    calls=1)
+    t0 = time.perf_counter()
+    run_eval(step_k, model, sess.pipeline)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in sess.pipeline:
+        pass
+    torch.cuda.synchronize()
+    synth_s = time.perf_counter() - t0
+    say(18, f"eval step B=512 f32 on {card}: {ms['eval_step']:.3f} ms on "
+            f"K3, {ms['eval_step_plain']:.3f} ms plain attention; eval loop "
+            f"(run_eval, 2048 samples, host clock): {loop_s * 1e3:.1f} ms = "
+            f"{2048 / loop_s:,.0f} poses/s; the pipeline alone (GT "
+            f"synthesis + batch assembly): {synth_s * 1e3:.1f} ms = "
+            f"{100 * synth_s / loop_s:.1f} % of the loop")
+    out["ms"] = {"fused_attention": ms["fused_attention"],
+                 "fused_attention_plain": ms["fused_attention_plain"]}
+    out["library_ms"] = {"fused_attention": ms["fused_attention_sdpa"]}
+    # true f32 (TF32 off): the f32 pipes' rate; q, k, v read and out written
+    b, n, h, d = 512, 431, 2, 32
+    out["bounds"] = {"fused_attention": bound(
+        2 * b * h * n * n * d, 4 * b * n * h * d * 4, F32_FLOP_PER_S)}
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -665,7 +872,10 @@ def main():
     cli_model = build_gator(GatorSpec.from_assets(coco), seed=0, device=dev)
     pose2d = processing.batch_crop_and_normalize(
         processing.add_pelvis_neck_scores(
-            poses, list(coco.joint_set.joints_name))[..., :2])
+            poses, list(coco.joint_set.joints_name))[..., :2],
+        coco.joint_set,
+        processing.ProcessOptions(is_train=False, input_joint_name="coco"),
+        np.zeros(len(poses), np.int64), np.zeros(len(poses), np.float32))
     ref, _ = make_serving_fn(cli_model, f32, use_kernels=False)(
         torch.from_numpy(pose2d).to(dev))
     e_cli = float(np.abs(meshes - ref.float().cpu().numpy()).max())
@@ -725,6 +935,15 @@ def main():
     ms.update(train["ms"])
     bounds.update(train["bounds"])
 
+    # 15-18: the evaluation path
+    ev = eval_phases(torch, dev, card, randn)
+    errs.update(ev["errs"])
+    launches.update(ev["launches"])
+    ms.update(ev["ms"])
+    bounds.update(ev["bounds"])
+    library_ms = {name: None for name in KERNELS}
+    library_ms.update(ev["library_ms"])
+
     check("jax" not in sys.modules and "gator_tpu" not in sys.modules,
           "no JAX imported")
     print(json.dumps({"kernels": [
@@ -732,7 +951,7 @@ def main():
          "replaces": replaces, "launches": launches[name],
          "max_abs_err": errs[name], "ms": ms[name],
          "plain_ms": ms[name + "_plain"], "bound_ms": bounds[name][0],
-         "bound_by": bounds[name][1], "library_ms": None}
+         "bound_by": bounds[name][1], "library_ms": library_ms[name]}
         for name, (src_path, replaces) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

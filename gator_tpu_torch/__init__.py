@@ -1,15 +1,18 @@
 """gator_tpu_torch — GATOR (pose -> mesh) in PyTorch with hand-written CUDA
-kernels for an NVIDIA H100 (sm_90a): the serving path and the train steps
-of both stages.
+kernels for an NVIDIA H100 (sm_90a): the serving path, the train steps of
+both stages, and the evaluation path (SMPL body model, GT synthesis,
+metrics, eval CLI).
 
 A port of the JAX package `gator_tpu`, which stays the reference: the
 module layout and names follow it. This package imports torch and never
 jax or gator_tpu; its CUDA kernels (csrc/) are built with nvcc on first
 use, so importing it needs neither a GPU nor a compiler.
 """
-from . import assets, convert, data, losses, models, nn, serving, train
+from . import (assets, bodymodel, config, convert, data, losses, metrics,
+               models, nn, serving, train)
 from .models import GATOR, GatorSpec, build_gator
 from .serving import make_serving_fn
 
-__all__ = ["GATOR", "GatorSpec", "assets", "build_gator", "convert", "data",
-           "losses", "make_serving_fn", "models", "nn", "serving", "train"]
+__all__ = ["GATOR", "GatorSpec", "assets", "bodymodel", "build_gator",
+           "config", "convert", "data", "losses", "make_serving_fn",
+           "metrics", "models", "nn", "serving", "train"]

@@ -9,7 +9,8 @@ datasets' crop/normalize, and runs the serving path
 
 --weights takes a state dict saved with torch.save (a bare dict, or the
 reference's {"model_state_dict": ...} layout, with any DataParallel
-"module." prefix); without it the weights are random (seed 0).
+"module." prefix; `train.checkpoint.load_weights`), or a directory of
+checkpoints; without it the weights are random (seed 0).
 The default device is cuda; there is no fallback to the CPU.
 """
 from __future__ import annotations
@@ -22,8 +23,9 @@ import torch
 
 from ..assets import build_assets
 from ..data import processing
-from ..models import GATOR, GatorSpec, build_gator
+from ..models import GatorSpec, build_gator
 from ..serving import make_serving_fn
+from ..train.checkpoint import load_weights
 
 
 def parse_args(argv=None):
@@ -41,15 +43,6 @@ def parse_args(argv=None):
                    choices=("bfloat16", "float32"))
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
-
-
-def load_weights(model: GATOR, path: str) -> GATOR:
-    state = torch.load(path, map_location="cpu", weights_only=False)
-    state = state.get("model_state_dict", state)
-    state = {k[len("module."):] if k.startswith("module.") else k: v
-             for k, v in state.items()}
-    model.load_state_dict(state, strict=True)
-    return model
 
 
 def run_serve(pose_path: str, joint_set: str = "coco",
@@ -77,7 +70,10 @@ def run_serve(pose_path: str, joint_set: str = "coco",
         poses = processing.add_pelvis_neck_scores(
             poses, list(assets.joint_set.joints_name))
     n = len(poses)
-    pose2d = processing.batch_crop_and_normalize(poses[..., :2])
+    pose2d = processing.batch_crop_and_normalize(
+        poses[..., :2], assets.joint_set,
+        processing.ProcessOptions(is_train=False, input_joint_name=joint_set),
+        np.zeros(n, np.int64), np.zeros(n, np.float32))
 
     meshes = np.empty((n, spec.mdr.full_num, 3), np.float32)
     joints3d = np.empty((n, spec.gat.num_joint, 3), np.float32)

@@ -39,7 +39,9 @@ class GATOR(nn.Module):
         self.pose_lifter = GAT(spec.gat)
         self.pose2mesh = MDR(spec.mdr)
 
-    def forward(self, pose2d: torch.Tensor):
+    def forward(self, pose2d: torch.Tensor, use_kernels: bool = True):
+        """use_kernels=False runs every attention plain (K3 is the only
+        kernel of the module form: the MDR vertex self-attention)."""
         b = pose2d.shape[0]
         j = self.spec.gat.num_joint
         pose2d = pose2d.reshape(b, j, 2)
@@ -47,7 +49,7 @@ class GATOR(nn.Module):
         pose3d = pose3d_flat.reshape(b, j, 3)
         # concat [2d, 3d/1000, feat] per joint (reference: GATOR.py:19)
         pose_combine = torch.cat([pose2d, pose3d / 1000.0, feat], dim=2)
-        return self.pose2mesh(pose_combine), pose3d
+        return self.pose2mesh(pose_combine, use_kernels), pose3d
 
 
 def _uniform(t: torch.Tensor, bound: float, gen: torch.Generator) -> None:
@@ -102,5 +104,13 @@ def build_gator(spec: GatorSpec, seed: int = 0,
     """A GATOR with seeded random weights, in eval mode, on `device` (the
     card unless the caller asks for the CPU)."""
     model = GATOR(spec)
+    init_gator_(model, torch.Generator().manual_seed(seed))
+    return model.eval().to(device)
+
+
+def build_gat(spec: GatSpec, seed: int = 0, device="cuda") -> GAT:
+    """A GAT lifter alone (stage 1) with seeded random weights, in eval
+    mode, on `device`."""
+    model = GAT(spec)
     init_gator_(model, torch.Generator().manual_seed(seed))
     return model.eval().to(device)

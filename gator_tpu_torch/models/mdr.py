@@ -157,13 +157,16 @@ class MDR(nn.Module):
             1:s.coarse_num + 1]
         return verts_feat, joint_feat
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, use_kernels: bool = True
+                ) -> torch.Tensor:
+        """use_kernels=False keeps the vertex self-attention off K3."""
         s = self.spec
         verts_feat, joint_feat = self.tokens(x)
         for enc, norm, sa in self.lbf_layers():
             verts_feat = enc(torch.cat([verts_feat, joint_feat], dim=1))
             verts_feat = norm(verts_feat)
-            verts_feat = verts_feat + sa(verts_feat, verts_feat, verts_feat)
+            verts_feat = verts_feat + sa(verts_feat, verts_feat, verts_feat,
+                                         use_kernel=use_kernels)
 
         ac = self.motion_linear(verts_feat)
         mat_a, mat_c = ac[:, :, :s.num_basis], ac[:, :, -3:]

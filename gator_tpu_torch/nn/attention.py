@@ -1,10 +1,14 @@
-"""Attention variants used by GAT and MDR, module form, plain torch
-(counterpart of gator_tpu.nn.attention).
+"""Attention variants used by GAT and MDR, module form (counterpart of
+gator_tpu.nn.attention).
 
-`attend` is the plain version of the JAX package's fused attention kernel
-(`gator_tpu/nn/pallas_attention.py:142` `fused_attention`, still to be
-ported): the module form is the reference the serving kernels are tested
-against, and it runs no kernel of its own.
+`attend` routes as the JAX package's `_attend` and `fused_attention` do
+(gator_tpu/nn/attention.py:21-35, pallas_attention.py:159-161): score
+tiles of at least 128² (the MDR vertex self-attention, 431 x 431) go to
+K3 (`fused_attention`: the CUDA kernel for a CUDA tensor, its plain version
+for a CPU tensor); smaller ones (the 17 x 17 GAT attention, the 431 x J
+cross-attention) stay plain torch, as they stay XLA in the JAX package.
+`use_kernel=False` keeps every shape plain: the plain path a check holds
+the kernel path against.
 """
 from __future__ import annotations
 
@@ -13,11 +17,19 @@ from typing import Optional
 import torch
 from torch import nn
 
+from .fused_attention import fused_attention
+
+# the JAX package's threshold for its kernel (pallas_attention.py:160)
+FUSED_MIN_SCORES = 128 * 128
+
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           bias: Optional[torch.Tensor], scale: float) -> torch.Tensor:
+           bias: Optional[torch.Tensor], scale: float,
+           use_kernel: bool = True) -> torch.Tensor:
     """softmax(q kᵀ·scale + bias) v on q [B, Nq, H, D], k/v [B, Nk, H, D],
     bias [H, Nq, Nk] or None; the softmax runs in f32."""
+    if use_kernel and q.shape[1] * k.shape[1] >= FUSED_MIN_SCORES:
+        return fused_attention(q, k, v, bias, scale)
     s = torch.einsum("bnhd,bmhd->bhnm", q, k) * scale
     if bias is not None:
         s = s + bias[None].to(s.dtype)
@@ -73,8 +85,9 @@ class CrossAttention(nn.Module):
 
 class MultiHeadedAttention(nn.Module):
     """Annotated-Transformer MHA with four separate linears (q, k, v, out);
-    MDR uses it for the vertex self-attention
-    (reference: lib/models/vanilla_transformer_encoder.py:72-94)."""
+    MDR uses it for the vertex self-attention, the one attention of the
+    model on K3 (reference: lib/models/vanilla_transformer_encoder.py:
+    72-94)."""
 
     def __init__(self, num_heads: int, d_model: int):
         super().__init__()
@@ -83,10 +96,12 @@ class MultiHeadedAttention(nn.Module):
             [nn.Linear(d_model, d_model) for _ in range(4)])
 
     def forward(self, query: torch.Tensor, key: torch.Tensor,
-                value: torch.Tensor) -> torch.Tensor:
+                value: torch.Tensor, use_kernel: bool = True
+                ) -> torch.Tensor:
         b, _, c = query.shape
         h = self.num_heads
         q, k, v = (lin(x).reshape(b, -1, h, c // h)
                    for lin, x in zip(self.linears, (query, key, value)))
-        out = attend(q, k, v, None, 1.0 / float(c // h) ** 0.5)
+        out = attend(q, k, v, None, 1.0 / float(c // h) ** 0.5,
+                     use_kernel=use_kernel)
         return self.linears[3](out.reshape(b, -1, c))

@@ -1,0 +1,85 @@
+"""Checkpoints with torch.save (counterpart of gator_tpu/train/checkpoint.py,
+which writes orbax directories). The layout is the reference's
+(lib/funcs_utils.py:110-127, driven from main/train.py:44-58): one
+`.pth.tar` file of {epoch, model_state_dict, optim_state_dict,
+scheduler_state_dict, train_log, test_log}, named checkpoint{N}, final or
+best, so the reference's released files and the port's load the same way.
+"""
+from __future__ import annotations
+
+import os
+import os.path as osp
+from typing import Any, Dict, Optional
+
+import torch
+
+
+def save_checkpoint(ckpt_dir: str, model: torch.nn.Module, epoch: int,
+                    optimizer: Optional[torch.optim.Optimizer] = None,
+                    train_log=None, test_log=None, is_best: bool = False,
+                    is_final: bool = False,
+                    scheduler_state: Optional[Dict[str, Any]] = None) -> str:
+    """Write checkpoint{epoch}.pth.tar (or final.pth.tar), and best.pth.tar
+    too when `is_best`; -> the path written."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    payload = {
+        "epoch": int(epoch),
+        "model_state_dict": model.state_dict(),
+        "optim_state_dict": (optimizer.state_dict()
+                             if optimizer is not None else {}),
+        "scheduler_state_dict": dict(scheduler_state or {}),
+        "train_log": list(train_log or []),
+        "test_log": {k: list(v) for k, v in (test_log or {}).items()},
+    }
+    name = "final" if is_final else f"checkpoint{epoch}"
+    path = osp.abspath(osp.join(ckpt_dir, f"{name}.pth.tar"))
+    torch.save(payload, path)
+    if is_best:
+        torch.save(payload, osp.join(ckpt_dir, "best.pth.tar"))
+    return path
+
+
+def load_checkpoint(path: str) -> Dict[str, Any]:
+    """The checkpoint's dict, tensors on the CPU. Reference files carry
+    more than tensors, so this unpickles: load only files you trust."""
+    return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def _epoch_of(name: str) -> Optional[int]:
+    stem = name[:-len(".pth.tar")] if name.endswith(".pth.tar") else None
+    if stem and stem.startswith("checkpoint") and \
+            stem[len("checkpoint"):].isdigit():
+        return int(stem[len("checkpoint"):])
+    return None
+
+
+def pick_checkpoint(ckpt_dir: str, pick_best: bool = False) -> str:
+    """best (when asked and present), else whichever of final and the
+    highest checkpoint{N} is further along (an extended run may leave
+    checkpoints newer than final); reference: base.py:69, GAT.py:128-131."""
+    best = osp.join(ckpt_dir, "best.pth.tar")
+    if pick_best and osp.isfile(best):
+        return best
+    nums = [n for n in map(_epoch_of, os.listdir(ckpt_dir)) if n is not None]
+    final = osp.join(ckpt_dir, "final.pth.tar")
+    if osp.isfile(final) and (
+            not nums or load_checkpoint(final)["epoch"] >= max(nums)):
+        return final
+    if not nums:
+        raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
+    return osp.join(ckpt_dir, f"checkpoint{max(nums)}.pth.tar")
+
+
+def load_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
+    """Load a model's weights, strictly, from a checkpoint file (the
+    reference layout, or a bare state dict), or from a directory of them
+    (best first, as the eval CLI picks; `pick_checkpoint`). A DataParallel
+    "module." prefix is stripped."""
+    if osp.isdir(path):
+        path = pick_checkpoint(path, pick_best=True)
+    state = load_checkpoint(path)
+    state = state.get("model_state_dict", state)
+    state = {k[len("module."):] if k.startswith("module.") else k: v
+             for k, v in state.items()}
+    model.load_state_dict(state, strict=True)
+    return model

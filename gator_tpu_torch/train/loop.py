@@ -1,6 +1,9 @@
-"""Train steps of both stages (counterpart of gator_tpu/train/loop.py:25
-`make_gator_train_step` and :162 `make_gat_train_step`), on the training
-kernels K4 and K5.
+"""Train and eval steps of both stages (counterpart of
+gator_tpu/train/loop.py:25 `make_gator_train_step`, :162
+`make_gat_train_step`, :120 `make_gator_eval_step` and :227
+`make_gat_eval_step`). The train steps run on the training kernels K4 and
+K5; the eval steps run the module form, whose MDR vertex self-attention is
+K3.
 
 A step runs the forward in the compute dtype from the module's f32 master
 weights, the losses in f32, backward, and one optimizer step. The kernels'
@@ -17,17 +20,13 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
-from .. import losses
+from .. import losses, metrics
 from ..nn.dropout_masks import step_seed
+from ..precision import no_tf32
 from .fused_forward import gat_train_forward, gat_trunk_fn, make_fused_forward
 from .state import TrainState
 
 Batch = Dict[str, torch.Tensor]
-
-
-def _no_tf32() -> None:
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
 
 def make_gator_train_step(spec, faces: np.ndarray,
@@ -58,7 +57,7 @@ def make_gator_train_step(spec, faces: np.ndarray,
 
     def step(state: TrainState, batch: Batch, seed: int,
              edge_enabled: float = 1.0) -> Dict[str, torch.Tensor]:
-        _no_tf32()
+        no_tf32()
         model = state.model
         state.optimizer.zero_grad(set_to_none=True)
         mesh, lift_pose, new_stats = fwd(model, batch["pose2d"],
@@ -100,7 +99,7 @@ def make_gat_train_step(spec, dtype: torch.dtype = torch.float32,
 
     def step(state: TrainState, batch: Batch, seed: int
              ) -> Dict[str, torch.Tensor]:
-        _no_tf32()
+        no_tf32()
         state.optimizer.zero_grad(set_to_none=True)
         trunk = gat_trunk_fn(spec, step_seed(seed, state.step), use_kernels,
                              mlp_rate)
@@ -113,3 +112,66 @@ def make_gat_train_step(spec, dtype: torch.dtype = torch.float32,
         return {"loss": loss.detach()}
 
     return step
+
+
+def make_gator_eval_step(j_regressor_target: np.ndarray, eval_joints,
+                         use_kernels: bool = True) -> Callable:
+    """Per-batch eval of a GATOR -> step(model, batch) -> per-sample
+    `joint_err` and `surface_err` [B] (mm) and the predictions
+    `pred_mesh_mm` [B, V, 3], `pred_pose_mm` [B, 17, 3], with
+    compute_both_err's semantics (reference: Human36M/dataset.py:466-478).
+    The caller sums over batches (`run_eval`). The model runs in f32 with
+    TF32 off, the counterpart of the JAX step's
+    default_matmul_precision("highest") (loop.py:136-148); use_kernels=False
+    keeps the MDR self-attention off K3. batch: pose2d, mesh (m),
+    reg_pose3d (mm); host arrays are copied to the model's device."""
+    j_reg_np = np.asarray(j_regressor_target, dtype=np.float32)
+    eval_idx = tuple(eval_joints) if eval_joints is not None else None
+
+    @functools.lru_cache(maxsize=None)
+    def j_reg_on(device: torch.device) -> torch.Tensor:
+        return torch.as_tensor(j_reg_np, device=device)
+
+    def step(model, batch: Batch) -> Dict[str, torch.Tensor]:
+        no_tf32()
+        dev = next(model.parameters()).device
+        with torch.no_grad():
+            mesh, _ = model(_on(batch["pose2d"], dev), use_kernels)
+            mesh_mm = mesh.float() * 1000.0
+            gt_mesh_mm = _on(batch["mesh"], dev) * 1000.0
+            pred_pose = torch.einsum("jv,bvc->bjc", j_reg_on(dev), mesh_mm)
+            gt_pose = _on(batch["reg_pose3d"], dev)
+            # meshes aligned by their joint roots, joints by their own
+            s_err = metrics.mpvpe(mesh_mm, gt_mesh_mm, pred_pose[:, :1],
+                                  gt_pose[:, :1], per_sample=True)
+            j_err = metrics.mpjpe(pred_pose, gt_pose, eval_joints=eval_idx,
+                                  per_sample=True)
+        return {"joint_err": j_err, "surface_err": s_err,
+                "pred_mesh_mm": mesh_mm, "pred_pose_mm": pred_pose}
+
+    return step
+
+
+def make_gat_eval_step(eval_joints) -> Callable:
+    """Per-batch eval of a GAT lifter -> step(model, batch) -> per-sample
+    `joint_err` [B] (mm) and `pred_pose_mm` [B, J, 3]; f32, TF32 off.
+    batch: pose2d, joint_cam (mm)."""
+    eval_idx = tuple(eval_joints) if eval_joints is not None else None
+
+    def step(model, batch: Batch) -> Dict[str, torch.Tensor]:
+        no_tf32()
+        dev = next(model.parameters()).device
+        with torch.no_grad():
+            pose2d = _on(batch["pose2d"], dev)
+            pose3d, _ = model(pose2d.reshape(pose2d.shape[0], -1))
+            pose3d = pose3d.float().reshape(-1, model.spec.num_joint, 3)
+            err = metrics.mpjpe(pose3d, _on(batch["joint_cam"], dev),
+                                eval_joints=eval_idx, per_sample=True)
+        return {"joint_err": err, "pred_pose_mm": pose3d}
+
+    return step
+
+
+def _on(x, device) -> torch.Tensor:
+    """A batch leaf (host array or tensor) as f32 on `device`."""
+    return torch.as_tensor(x, dtype=torch.float32, device=device)

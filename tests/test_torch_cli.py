@@ -38,7 +38,11 @@ def test_preprocessing_matches_jax(joint_set):
     ref = jax_processing.batch_crop_and_normalize(
         poses[..., :2], joint_set, opts, np.zeros(n, np.int64),
         np.zeros(n, np.float32))
-    ours = processing.batch_crop_and_normalize(poses[..., :2])
+    ours = processing.batch_crop_and_normalize(
+        poses[..., :2], joint_set,
+        processing.ProcessOptions(is_train=False,
+                                  input_joint_name=joint_set.name),
+        np.zeros(n, np.int64), np.zeros(n, np.float32))
     assert ours.dtype == np.float32
     assert np.isfinite(ours).all()
     np.testing.assert_allclose(ours, ref, atol=1e-6, rtol=0)
@@ -60,9 +64,13 @@ def _served(tmp_path, coco_assets, poses, **kw):
 
 
 def _expected(model, coco_assets, poses):
+    n = len(poses)
     pose2d = processing.batch_crop_and_normalize(
         processing.add_pelvis_neck_scores(
-            poses, list(coco_assets.joint_set.joints_name))[..., :2])
+            poses, list(coco_assets.joint_set.joints_name))[..., :2],
+        coco_assets.joint_set,
+        processing.ProcessOptions(is_train=False, input_joint_name="coco"),
+        np.zeros(n, np.int64), np.zeros(n, np.float32))
     mesh, pose3d = make_serving_fn(model, torch.float32)(
         torch.from_numpy(pose2d))
     return mesh.numpy(), pose3d.numpy()

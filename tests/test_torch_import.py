@@ -26,7 +26,7 @@ def test_import_pulls_in_no_jax_and_no_triton():
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split("\n")[-2]
     count, rest = out.split(" ", 1)
-    assert int(count) >= 20
+    assert int(count) >= 35
     assert rest == "[] []"
 
 
@@ -46,6 +46,33 @@ def test_training_modules_import_no_jax_and_build_nothing():
     """The train package, the losses and the two training-kernel modules
     import neither JAX nor the JAX package, and load no kernel library."""
     out = subprocess.run([sys.executable, "-c", TRAIN_SCRIPT], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout.split("\n")[-2]
+    assert out == "[] []"
+
+
+EVAL_SCRIPT = """
+import sys
+import gator_tpu_torch.cli.test, gator_tpu_torch.cli.common
+import gator_tpu_torch.config, gator_tpu_torch.metrics, gator_tpu_torch.vis
+import gator_tpu_torch.bodymodel.smpl, gator_tpu_torch.bodymodel.rotations
+import gator_tpu_torch.data.base, gator_tpu_torch.data.pipeline
+import gator_tpu_torch.data.gt_synth, gator_tpu_torch.data.synthetic
+import gator_tpu_torch.train.evaluate, gator_tpu_torch.train.checkpoint
+import gator_tpu_torch.nn.fused_attention
+from gator_tpu_torch.nn import cuda_lib
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                              "triton", "gator_tpu")]
+print(bad, sorted(cuda_lib._LOADED))
+"""
+
+
+def test_eval_modules_import_no_jax_and_build_nothing():
+    """The eval path (CLI, session, config, body model, GT synthesis,
+    datasets, pipeline, metrics, eval loop, checkpoints, K3's module)
+    imports neither JAX nor the JAX package, and loads no kernel library."""
+    out = subprocess.run([sys.executable, "-c", EVAL_SCRIPT], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split("\n")[-2]
     assert out == "[] []"
