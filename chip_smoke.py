@@ -57,6 +57,20 @@ self-attention of the module form):
      version and scaled_dot_product_attention (f32 and bf16), the eval
      step; the eval loop in poses/s on the host clock and the share of it
      that GT synthesis alone takes.
+The tool paths (K2-layer csrc/lbf_layer.cu, T1 csrc/lbf_ablate.cu, both
+built in phase 2):
+ 19. (l) K2-layer against its plain version at B=16 and the tool's B=2048,
+     431 vertices, J=17 and 19 (f32 within 1e-4, bf16 reported), and in f32
+     against K2 run on the same one-layer weights (within 1e-4);
+ 20. (m) every T1 mode against its plain version, B=16, 431 vertices, 3
+     layers, J=17 and 19 (f32 within 1e-4, bf16 reported); `group` 1 and 8
+     give bit-equal outputs; the tool's default modes also at its B=2048
+     (J=17, f32 within 1e-4);
+ 21. (n) the two tool paths, each with the counters reset just before and
+     read just after: `python -m gator_tpu_torch.tools.profile_serving`
+     (K1, K2 and K2-layer launched) and `... exp_mdr_ablate` with its
+     default modes (T1 launched); then times at B=2048 bf16: K2-layer per
+     layer and T1 `full` over 3 layers, each beside its plain version.
 Then a JSON line with each kernel's numbers, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without a CUDA device the
@@ -66,7 +80,6 @@ import concurrent.futures
 import copy
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -88,6 +101,10 @@ KERNELS = {
                         "gator_tpu/nn/pallas_mdr_train.py:592"),
     "fused_attention": ("gator_tpu_torch/csrc/fused_attention.cu",
                         "gator_tpu/nn/pallas_attention.py:142"),
+    "lbf_layer": ("gator_tpu_torch/csrc/lbf_layer.cu",
+                  "gator_tpu/nn/pallas_mdr.py:153"),
+    "lbf_ablate": ("gator_tpu_torch/csrc/lbf_ablate.cu",
+                   "tools/exp_mdr_ablate.py:199"),
 }
 # one H100 SXM (NVIDIA's data sheet): HBM rate, dense bf16 tensor rate and
 # the f32 rate outside the tensor cores
@@ -107,25 +124,6 @@ def check(cond, what):
 
 def max_err(a, b):
     return (a.float() - b.float()).abs().max().item()
-
-
-def time_ms(torch, fn, reps=5, calls=3):
-    """Median ms per call over `reps` runs of `calls` calls (CUDA events),
-    after two warm-up calls."""
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return float(np.median(times))
 
 
 # parameters of one GAT block (C=128) and one LBF layer (C=64)
@@ -227,6 +225,7 @@ def train_phases(torch, dev, card, randn):
                                                     extract_layer_params,
                                                     lbf_stack_train,
                                                     lbf_stack_train_ref)
+    from gator_tpu_torch.tools.timing import time_ms
     from gator_tpu_torch.train import (Adam, TrainState, make_gat_train_step,
                                        make_gator_train_step)
 
@@ -474,12 +473,12 @@ def train_phases(torch, dev, card, randn):
     b512 = {k: torch.from_numpy(a.astype(np.float32)).to(dev)
             for k, a in b512.items()}
     t = {
-        "stage2": time_ms(torch, lambda: step_k(st_k, batches[js], 7, 1.0),
+        "stage2": time_ms(lambda: step_k(st_k, batches[js], 7, 1.0),
                           calls=1),
         "stage2_plain": time_ms(
-            torch, lambda: step_p(st_p, batches[js], 7, 1.0), calls=1),
-        "stage1": time_ms(torch, lambda: step1(s1k, b512, 3), calls=1),
-        "stage1_plain": time_ms(torch, lambda: step1p(s1p, b512, 3),
+            lambda: step_p(st_p, batches[js], 7, 1.0), calls=1),
+        "stage1": time_ms(lambda: step1(s1k, b512, 3), calls=1),
+        "stage1_plain": time_ms(lambda: step1p(s1p, b512, 3),
                                 calls=1),
     }
     gatm = model.pose_lifter
@@ -504,10 +503,10 @@ def train_phases(torch, dev, card, randn):
                 def fwd(fn=fn):
                     return fn(x4, j4, lp4, 2, 9)
                 g = g4
-            t[f"{name}_fwd{sfx}"] = time_ms(torch, fwd, calls=1)
+            t[f"{name}_fwd{sfx}"] = time_ms(fwd, calls=1)
             y = fwd()
             t[f"{name}_bwd{sfx}"] = time_ms(
-                torch, lambda y=y, g=g: y.backward(g, retain_graph=True),
+                lambda y=y, g=g: y.backward(g, retain_graph=True),
                 calls=1)
             del y
     for name, what in (("stage2", "stage-2 step (K4 + K5 + the rest)"),
@@ -553,6 +552,7 @@ def eval_phases(torch, dev, card, randn):
                                                     fused_attention_ref)
     from gator_tpu_torch.nn.gat_trunk_train import gat_trunk_train as k5
     from gator_tpu_torch.nn.lbf_stack_train import lbf_stack_train as k4
+    from gator_tpu_torch.tools.timing import time_ms
     from gator_tpu_torch.train import run_eval
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -682,11 +682,11 @@ def eval_phases(torch, dev, card, randn):
         q, k, v, _ = qkv(512, 431, 431, 2, 32, dt, False)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         ms["fused_attention" + tag] = time_ms(
-            torch, lambda: fused_attention(q, k, v, None, 32 ** -0.5))
+            lambda: fused_attention(q, k, v, None, 32 ** -0.5))
         ms["fused_attention_plain" + tag] = time_ms(
-            torch, lambda: fused_attention_ref(q, k, v, None, 32 ** -0.5))
+            lambda: fused_attention_ref(q, k, v, None, 32 ** -0.5))
         ms["fused_attention_sdpa" + tag] = time_ms(
-            torch, lambda: F.scaled_dot_product_attention(
+            lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, scale=32 ** -0.5))
         say(18, f"K3 B=512 431x431 H=2 D=32 {str(dt)[6:]} on {card}: "
                 f"kernel {ms['fused_attention' + tag]:.3f} ms, plain "
@@ -694,8 +694,8 @@ def eval_phases(torch, dev, card, randn):
                 f"scaled_dot_product_attention "
                 f"{ms['fused_attention_sdpa' + tag]:.3f} ms")
     batch = next(iter(sess.pipeline))
-    ms["eval_step"] = time_ms(torch, lambda: step_k(model, batch), calls=1)
-    ms["eval_step_plain"] = time_ms(torch, lambda: step_p(model, batch),
+    ms["eval_step"] = time_ms(lambda: step_k(model, batch), calls=1)
+    ms["eval_step_plain"] = time_ms(lambda: step_p(model, batch),
                                     calls=1)
     t0 = time.perf_counter()
     run_eval(step_k, model, sess.pipeline)
@@ -722,6 +722,141 @@ def eval_phases(torch, dev, card, randn):
     return out
 
 
+def layer_phases(torch, dev, card, randn, models):
+    """Phases 19-21 (l-n): K2-layer and T1 against their plain versions, the
+    two tool paths on the card, and their times."""
+    from gator_tpu_torch.nn import (MODES, extract_layer_params, gat_trunk,
+                                    lbf_layer, lbf_layer_ref, lbf_stack,
+                                    run_layers, run_layers_ref)
+    from gator_tpu_torch.nn.lbf_ablate import ROW_MODES
+    from gator_tpu_torch.tools import exp_mdr_ablate, profile_serving
+    from gator_tpu_torch.tools.timing import time_ms
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    out = {"errs": {"lbf_layer": 0.0, "lbf_ablate": 0.0}}
+
+    def hold(phase, tag, got, ref, dt, name):
+        err = max_err(got, ref)
+        check(np.isfinite(err), f"{tag} finite")
+        if dt == f32:
+            check(err <= 1e-4, f"{tag} f32 err {err} <= 1e-4")
+            out["errs"][name] = max(out["errs"][name], err)
+        return err
+
+    # 19 (l): K2-layer against its plain version, and against K2 in f32
+    for js, model in models.items():
+        mdr = model.pose2mesh
+        j, nv = mdr.spec.num_joint, mdr.spec.coarse_num
+        for b in (16, 2048):
+            verts, joints = randn(b, nv, 64), randn(b, j, 64)
+            for dt in (f32, bf16):
+                w = extract_layer_params(mdr, 0, dt, dev)
+                v, jt = verts.to(dt), joints.to(dt)
+                got = lbf_layer(v, jt, w, 2)
+                tag = f"K2-layer {js} J={j} B={b} Nv={nv} {str(dt)[6:]}"
+                err = hold(19, tag, got, lbf_layer_ref(v, jt, w, 2), dt,
+                           "lbf_layer")
+                msg = f"{tag}: max abs err {err:.3e} vs plain" + (
+                    " (bar 1e-4)" if dt == f32 else " (reported)")
+                if dt == f32:
+                    e_k2 = max_err(got, lbf_stack(v, jt, w, 2))
+                    check(e_k2 <= 1e-4, f"{tag} vs K2 {e_k2} <= 1e-4")
+                    msg += f"; vs K2 on the same layer {e_k2:.3e} (bar 1e-4)"
+                say(19, msg)
+                del got
+
+    # 20 (m): every T1 mode against its plain version; group independence
+    for js, model in models.items():
+        mdr = model.pose2mesh
+        j, nv = mdr.spec.num_joint, mdr.spec.coarse_num
+        verts, joints = randn(16, nv, 64), randn(16, j, 64)
+        layers = {dt: [extract_layer_params(mdr, i, dt, dev)
+                       for i in range(3)] for dt in (f32, bf16)}
+        for mode in MODES:
+            errs, same = {}, True
+            for dt in (f32, bf16):
+                v, jt = verts.to(dt), joints.to(dt)
+                got = run_layers(v, jt, layers[dt], 2, 8, mode)
+                ref = run_layers_ref(v, jt, layers[dt], 2, 8, mode)
+                errs[dt] = hold(20, f"T1 {mode} {js}", got, ref, dt,
+                                "lbf_ablate")
+                same &= torch.equal(
+                    got, run_layers(v, jt, layers[dt], 2, 1, mode))
+            check(same, f"T1 {mode} {js}: group 1 and 8 bit-equal")
+            say(20, f"T1 {mode} {js} J={j} B=16 Nv={nv} 3 layers: max abs "
+                    f"err vs plain f32 {errs[f32]:.3e} (bar 1e-4), bf16 "
+                    f"{errs[bf16]:.3e} (reported); group 1 and 8 bit-equal")
+    # the tool's default modes at its shape, B=2048
+    mdr = models["human36"].pose2mesh
+    nv = mdr.spec.coarse_num
+    v, jt = randn(2048, nv, 64), randn(2048, 17, 64)
+    layers = [extract_layer_params(mdr, i, f32, dev) for i in range(3)]
+    for mode in exp_mdr_ablate.DEFAULT_MODES:
+        got = run_layers(v, jt, layers, 2, 8, mode)
+        err = hold(20, f"T1 {mode} B=2048", got,
+                   run_layers_ref(v, jt, layers, 2, 8, mode), f32,
+                   "lbf_ablate")
+        del got
+        say(20, f"T1 {mode} human36 J=17 B=2048 Nv={nv} 3 layers f32: max abs "
+                f"err vs plain {err:.3e} (bar 1e-4)")
+    del v, jt, layers
+
+    # 21 (n): the tool paths; the counters reset just before, read after
+    gat_trunk.launches = lbf_stack.launches = lbf_layer.launches = 0
+    prof = profile_serving.main([])
+    torch.cuda.synchronize()
+    counts = {"gat_trunk": gat_trunk.launches,
+              "lbf_stack": lbf_stack.launches,
+              "lbf_layer": lbf_layer.launches}
+    check(all(n > 0 for n in counts.values()),
+          f"K1, K2 and K2-layer launched by profile_serving: {counts}")
+    check(all(np.isfinite(t) and t > 0 for k, t in prof["ms"].items()
+              if k != "head+embeds"), f"stage times {prof['ms']}")
+    say(21, f"profile_serving B={prof['batch']} bf16 on {prof['card']}: "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in prof["ms"].items())
+            + f"; launches {counts}")
+    run_layers.launches = 0
+    abl = exp_mdr_ablate.main([])
+    torch.cuda.synchronize()
+    check(run_layers.launches > 0 and len(abl["ms"]) == 3,
+          f"T1 launched by exp_mdr_ablate: {run_layers.launches}")
+    say(21, f"exp_mdr_ablate (default modes) B=2048 bf16 on {abl['card']}: "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in abl["ms"].items())
+            + f"; T1 launches {run_layers.launches}")
+    out["launches"] = {"lbf_layer": counts["lbf_layer"],
+                       "lbf_ablate": run_layers.launches}
+    every = exp_mdr_ablate.main(list(MODES))["ms"]
+    say(21, "T1 per mode, 3 layers, B=2048 bf16: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in every.items()))
+
+    mdr = models["human36"].pose2mesh
+    b, nv = 2048, mdr.spec.coarse_num
+    v, jt = randn(b, nv, 64).to(bf16), randn(b, 17, 64).to(bf16)
+    layers = [extract_layer_params(mdr, i, bf16, dev) for i in range(3)]
+    ms = {
+        "lbf_layer": time_ms(lambda: lbf_layer(v, jt, layers[0], 2)),
+        "lbf_layer_plain": time_ms(
+            lambda: lbf_layer_ref(v, jt, layers[0], 2)),
+        "lbf_ablate": time_ms(
+            lambda: run_layers(v, jt, layers, 2, 8, "full")),
+        "lbf_ablate_plain": time_ms(
+            lambda: run_layers_ref(v, jt, layers, 2, 8, "full")),
+    }
+    say(21, f"K2-layer B={b} bf16 on {card}: {ms['lbf_layer']:.3f} ms per "
+            f"layer, plain {ms['lbf_layer_plain']:.3f} ms; T1 full, 3 layers:"
+            f" {ms['lbf_ablate']:.3f} ms, plain {ms['lbf_ablate_plain']:.3f}"
+            f" ms; row-local modes {', '.join(ROW_MODES)} run no attention")
+    out["ms"] = ms
+    # one layer reads verts and joints and writes verts, in bf16
+    nbytes = (2 * b * nv * 64 + b * 17 * 64) * 2 + LBF_LAYER_WEIGHTS * 2
+    out["bounds"] = {
+        "lbf_layer": bound(b * fma_lbf_layer(nv, 17), nbytes),
+        "lbf_ablate": bound(b * 3 * fma_lbf_layer(nv, 17),
+                            nbytes + 2 * LBF_LAYER_WEIGHTS * 2),
+    }
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -737,15 +872,13 @@ def main():
                                     fold_trunk_weights, gat_trunk,
                                     gat_trunk_ref, lbf_stack, lbf_stack_ref)
     from gator_tpu_torch.serving import make_serving_fn
+    from gator_tpu_torch.tools.timing import card_name, time_ms
 
     dev = torch.device("cuda")
     f32, bf16 = torch.float32, torch.bfloat16
 
     # 1. card
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = card_name()
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -900,15 +1033,15 @@ def main():
     serve_k = make_serving_fn(model, bf16)
     serve_p = make_serving_fn(model, bf16, use_kernels=False)
     ms = {
-        "gat_trunk": time_ms(torch, lambda: gat_trunk(x, bias, masks, tw,
+        "gat_trunk": time_ms(lambda: gat_trunk(x, bias, masks, tw,
                                                       8)),
-        "gat_trunk_plain": time_ms(torch, lambda: gat_trunk_ref(
+        "gat_trunk_plain": time_ms(lambda: gat_trunk_ref(
             x, bias, masks, tw, 8)),
-        "lbf_stack": time_ms(torch, lambda: lbf_stack(verts, joints, sw, 2)),
-        "lbf_stack_plain": time_ms(torch, lambda: lbf_stack_ref(
+        "lbf_stack": time_ms(lambda: lbf_stack(verts, joints, sw, 2)),
+        "lbf_stack_plain": time_ms(lambda: lbf_stack_ref(
             verts, joints, sw, 2)),
-        "serve": time_ms(torch, lambda: serve_k(pose)),
-        "serve_plain": time_ms(torch, lambda: serve_p(pose)),
+        "serve": time_ms(lambda: serve_k(pose)),
+        "serve_plain": time_ms(lambda: serve_p(pose)),
     }
     for name in ("gat_trunk", "lbf_stack", "serve"):
         k, p = ms[name], ms[name + "_plain"]
@@ -941,6 +1074,13 @@ def main():
     launches.update(ev["launches"])
     ms.update(ev["ms"])
     bounds.update(ev["bounds"])
+
+    # 19-21: the tool paths
+    lay = layer_phases(torch, dev, card, randn, models)
+    errs.update(lay["errs"])
+    launches.update(lay["launches"])
+    ms.update(lay["ms"])
+    bounds.update(lay["bounds"])
     library_ms = {name: None for name in KERNELS}
     library_ms.update(ev["library_ms"])
 

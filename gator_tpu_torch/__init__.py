@@ -1,7 +1,8 @@
 """gator_tpu_torch — GATOR (pose -> mesh) in PyTorch with hand-written CUDA
 kernels for an NVIDIA H100 (sm_90a): the serving path, the train steps of
-both stages, and the evaluation path (SMPL body model, GT synthesis,
-metrics, eval CLI).
+both stages, the evaluation path (SMPL body model, GT synthesis, metrics,
+eval CLI), and the kernel tools (per-stage serving profile, LBF-layer
+ablations).
 
 A port of the JAX package `gator_tpu`, which stays the reference: the
 module layout and names follow it. This package imports torch and never

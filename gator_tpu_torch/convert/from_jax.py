@@ -11,6 +11,10 @@ imports nothing of the JAX package:
   * batch_stats `mean` / `var` are `running_mean` / `running_var`; a torch
     BatchNorm also carries `num_batches_tracked`, set to 0.
 Everything else (W, b, M, adj2, bias, weight, a_2, b_2) carries over as is.
+
+`layer_weights_from_jax` packs one LBF layer in the JAX package's
+per-layer form (gator_tpu/nn/pallas_mdr.py:35 `LAYER_PARAM_KEYS`) for the
+layer kernels, so that a test can feed both packages the same weights.
 """
 from __future__ import annotations
 
@@ -18,6 +22,9 @@ from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
+
+from ..nn import cuda_lib
+from ..nn.lbf_layer import pack_layer
 
 _INDEXED = ("GLinear", "blocks", "linears")
 _EMBED_LEAVES = ("pos_id_embed", "pos_num_embed", "pos_j_id_embed",
@@ -80,3 +87,13 @@ def state_dict_from_jax(variables: Dict[str, Any]
                 bn = key[:-len("running_mean")]
                 out[bn + "num_batches_tracked"] = torch.tensor(0)
     return out
+
+
+def layer_weights_from_jax(layer_params: Dict[str, Any], dtype: torch.dtype,
+                           device) -> cuda_lib.Packed:
+    """One LBF layer's JAX parameter dict (`LAYER_PARAM_KEYS`, numpy
+    arrays; matrices already [in, out], so nothing is transposed) -> the
+    port's packed one-layer weights (norm1/norm2 scale and bias become
+    ln1/ln2 weight and bias)."""
+    return pack_layer({k: torch.from_numpy(np.array(v, dtype=np.float32))
+                       for k, v in layer_params.items()}, dtype, device)

@@ -135,6 +135,14 @@ def pack_fields(tensors: Sequence[torch.Tensor], offsets: Sequence[int],
     return flat
 
 
+def _views(flat: torch.Tensor, shapes: Dict[str, torch.Size],
+           offsets: Sequence[int]) -> List[Dict[str, torch.Tensor]]:
+    """Each layer's fields as views into `flat` [L, stride]."""
+    return [{n: flat[li, off:off + shape.numel()].view(shape)
+             for (n, shape), off in zip(shapes.items(), offsets)}
+            for li in range(flat.shape[0])]
+
+
 def pack(layers: List[Dict[str, torch.Tensor]], fields: Sequence[str],
          dtype: torch.dtype, device) -> Packed:
     """Pack each layer's tensors (all the same shapes across layers) in
@@ -143,8 +151,16 @@ def pack(layers: List[Dict[str, torch.Tensor]], fields: Sequence[str],
     flat = torch.stack([pack_fields([layer[n] for n in fields], offsets,
                                     stride, dtype, device)
                         for layer in layers])
-    views = [{n: flat[li, off:off + layer[n].numel()].view(layer[n].shape)
-              for n, off in zip(fields, offsets)}
-             for li, layer in enumerate(layers)]
+    shapes = {n: layers[0][n].shape for n in fields}
     return Packed(flat, torch.tensor(offsets, dtype=torch.int32,
-                                     device=device), views)
+                                     device=device),
+                  _views(flat, shapes, offsets))
+
+
+def stack(packs: Sequence[Packed]) -> Packed:
+    """Packed weight sets of the same fields and shapes, layer after layer,
+    as one."""
+    flat = torch.cat([p.flat for p in packs])
+    shapes = {n: t.shape for n, t in packs[0].layers[0].items()}
+    return Packed(flat, packs[0].offsets,
+                  _views(flat, shapes, packs[0].offsets.tolist()))

@@ -7,7 +7,8 @@ one layer is gator_tpu/nn/pallas_mdr.py:87 `_layer_math` (reference:
 lib/models/MDR.py:139-153).
 
 Per layer the kernel path makes two launches: `lbf_rows` (everything that
-is local to a vertex row) and `lbf_selfattn` (the Nv x Nv self-attention
+is local to a vertex row: the row-local kernel of csrc/lbf_layer.cuh, which
+K2-layer and T1 share) and `lbf_selfattn` (the Nv x Nv self-attention
 with an online softmax, then L3 and the residual). The residual stream
 between layers stays f32; the result is cast to the working dtype once.
 """
@@ -20,16 +21,7 @@ import torch.nn.functional as F
 
 from . import cuda_lib
 from .layers import layer_norm32, std_layer_norm
-
-# Field order of one layer's packed weights; must match `enum Field` in
-# csrc/lbf_stack.cu. Matrices are [in, out] (y = x @ W).
-STACK_FIELDS = (
-    "ln1_w", "ln1_b", "wq", "wk", "wv", "proj_w", "proj_b",
-    "ln2_w", "ln2_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b", "a2", "b2",
-    "l0_w", "l0_b", "l1_w", "l1_b", "l2_w", "l2_b", "l3_w", "l3_b",
-)
-
-EMBED, HEADS, JOINTS_MAX = 64, 2, 32
+from .lbf_layer import EMBED, HEADS, JOINTS_MAX, extract_layer_params
 
 _SIGNATURE = {
     "lbf_rows_launch": [ctypes.c_int] + [ctypes.c_void_p] * 8
@@ -41,25 +33,10 @@ _SIGNATURE = {
 
 def fold_stack_weights(mdr, dtype: torch.dtype, device) -> cuda_lib.Packed:
     """Pack the LBF layers of an `MDR` module (encoder[_i], norm[_i],
-    selfatt[_i]) for the kernels, linear weights as [in, out]."""
-    layers = []
-    with torch.no_grad():
-        for enc, norm, sa in mdr.lbf_layers():
-            lin = sa.linears
-            layers.append({
-                "ln1_w": enc.norm1.weight, "ln1_b": enc.norm1.bias,
-                "wq": enc.attn.wq.weight.T, "wk": enc.attn.wk.weight.T,
-                "wv": enc.attn.wv.weight.T,
-                "proj_w": enc.attn.proj.weight.T,
-                "proj_b": enc.attn.proj.bias,
-                "ln2_w": enc.norm2.weight, "ln2_b": enc.norm2.bias,
-                "fc1_w": enc.mlp.fc1.weight.T, "fc1_b": enc.mlp.fc1.bias,
-                "fc2_w": enc.mlp.fc2.weight.T, "fc2_b": enc.mlp.fc2.bias,
-                "a2": norm.a_2, "b2": norm.b_2,
-                **{f"l{i}_w": lin[i].weight.T for i in range(4)},
-                **{f"l{i}_b": lin[i].bias for i in range(4)},
-            })
-    return cuda_lib.pack(layers, STACK_FIELDS, dtype, device)
+    selfatt[_i]) for the kernels: `extract_layer_params` layer after
+    layer, in `STACK_FIELDS` order, linear weights as [in, out]."""
+    return cuda_lib.stack([extract_layer_params(mdr, i, dtype, device)
+                           for i in range(len(mdr.lbf_layers()))])
 
 
 def _heads(t: torch.Tensor, h: int) -> torch.Tensor:

@@ -106,18 +106,13 @@ def mdr_serving_forward(model: GATOR, w: Dict[str, torch.Tensor], consts,
     return vert + consts["init_full"]
 
 
-def make_serving_fn(model: GATOR, dtype: torch.dtype = torch.bfloat16,
-                    use_kernels: bool = True) -> ServingFn:
-    """-> fn(pose2d [B, J, 2]) -> (mesh [B, V0, 3], pose3d [B, J, 3]), on
-    the model's device, without gradients.
-
-    `use_kernels=False` runs the kernels' plain versions on any device:
-    the on-card numerics oracle and speed baseline of chip_smoke.py, as
-    `use_fused=False` is in the JAX package.
-
-    The weights are cast to `dtype` once here (BatchNorm running stats stay
-    f32), and the kernels' packed weights and the input-independent tables
-    (hop/path bias, position embeddings) are derived once."""
+def serving_weights(model: GATOR, dtype: torch.dtype,
+                    use_kernels: bool = True):
+    """-> (w, consts) for `gat_serving_forward` and `mdr_serving_forward`:
+    the state dict cast to `dtype` once (BatchNorm running stats stay f32),
+    and the kernels' packed weights, the stage functions (the kernels, or
+    with `use_kernels=False` their plain versions) and the input-independent
+    tables (hop/path bias, position embeddings)."""
     spec = model.spec
     gat, mdr = model.pose_lifter, model.pose2mesh
     device = next(model.parameters()).device
@@ -141,6 +136,21 @@ def make_serving_fn(model: GATOR, dtype: torch.dtype = torch.bfloat16,
             "init_coarse": mdr.init_verts_coarse.to(dtype),
             "init_full": mdr.init_verts_full.to(dtype),
         }
+    return w, consts
+
+
+def make_serving_fn(model: GATOR, dtype: torch.dtype = torch.bfloat16,
+                    use_kernels: bool = True) -> ServingFn:
+    """-> fn(pose2d [B, J, 2]) -> (mesh [B, V0, 3], pose3d [B, J, 3]), on
+    the model's device, without gradients.
+
+    `use_kernels=False` runs the kernels' plain versions on any device:
+    the on-card numerics oracle and speed baseline of chip_smoke.py, as
+    `use_fused=False` is in the JAX package. The weights and tables are
+    derived once, by `serving_weights`."""
+    j = model.spec.gat.num_joint
+    device = next(model.parameters()).device
+    w, consts = serving_weights(model, dtype, use_kernels)
 
     @torch.no_grad()
     def serve(pose2d: torch.Tensor):

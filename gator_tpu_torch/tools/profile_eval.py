@@ -19,13 +19,13 @@ import argparse
 import collections
 import json
 import os
-import subprocess
 import sys
 import time
 
 import torch
 
 from .profile_train import _device_us, _is_kernel
+from .timing import card_name
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -72,10 +72,7 @@ def main(argv=None):
     from gator_tpu_torch.config import load_config
     from gator_tpu_torch.train import run_eval
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = card_name()
     cfg = load_config(os.path.join(ROOT, "configs",
                                    "gator_synthetic_e2e.yml"))
     sess = Session(cfg, synthetic=True, synthetic_n=args.n)

@@ -21,12 +21,13 @@ import argparse
 import collections
 import json
 import os
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+
+from .timing import card_name
 
 BATCH, STEPS = 512, 5
 GROUPS = (
@@ -73,10 +74,7 @@ def main(argv=None):
 
     dev = torch.device("cuda")
     dtype = torch.bfloat16
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = card_name()
     assets = build_assets("human36", data_dirs=[],
                           synthetic_vertex_num=6890, seed=0)
     model = build_gator(GatorSpec.from_assets(assets), seed=11, device=dev)

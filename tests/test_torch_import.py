@@ -76,3 +76,26 @@ def test_eval_modules_import_no_jax_and_build_nothing():
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split("\n")[-2]
     assert out == "[] []"
+
+
+TOOLS_SCRIPT = """
+import sys
+import gator_tpu_torch.tools.profile_serving
+import gator_tpu_torch.tools.exp_mdr_ablate
+import gator_tpu_torch.tools.profile_lbf
+import gator_tpu_torch.nn.lbf_layer, gator_tpu_torch.nn.lbf_ablate
+from gator_tpu_torch.nn import cuda_lib
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "flax", "triton", "gator_tpu")]
+print(bad, sorted(cuda_lib._LOADED))
+"""
+
+
+def test_layer_tools_import_no_jax_and_build_nothing():
+    """The serving-profile, LBF-profile and LBF-ablation tools and the
+    K2-layer and T1 modules import neither JAX nor the JAX package (nor the JAX tools they
+    replace), and load no kernel library."""
+    out = subprocess.run([sys.executable, "-c", TOOLS_SCRIPT], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout.split("\n")[-2]
+    assert out == "[] []"
