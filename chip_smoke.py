@@ -18,8 +18,9 @@ The training path (K4 csrc/lbf_stack_train.cu, K5 csrc/gat_trunk_train.cu):
   8. (a) K4 and K5 are built with the others in phase 2;
   9. (b) K5 at full width (depth 6, B=64 and 512) and K4 (3 layers,
      Nv=431, B=16 and 512), J=17 and 19, default rates, mask export on;
-     B=512 is the main path's batch, at which K4's grid-stride CTAs loop
-     over many row tiles: every exported mask equals the plain hash bit for
+     B=512 is the main path's batch, at which each of K4's row-launch CTAs
+     walks ~52 row tiles of 16 across samples: every exported mask equals
+     the plain hash bit for
      bit; output, dx, dbias or djoints and every parameter gradient
      against the plain version fed those masks (f32 within 1e-4, gradients
      scaled by their max; bf16 reported); keep fractions;
@@ -35,13 +36,16 @@ The training path (K4 csrc/lbf_stack_train.cu, K5 csrc/gat_trunk_train.cu):
  13. (f) 10 stage-1 steps at B=256 (configs/gat_synthetic_e2e.yml), the same
      checks;
  14. (g) times at B=512, bf16: the stage-2 and stage-1 steps, and K4/K5
-     forward and backward, each beside the plain version.
+     forward and backward, each beside the plain version; K4's row-local
+     launches (lbf_rows_fwd, lbf_rows_bwd + lbf_wgrad, on the tensor
+     cores) in device ms per step from torch.profiler, beside their bounds.
 The evaluation path (K3 csrc/fused_attention.cu, the MDR vertex
 self-attention of the module form):
  15. (h) K3 is built with the others in phase 2;
  16. (i) K3 against its plain version: B=16 and the eval batch B=512 at
-     Nq=Nk=431, 2 heads of 32, no bias; with a bias at 431x431 and at the
-     GAT shape 17x17, 8 heads of 16; f32 within 1e-4, bf16 reported; the
+     Nq=Nk=431, 2 heads of 32, no bias; with a bias at 431x431, at the
+     GAT shape 17x17, 8 heads of 16, and at 1000x1000, 2 heads of 64 (K/V
+     staged in chunks); f32 (3xTF32) within 1e-4, bf16 reported; the
      autograd Function's dq, dk, dv, dbias against autograd through the
      plain version (f32, scaled by their max, within 1e-4);
  17. (j) the main eval path, every kernel counter reset just before and
@@ -106,11 +110,11 @@ KERNELS = {
     "lbf_ablate": ("gator_tpu_torch/csrc/lbf_ablate.cu",
                    "tools/exp_mdr_ablate.py:199"),
 }
-# one H100 SXM (NVIDIA's data sheet): HBM rate, dense bf16 tensor rate and
-# the f32 rate outside the tensor cores
+# one H100 SXM (NVIDIA's data sheet): HBM rate, dense bf16 and TF32 tensor
+# rates
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
-F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 
 
 def say(phase, msg):
@@ -148,6 +152,24 @@ def fma_lbf_layer(nv, j, c=64, hid=256):
             + nv * c * c)
 
 
+def fma_lbf_rows_fwd(nv, j, c=64, hid=256):
+    """FMA of K4's row-local forward launch (lbf_rows_fwd) for one sample
+    and layer: q, the cross-attention over j joints (scores and PV, both
+    heads), proj, fc1, fc2, q2/k2/v2, and the joints' k and v once."""
+    return nv * (5 * c * c + 2 * j * c + 2 * c * hid) + 2 * j * c * c
+
+
+def fma_lbf_rows_bwd(nv, j, c=64, hid=256):
+    """FMA of K4's row-local backward (lbf_rows_bwd and lbf_wgrad) for one
+    sample and layer, as the code does it: the forward again up to y3, the
+    transposed products (dy3 from dq2/dk2/dv2, dh1, dy2, da1, dyv), the
+    cross-attention's four (dp, dq, the joints' dk and dv), the weight
+    gradients (L0-L2, fc2, fc1, proj, wq)."""
+    return (fma_lbf_rows_fwd(nv, j, c, hid) - 3 * nv * c * c
+            + nv * (5 * c * c + 2 * c * hid + 4 * j * c)
+            + nv * (5 * c * c + 2 * c * hid))
+
+
 def bound(fma, nbytes, flop_per_s=BF16_FLOP_PER_S):
     """(least ms on one H100 for `fma` FMA at `flop_per_s` (bf16 by
     default) moving `nbytes`, what bounds it)."""
@@ -162,17 +184,35 @@ def scaled_err(got, want):
     return (got.float() - want.float()).abs().max().item() / scale
 
 
+def bf16_ulps(got, ref):
+    """How far a bf16 attention output is from its plain version: the share
+    of elements that differ and the largest difference in units of the
+    last bf16 place of the largest plain value of its head row, 2^(e - 7)
+    (a value near zero, where many terms cancel, moves by more than its
+    own last place when one probability rounds the other way)."""
+    import torch
+    g, r = got.float(), ref.float()
+    diff = (g - r).abs()
+    top = r.abs().amax(-1, keepdim=True).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    return (f"{(diff > 0).float().mean().item():.2e} of the outputs "
+            f"differ, by at most {(diff / ulp).max().item():.3g} ulp of "
+            f"their row's largest")
+
+
 def grads_of(module):
     return {n: p.grad.detach().clone() for n, p in module.named_parameters()
             if p.grad is not None}
 
 
 def compare_grads(tag, got, want, bar, zero_bias):
-    """Max scaled error over every parameter gradient; `zero_bias(name)`
+    """(max scaled error over every parameter gradient, the largest abs
+    value of a zero-true-gradient slice, the worst gradient's name);
+    `zero_bias(name)`
     gives the slice of a gradient that is zero in exact arithmetic (an
     attention key bias), which is reported as an absolute value instead."""
     check(set(got) == set(want) and got, f"{tag}: the same gradients")
-    worst, noise = 0.0, 0.0
+    worst, noise, which = 0.0, 0.0, None
     for name, w in want.items():
         g = got[name]
         zero = zero_bias(name, g)
@@ -188,8 +228,9 @@ def compare_grads(tag, got, want, bar, zero_bias):
         check(np.isfinite(e), f"{tag}: grad {name} finite")
         if bar is not None:
             check(e <= bar, f"{tag}: grad {name} scaled err {e} <= {bar}")
-        worst = max(worst, e)
-    return worst, noise
+        if e >= worst:
+            worst, which = e, name
+    return worst, noise, which
 
 
 def zero_bias(name, g):
@@ -287,13 +328,14 @@ def train_phases(torch, dev, card, randn):
             check(np.isfinite(e), f"{tag}: {name} finite")
             if bar is not None:
                 check(e <= bar, f"{tag}: {name} scaled err {e} <= {bar}")
-        worst, noise = compare_grads(tag, k["grads"], p["grads"], bar,
-                                     zero_bias)
+        worst, noise, which = compare_grads(tag, k["grads"], p["grads"],
+                                            bar, zero_bias)
         say(9, f"{tag} {str(dt)[6:]}: masks equal the hash in all "
                f"{len(k['masks'])} units; out max abs err {e_out:.3e}; "
                f"scaled errs " + ", ".join(f"{n} {e:.2e}"
                                             for n, e in errs.items())
-               + f"; {len(k['grads'])} param grads worst {worst:.2e}"
+               + f"; {len(k['grads'])} param grads worst {worst:.2e} "
+               + f"({which})"
                + f" (zero-true-grad key biases {noise:.1e} abs)"
                + (" (bars 1e-4)" if bar else " (reported)")
                + f"; keep fractions (last unit) {keep}")
@@ -396,8 +438,8 @@ def train_phases(torch, dev, card, randn):
         rel = abs(res["kernel"] - res["plain"]) / abs(res["plain"])
         check(rel <= 1e-5, f"step loss kernel {res['kernel']} vs plain "
                            f"{res['plain']}: rel {rel} <= 1e-5")
-        worst, noise = compare_grads("stage-2 step", grads_of(mk),
-                                     grads_of(mp), 1e-4, zero_bias)
+        worst, noise, _ = compare_grads("stage-2 step", grads_of(mk),
+                                        grads_of(mp), 1e-4, zero_bias)
         say(11, f"stage-2 step {js} f32 B=16 zero rates: loss kernel "
                 f"{res['kernel']:.7f} plain {res['plain']:.7f} (rel "
                 f"{rel:.1e}, bar 1e-5); {len(grads_of(mk))} param grads "
@@ -520,6 +562,49 @@ def train_phases(torch, dev, card, randn):
                 f"plain {p:.3f} ms" + (
                     f" ({b / k * 1e3:,.0f} vs {b / p * 1e3:,.0f} poses/s)"
                     if name.startswith("stage") else ""))
+    # K4's row-local launches alone: device ms per call of the 3-layer
+    # stack (one stage-2 step's worth), from torch.profiler
+    from gator_tpu_torch.tools.profile_train import _device_us, _is_kernel
+    y = lbf_stack_train(x4, j4, lp4, 2, 9)
+    y.backward(g4, retain_graph=True)
+    torch.cuda.synchronize()
+    rows = dict.fromkeys(("lbf_rows_fwd", "lbf_rows_bwd", "lbf_wgrad"), 0.0)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            y.backward(g4, retain_graph=True)
+            lbf_stack_train(x4, j4, lp4, 2, 9)
+        torch.cuda.synchronize()
+    for evt in prof.key_averages():
+        for key in rows:
+            if _is_kernel(evt) and key in evt.key:
+                rows[key] += _device_us(evt) / 1e3 / 3
+    del y
+    check(all(v > 0 for v in rows.values()),
+          f"the profiler saw K4's row launches: {rows}")
+    # bytes each must move: x in, y3 (f32, the residual) and q2/k2/v2
+    # (bf16: the self-attention reads them rounded) out; x, gout and
+    # dq2/dk2/dv2 (f32: their bias gradients sum them unrounded) in, dx out.
+    # The launch writes q2/k2/v2 in f32, the self-attention launches'
+    # interface: 18 bytes a row element where the function needs 12.
+    row_bounds = {
+        "lbf_rows_fwd": bound(3 * b * fma_lbf_rows_fwd(nv, 17),
+                              3 * b * nv * 64 * (2 + 4 + 6)),
+        "lbf_rows_bwd": bound(3 * b * fma_lbf_rows_bwd(nv, 17),
+                              3 * b * nv * 64 * (2 + 2 + 12 + 2)),
+    }
+    fwd_f32_io = bound(3 * b * fma_lbf_rows_fwd(nv, 17),
+                       3 * b * nv * 64 * (2 + 16))
+    say(14, f"K4 row launches per stage-2 step (3 layers, B={b} bf16) on "
+            f"{card}: lbf_rows_fwd {rows['lbf_rows_fwd']:.3f} ms (bound "
+            f"{row_bounds['lbf_rows_fwd'][0]:.3f}, "
+            f"{row_bounds['lbf_rows_fwd'][1]}; {fwd_f32_io[0]:.3f} with "
+            f"q2/k2/v2 written in f32); lbf_rows_bwd "
+            f"{rows['lbf_rows_bwd']:.3f} + lbf_wgrad "
+            f"{rows['lbf_wgrad']:.3f} ms (bound together "
+            f"{row_bounds['lbf_rows_bwd'][0]:.3f}, "
+            f"{row_bounds['lbf_rows_bwd'][1]})")
     out["ms"] = {
         "gat_trunk_train": t["k5_fwd"] + t["k5_bwd"],
         "gat_trunk_train_plain": t["k5_fwd_plain"] + t["k5_bwd_plain"],
@@ -535,6 +620,7 @@ def train_phases(torch, dev, card, randn):
             3 * b * 3 * fma_lbf_layer(nv, 17),
             (4 * b * nv * 64 + 2 * b * 17 * 64) * 2
             + 3 * LBF_LAYER_WEIGHTS * (2 + 4)),
+        **row_bounds,
     }
     return out
 
@@ -567,7 +653,8 @@ def eval_phases(torch, dev, card, randn):
     for b, nq, h, d, with_bias in ((16, 431, 2, 32, False),
                                    (512, 431, 2, 32, False),
                                    (16, 431, 2, 32, True),
-                                   (64, 17, 8, 16, True)):
+                                   (64, 17, 8, 16, True),
+                                   (16, 1000, 2, 64, True)):
         for dt in (f32, bf16):
             q, k, v, bias = qkv(b, nq, nq, h, d, dt, with_bias)
             got = fused_attention(q, k, v, bias, d ** -0.5)
@@ -582,7 +669,8 @@ def eval_phases(torch, dev, card, randn):
             say(16, f"K3 fused_attention B={b} {nq}x{nq} H={h} D={d} "
                     f"{'bias' if with_bias else 'no bias'} {str(dt)[6:]}: "
                     f"max abs err {err:.3e} vs plain"
-                    + (" (bar 1e-4)" if dt == f32 else " (reported)"))
+                    + (" (bar 1e-4)" if dt == f32 else
+                       f" (reported; {bf16_ulps(got, ref)})"))
     out["errs"] = {"fused_attention": err3}
     with torch.enable_grad():
         q, k, v, bias = qkv(16, 431, 431, 2, 32, f32, True)
@@ -715,10 +803,11 @@ def eval_phases(torch, dev, card, randn):
     out["ms"] = {"fused_attention": ms["fused_attention"],
                  "fused_attention_plain": ms["fused_attention_plain"]}
     out["library_ms"] = {"fused_attention": ms["fused_attention_sdpa"]}
-    # true f32 (TF32 off): the f32 pipes' rate; q, k, v read and out written
+    # f32 at f32 accuracy on the tensor cores: three TF32 products (3xTF32)
+    # for each of the scores' and PV's FMA; q, k, v read and out written
     b, n, h, d = 512, 431, 2, 32
     out["bounds"] = {"fused_attention": bound(
-        2 * b * h * n * n * d, 4 * b * n * h * d * 4, F32_FLOP_PER_S)}
+        3 * 2 * b * h * n * n * d, 4 * b * n * h * d * 4, TF32_FLOP_PER_S)}
     return out
 
 

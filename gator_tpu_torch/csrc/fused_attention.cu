@@ -4,174 +4,359 @@
 // Replaces gator_tpu/nn/pallas_attention.py:142 `fused_attention` (kernels
 // `_kernel:31` and `_kernel_bias:49`, pallas_calls `:84` and `:94`).
 // q [B, Nq, H, D], k and v [B, Nk, H, D] in the caller's strides (the last
-// dimension contiguous), an optional f32 bias [H, Nq, Nk] shared by every
-// sample; out [B, Nq, H, D] contiguous, in q's dtype. On the model's path
-// this is the MDR vertex self-attention of the module form (eval): Nq = Nk
-// = 431, H = 2, D = 32, no bias.
+// dimension contiguous, rows 16-byte aligned), an optional f32 bias
+// [H, Nq, Nk] shared by every sample; out [B, Nq, H, D] contiguous, in q's
+// dtype. On the model's path this is the MDR vertex self-attention of the
+// module form (eval): Nq = Nk = 431, H = 2, D = 32, no bias.
 //
 // Numerics, as the TPU kernel: scores and softmax in f32; the normalised
 // probabilities rounded to v's dtype before the PV product, which
-// accumulates in f32. The whole [rows, Nk] score tile of a CTA sits in
-// shared memory, so the softmax is the exact two-pass one (max, sum,
-// normalise, round) and rounds where the TPU kernel rounds; a flash-style
-// online softmax would round unnormalised probabilities instead.
+// accumulates in f32. The products run on the tensor cores (mma.cuh): bf16
+// m16n8k16, or in f32 the 3xTF32 split, which keeps f32 accuracy (TF32 is
+// never used alone).
 //
-// Design. One CTA per (query-row tile, head, sample). The sample's K and V
-// for its head are staged in shared memory as f32 (K rows padded to D + 1
-// floats: in the score phase neighbouring threads read neighbouring keys),
-// then: scores (each thread holds one key row in registers and runs it
-// against RB query rows), softmax (one warp per row), PV (each thread owns
-// one column d of several rows). At Nk = 431, D = 32 a 64-row tile takes
-// 230,588 bytes of the 232,448 a CTA may have; the host picks fewer rows
-// where a tile does not fit and refuses only a shape where one row cannot.
+// Design. One CTA of eight warps per (128-query tile, head, sample) (four
+// warps measured 10 % slower on the H100); each warp owns 16 query rows,
+// whose q fragments stay in registers. The (sample, head)'s K and V are
+// staged in shared memory in their own dtype with cp.async, in chunks of
+// `kc` keys sized so that two CTAs fit on an SM (one chunk, staged once,
+// whenever the keys fit: bf16 at Nk = 431; f32 there takes two). Two
+// passes over 64-key tiles, as csrc/lbf_layer.cuh does for K2-layer:
+// pass 1 takes each row's max and sum online; pass 2 recomputes the
+// scores with the same mma chain, forms p = T(exp(s - max) / sum) and runs
+// PV, so the probabilities are rounded normalised, where the TPU kernel
+// rounds, and nothing of the [Nq, Nk] score tile is stored. The
+// exponentials are exp2 of scores scaled by log2(e), the division a
+// product with the row's reciprocal sum.
+// The score accumulators become PV's A operand in registers (bf16), or by
+// shuffles (TF32, whose A layout differs); K and V fragments come from
+// ldmatrix (bf16) or padded, conflict-free shared-memory rows (f32).
 //
 // What bounds it on the H100. At the eval shape (B = 512) the work is
-// 2 * 512 * 2 * 431 * 431 * 32 = 12.2 GFMA on the f32 pipes (the bf16
-// tensor-core bound: 0.025 ms) against 226 MB of q, k, v and out (0.068 ms
-// at 3.35 TB/s): the bytes bound it. This first version runs FMA loops at
-// one CTA per SM (the tile fills shared memory); tensor cores (mma/wgmma
-// for QK^T and PV), K/V kept in bf16 and a smaller tile for two CTAs per
-// SM are the next steps.
-#include "common.cuh"
+// 2 * 512 * 2 * 431 * 431 * 32 = 12.2 GFMA, twice that with pass 1's
+// scores, against 226 MB of q, k, v and out (0.068 ms at 3.35 TB/s): on
+// the tensor cores (bf16 0.05 ms for the 24 GFMA at 989 TFLOP/s) the bytes
+// bound it; in f32 the three TF32 products and the splits (0.30 ms at
+// 495 TFLOP/s for the products alone), and in both the two exponentials
+// per score.
+#include "mma.cuh"
 
 namespace gator {
 namespace attn {
 
-constexpr int NT = 512;        // threads per CTA
-constexpr int ROWS_MAX = 64;   // query rows per CTA at most
-constexpr int RB = 8;          // query rows per thread in the score phase
+constexpr int NW = 8;         // warps per CTA, 16 query rows each
+constexpr int KT = 64;        // keys per tile
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Shape {
-  int nq, nk, h, rows;
+  int nq, nk, h, kc;
   long long q_b, q_n, q_h, k_b, k_n, k_h, v_b, v_n, v_h;
 };
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// shared memory of one CTA, so that two fit on an H100 SM (228 KB, 1 KB
+// of it reserved per CTA)
+constexpr int SMEM_PER_CTA = 113 * 1024;
+
+// padded row lengths of staged K and V, in elements: conflict-free
+// fragment loads (f32) and ldmatrix rows (bf16)
+template <typename T, int D>
+struct Pad {
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int LK = D + (F32 ? 4 : 8);
+  static constexpr int LV = D + 8;
+  static constexpr int KEY_BYTES = (LK + LV) * (int)sizeof(T);
+  static_assert(SMEM_PER_CTA / KEY_BYTES >= KT, "one key tile must fit");
+};
+
+// keys per staged K/V chunk: every key (rounded up to KT) when they fit in
+// SMEM_PER_CTA, else the largest multiple of KT that does
+template <typename T, int D>
+int chunk_keys(int nk) {
+  const int whole = (nk + KT - 1) / KT * KT;
+  const int fit = SMEM_PER_CTA / Pad<T, D>::KEY_BYTES / KT * KT;
+  return whole < fit ? whole : fit;
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Stage keys [key0, key0 + n) of K (and V) into shared memory; rows n ..
+// the next multiple of KT are zeroed, and so are K's pad columns where a
+// bf16 mma step (16) is deeper than D.
+template <typename T, int D>
+__device__ __forceinline__ void stage_kv(T* Ks, T* Vs, const T* kb,
+                                         const T* vb, const Shape& sh,
+                                         int key0, int n, bool with_v) {
+  using L = Pad<T, D>;
+  tc::stage(Ks, L::LK, kb + key0 * sh.k_n, (int)sh.k_n, n, D);
+  if (with_v) tc::stage(Vs, L::LV, vb + key0 * sh.v_n, (int)sh.v_n, n, D);
+  const int end = round_up(n, KT);
+  const T zero = Num<T>::from_float(0.0f);
+  for (int i = threadIdx.x; i < (end - n) * D; i += blockDim.x) {
+    const int r = n + i / D, c = i % D;
+    Ks[r * L::LK + c] = zero;
+    if (with_v) Vs[r * L::LV + c] = zero;
+  }
+  if (!L::F32 && D < 16)
+    for (int i = threadIdx.x; i < end * (16 - D); i += blockDim.x)
+      Ks[i / (16 - D) * L::LK + D + i % (16 - D)] = zero;
+}
+
+// the 64-key tile's scores of this warp's rows: s[j][i] is key 8j + 2t +
+// (i & 1), row g + 8 (i >> 1)
+template <typename T, int D>
+__host__ __device__ constexpr int ksteps() {  // mma steps over a head width
+  return (D + tc::Mma<T>::KS - 1) / tc::Mma<T>::KS;
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NT, 1)
+__device__ __forceinline__ void scores(
+    float (&s)[8][4], const typename tc::Mma<T>::A (&qf)[ksteps<T, D>()],
+    const T* Ks) {
+  using P = tc::Mma<T>;
+  using L = Pad<T, D>;
+  constexpr int KSTEPS = ksteps<T, D>();
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[j][i] = 0.0f;
+#pragma unroll
+  for (int ks = 0; ks < KSTEPS; ++ks) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      typename P::B b;
+      if constexpr (L::F32) {
+        const float* kr = reinterpret_cast<const float*>(Ks) +
+                          (8 * j + g) * L::LK + ks * 8 + t;
+        tc::split_tf32(kr[0], b.hi[0], b.lo[0]);
+        tc::split_tf32(kr[4], b.hi[1], b.lo[1]);
+      } else {
+        tc::ldsm_x2(b.r, Ks + (8 * j + (lane & 7)) * L::LK + ks * 16 +
+                             ((lane >> 3) & 1) * 8);
+      }
+      P::mma(s[j], qf[ks], b);
+    }
+  }
+}
+
+// two CTAs per SM at every head width: at most 128 registers a thread
+// (f32 at D = 64 takes 174 without the cap)
+template <typename T, int D>
+__global__ void __launch_bounds__(32 * NW, 2)
     attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ bias,
                      T* __restrict__ out, Shape sh, float scale) {
-  static_assert(D % 4 == 0 && NT % D == 0 && ROWS_MAX % (NT / D) == 0,
-                "head width");
-  constexpr int KP = D + 1;           // padded K row
-  constexpr int RG = NT / D;          // row groups of the PV phase
-  constexpr int RPT = ROWS_MAX / RG;  // rows per thread in the PV phase
-  extern __shared__ float smem[];
-  const int nk = sh.nk;
-  const int r0 = blockIdx.x * sh.rows;
+  static_assert(D % 8 == 0, "head width");
+  using P = tc::Mma<T>;
+  using L = Pad<T, D>;
+  constexpr int KSTEPS = ksteps<T, D>();
+  constexpr int NO = D / 8;  // output column tiles
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Ks = reinterpret_cast<T*>(smem);
+  T* Vs = Ks + sh.kc * L::LK;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int h = blockIdx.y;
   const long long b = blockIdx.z;
-  const int nr = min(sh.rows, sh.nq - r0);
-  float* Qs = smem;                   // [rows, D]
-  float* Ks = Qs + sh.rows * D;       // [Nk, D + 1]
-  float* Vs = Ks + nk * KP;           // [Nk, D]
-  float* S = Vs + nk * D;             // [rows, Nk]
-  const int tid = threadIdx.x;
-
-  const T* qb = q + b * sh.q_b + h * sh.q_h + r0 * sh.q_n;
+  const int m0 = blockIdx.x * 16 * NW + (threadIdx.x >> 5) * 16;
+  const bool active = m0 < sh.nq;
+  const int nk = sh.nk;
+  const T* qb = q + b * sh.q_b + h * sh.q_h + (long long)m0 * sh.q_n;
   const T* kb = k + b * sh.k_b + h * sh.k_h;
   const T* vb = v + b * sh.v_b + h * sh.v_h;
-  for (int i = tid; i < nr * D; i += NT) {
-    const int r = i / D, d = i % D;
-    Qs[i] = ld(qb + r * sh.q_n + d);
-  }
-  for (int i = tid; i < nk * D; i += NT) {
-    const int j = i / D, d = i % D;
-    Ks[j * KP + d] = ld(kb + j * sh.k_n + d);
-    Vs[i] = ld(vb + j * sh.v_n + d);
-  }
-  __syncthreads();
+  const float* bh = bias == nullptr ? nullptr : bias + (size_t)h * sh.nq * nk;
+  const int rows[2] = {m0 + g, m0 + g + 8};
 
-  // scores: s = (q . k) * scale (+ bias), f32
-  const float* bh =
-      bias == nullptr ? nullptr : bias + ((size_t)h * sh.nq + r0) * nk;
-  const int groups = (nr + RB - 1) / RB;
-  for (int item = tid; item < groups * nk; item += NT) {
-    const int g = item / nk, j = item % nk;
-    float kr[D];
+  typename P::A qf[KSTEPS];
+  {
+    const int nr = sh.nq - m0;
+    auto qa = [&](int m, int d) {
+      return m < nr && d < D ? ld(qb + m * sh.q_n + d) : 0.0f;
+    };
 #pragma unroll
-    for (int d = 0; d < D; ++d) kr[d] = Ks[j * KP + d];
-    const int rend = min(RB, nr - g * RB);
-    for (int rr = 0; rr < rend; ++rr) {
-      const int r = g * RB + rr;
-      const float4* qr = reinterpret_cast<const float4*>(Qs + r * D);
-      float s = 0.0f;
+    for (int ks = 0; ks < KSTEPS; ++ks) qf[ks] = P::load_a(qa, 0, ks * P::KS);
+  }
+
+  // the scores in base 2, s = (acc * scale + bias) * log2(e), so that
+  // exp2(s - max) is the softmax's exp; -inf past the last key
+  const float sl = scale * LOG2E;
+  auto finish = [&](float (&s)[8][4], int key0) {
+    if (bh != nullptr) {
 #pragma unroll
-      for (int d4 = 0; d4 < D / 4; ++d4) {
-        const float4 qv = qr[d4];
-        s = fmaf(qv.x, kr[4 * d4], s);
-        s = fmaf(qv.y, kr[4 * d4 + 1], s);
-        s = fmaf(qv.z, kr[4 * d4 + 2], s);
-        s = fmaf(qv.w, kr[4 * d4 + 3], s);
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int key = key0 + 8 * j + 2 * t + (i & 1);
+          const int row = rows[i >> 1];
+          const float bv =
+              row < sh.nq && key < nk ? bh[(size_t)row * nk + key] : 0.0f;
+          s[j][i] = (s[j][i] * scale + bv) * LOG2E;
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[j][i] *= sl;
+    }
+    if (key0 + KT > nk) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (key0 + 8 * j + 2 * t + (i & 1) >= nk) s[j][i] = -CUDART_INF_F;
+    }
+  };
+
+  const int nchunks = (nk + sh.kc - 1) / sh.kc;
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.0f, 0.0f};
+  // pass 1: row max and sum, online
+  for (int c = 0; c < nchunks; ++c) {
+    const int key0 = c * sh.kc, n = min(sh.kc, nk - key0);
+    __syncthreads();
+    stage_kv<T, D>(Ks, Vs, kb, vb, sh, key0, n, nchunks == 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    if (!active) continue;
+    for (int kt = 0; kt < n; kt += KT) {
+      float s[8][4];
+      scores<T, D>(s, qf, Ks + kt * L::LK);
+      finish(s, key0 + kt);
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        float tm = -CUDART_INF_F;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          tm = fmaxf(tm, fmaxf(s[j][2 * rr], s[j][2 * rr + 1]));
+        const float mn = fmaxf(mx[rr], quad_max(tm));
+        float acc = l[rr] * exp2f(mx[rr] - mn);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          acc += exp2f(s[j][2 * rr] - mn) + exp2f(s[j][2 * rr + 1] - mn);
+        l[rr] = acc;
+        mx[rr] = mn;
       }
-      s *= scale;
-      if (bh != nullptr) s += bh[(size_t)r * nk + j];
-      S[r * nk + j] = s;
     }
   }
-  __syncthreads();
+  const float inv[2] = {1.0f / quad_sum(l[0]), 1.0f / quad_sum(l[1])};
 
-  // softmax, one warp per row: p = exp(s - max) / sum, rounded to T
-  const int lane = tid & 31;
-  for (int r = tid >> 5; r < nr; r += NT / 32) {
-    float* row = S + r * nk;
-    float m = -CUDART_INF_F;
-    for (int j = lane; j < nk; j += 32) m = fmaxf(m, row[j]);
-    m = warp_max(m);
-    float sum = 0.0f;
-    for (int j = lane; j < nk; j += 32) {
-      const float e = expf(row[j] - m);
-      row[j] = e;
-      sum += e;
+  // pass 2: p = T(exp(s - max) / sum), out = p v
+  float o[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[j][i] = 0.0f;
+  for (int c = 0; c < nchunks; ++c) {
+    const int key0 = c * sh.kc, n = min(sh.kc, nk - key0);
+    if (nchunks > 1) {
+      __syncthreads();
+      stage_kv<T, D>(Ks, Vs, kb, vb, sh, key0, n, true);
+      tc::cp_async_commit();
+      tc::cp_async_wait<0>();
+      __syncthreads();
     }
-    sum = warp_sum(sum);
-    for (int j = lane; j < nk; j += 32) row[j] = rnd<T>(row[j] / sum);
+    if (!active) continue;
+    for (int kt = 0; kt < n; kt += KT) {
+      float s[8][4];
+      scores<T, D>(s, qf, Ks + kt * L::LK);
+      finish(s, key0 + kt);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          s[j][i] = rnd<T>(exp2f(s[j][i] - mx[i >> 1]) * inv[i >> 1]);
+      const T* vt = Vs + kt * L::LV;
+      if constexpr (L::F32) {
+        const int src0 = (lane & ~3) | (t >> 1), src1 = src0 + 2;
+        const bool odd = t & 1;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float x[8];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            x[i] = __shfl_sync(0xffffffffu, s[j][i], src0);
+            x[4 + i] = __shfl_sync(0xffffffffu, s[j][i], src1);
+          }
+          typename P::A a;
+          tc::split_tf32(odd ? x[1] : x[0], a.hi[0], a.lo[0]);
+          tc::split_tf32(odd ? x[3] : x[2], a.hi[1], a.lo[1]);
+          tc::split_tf32(odd ? x[5] : x[4], a.hi[2], a.lo[2]);
+          tc::split_tf32(odd ? x[7] : x[6], a.hi[3], a.lo[3]);
+          const float* vr = reinterpret_cast<const float*>(vt) +
+                            (8 * j + t) * L::LV + g;
+#pragma unroll
+          for (int jn = 0; jn < NO; ++jn) {
+            typename P::B bv;
+            tc::split_tf32(vr[8 * jn], bv.hi[0], bv.lo[0]);
+            tc::split_tf32(vr[4 * L::LV + 8 * jn], bv.hi[1], bv.lo[1]);
+            P::mma(o[jn], a, bv);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          typename P::A a;
+          a.r[0] = tc::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+          a.r[1] = tc::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+          a.r[2] = tc::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+          a.r[3] = tc::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+          for (int jn = 0; jn < NO; ++jn) {
+            typename P::B bv;
+            tc::ldsm_x2_trans(bv.r,
+                              vt + (16 * kk + (lane & 15)) * L::LV + 8 * jn);
+            P::mma(o[jn], a, bv);
+          }
+        }
+      }
+    }
   }
-  __syncthreads();
-
-  // out = p v, f32 sums; thread (rg, d) owns rows rg, rg + RG, ...
-  const int d = tid % D, rg = tid / D;
-  const int mine = nr > rg ? (nr - rg + RG - 1) / RG : 0;
-  float acc[RPT];
+  if (!active) return;
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) acc[i] = 0.0f;
-  for (int j = 0; j < nk; ++j) {
-    const float vv = Vs[j * D + d];
+  for (int rr = 0; rr < 2; ++rr) {
+    if (rows[rr] >= sh.nq) continue;
+    T* orow = out + ((b * sh.nq + rows[rr]) * sh.h + h) * D + 2 * t;
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
-      if (i < mine) acc[i] = fmaf(S[(rg + RG * i) * nk + j], vv, acc[i]);
+    for (int jn = 0; jn < NO; ++jn) {
+      orow[8 * jn] = Num<T>::from_float(o[jn][2 * rr]);
+      orow[8 * jn + 1] = Num<T>::from_float(o[jn][2 * rr + 1]);
+    }
   }
-  T* ob = out + ((b * sh.nq + r0) * sh.h + h) * D + d;
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-    if (i < mine)
-      ob[(size_t)(rg + RG * i) * sh.h * D] = Num<T>::from_float(acc[i]);
 }
 
-// Shared memory of one CTA, in floats.
-__host__ __device__ constexpr long long smem_floats(int rows, int nk, int d) {
-  return (long long)rows * d + (long long)nk * (d + 1) + (long long)nk * d +
-         (long long)rows * nk;
+// plan: K/V chunk keys and CTAs resident per SM at Nk keys; launch: the
+// kernel over the chunk that plan gives
+template <typename T, int D>
+int plan(int nk, int* kc, int* ctas_per_sm) {
+  *kc = chunk_keys<T, D>(nk);
+  auto kern = attention_kernel<T, D>;
+  const int smem = *kc * Pad<T, D>::KEY_BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kern,
+                                                        32 * NW, smem);
+  return (int)err;
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const float* bias,
-           void* out, int B, const Shape& sh, float scale,
-           cudaStream_t stream) {
+           void* out, int B, Shape sh, float scale, cudaStream_t stream) {
+  sh.kc = chunk_keys<T, D>(sh.nk);
+  const int smem = sh.kc * Pad<T, D>::KEY_BYTES;
   auto kern = attention_kernel<T, D>;
-  const int smem = (int)(smem_floats(sh.rows, sh.nk, D) * sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((sh.nq + sh.rows - 1) / sh.rows, sh.h, B);
-  kern<<<grid, NT, smem, stream>>>(
+  dim3 grid((sh.nq + 16 * NW - 1) / (16 * NW), sh.h, B);
+  kern<<<grid, 32 * NW, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), bias, static_cast<T*>(out), sh, scale);
   return (int)cudaGetLastError();
@@ -190,17 +375,28 @@ int dispatch(int D, const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
+template <typename T>
+int dispatch_plan(int D, int nk, int* kc, int* ctas_per_sm) {
+  switch (D) {
+    case 8: return plan<T, 8>(nk, kc, ctas_per_sm);
+    case 16: return plan<T, 16>(nk, kc, ctas_per_sm);
+    case 32: return plan<T, 32>(nk, kc, ctas_per_sm);
+    case 64: return plan<T, 64>(nk, kc, ctas_per_sm);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace attn
 }  // namespace gator
 
-// Query rows per CTA: the most (up to 64, and at most Nq) whose tile fits
-// in `smem_bytes` of shared memory; 0 when not even one row fits.
-extern "C" int fused_attention_rows(int Nq, int Nk, int D, int smem_bytes) {
-  int rows = Nq < gator::attn::ROWS_MAX ? Nq : gator::attn::ROWS_MAX;
-  while (rows > 0 && gator::attn::smem_floats(rows, Nk, D) *
-                             (long long)sizeof(float) > smem_bytes)
-    --rows;
-  return rows;
+// The plan the launch takes at Nk keys: keys per staged K/V chunk (a
+// multiple of 64) into *kc and the CTAs resident per SM on the current
+// device into *ctas_per_sm. Returns a cudaError_t.
+extern "C" int fused_attention_plan(int dtype, int D, int Nk, int* kc,
+                                    int* ctas_per_sm) {
+  if (dtype == 0)
+    return gator::attn::dispatch_plan<float>(D, Nk, kc, ctas_per_sm);
+  return gator::attn::dispatch_plan<__nv_bfloat16>(D, Nk, kc, ctas_per_sm);
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out); D in {8, 16, 32, 64};
@@ -208,12 +404,12 @@ extern "C" int fused_attention_rows(int Nq, int Nk, int D, int smem_bytes) {
 // the cudaError_t of the launch.
 extern "C" int fused_attention_launch(
     int dtype, int D, const void* q, const void* k, const void* v,
-    const void* bias, void* out, int B, int Nq, int Nk, int H, int rows,
+    const void* bias, void* out, int B, int Nq, int Nk, int H,
     long long q_b, long long q_n, long long q_h, long long k_b, long long k_n,
     long long k_h, long long v_b, long long v_n, long long v_h, float scale,
     void* stream) {
-  const gator::attn::Shape sh{Nq,  Nk,  H,   rows, q_b, q_n, q_h,
-                              k_b, k_n, k_h, v_b,  v_n, v_h};
+  const gator::attn::Shape sh{Nq,  Nk,  H,   0,   q_b, q_n, q_h,
+                              k_b, k_n, k_h, v_b, v_n, v_h};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* bf = static_cast<const float*>(bias);
   if (dtype == 0)

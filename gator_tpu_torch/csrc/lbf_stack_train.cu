@@ -15,7 +15,7 @@
 // f32, more than a CTA's 227 KB. So the layer is cut into launches where
 // rows stop being independent, as K2 (csrc/lbf_stack.cu), and the
 // self-attention is flash-style:
-//   forward   lbf_rows_fwd   per 32-row tile: cross-attention, MLP,
+//   forward   lbf_rows_fwd   per TR-row tile: cross-attention, MLP,
 //                            std-LN, q2/k2/v2 (saved, f32);
 //             lbf_sa_fwd     per 64-query tile: online softmax over
 //                            64-key tiles with the dropped probabilities;
@@ -27,21 +27,41 @@
 //                            by tile from q2, k2 and the LSE, the mask
 //                            regenerated from the hash; dq2;
 //             lbf_sa_bwd_dkv per key tile: dk2, dv2;
-//             lbf_rows_bwd   per 32-row tile: recomputes the row-local
-//                            forward, backpropagates to dx, and leaves its
-//                            tile's share of the joints' dk/dv;
+//             lbf_rows_bwd   per TR-row tile: recomputes the row-local
+//                            forward, backpropagates to dx, leaves its
+//                            tile's share of the joints' dk/dv, the bias
+//                            and norm gradients, and, per row, the two
+//                            operands of every weight gradient (`ops`);
 //             lbf_joints_bwd per sample: sums those shares, LN1 backward
 //                            of the joint rows -> djoints;
+//             lbf_wgrad      the row-local weight gradients, X^T dY over
+//                            all B * Nv rows of `ops` in fixed chunks;
 //             reduce         sums the per-CTA parameter-gradient rows.
 // No launch holds a probability matrix; dS = P * (M * dP - D) per tile.
-// Parameter gradients go to a per-CTA partial row (grid-stride launches
-// with a fixed grid) and are summed in a fixed order: repeat runs are
-// bit-identical.
+// Parameter gradients go to per-CTA partial rows (fixed grids, fixed
+// chunks) summed in a fixed order: repeat runs are bit-identical.
 //
-// What bounds it on the H100: the FMA pipes. ~50 MFMA per layer and
-// sample forward, 24 M of it the 431 x 431 self-attention; the backward
-// recomputes and does ~2x the forward, all in f32 FMA loops (tensor cores
-// are the next step).
+// The row-local launches run every product on the tensor cores
+// (csrc/mma.cuh): bf16 m16n8k16 on the operands the kernel rounds to bf16
+// anyway, or in f32 the 3xTF32 split. A tile's activations live in shared
+// memory, in T where they only ever meet a product rounded (layer-norm
+// outputs, q, a1, h1, the probabilities times the masks, da1, dq) and in
+// f32 where the layer keeps f32 (residuals, scores, backward cotangents);
+// each product's weights are staged into shared memory with cp.async, one
+// [64, 64] block at a time. At TR = 16 rows a CTA takes 72.6 KB in bf16,
+// so three fit on an SM (TR = 32 and two-per-SM versions measured slower
+// on the H100). A CTA walks a contiguous run of tiles, so the joints' LN1,
+// K and V are computed once per sample it meets, not once per tile. The
+// weight gradients are not accumulated per tile: lbf_rows_bwd writes each
+// row's operands (`ops`, 2.3 KB a row in bf16) and lbf_wgrad sums them.
+//
+// What bounds it on the H100: a stage-2 step's row launches need ~37 GFMA
+// forward and ~100 backward (0.07 and 0.2 ms on bf16 tensor cores) and
+// move ~0.76 GB each way (0.23 ms); they take about 10x and 30x that,
+// in the element-wise work between the products (dropout hashes,
+// exponentials, GELU, LayerNorms), the block's syncs and the staging.
+// The flash self-attention launches still run f32 FMA loops.
+#include "mma.cuh"
 #include "train_ops.cuh"
 
 namespace gator {
@@ -53,7 +73,8 @@ constexpr int D = 32;     // head width
 constexpr int HID = 256;  // MLP hidden
 constexpr int JMAX = 32;  // most joint tokens
 constexpr int HJ = H * JMAX;
-constexpr int TR = 32;    // vertex rows per rows-kernel tile
+constexpr int TR = 16;    // vertex rows per rows-kernel tile
+constexpr int TO = 32;    // vertex rows per lbf_out_bwd tile
 constexpr int NT = 256;   // threads of the rows kernels
 constexpr int TQ = 64;    // query (or key) rows per self-attention CTA
 constexpr int TK = 64;    // rows per staged tile
@@ -67,30 +88,22 @@ enum Field {
   L0_W, L0_B, L1_W, L1_B, L2_W, L2_B, L3_W, L3_B, NFIELD
 };
 
-// CTA scratch: vertex-row buffers of [TR, width] f32, then joint buffers
-// of [JMAX, C].
-enum Buf {
-  B_X, B_YV, B_Q, B_P, B_MA, B_A1, B_X1, B_Y2, B_PRE, B_H1D, B_X2, B_Y3,
-  B_DY3, B_DX2, B_DH2, B_DH1, B_DY2, B_DX1, B_DO, B_DA1, B_DS, B_DQ, B_DYV,
-  B_DX, B_STATS, NROWBUF
+// Columns of one row of `ops` (T [B * Nv, O_W]): the forward activations
+// and backward cotangents that meet in a row-local weight gradient.
+enum OpCol {
+  O_YV = 0, O_A1 = 64, O_Y2 = 128, O_Y3 = 192, O_H1D = 256,
+  O_DQ2 = 512, O_DK2 = 576, O_DV2 = 640, O_DQ = 704, O_DO = 768,
+  O_DH2 = 832, O_DH1 = 896, O_W = 1152
 };
-enum JBuf { J_JT, J_YJ, J_KJ, J_VJ, J_DK, J_DV, J_DYJ, J_STATS, NJBUF };
 
-__host__ __device__ constexpr int bw(int b) {
-  return (b == B_P || b == B_MA || b == B_DS)         ? HJ
-         : (b == B_PRE || b == B_H1D || b == B_DH1)   ? HID
-         : b == B_STATS                               ? 4
-                                                      : C;
-}
-
-__host__ __device__ constexpr int boff(int b) {
-  return b == 0 ? 0 : boff(b - 1) + bw(b - 1) * TR;
-}
+// Global scratch of lbf_out_bwd ([TO, C] at 0) and lbf_joints_bwd (joint
+// buffers of [JMAX, C]), per CTA.
+enum JBuf { J_JT, J_YJ, J_DK, J_DV, J_DYJ, J_STATS, NJBUF };
 
 __host__ __device__ constexpr int jw(int b) { return b == J_STATS ? 4 : C; }
 
 __host__ __device__ constexpr int joff(int b) {
-  return b == 0 ? boff(NROWBUF) : joff(b - 1) + jw(b - 1) * JMAX;
+  return b == 0 ? TO * C : joff(b - 1) + jw(b - 1) * JMAX;
 }
 
 constexpr long long SCRATCH_FLOATS = joff(NJBUF);
@@ -105,6 +118,7 @@ struct Args {
   T* out;            // [B, Nv, C] layer output
   T* dx;             // [B, Nv, C]
   T* djt;            // [B, J, C]
+  T* ops;            // [B * Nv, O_W] weight-gradient operands (backward)
   float* y3;         // [B, Nv, C] (forward)
   float* q2;         // [B, Nv, C] saved by the forward
   float* k2;
@@ -116,13 +130,15 @@ struct Args {
   float* dq2;        // [B, Nv, C]
   float* dk2;
   float* dv2;
-  float* djk;        // [B, ntiles, J, C] per-tile shares of the joints' dk
+  float* djk;        // [B, nrt, J, C] per-tile shares of the joints' dk
   float* djv;        // and dv
   float* scratch;    // per-CTA scratch (SCRATCH_FLOATS each)
   float* part;       // per-CTA gradient partial rows (pstride each)
   long long pstride;
   float* masks;      // mask export (forward; may be null)
-  int B, Nv, J, ntiles;
+  int B, Nv, J;
+  int ntiles;        // TO-row tiles of lbf_out_bwd per sample
+  int nrt;           // row tiles of the rows kernels per sample
   uint32_t seed;
   int unit;
   Drop attn, proj, path, mlp, self_, outd;
@@ -144,14 +160,114 @@ struct Export {
   }
 };
 
-__device__ __forceinline__ float* sb(float* S, int b) { return S + boff(b); }
 __device__ __forceinline__ float* sj(float* S, int b) { return S + joff(b); }
 
-// The row-local forward of one (sample, tile): leaves every intermediate
-// the backward reads in S. fwd: write y3/q2/k2/v2 and export masks.
+// element (i, j) of a row-major (RowMajor) or column-major (ColMajor)
+// buffer of E in shared memory as f32: an mma operand accessor (mma.cuh),
+// whose fragments load whole in bf16 (ld even, rows 16-byte aligned)
+template <typename E>
+struct RowMajor {
+  static constexpr tc::Layout kLayout =
+      sizeof(E) == 2 ? tc::kRowMajor : tc::kNone;
+  const E* p;
+  int ld;
+  __device__ __forceinline__ float operator()(int i, int j) const {
+    return Num<E>::to_float(p[i * ld + j]);
+  }
+  __device__ __forceinline__ const E* ptr(int i, int j) const {
+    return p + i * ld + j;
+  }
+};
+
+template <typename E>
+struct ColMajor {
+  static constexpr tc::Layout kLayout =
+      sizeof(E) == 2 ? tc::kColMajor : tc::kNone;
+  const E* p;
+  int ld;
+  __device__ __forceinline__ float operator()(int i, int j) const {
+    return Num<E>::to_float(p[j * ld + i]);
+  }
+  __device__ __forceinline__ const E* ptr(int i, int j) const {
+    return p + j * ld + i;
+  }
+};
+
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+// Shared memory of the rows kernels, in bytes from the start. Rows of
+// width w are padded by 16 bytes (w + 4 f32, w + 16 / sizeof(T) T), so
+// that the fragment loads of a warp fall in distinct banks. U is used
+// twice: by the forward's transient buffers and, once they are dead, by
+// the backward's.
 template <typename T>
-__device__ void rows_fwd(const Args<T>& a, float* S, int b, int tile,
-                         bool fwd) {
+struct Rows {
+  static constexpr int E = 16 / (int)sizeof(T);
+  static constexpr int LF = C + 4, LFH = HID + 4;      // f32 row strides
+  static constexpr int LT = C + E, LTH = HID + E, LT3 = 3 * C + E;  // T
+  static constexpr int FB = TR * LF * 4;               // [TR, C] f32
+  static constexpr int TB = TR * LT * (int)sizeof(T);  // [TR, C] T
+  static constexpr int JB = JMAX * LT * (int)sizeof(T);
+  // live through the tile
+  static constexpr int X = 0, P = X + FB, X1 = P + FB, X2 = X1 + FB,
+                       Q = X2 + FB, PM = Q + TB, Y2 = PM + TB, KJ = Y2 + TB,
+                       VJ = KJ + JB, STATS = VJ + JB, U = STATS + TR * 8;
+  // U in the forward: the joints' input and LN1 (while a sample's K and V
+  // are made), then the rounded operands
+  static constexpr int JT = U, YJ = JT + JMAX * LF * 4;
+  static constexpr int YV = U, A1 = YV + TB, Y3 = A1 + TB, H1D = Y3 + TB;
+  static constexpr int U_FWD =
+      cmax(YJ + JB, H1D + TR * LTH * (int)sizeof(T)) - U;
+  // U in the backward: three [TR, C] f32 slots and one [TR, HID] f32 (the
+  // recomputed pre-activation, then dh1; before it the stacked dq2/dk2/dv2
+  // in T, after it da1 and dq in T)
+  static constexpr int S0 = U, S1 = S0 + FB, S2 = S1 + FB, R = S2 + FB;
+  static constexpr int U_BWD = R + TR * LFH * 4 - U;
+  static constexpr int WS = U + cmax(U_FWD, U_BWD);
+  static constexpr int BYTES = WS + C * LT * (int)sizeof(T);  // + [64, 64]
+  // CTAs an SM should hold: three in bf16 (72.6 KB each, so at most 85
+  // registers a thread); in f32 (93 KB) what the registers allow
+  static constexpr int MIN_CTAS = sizeof(T) == 2 ? 3 : 1;
+  static_assert(TR % 16 == 0, "whole mma row tiles");
+  static_assert(TR * LT3 * (int)sizeof(T) <= TR * LFH * 4,
+                "dq2/dk2/dv2 fit in R");
+  static_assert(2 * TB <= TR * LFH * 4, "da1 and dq fit in R");
+};
+
+template <typename E>
+__device__ __forceinline__ E* at(unsigned char* s, int off) {
+  return reinterpret_cast<E*>(s + off);
+}
+
+// stage the [64, 64] block at (r0, c0) of a weight whose rows are ldw
+// apart into WS (rows 64 + 16 / sizeof(T) apart) and commit; `ready`
+// waits for every staged copy and syncs the block. The [64, 256] and
+// [256, 64] MLP weights go through in four blocks, so that a CTA needs
+// 72.6 KB of shared memory in bf16 and three fit on an SM.
+template <typename T>
+__device__ __forceinline__ void load_w(T* WS, const T* W, int ldw, int r0,
+                                       int c0) {
+  tc::stage(WS, C + 16 / (int)sizeof(T), W + r0 * ldw + c0, ldw, C, C);
+  tc::cp_async_commit();
+}
+
+__device__ __forceinline__ void ready() {
+  tc::cp_async_wait<0>();
+  __syncthreads();
+}
+
+// The row-local forward of one (sample, tile) of TR rows, on the tensor
+// cores; leaves in shared memory what the backward reads. Rows past the
+// last vertex are computed from zero inputs (finite, and zero in every
+// cotangent) and never written out. fwd: write y3/q2/k2/v2 and export
+// masks; else write the weight-gradient operands of the forward to `ops`.
+// `jb` is the sample whose joints' K and V are in shared memory.
+template <typename T>
+__device__ void rows_fwd(const Args<T>& a, unsigned char* sm, int b, int tile,
+                         bool fwd, int& jb) {
+  using L = Rows<T>;
+  using N = Num<T>;
+  constexpr int MT = TR / 16, NB = TR / 16;
   const int Nv = a.Nv, J = a.J;
   const int r0 = tile * TR;
   const int nr = min(TR, Nv - r0);
@@ -159,65 +275,94 @@ __device__ void rows_fwd(const Args<T>& a, float* S, int b, int tile,
   const int tid = threadIdx.x;
   const T* p = a.w;
   const int* o = a.offs;
-  float* X = sb(S, B_X);
-  float* YV = sb(S, B_YV);
-  float* Q = sb(S, B_Q);
-  float* P = sb(S, B_P);
-  float* MA = sb(S, B_MA);
-  float* A1 = sb(S, B_A1);
-  float* X1 = sb(S, B_X1);
-  float* Y2 = sb(S, B_Y2);
-  float* PRE = sb(S, B_PRE);
-  float* H1D = sb(S, B_H1D);
-  float* X2 = sb(S, B_X2);
-  float* Y3 = sb(S, B_Y3);
-  float* JT = sj(S, J_JT);
-  float* YJ = sj(S, J_YJ);
-  float* KJ = sj(S, J_KJ);
-  float* VJ = sj(S, J_VJ);
+  float* X = at<float>(sm, L::X);
+  float* P = at<float>(sm, L::P);
+  float* X1 = at<float>(sm, L::X1);
+  float* X2 = at<float>(sm, L::X2);
+  T* Q = at<T>(sm, L::Q);
+  T* PM = at<T>(sm, L::PM);
+  T* Y2 = at<T>(sm, L::Y2);
+  T* KJ = at<T>(sm, L::KJ);
+  T* VJ = at<T>(sm, L::VJ);
+  T* YV = at<T>(sm, L::YV);
+  T* A1 = at<T>(sm, L::A1);
+  T* Y3 = at<T>(sm, L::Y3);
+  T* H1D = at<T>(sm, L::H1D);
+  T* WS = at<T>(sm, L::WS);
   const float scale = rsqrtf((float)D);
   const bool dump = fwd && a.masks != nullptr;
   const Export<T> ex(a);
+  // a weight-gradient operand of row r (backward only), rounded to T
+  auto put = [&](int col, int r, int c, float v) {
+    if (!fwd && r < nr) a.ops[(row0 + r) * O_W + col + c] = N::from_float(v);
+  };
 
-  for (int i = tid; i < nr * C; i += NT)
-    X[i] = Num<T>::to_float(a.x[row0 * C + i]);
-  for (int i = tid; i < J * C; i += NT)
-    JT[i] = Num<T>::to_float(a.jt[(size_t)b * J * C + i]);
-  __syncthreads();
-  layer_norm_rows<C>(X, C, nr, p + o[N1_W], p + o[N1_B], 1e-5f, false,
-                     [&](int r, int c, float v) { YV[r * C + c] = v; });
-  layer_norm_rows<C>(JT, C, J, p + o[N1_W], p + o[N1_B], 1e-5f, false,
-                     [&](int r, int c, float v) { YJ[r * C + c] = v; });
-  __syncthreads();
-  gemm_nn<T, 2>(YV, C, nr, C, p + o[WQ], C, C,
-                [&](int r, int c, float v) { Q[r * C + c] = v; });
-  gemm_nn<T, 2>(YJ, C, J, C, p + o[WK], C, C,
-                [&](int r, int c, float v) { KJ[r * C + c] = v; });
-  gemm_nn<T, 2>(YJ, C, J, C, p + o[WV], C, C,
-                [&](int r, int c, float v) { VJ[r * C + c] = v; });
-  __syncthreads();
+  __syncthreads();  // the previous tile is done with every buffer
+  if (b != jb) {
+    // this sample's joints: LN1 (rows J.. zero), then K and V
+    jb = b;
+    float* JT = at<float>(sm, L::JT);
+    T* YJ = at<T>(sm, L::YJ);
+    load_w(WS, p + o[WK], C, 0, 0);
+    for (int i = tid; i < J * C; i += NT)
+      JT[i / C * L::LF + i % C] = N::to_float(a.jt[(size_t)b * J * C + i]);
+    for (int i = tid; i < (JMAX - J) * C; i += NT)
+      YJ[(J + i / C) * L::LT + i % C] = N::from_float(0.0f);
+    __syncthreads();
+    layer_norm_rows<C>(JT, L::LF, J, p + o[N1_W], p + o[N1_B], 1e-5f, false,
+                       [&](int r, int c, float v) {
+                         YJ[r * L::LT + c] = N::from_float(v);
+                       });
+    ready();
+    tc::gemm<T, 1>(JMAX / 16, C / 8, C, RowMajor<T>{YJ, L::LT},
+                   RowMajor<T>{WS, L::LT}, [&](int r, int c, float v) {
+                     KJ[r * L::LT + c] = N::from_float(v);
+                   });
+    __syncthreads();
+    load_w(WS, p + o[WV], C, 0, 0);
+    ready();
+    tc::gemm<T, 1>(JMAX / 16, C / 8, C, RowMajor<T>{YJ, L::LT},
+                   RowMajor<T>{WS, L::LT}, [&](int r, int c, float v) {
+                     VJ[r * L::LT + c] = N::from_float(v);
+                   });
+    __syncthreads();
+  }
 
-  // cross-attention over the J joint keys: scores per (row, head, key),
-  // softmax and masks per (row, head), the output per (row, column)
-  for (int i = tid; i < nr * H * J; i += NT) {
-    const int m = i % J;
-    const int h = i / J % H;
-    const int r = i / (J * H);
-    float s = 0.0f;
-#pragma unroll
-    for (int d = 0; d < D; ++d)
-      s = fmaf(rnd<T>(Q[r * C + h * D + d]), rnd<T>(KJ[m * C + h * D + d]),
-               s);
-    P[r * HJ + h * JMAX + m] = s * scale;
+  load_w(WS, p + o[WQ], C, 0, 0);
+  for (int i = tid; i < TR * C; i += NT) {
+    const int r = i / C, c = i % C;
+    X[r * L::LF + c] = r < nr ? N::to_float(a.x[(row0 + r) * C + c]) : 0.0f;
   }
   __syncthreads();
-  for (int task = tid; task < H * nr; task += NT) {
-    const int h = task / nr;
-    const int r = task % nr;
+  layer_norm_rows<C>(X, L::LF, TR, p + o[N1_W], p + o[N1_B], 1e-5f, false,
+                     [&](int r, int c, float v) {
+                       YV[r * L::LT + c] = N::from_float(v);
+                       put(O_YV, r, c, v);
+                     });
+  ready();
+  tc::gemm<T, NB>(MT, C / 8, C, RowMajor<T>{YV, L::LT},
+                  RowMajor<T>{WS, L::LT}, [&](int r, int c, float v) {
+                    Q[r * L::LT + c] = N::from_float(v);
+                  });
+  __syncthreads();
+  load_w(WS, p + o[PROJ_W], C, 0, 0);
+
+  // cross-attention over the J joint keys (padded to JMAX): scores per
+  // head on the tensor cores, softmax and masks per (row, head), then the
+  // masked probabilities, rounded, times v
+  for (int h = 0; h < H; ++h)
+    tc::gemm<T, 1>(MT, JMAX / 8, D, RowMajor<T>{Q + h * D, L::LT},
+                   ColMajor<T>{KJ + h * D, L::LT}, [&](int r, int m, float v) {
+                     P[r * L::LF + h * JMAX + m] = v * scale;
+                   });
+  __syncthreads();
+  for (int task = tid; task < H * TR; task += NT) {
+    const int h = task / TR;
+    const int r = task % TR;
     const int n = r0 + r;
     const uint32_t key = stream_key(a.seed, a.unit, b, M_ATTN0 + h);
-    float* prow = P + r * HJ + h * JMAX;
-    float* mrow = MA + r * HJ + h * JMAX;
+    float* prow = P + r * L::LF + h * JMAX;
+    T* pmrow = PM + r * L::LT + h * JMAX;
     float mx = -CUDART_INF_F;
     for (int m = 0; m < J; ++m) mx = fmaxf(mx, prow[m]);
     float sum = 0.0f;
@@ -229,93 +374,127 @@ __device__ void rows_fwd(const Args<T>& a, float* S, int b, int tile,
     for (int m = 0; m < J; ++m) {
       const float mk = drop(key, n * J + m, a.attn);
       prow[m] /= sum;
-      mrow[m] = mk;
-      if (dump)
+      pmrow[m] = N::from_float(prow[m] * mk);
+      if (dump && r < nr)
         a.masks[ex.attn + (((size_t)b * H + h) * Nv + n) * J + m] = mk;
+    }
+    for (int m = J; m < JMAX; ++m) {
+      prow[m] = 0.0f;
+      pmrow[m] = N::from_float(0.0f);
     }
   }
   __syncthreads();
-  for (int i = tid; i < nr * C; i += NT) {
-    const int r = i / C;
-    const int c = i % C;
-    const int h = c / D;
-    const float* prow = P + r * HJ + h * JMAX;
-    const float* mrow = MA + r * HJ + h * JMAX;
-    float acc = 0.0f;
-    for (int m = 0; m < J; ++m)
-      acc = fmaf(rnd<T>(prow[m] * mrow[m]), rnd<T>(VJ[m * C + c]), acc);
-    A1[i] = acc;
-  }
-  __syncthreads();
+  for (int h = 0; h < H; ++h)
+    tc::gemm<T, 1>(MT, D / 8, JMAX, RowMajor<T>{PM + h * JMAX, L::LT},
+                   RowMajor<T>{VJ + h * D, L::LT}, [&](int r, int c, float v) {
+                     A1[r * L::LT + h * D + c] = N::from_float(v);
+                     put(O_A1, r, h * D + c, v);
+                   });
+  ready();
 
   // x1 = x + DropPath1(ProjDrop(a1 @ proj + b))
   const T* proj_b = p + o[PROJ_B];
   const float dp1 = drop(stream_key(a.seed, a.unit, b, M_DP1), 0, a.path);
   if (dump && tile == 0 && tid == 0) a.masks[ex.dp1 + b] = dp1;
   const uint32_t kproj = stream_key(a.seed, a.unit, b, M_PROJ);
-  gemm_nn<T, 2>(A1, C, nr, C, p + o[PROJ_W], C, C, [&](int r, int c,
-                                                       float v) {
-    const int n = r0 + r;
-    const float mk = drop(kproj, n * C + c, a.proj);
-    if (dump) a.masks[ex.proj + ((size_t)b * Nv + n) * C + c] = mk;
-    X1[r * C + c] = X[r * C + c] + (v + ld(proj_b + c)) * mk * dp1;
-  });
+  tc::gemm<T, NB>(MT, C / 8, C, RowMajor<T>{A1, L::LT},
+                  RowMajor<T>{WS, L::LT}, [&](int r, int c, float v) {
+                    const int n = r0 + r;
+                    const float mk = drop(kproj, n * C + c, a.proj);
+                    if (dump && r < nr)
+                      a.masks[ex.proj + ((size_t)b * Nv + n) * C + c] = mk;
+                    X1[r * L::LF + c] =
+                        X[r * L::LF + c] + (v + ld(proj_b + c)) * mk * dp1;
+                  });
   __syncthreads();
-  layer_norm_rows<C>(X1, C, nr, p + o[N2_W], p + o[N2_B], 1e-5f, false,
-                     [&](int r, int c, float v) { Y2[r * C + c] = v; });
-  __syncthreads();
+  load_w(WS, p + o[FC1_W], HID, 0, 0);
+  layer_norm_rows<C>(X1, L::LF, TR, p + o[N2_W], p + o[N2_B], 1e-5f, false,
+                     [&](int r, int c, float v) {
+                       Y2[r * L::LT + c] = N::from_float(v);
+                       put(O_Y2, r, c, v);
+                     });
   const T* fc1_b = p + o[FC1_B];
   const uint32_t kmlp1 = stream_key(a.seed, a.unit, b, M_MLP1);
-  gemm_nn<T>(Y2, C, nr, C, p + o[FC1_W], HID, HID, [&](int r, int c, float v) {
-    const int n = r0 + r;
-    const float pre = v + ld(fc1_b + c);
-    const float mk = drop(kmlp1, n * HID + c, a.mlp);
-    if (dump) a.masks[ex.mlp1 + ((size_t)b * Nv + n) * HID + c] = mk;
-    PRE[r * HID + c] = pre;
-    H1D[r * HID + c] = gelu_exact(pre) * mk;
-  });
-  __syncthreads();
-  // x2 = x1 + DropPath2(MlpDrop(h1d @ fc2 + b))
+  for (int nb = 0; nb < HID / C; ++nb) {  // fc1's four column blocks
+    ready();
+    tc::gemm<T, NB>(MT, C / 8, C, RowMajor<T>{Y2, L::LT},
+                    RowMajor<T>{WS, L::LT}, [&](int r, int cc, float v) {
+                      const int n = r0 + r, c = nb * C + cc;
+                      const float pre = v + ld(fc1_b + c);
+                      const float mk = drop(kmlp1, n * HID + c, a.mlp);
+                      if (dump && r < nr)
+                        a.masks[ex.mlp1 + ((size_t)b * Nv + n) * HID + c] =
+                            mk;
+                      const float h1 = gelu_exact(pre) * mk;
+                      H1D[r * L::LTH + c] = N::from_float(h1);
+                      put(O_H1D, r, c, h1);
+                    });
+    __syncthreads();
+    if (nb + 1 < HID / C)
+      load_w(WS, p + o[FC1_W], HID, 0, (nb + 1) * C);
+    else
+      load_w(WS, p + o[FC2_W], C, 0, 0);
+  }
+  // x2 = x1 + DropPath2(MlpDrop(h1d @ fc2 + b)), fc2's four row blocks
+  // summed in X2
   const T* fc2_b = p + o[FC2_B];
   const float dp2 = drop(stream_key(a.seed, a.unit, b, M_DP2), 0, a.path);
   if (dump && tile == 0 && tid == 0) a.masks[ex.dp2 + b] = dp2;
   const uint32_t kmlp2 = stream_key(a.seed, a.unit, b, M_MLP2);
-  gemm_nn<T, 2>(H1D, HID, nr, HID, p + o[FC2_W], C, C,
-                [&](int r, int c, float v) {
-               const int n = r0 + r;
-               const float mk = drop(kmlp2, n * C + c, a.mlp);
-               if (dump) a.masks[ex.mlp2 + ((size_t)b * Nv + n) * C + c] = mk;
-               X2[r * C + c] = X1[r * C + c] + (v + ld(fc2_b + c)) * mk * dp2;
-             });
-  __syncthreads();
-  layer_norm_rows<C>(X2, C, nr, p + o[A2W], p + o[B2W], 1e-6f, true,
+  for (int kb = 0; kb < HID / C; ++kb) {
+    ready();
+    tc::gemm<T, NB>(MT, C / 8, C, RowMajor<T>{H1D + kb * C, L::LTH},
+                    RowMajor<T>{WS, L::LT}, [&](int r, int c, float v) {
+                      float* x2 = X2 + r * L::LF + c;
+                      const float acc = kb == 0 ? v : *x2 + v;
+                      if (kb + 1 < HID / C) {
+                        *x2 = acc;
+                        return;
+                      }
+                      const int n = r0 + r;
+                      const float mk = drop(kmlp2, n * C + c, a.mlp);
+                      if (dump && r < nr)
+                        a.masks[ex.mlp2 + ((size_t)b * Nv + n) * C + c] = mk;
+                      *x2 = X1[r * L::LF + c] +
+                            (acc + ld(fc2_b + c)) * mk * dp2;
+                    });
+    __syncthreads();
+    if (kb + 1 < HID / C) load_w(WS, p + o[FC2_W], C, (kb + 1) * C, 0);
+  }
+  layer_norm_rows<C>(X2, L::LF, TR, p + o[A2W], p + o[B2W], 1e-6f, true,
                      [&](int r, int c, float v) {
-                       Y3[r * C + c] = v;
-                       if (fwd) a.y3[(row0 + r) * C + c] = v;
+                       Y3[r * L::LT + c] = N::from_float(v);
+                       if (!fwd)
+                         put(O_Y3, r, c, v);
+                       else if (r < nr)
+                         a.y3[(row0 + r) * C + c] = v;
                      });
-  __syncthreads();
   if (!fwd) return;
-  const T* l0_b = p + o[L0_B];
-  const T* l1_b = p + o[L1_B];
-  const T* l2_b = p + o[L2_B];
-  gemm_nn<T, 2>(Y3, C, nr, C, p + o[L0_W], C, C, [&](int r, int c, float v) {
-    a.q2[(row0 + r) * C + c] = v + ld(l0_b + c);
-  });
-  gemm_nn<T, 2>(Y3, C, nr, C, p + o[L1_W], C, C, [&](int r, int c, float v) {
-    a.k2[(row0 + r) * C + c] = v + ld(l1_b + c);
-  });
-  gemm_nn<T, 2>(Y3, C, nr, C, p + o[L2_W], C, C, [&](int r, int c, float v) {
-    a.v2[(row0 + r) * C + c] = v + ld(l2_b + c);
-  });
+  float* const outs[3] = {a.q2, a.k2, a.v2};
+  for (int i = 0; i < 3; ++i) {
+    __syncthreads();
+    load_w(WS, p + o[L0_W + 2 * i], C, 0, 0);
+    ready();
+    const T* bias = p + o[L0_B + 2 * i];
+    float* dst = outs[i] + row0 * C;
+    tc::gemm<T, NB>(MT, C / 8, C, RowMajor<T>{Y3, L::LT},
+                    RowMajor<T>{WS, L::LT}, [&](int r, int c, float v) {
+                      if (r < nr) dst[r * C + c] = v + ld(bias + c);
+                    });
+  }
 }
 
+// lbf_rows_fwd: each CTA walks a contiguous run of (sample, tile) items
 template <typename T>
-__global__ void __launch_bounds__(NT) lbf_rows_fwd_kernel(Args<T> a) {
-  float* S = a.scratch + (size_t)blockIdx.x * SCRATCH_FLOATS;
-  for (int t = blockIdx.x; t < a.B * a.ntiles; t += gridDim.x) {
-    rows_fwd(a, S, t / a.ntiles, t % a.ntiles, true);
-    __syncthreads();
-  }
+__global__ void __launch_bounds__(NT, Rows<T>::MIN_CTAS)
+    lbf_rows_fwd_kernel(Args<T> a) {
+  extern __shared__ __align__(16) unsigned char sm[];
+  const int total = a.B * a.nrt;
+  const int per = (total + gridDim.x - 1) / gridDim.x;
+  const int end = min(total, (int)(blockIdx.x + 1) * per);
+  int jb = -1;
+  for (int t = blockIdx.x * per; t < end; ++t)
+    rows_fwd<T>(a, sm, t / a.nrt, t % a.nrt, true, jb);
 }
 
 // Self-attention forward, one thread per (head, query row) of a 64-row
@@ -406,20 +585,20 @@ __global__ void __launch_bounds__(NT_SA) lbf_sa_fwd_kernel(Args<T> a) {
 }
 
 // da2 = (g * m_out) @ L3^T, L3's gradients, D_i = <rnd(da2_i), a2_i> per
-// head; one 32-row tile per step of a grid-stride loop.
+// head; one TO-row tile per step of a grid-stride loop.
 template <typename T>
 __global__ void __launch_bounds__(NT) lbf_out_bwd_kernel(Args<T> a) {
   float* S = a.scratch + (size_t)blockIdx.x * SCRATCH_FLOATS;
   float* PG = a.part + (size_t)blockIdx.x * a.pstride;
-  float* DSA = sb(S, B_DY3);
+  float* DSA = S;
   const int Nv = a.Nv;
   const int tid = threadIdx.x;
   const T* p = a.w;
   const int* o = a.offs;
   for (int t = blockIdx.x; t < a.B * a.ntiles; t += gridDim.x) {
     const int b = t / a.ntiles;
-    const int r0 = t % a.ntiles * TR;
-    const int nr = min(TR, Nv - r0);
+    const int r0 = t % a.ntiles * TO;
+    const int nr = min(TO, Nv - r0);
     const size_t row0 = (size_t)b * Nv + r0;
     const uint32_t kout = stream_key(a.seed, a.unit, b, M_OUT);
     for (int i = tid; i < nr * C; i += NT)
@@ -568,10 +747,17 @@ __global__ void __launch_bounds__(NT_SA) lbf_sa_bwd_dkv_kernel(Args<T> a) {
   }
 }
 
-// The row-local backward of one (sample, tile), after rows_fwd.
+
+// The row-local backward of one (sample, tile), after rows_fwd: dx, this
+// tile's shares of the joints' dk/dv, the bias and norm gradients into the
+// CTA's partial row PG, and the cotangent operands of the weight
+// gradients to `ops` (lbf_wgrad forms the products).
 template <typename T>
-__device__ void rows_bwd(const Args<T>& a, float* S, float* PG, int b,
-                         int tile) {
+__device__ void rows_bwd(const Args<T>& a, unsigned char* sm, float* PG,
+                         int b, int tile) {
+  using L = Rows<T>;
+  using N = Num<T>;
+  constexpr int MT = TR / 16, NB = TR / 16;
   const int Nv = a.Nv, J = a.J;
   const int r0 = tile * TR;
   const int nr = min(TR, Nv - r0);
@@ -579,174 +765,305 @@ __device__ void rows_bwd(const Args<T>& a, float* S, float* PG, int b,
   const int tid = threadIdx.x;
   const T* p = a.w;
   const int* o = a.offs;
-  float* X = sb(S, B_X);
-  float* YV = sb(S, B_YV);
-  float* Q = sb(S, B_Q);
-  float* P = sb(S, B_P);
-  float* MA = sb(S, B_MA);
-  float* A1 = sb(S, B_A1);
-  float* X1 = sb(S, B_X1);
-  float* Y2 = sb(S, B_Y2);
-  float* PRE = sb(S, B_PRE);
-  float* H1D = sb(S, B_H1D);
-  float* X2 = sb(S, B_X2);
-  float* Y3 = sb(S, B_Y3);
-  float* DY3 = sb(S, B_DY3);
-  float* DX2 = sb(S, B_DX2);
-  float* DH2 = sb(S, B_DH2);
-  float* DH1 = sb(S, B_DH1);
-  float* DY2 = sb(S, B_DY2);
-  float* DX1 = sb(S, B_DX1);
-  float* DO = sb(S, B_DO);
-  float* DA1 = sb(S, B_DA1);
-  float* DS = sb(S, B_DS);
-  float* DQ = sb(S, B_DQ);
-  float* DYV = sb(S, B_DYV);
-  float* DX = sb(S, B_DX);
-  float* STATS = sb(S, B_STATS);
-  float* KJ = sj(S, J_KJ);
-  float* VJ = sj(S, J_VJ);
+  const float* X = at<float>(sm, L::X);
+  const float* P = at<float>(sm, L::P);
+  const float* X1 = at<float>(sm, L::X1);
+  const float* X2 = at<float>(sm, L::X2);
+  const T* Q = at<T>(sm, L::Q);
+  const T* PM = at<T>(sm, L::PM);
+  const T* Y2 = at<T>(sm, L::Y2);
+  const T* KJ = at<T>(sm, L::KJ);
+  const T* VJ = at<T>(sm, L::VJ);
+  float* STATS = at<float>(sm, L::STATS);
+  float* S0 = at<float>(sm, L::S0);  // dy3, then dy2, then ds
+  float* DX = at<float>(sm, L::S1);  // dx2, then dx1
+  float* S2 = at<float>(sm, L::S2);  // dh2, then do, then dyv
+  float* RR = at<float>(sm, L::R);   // pre-activation, then dh1
+  T* D3 = at<T>(sm, L::R);           // dq2 | dk2 | dv2, before RR
+  T* DA1 = at<T>(sm, L::R);          // after RR
+  T* DQ = at<T>(sm, L::R + L::TB);
+  T* WS = at<T>(sm, L::WS);
   const float scale = rsqrtf((float)D);
-  const float* dq2 = a.dq2 + row0 * C;
-  const float* dk2 = a.dk2 + row0 * C;
-  const float* dv2 = a.dv2 + row0 * C;
+  auto put = [&](int col, int r, int c, float v) {
+    if (r < nr) a.ops[(row0 + r) * O_W + col + c] = N::from_float(v);
+  };
 
-  // out = y3 + ...: dy3 = g + dq2 L0^T + dk2 L1^T + dv2 L2^T
-  for (int i = tid; i < nr * C; i += NT)
-    DY3[i] = Num<T>::to_float(a.gout[row0 * C + i]);
-  __syncthreads();
-  gemm_nt<T, 2>(dq2, C, nr, C, p + o[L0_W], C, C,
-                [&](int r, int k, float v) { DY3[r * C + k] += v; });
-  gemm_nt<T, 2>(dk2, C, nr, C, p + o[L1_W], C, C,
-                [&](int r, int k, float v) { DY3[r * C + k] += v; });
-  gemm_nt<T, 2>(dv2, C, nr, C, p + o[L2_W], C, C,
-                [&](int r, int k, float v) { DY3[r * C + k] += v; });
-  gemm_tn_acc<T, 4>(Y3, C, dq2, C, nr, C, C, PG + o[L0_W], C);
-  gemm_tn_acc<T, 4>(Y3, C, dk2, C, nr, C, C, PG + o[L1_W], C);
-  gemm_tn_acc<T, 4>(Y3, C, dv2, C, nr, C, C, PG + o[L2_W], C);
-  colsum_acc(dq2, C, nr, C, PG + o[L0_B]);
-  colsum_acc(dk2, C, nr, C, PG + o[L1_B]);
-  colsum_acc(dv2, C, nr, C, PG + o[L2_B]);
-  __syncthreads();
+  __syncthreads();  // the forward's transient buffers are dead
+  // out = y3 + ...: dy3 = g + [dq2 dk2 dv2] [L0; L1; L2]^T, one weight
+  // at a time
+  load_w(WS, p + o[L0_W], C, 0, 0);
+  for (int i = tid; i < TR * 3 * C; i += NT) {
+    const int r = i / (3 * C), c = i % (3 * C);
+    const float* src = c < C ? a.dq2 : c < 2 * C ? a.dk2 : a.dv2;
+    const float v = r < nr ? src[(row0 + r) * C + c % C] : 0.0f;
+    D3[r * L::LT3 + c] = N::from_float(v);
+    put(O_DQ2, r, c, v);
+  }
+  for (int i = tid; i < TR * C; i += NT) {
+    const int r = i / C, c = i % C;
+    S0[r * L::LF + c] = r < nr ? N::to_float(a.gout[(row0 + r) * C + c]) : 0.0f;
+  }
+  colsum_acc(a.dq2 + row0 * C, C, nr, C, PG + o[L0_B]);
+  colsum_acc(a.dk2 + row0 * C, C, nr, C, PG + o[L1_B]);
+  colsum_acc(a.dv2 + row0 * C, C, nr, C, PG + o[L2_B]);
+  for (int i = 0; i < 3; ++i) {
+    ready();
+    tc::gemm<T, NB>(MT, C / 8, C, RowMajor<T>{D3 + i * C, L::LT3},
+                    ColMajor<T>{WS, L::LT},
+                    [&](int r, int c, float v) { S0[r * L::LF + c] += v; });
+    __syncthreads();
+    if (i < 2) load_w(WS, p + o[L0_W + 2 * (i + 1)], C, 0, 0);
+  }
   // y3 = StdLN(x2)
-  stdln_bwd_rows<C>(DY3, C, X2, C, nr, p + o[A2W], 1e-6f, STATS,
-                    [&](int r, int c, float v) { DX2[r * C + c] = v; });
+  stdln_bwd_rows<C>(S0, L::LF, X2, L::LF, TR, p + o[A2W], 1e-6f, STATS,
+                    [&](int r, int c, float v) { DX[r * L::LF + c] = v; });
   __syncthreads();
-  norm_param_acc(DY3, C, X2, C, STATS, nr, C, PG + o[A2W], PG + o[B2W]);
+  norm_param_acc(S0, L::LF, X2, L::LF, STATS, nr, C, PG + o[A2W],
+                 PG + o[B2W]);
+  load_w(WS, p + o[FC1_W], HID, 0, 0);
   // x2 = x1 + dp2 * m2 * h2
   const float dp2 = drop(stream_key(a.seed, a.unit, b, M_DP2), 0, a.path);
   const uint32_t kmlp2 = stream_key(a.seed, a.unit, b, M_MLP2);
-  for (int i = tid; i < nr * C; i += NT)
-    DH2[i] = DX2[i] * dp2 * drop(kmlp2, (r0 + i / C) * C + i % C, a.mlp);
-  __syncthreads();
-  // MLP
+  for (int i = tid; i < TR * C; i += NT) {
+    const int r = i / C, c = i % C;
+    const float v = DX[r * L::LF + c] * dp2 *
+                    drop(kmlp2, (r0 + r) * C + c, a.mlp);
+    S2[r * L::LF + c] = v;
+    put(O_DH2, r, c, v);
+  }
+  ready();
+  colsum_acc(S2, L::LF, nr, C, PG + o[FC2_B]);
+  // MLP: the pre-activation again (the forward's chain, the same values),
+  // then dh1 = (dh2 fc2^T) * m1 * gelu'(pre) in its place, by 64 columns
+  const T* fc1_b = p + o[FC1_B];
+  for (int nb = 0; nb < HID / C; ++nb) {
+    if (nb > 0) ready();
+    tc::gemm<T, NB>(MT, C / 8, C, RowMajor<T>{Y2, L::LT},
+                    RowMajor<T>{WS, L::LT}, [&](int r, int c, float v) {
+                      RR[r * L::LFH + nb * C + c] = v + ld(fc1_b + nb * C + c);
+                    });
+    __syncthreads();
+    if (nb + 1 < HID / C)
+      load_w(WS, p + o[FC1_W], HID, 0, (nb + 1) * C);
+    else
+      load_w(WS, p + o[FC2_W], C, 0, 0);
+  }
   const uint32_t kmlp1 = stream_key(a.seed, a.unit, b, M_MLP1);
-  gemm_nt<T>(DH2, C, nr, C, p + o[FC2_W], C, HID, [&](int r, int k, float v) {
-    DH1[r * HID + k] = v * drop(kmlp1, (r0 + r) * HID + k, a.mlp) *
-                       gelu_grad(PRE[r * HID + k]);
-  });
-  gemm_tn_acc<T>(H1D, HID, DH2, C, nr, HID, C, PG + o[FC2_W], C);
-  colsum_acc(DH2, C, nr, C, PG + o[FC2_B]);
+  for (int nb = 0; nb < HID / C; ++nb) {
+    ready();
+    tc::gemm<T, NB>(MT, C / 8, C, RowMajor<float>{S2, L::LF},
+                    ColMajor<T>{WS, L::LT}, [&](int r, int kk, float v) {
+                      const int k = nb * C + kk;
+                      float* e = RR + r * L::LFH + k;
+                      const float d =
+                          v * drop(kmlp1, (r0 + r) * HID + k, a.mlp) *
+                          gelu_grad(*e);
+                      *e = d;
+                      put(O_DH1, r, k, d);
+                    });
+    __syncthreads();
+    if (nb + 1 < HID / C)
+      load_w(WS, p + o[FC2_W], C, (nb + 1) * C, 0);
+    else
+      load_w(WS, p + o[FC1_W], HID, 0, 0);
+  }
+  colsum_acc(RR, L::LFH, nr, HID, PG + o[FC1_B]);
+  // dy2 = dh1 fc1^T, fc1's four column blocks summed in S0
+  for (int kb = 0; kb < HID / C; ++kb) {
+    ready();
+    tc::gemm<T, NB>(MT, C / 8, C, RowMajor<float>{RR + kb * C, L::LFH},
+                    ColMajor<T>{WS, L::LT}, [&](int r, int k, float v) {
+                      float* e = S0 + r * L::LF + k;
+                      *e = kb == 0 ? v : *e + v;
+                    });
+    __syncthreads();
+    if (kb + 1 < HID / C) load_w(WS, p + o[FC1_W], HID, 0, (kb + 1) * C);
+  }
+  ln_bwd_rows<C>(S0, L::LF, X1, L::LF, TR, p + o[N2_W], 1e-5f, STATS,
+                 [&](int r, int c, float v) { DX[r * L::LF + c] += v; });
   __syncthreads();
-  gemm_tn_acc<T>(Y2, C, DH1, HID, nr, C, HID, PG + o[FC1_W], HID);
-  colsum_acc(DH1, HID, nr, HID, PG + o[FC1_B]);
-  gemm_nt<T, 2>(DH1, HID, nr, HID, p + o[FC1_W], HID, C,
-                [&](int r, int k, float v) { DY2[r * C + k] = v; });
-  __syncthreads();
-  ln_bwd_rows<C>(DY2, C, X1, C, nr, p + o[N2_W], 1e-5f, STATS,
-                 [&](int r, int c, float v) {
-                   DX1[r * C + c] = DX2[r * C + c] + v;
-                 });
-  __syncthreads();
-  norm_param_acc(DY2, C, X1, C, STATS, nr, C, PG + o[N2_W], PG + o[N2_B]);
+  norm_param_acc(S0, L::LF, X1, L::LF, STATS, nr, C, PG + o[N2_W],
+                 PG + o[N2_B]);
+  load_w(WS, p + o[PROJ_W], C, 0, 0);
   // x1 = x + dp1 * mproj * (a1 @ proj + b)
   const float dp1 = drop(stream_key(a.seed, a.unit, b, M_DP1), 0, a.path);
   const uint32_t kproj = stream_key(a.seed, a.unit, b, M_PROJ);
-  for (int i = tid; i < nr * C; i += NT)
-    DO[i] = DX1[i] * dp1 * drop(kproj, (r0 + i / C) * C + i % C, a.proj);
+  for (int i = tid; i < TR * C; i += NT) {
+    const int r = i / C, c = i % C;
+    const float v = DX[r * L::LF + c] * dp1 *
+                    drop(kproj, (r0 + r) * C + c, a.proj);
+    S2[r * L::LF + c] = v;
+    put(O_DO, r, c, v);
+  }
+  ready();
+  colsum_acc(S2, L::LF, nr, C, PG + o[PROJ_B]);
+  tc::gemm<T, NB>(MT, C / 8, C, RowMajor<float>{S2, L::LF},
+                  ColMajor<T>{WS, L::LT}, [&](int r, int k, float v) {
+                    DA1[r * L::LT + k] = N::from_float(v);
+                  });
   __syncthreads();
-  gemm_nt<T, 2>(DO, C, nr, C, p + o[PROJ_W], C, C,
-                [&](int r, int k, float v) { DA1[r * C + k] = v; });
-  gemm_tn_acc<T, 4>(A1, C, DO, C, nr, C, C, PG + o[PROJ_W], C);
-  colsum_acc(DO, C, nr, C, PG + o[PROJ_B]);
-  __syncthreads();
+  load_w(WS, p + o[WQ], C, 0, 0);
   // cross-attention backward: dprob = m * (da . v) per (row, head, key),
   // then ds = p * (dprob - <dprob, p>) * scale per (row, head)
-  for (int i = tid; i < nr * H * J; i += NT) {
-    const int m = i % J;
-    const int h = i / J % H;
-    const int r = i / (J * H);
-    float s = 0.0f;
-#pragma unroll
-    for (int d = 0; d < D; ++d)
-      s = fmaf(rnd<T>(DA1[r * C + h * D + d]), rnd<T>(VJ[m * C + h * D + d]),
-               s);
-    DS[r * HJ + h * JMAX + m] = s * MA[r * HJ + h * JMAX + m];
+  for (int h = 0; h < H; ++h) {
+    const uint32_t key = stream_key(a.seed, a.unit, b, M_ATTN0 + h);
+    tc::gemm<T, 1>(MT, JMAX / 8, D, RowMajor<T>{DA1 + h * D, L::LT},
+                   ColMajor<T>{VJ + h * D, L::LT}, [&](int r, int m, float v) {
+                     S0[r * L::LF + h * JMAX + m] =
+                         m < J ? v * drop(key, (r0 + r) * J + m, a.attn)
+                               : 0.0f;
+                   });
   }
   __syncthreads();
-  for (int task = tid; task < H * nr; task += NT) {
-    const int h = task / nr;
-    const int r = task % nr;
-    const float* prow = P + r * HJ + h * JMAX;
-    float* dsrow = DS + r * HJ + h * JMAX;
+  for (int task = tid; task < H * TR; task += NT) {
+    const int h = task / TR;
+    const int r = task % TR;
+    const float* prow = P + r * L::LF + h * JMAX;
+    float* dsrow = S0 + r * L::LF + h * JMAX;
     float dot = 0.0f;
     for (int m = 0; m < J; ++m) dot = fmaf(dsrow[m], prow[m], dot);
-    for (int m = 0; m < J; ++m)
-      dsrow[m] = prow[m] * (dsrow[m] - dot) * scale;
+    for (int m = 0; m < JMAX; ++m)
+      dsrow[m] = m < J ? prow[m] * (dsrow[m] - dot) * scale : 0.0f;
   }
   __syncthreads();
-  for (int i = tid; i < nr * C; i += NT) {
-    const int r = i / C;
-    const int c = i % C;
-    const int h = c / D;
-    float s = 0.0f;
-    for (int m = 0; m < J; ++m)
-      s = fmaf(rnd<T>(DS[r * HJ + h * JMAX + m]), rnd<T>(KJ[m * C + c]), s);
-    DQ[i] = s;
+  // dq, and this tile's share of the joints' dk and dv
+  float* djk = a.djk + (((size_t)b * a.nrt + tile) * J) * C;
+  float* djv = a.djv + (((size_t)b * a.nrt + tile) * J) * C;
+  for (int h = 0; h < H; ++h) {
+    tc::gemm<T, 1>(MT, D / 8, JMAX, RowMajor<float>{S0 + h * JMAX, L::LF},
+                   RowMajor<T>{KJ + h * D, L::LT}, [&](int r, int c, float v) {
+                     DQ[r * L::LT + h * D + c] = N::from_float(v);
+                     put(O_DQ, r, h * D + c, v);
+                   });
+    tc::gemm<T, 1>(JMAX / 16, D / 8, TR, ColMajor<float>{S0 + h * JMAX, L::LF},
+                   RowMajor<T>{Q + h * D, L::LT}, [&](int m, int c, float v) {
+                     if (m < J) djk[m * C + h * D + c] = v;
+                   });
+    tc::gemm<T, 1>(JMAX / 16, D / 8, TR, ColMajor<T>{PM + h * JMAX, L::LT},
+                   RowMajor<T>{DA1 + h * D, L::LT}, [&](int m, int c, float v) {
+                     if (m < J) djv[m * C + h * D + c] = v;
+                   });
   }
-  // this tile's share of the joints' dk and dv
-  float* djk = a.djk + (((size_t)b * a.ntiles + tile) * J) * C;
-  float* djv = a.djv + (((size_t)b * a.ntiles + tile) * J) * C;
-  for (int i = tid; i < J * C; i += NT) {
-    const int m = i / C;
-    const int c = i % C;
-    const int h = c / D;
-    float sk = 0.0f, sv = 0.0f;
-    for (int r = 0; r < nr; ++r) {
-      const int pm = r * HJ + h * JMAX + m;
-      sk = fmaf(rnd<T>(DS[pm]), rnd<T>(Q[r * C + c]), sk);
-      sv = fmaf(rnd<T>(P[pm] * MA[pm]), rnd<T>(DA1[r * C + c]), sv);
-    }
-    djk[i] = sk;
-    djv[i] = sv;
-  }
+  ready();
+  tc::gemm<T, NB>(MT, C / 8, C, RowMajor<T>{DQ, L::LT},
+                  ColMajor<T>{WS, L::LT},
+                  [&](int r, int k, float v) { S2[r * L::LF + k] = v; });
   __syncthreads();
-  gemm_nt<T, 2>(DQ, C, nr, C, p + o[WQ], C, C,
-                [&](int r, int k, float v) { DYV[r * C + k] = v; });
-  gemm_tn_acc<T, 4>(YV, C, DQ, C, nr, C, C, PG + o[WQ], C);
-  __syncthreads();
-  ln_bwd_rows<C>(DYV, C, X, C, nr, p + o[N1_W], 1e-5f, STATS,
+  ln_bwd_rows<C>(S2, L::LF, X, L::LF, TR, p + o[N1_W], 1e-5f, STATS,
                  [&](int r, int c, float v) {
-                   DX[r * C + c] = DX1[r * C + c] + v;
+                   if (r < nr)
+                     a.dx[(row0 + r) * C + c] =
+                         N::from_float(DX[r * L::LF + c] + v);
                  });
   __syncthreads();
-  norm_param_acc(DYV, C, X, C, STATS, nr, C, PG + o[N1_W], PG + o[N1_B]);
-  for (int i = tid; i < nr * C; i += NT)
-    a.dx[row0 * C + i] = Num<T>::from_float(DX[i]);
+  norm_param_acc(S2, L::LF, X, L::LF, STATS, nr, C, PG + o[N1_W],
+                 PG + o[N1_B]);
 }
 
-// Capped at 128 registers (two CTAs per SM): at its natural 205 one CTA
-// fit per SM, and the cap measured faster on the H100 despite its spills.
 template <typename T>
-__global__ void __launch_bounds__(NT, 2) lbf_rows_bwd_kernel(Args<T> a) {
-  float* S = a.scratch + (size_t)blockIdx.x * SCRATCH_FLOATS;
+__global__ void __launch_bounds__(NT, Rows<T>::MIN_CTAS)
+    lbf_rows_bwd_kernel(Args<T> a) {
+  extern __shared__ __align__(16) unsigned char sm[];
   float* PG = a.part + (size_t)blockIdx.x * a.pstride;
-  for (int t = blockIdx.x; t < a.B * a.ntiles; t += gridDim.x) {
-    const int b = t / a.ntiles;
-    const int tile = t % a.ntiles;
-    rows_fwd(a, S, b, tile, false);
-    rows_bwd(a, S, PG, b, tile);
+  const int total = a.B * a.nrt;
+  const int per = (total + gridDim.x - 1) / gridDim.x;
+  const int end = min(total, (int)(blockIdx.x + 1) * per);
+  int jb = -1;
+  for (int t = blockIdx.x * per; t < end; ++t) {
+    const int b = t / a.nrt, tile = t % a.nrt;
+    rows_fwd<T>(a, sm, b, tile, false, jb);
+    rows_bwd<T>(a, sm, PG, b, tile);
+  }
+}
+
+// lbf_wgrad's products: G[k][n] = sum_r ops[r][ca + k] * ops[r][cb + n],
+// a 64 x 64 tile of field `field`, at element g0 of it, rows ldg apart
+struct WJob {
+  int ca, cb, field, g0, ldg;
+};
+
+constexpr int NWJOB = 13;
+
+__device__ __forceinline__ WJob wjob(int j) {
+  if (j < 3) return {O_Y3, O_DQ2 + C * j, L0_W + 2 * j, 0, C};
+  if (j < 7) return {O_H1D + C * (j - 3), O_DH2, FC2_W, C * C * (j - 3), C};
+  if (j < 11) return {O_Y2, O_DH1 + C * (j - 7), FC1_W, C * (j - 7), HID};
+  if (j == 11) return {O_A1, O_DO, PROJ_W, 0, C};
+  return {O_YV, O_DQ, WQ, 0, C};
+}
+
+constexpr int WR = 64;  // rows of ops per staged chunk
+
+// One CTA per (64 x 64 tile, chunk of `per` rows): the chunk's rows staged
+// through shared memory in a two-deep cp.async ring, each 64 rows' sum on
+// the tensor cores and the running sum in f32 registers (rounded to
+// nearest: the tensor cores' accumulation does not round so, and a chunk
+// of thousands of rows would drift), in a fixed order; the tile written
+// to the chunk's partial row of `part`.
+template <typename T>
+__global__ void __launch_bounds__(NT) lbf_wgrad_kernel(
+    const T* __restrict__ ops, const int* __restrict__ offs, float* part,
+    long long pstride, int R, int per) {
+  using Pm = tc::Mma<T>;
+  constexpr int LD = C + 16 / (int)sizeof(T);
+  extern __shared__ __align__(16) unsigned char sm[];
+  T* As = reinterpret_cast<T*>(sm);  // [2][WR][LD]
+  T* Bs = As + 2 * WR * LD;
+  const WJob job = wjob(blockIdx.x);
+  const int rb = blockIdx.y * per, re = min(R, rb + per);
+  const int nchunk = re > rb ? (re - rb + WR - 1) / WR : 0;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
+            t = threadIdx.x & 3;
+  const int m0 = (warp & 3) * 16, n0 = (warp >> 2) * 32;
+  auto fetch = [&](int buf, int c) {
+    const int r = rb + c * WR, n = min(WR, re - r);
+    T* A = As + buf * WR * LD;
+    T* B = Bs + buf * WR * LD;
+    tc::stage(A, LD, ops + (size_t)r * O_W + job.ca, O_W, n, C);
+    tc::stage(B, LD, ops + (size_t)r * O_W + job.cb, O_W, n, C);
+    for (int i = threadIdx.x; i < (WR - n) * C; i += NT) {
+      A[(n + i / C) * LD + i % C] = Num<T>::from_float(0.0f);
+      B[(n + i / C) * LD + i % C] = Num<T>::from_float(0.0f);
+    }
+    tc::cp_async_commit();
+  };
+  float tot[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) tot[j][i] = 0.0f;
+  if (nchunk > 0) fetch(0, 0);
+  for (int c = 0; c < nchunk; ++c) {
+    if (c + 1 < nchunk) {
+      fetch((c + 1) & 1, c + 1);
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
     __syncthreads();
+    const ColMajor<T> fa{As + (c & 1) * WR * LD, LD};
+    const RowMajor<T> fb{Bs + (c & 1) * WR * LD, LD};
+    float acc[4][4] = {};
+    for (int k0 = 0; k0 < WR; k0 += Pm::KS) {
+      const typename Pm::A A = Pm::load_a(fa, m0, k0);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        Pm::mma(acc[j], A, Pm::load_b(fb, k0, n0 + 8 * j));
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) tot[j][i] += acc[j][i];
+    __syncthreads();
+  }
+  float* G = part + (size_t)blockIdx.y * pstride + offs[job.field] + job.g0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int n = n0 + 8 * j + 2 * t;
+    G[(m0 + g) * job.ldg + n] = tot[j][0];
+    G[(m0 + g) * job.ldg + n + 1] = tot[j][1];
+    G[(m0 + g + 8) * job.ldg + n] = tot[j][2];
+    G[(m0 + g + 8) * job.ldg + n + 1] = tot[j][3];
   }
 }
 
@@ -770,8 +1087,8 @@ __global__ void __launch_bounds__(NT) lbf_joints_bwd_kernel(Args<T> a) {
     for (int i = tid; i < J * C; i += NT) {
       JT[i] = Num<T>::to_float(a.jt[(size_t)b * J * C + i]);
       float sk = 0.0f, sv = 0.0f;
-      for (int t = 0; t < a.ntiles; ++t) {
-        const size_t at = (((size_t)b * a.ntiles + t) * J) * C + i;
+      for (int t = 0; t < a.nrt; ++t) {
+        const size_t at = (((size_t)b * a.nrt + t) * J) * C + i;
         sk += a.djk[at];
         sv += a.djv[at];
       }
@@ -801,8 +1118,9 @@ __global__ void __launch_bounds__(NT) lbf_joints_bwd_kernel(Args<T> a) {
 
 template <typename T>
 Args<T> make_args(const void* x, const void* jt, const void* w,
-                  const void* offs, int B, int Nv, int J, unsigned seed,
-                  int unit, const unsigned* thr, const float* scl) {
+                  const void* offs, int B, int Nv, int J,
+                  unsigned seed, int unit, const unsigned* thr,
+                  const float* scl) {
   Args<T> a{};
   a.x = static_cast<const T*>(x);
   a.jt = static_cast<const T*>(jt);
@@ -811,7 +1129,8 @@ Args<T> make_args(const void* x, const void* jt, const void* w,
   a.B = B;
   a.Nv = Nv;
   a.J = J;
-  a.ntiles = (Nv + TR - 1) / TR;
+  a.ntiles = (Nv + TO - 1) / TO;
+  a.nrt = (Nv + TR - 1) / TR;
   a.seed = seed;
   a.unit = unit;
   a.attn = Drop{thr[0], scl[0]};
@@ -823,11 +1142,39 @@ Args<T> make_args(const void* x, const void* jt, const void* w,
   return a;
 }
 
+// launch a kernel that takes `smem` bytes of dynamic shared memory
+template <typename K, typename... A>
+int launch_smem(K kern, int grid, int smem, cudaStream_t s, A... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, NT, smem, s>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// CTAs of lbf_rows_bwd (and lbf_rows_fwd, launched on the same grid) the
+// device holds at once
+template <typename T>
+int rows_wave() {
+  auto kern = lbf_rows_bwd_kernel<T>;
+  int dev = 0, sms = 0, per = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           Rows<T>::BYTES) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per, kern, NT, Rows<T>::BYTES) != cudaSuccess)
+    return 0;
+  return per * sms;
+}
+
 // the pointers of one call, in the order of the C interface below
 struct Ptrs {
   void *out, *y3, *q2, *k2, *v2, *a2, *lse, *scratch, *masks;
   const void* gout;
-  void *dx, *djt, *da2, *dd, *dq2, *dk2, *dv2, *djk, *djv, *part, *grads;
+  void *dx, *djt, *da2, *dd, *dq2, *dk2, *dv2, *djk, *djv, *ops, *part,
+      *grads;
 };
 
 template <typename T>
@@ -839,10 +1186,8 @@ int run_fwd(Args<T> a, const Ptrs& q, int nctas, cudaStream_t s) {
   a.v2 = static_cast<float*>(q.v2);
   a.a2 = static_cast<float*>(q.a2);
   a.lse = static_cast<float*>(q.lse);
-  a.scratch = static_cast<float*>(q.scratch);
   a.masks = static_cast<float*>(q.masks);
-  lbf_rows_fwd_kernel<T><<<nctas, NT, 0, s>>>(a);
-  int err = (int)cudaGetLastError();
+  int err = launch_smem(lbf_rows_fwd_kernel<T>, nctas, Rows<T>::BYTES, s, a);
   if (err != 0) return err;
   dim3 grid((a.Nv + TQ - 1) / TQ, a.B);
   lbf_sa_fwd_kernel<T><<<grid, NT_SA, 0, s>>>(a);
@@ -850,8 +1195,9 @@ int run_fwd(Args<T> a, const Ptrs& q, int nctas, cudaStream_t s) {
 }
 
 template <typename T>
-int run_bwd(Args<T> a, const Ptrs& q, int nc_out, int nc_rows, int nc_j,
-            long long pstride, int ngrad, cudaStream_t s) {
+int run_bwd(Args<T> a, const Ptrs& q, int nc_out, int nc_rows,
+            int nc_j, int nc_w, int wper, long long pstride, int ngrad,
+            cudaStream_t s) {
   a.q2 = static_cast<float*>(q.q2);
   a.k2 = static_cast<float*>(q.k2);
   a.v2 = static_cast<float*>(q.v2);
@@ -868,6 +1214,7 @@ int run_bwd(Args<T> a, const Ptrs& q, int nc_out, int nc_rows, int nc_j,
   a.dv2 = static_cast<float*>(q.dv2);
   a.djk = static_cast<float*>(q.djk);
   a.djv = static_cast<float*>(q.djv);
+  a.ops = static_cast<T*>(q.ops);
   a.pstride = pstride;
   float* part = static_cast<float*>(q.part);
   int err;
@@ -880,12 +1227,23 @@ int run_bwd(Args<T> a, const Ptrs& q, int nc_out, int nc_rows, int nc_j,
   lbf_sa_bwd_dkv_kernel<T><<<grid, NT_SA, 0, s>>>(a);
   if ((err = (int)cudaGetLastError()) != 0) return err;
   a.part = part + (size_t)nc_out * pstride;
-  lbf_rows_bwd_kernel<T><<<nc_rows, NT, 0, s>>>(a);
-  if ((err = (int)cudaGetLastError()) != 0) return err;
+  if ((err = launch_smem(lbf_rows_bwd_kernel<T>, nc_rows, Rows<T>::BYTES, s,
+                         a)) != 0)
+    return err;
   a.part = part + (size_t)(nc_out + nc_rows) * pstride;
   lbf_joints_bwd_kernel<T><<<nc_j, NT, 0, s>>>(a);
   if ((err = (int)cudaGetLastError()) != 0) return err;
-  return reduce_partials(part, nc_out + nc_rows + nc_j, pstride, ngrad,
+  constexpr int LD = C + 16 / (int)sizeof(T);
+  const int wsmem = 4 * WR * LD * (int)sizeof(T);
+  auto wk = lbf_wgrad_kernel<T>;
+  if ((err = (int)cudaFuncSetAttribute(
+           wk, cudaFuncAttributeMaxDynamicSharedMemorySize, wsmem)) != 0)
+    return err;
+  wk<<<dim3(NWJOB, nc_w), NT, wsmem, s>>>(
+      a.ops, a.offs, part + (size_t)(nc_out + nc_rows + nc_j) * pstride,
+      pstride, a.B * a.Nv, wper);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  return reduce_partials(part, nc_out + nc_rows + nc_j + nc_w, pstride, ngrad,
                          static_cast<float*>(q.grads), s);
 }
 
@@ -894,26 +1252,37 @@ int run_bwd(Args<T> a, const Ptrs& q, int nc_out, int nc_rows, int nc_j,
 
 using gator::ltrain::Ptrs;
 
-// Floats of scratch per CTA of the rows kernels.
+// Floats of global scratch per CTA of lbf_out_bwd and lbf_joints_bwd.
 extern "C" int lbf_train_scratch() {
   return (int)gator::ltrain::SCRATCH_FLOATS;
 }
 
-// Forward: lbf_rows_fwd (grid-stride, nctas CTAs) then lbf_sa_fwd.
-// dtype: 0 = float32, 1 = bfloat16; x, jt, out in that dtype; y3, q2, k2,
-// v2, a2 f32 [B, Nv, 64]; lse f32 [B, 2, Nv]. thr/scale pairs in the order
-// (attn, proj, path, mlp, self, out). masks (may be null): the export
-// buffer, attn [B,H,Nv,J] | proj [B,Nv,C] | dp1 [B] | mlp1 [B,Nv,4C] |
-// mlp2 [B,Nv,C] | dp2 [B] | self [B,H,Nv,Nv] | out [B,Nv,C].
+// Columns of one row of the backward's weight-gradient operands (`ops`).
+extern "C" int lbf_train_op_cols() { return gator::ltrain::O_W; }
+
+// CTAs of the rows kernels resident at once on the current device for
+// dtype (0 = float32, 1 = bfloat16); 0 if the query fails. The wrapper
+// launches at most this many.
+extern "C" int lbf_train_rows_wave(int dtype) {
+  if (dtype == 0) return gator::ltrain::rows_wave<float>();
+  return gator::ltrain::rows_wave<__nv_bfloat16>();
+}
+
+// Forward: lbf_rows_fwd (nctas CTAs) then
+// lbf_sa_fwd. dtype: 0 = float32, 1 = bfloat16; x, jt, out in that dtype;
+// y3, q2, k2, v2, a2 f32 [B, Nv, 64]; lse f32 [B, 2, Nv]. thr/scale pairs
+// in the order (attn, proj, path, mlp, self, out). masks (may be null): the
+// export buffer, attn [B,H,Nv,J] | proj [B,Nv,C] | dp1 [B] | mlp1
+// [B,Nv,4C] | mlp2 [B,Nv,C] | dp2 [B] | self [B,H,Nv,Nv] | out [B,Nv,C].
 extern "C" int lbf_train_fwd(int dtype, const void* x, const void* jt,
                              const void* w, const void* offs, void* out,
                              void* y3, void* q2, void* k2, void* v2, void* a2,
-                             void* lse, void* scratch, void* masks, int B,
-                             int Nv, int J, int nctas, unsigned seed,
-                             int unit, unsigned t0, float s0, unsigned t1,
-                             float s1, unsigned t2, float s2, unsigned t3,
-                             float s3, unsigned t4, float s4, unsigned t5,
-                             float s5, void* stream) {
+                             void* lse, void* masks, int B, int Nv, int J,
+                             int nctas, unsigned seed, int unit,
+                             unsigned t0, float s0, unsigned t1, float s1,
+                             unsigned t2, float s2, unsigned t3, float s3,
+                             unsigned t4, float s4, unsigned t5, float s5,
+                             void* stream) {
   const unsigned thr[6] = {t0, t1, t2, t3, t4, t5};
   const float scl[6] = {s0, s1, s2, s3, s4, s5};
   Ptrs q{};
@@ -924,7 +1293,6 @@ extern "C" int lbf_train_fwd(int dtype, const void* x, const void* jt,
   q.v2 = v2;
   q.a2 = a2;
   q.lse = lse;
-  q.scratch = scratch;
   q.masks = masks;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
@@ -939,18 +1307,21 @@ extern "C" int lbf_train_fwd(int dtype, const void* x, const void* jt,
 }
 
 // Backward: lbf_out_bwd, lbf_sa_bwd_dq, lbf_sa_bwd_dkv, lbf_rows_bwd,
-// lbf_joints_bwd, then the reduction of the gradient partials (part:
-// [nc_out + nc_rows + nc_j, pstride] f32, zeroed by the caller) into grads
-// ([ngrad] f32). da2, dd, dq2, dk2, dv2, djk, djv: f32 work buffers.
+// lbf_joints_bwd, lbf_wgrad (nc_w chunks of wper rows), then the reduction
+// of the gradient partials (part: [nc_out + nc_rows + nc_j + nc_w,
+// pstride] f32, zeroed by the caller) into grads ([ngrad] f32). da2, dd,
+// dq2, dk2, dv2, djk, djv: f32 work buffers; ops: [B * Nv, op_cols] in the
+// input's dtype.
 extern "C" int lbf_train_bwd(
     int dtype, const void* x, const void* jt, const void* w, const void* offs,
     const void* gout, void* q2, void* k2, void* v2, void* a2, void* lse,
     void* dx, void* djt, void* da2, void* dd, void* dq2, void* dk2, void* dv2,
-    void* djk, void* djv, void* scratch, void* part, long long pstride,
-    void* grads, int ngrad, int B, int Nv, int J, int nc_out, int nc_rows,
-    int nc_j, unsigned seed, int unit, unsigned t0, float s0, unsigned t1,
-    float s1, unsigned t2, float s2, unsigned t3, float s3, unsigned t4,
-    float s4, unsigned t5, float s5, void* stream) {
+    void* djk, void* djv, void* ops, void* scratch, void* part,
+    long long pstride, void* grads, int ngrad, int B, int Nv, int J,
+    int nc_out, int nc_rows, int nc_j, int nc_w, int wper, unsigned seed,
+    int unit, unsigned t0, float s0, unsigned t1, float s1, unsigned t2,
+    float s2, unsigned t3, float s3, unsigned t4, float s4, unsigned t5,
+    float s5, void* stream) {
   const unsigned thr[6] = {t0, t1, t2, t3, t4, t5};
   const float scl[6] = {s0, s1, s2, s3, s4, s5};
   Ptrs q{};
@@ -970,6 +1341,7 @@ extern "C" int lbf_train_bwd(
   q.dv2 = dv2;
   q.djk = djk;
   q.djv = djv;
+  q.ops = ops;
   q.part = part;
   q.grads = grads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -977,9 +1349,9 @@ extern "C" int lbf_train_bwd(
     return gator::ltrain::run_bwd(
         gator::ltrain::make_args<float>(x, jt, w, offs, B, Nv, J, seed, unit,
                                         thr, scl),
-        q, nc_out, nc_rows, nc_j, pstride, ngrad, s);
+        q, nc_out, nc_rows, nc_j, nc_w, wper, pstride, ngrad, s);
   return gator::ltrain::run_bwd(
       gator::ltrain::make_args<__nv_bfloat16>(x, jt, w, offs, B, Nv, J, seed,
                                               unit, thr, scl),
-      q, nc_out, nc_rows, nc_j, pstride, ngrad, s);
+      q, nc_out, nc_rows, nc_j, nc_w, wper, pstride, ngrad, s);
 }

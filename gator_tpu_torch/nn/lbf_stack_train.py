@@ -21,7 +21,9 @@ tile by tile instead of holding them. The result is the same function.
 
 Dtypes, as the JAX kernel: the layer output, dx and djoints are in the
 input's dtype (a bf16 stream is rounded at each layer boundary), every
-matmul rounds its operands to that dtype and accumulates in f32; the
+matmul rounds its operands to that dtype and accumulates in f32 (the row
+launches on bf16 tensor cores; in f32 the 3xTF32 split of csrc/mma.cuh,
+which keeps f32 accuracy); the
 self-attention probabilities stay f32 (an online softmax never holds them
 normalised, as in K2); parameter gradients are f32.
 """
@@ -58,19 +60,49 @@ DEFAULT_RATES = (0.2, 0.2, 0.2, 0.2, 0.1, 0.1)
 ZERO_RATES = (0.0,) * 6
 
 EMBED, HEADS, HIDDEN, JOINTS_MAX = 64, 2, 256, 32
-ROW_TILE = 32                # vertex rows per rows-kernel tile
+ROW_TILE = 16                # vertex rows per rows-kernel tile (TR)
+OUT_TILE = 32                # vertex rows per lbf_out_bwd tile
 NCTA_MAX = 264               # grid of the grid-stride kernels
+WGRAD_CHUNKS = 40            # row chunks of lbf_wgrad (13 tiles each)
+WGRAD_ROWS = 64              # rows per chunk step of lbf_wgrad
 
 _RATE_ARGS = [ctypes.c_uint, ctypes.c_float] * 6
 _SIGNATURE = {
     "lbf_train_scratch": [],
-    "lbf_train_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 13
+    "lbf_train_op_cols": [],
+    "lbf_train_rows_wave": [ctypes.c_int],
+    "lbf_train_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 12
     + [ctypes.c_int] * 4 + [ctypes.c_uint, ctypes.c_int] + _RATE_ARGS
     + [ctypes.c_void_p],
-    "lbf_train_bwd": [ctypes.c_int] + [ctypes.c_void_p] * 21
-    + [ctypes.c_longlong, ctypes.c_void_p] + [ctypes.c_int] * 7
+    "lbf_train_bwd": [ctypes.c_int] + [ctypes.c_void_p] * 22
+    + [ctypes.c_longlong, ctypes.c_void_p] + [ctypes.c_int] * 9
     + [ctypes.c_uint, ctypes.c_int] + _RATE_ARGS + [ctypes.c_void_p],
 }
+
+
+def launch_plan(b: int, nv: int, rows_wave: int) -> Dict[str, int]:
+    """The grids of one layer's launches at batch b and nv vertices: row
+    tiles per sample (`nrt`), lbf_out_bwd tiles (`ntiles`), CTAs of the
+    rows kernels (at most `rows_wave`, the CTAs the card holds at once,
+    each walking a contiguous run of the b * nrt tiles), of lbf_out_bwd and
+    of lbf_joints_bwd, and lbf_wgrad's row chunks (`nc_w` chunks of `wper`
+    rows, a multiple of WGRAD_ROWS). Raises on what the kernels do not
+    take."""
+    if rows_wave < 1:
+        raise ValueError(f"the rows kernels fit no CTA on the card "
+                         f"({rows_wave})")
+    if b < 1 or nv < 1:
+        raise ValueError(f"no rows: b={b}, nv={nv}")
+    if b > 65535 or b * nv >= 2 ** 31:
+        raise ValueError(f"lbf_stack_train kernels take at most 65535 "
+                         f"samples and 2^31 rows, not b={b}, nv={nv}")
+    rows = b * nv
+    nrt, ntiles = -(-nv // ROW_TILE), -(-nv // OUT_TILE)
+    wper = -(-rows // WGRAD_CHUNKS)
+    wper = -(-wper // WGRAD_ROWS) * WGRAD_ROWS
+    return {"nrt": nrt, "ntiles": ntiles,
+            "nc_rows": min(b * nrt, rows_wave), "nc_out": _ncta(b * ntiles),
+            "nc_j": _ncta(b), "nc_w": -(-rows // wper), "wper": wper}
 
 
 def extract_layer_params(mdr, layer: int) -> Dict[str, torch.Tensor]:
@@ -226,8 +258,6 @@ def _check(x, jt, params, num_heads):
     if x.dtype != jt.dtype:
         raise TypeError(f"x is {x.dtype}, joints are {jt.dtype}")
     cuda_lib.kernel_dtype(x.dtype)
-    if b > 65535:
-        raise ValueError("lbf_stack_train kernels take at most 65535 samples")
     for t in (jt, *params):
         if t.device != x.device:
             raise ValueError("lbf_stack_train: all tensors must be on x's "
@@ -238,13 +268,26 @@ def _ncta(n: int) -> int:
     return max(1, min(n, NCTA_MAX))
 
 
+_WAVES: Dict = {}
+
+
+def _rows_wave(lib, dtype: torch.dtype) -> int:
+    """CTAs of the rows kernels the card holds at once (the kernel's own
+    occupancy query), per dtype."""
+    if dtype not in _WAVES:
+        _WAVES[dtype] = lib.lbf_train_rows_wave(cuda_lib.kernel_dtype(dtype))
+    return _WAVES[dtype]
+
+
 class LbfLayerTrain(torch.autograd.Function):
     """One layer on the K4 kernels: forward `lbf_train_fwd` (row-local
-    launch, then the flash-style self-attention), backward
-    `lbf_train_bwd` (five launches and the reduction of the per-CTA
-    gradient partials). Inputs: x [B, Nv, 64], joints [B, J, 64] (f32 or
-    bf16, one dtype), a `LayerCfg`, an optional dict that receives the
-    exported masks, then the 23 parameters in LAYER_PARAM_KEYS order. The
+    launch on the tensor cores, then the flash-style self-attention),
+    backward `lbf_train_bwd` (five launches, the row-local weight
+    gradients over the per-row operands the row launch leaves in `ops`,
+    and the reduction of the per-CTA gradient partials). Inputs: x
+    [B, Nv, 64], joints [B, J, 64] (f32 or bf16, one dtype), a
+    `LayerCfg`, an optional dict that receives the exported masks, then
+    the 23 parameters in LAYER_PARAM_KEYS order. The
     output, dx and djoints are in the input's dtype, as the JAX kernel
     writes them (pallas_mdr_train.py:417): a bf16 stream is rounded at
     each layer boundary; the parameter gradients are f32."""
@@ -269,17 +312,15 @@ class LbfLayerTrain(torch.autograd.Function):
                 b * (HEADS * nv * nj + 3 * nv * c + nv * HIDDEN + 2
                      + HEADS * nv * nv), **f32)
         if b > 0 and nv > 0:
-            ntiles = -(-nv // ROW_TILE)
-            nctas = _ncta(b * ntiles)
-            scratch = torch.empty(nctas * lib.lbf_train_scratch(), **f32)
+            plan = launch_plan(b, nv, _rows_wave(lib, x.dtype))
             err = lib.lbf_train_fwd(
                 cuda_lib.kernel_dtype(x.dtype), x.data_ptr(), jt.data_ptr(),
                 w.data_ptr(), lay["offs_dev"].data_ptr(), out.data_ptr(),
                 y3.data_ptr(), q2.data_ptr(), k2.data_ptr(), v2.data_ptr(),
-                a2.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
+                a2.data_ptr(), lse.data_ptr(),
                 None if mask_buf is None else mask_buf.data_ptr(), b, nv, nj,
-                nctas, cfg.seed, cfg.layer, *cfg.rate_args(),
-                cuda_lib.stream_ptr(x))
+                plan["nc_rows"], cfg.seed, cfg.layer,
+                *cfg.rate_args(), cuda_lib.stream_ptr(x))
             cuda_lib.check(err, "lbf_train_fwd")
             lbf_stack_train.launches_fwd += 2
         if export is not None:
@@ -301,17 +342,20 @@ class LbfLayerTrain(torch.autograd.Function):
         f32 = dict(dtype=torch.float32, device=x.device)
         grads = torch.zeros(lay["stride"], **f32)
         if b > 0 and nv > 0:
-            ntiles = -(-nv // ROW_TILE)
-            nc_out = nc_rows = _ncta(b * ntiles)
-            nc_j = _ncta(b)
+            plan = launch_plan(b, nv, _rows_wave(lib, x.dtype))
+            nc_out, nc_rows = plan["nc_out"], plan["nc_rows"]
+            nc_j = plan["nc_j"]
             da2, dq2, dk2, dv2 = (torch.empty(b, nv, c, **f32)
                                   for _ in range(4))
             dd = torch.empty(b, HEADS, nv, **f32)
-            djk, djv = (torch.empty(b, ntiles, nj, c, **f32)
+            djk, djv = (torch.empty(b, plan["nrt"], nj, c, **f32)
                         for _ in range(2))
-            scratch = torch.empty(max(nc_rows, nc_j)
+            ops = torch.empty(b * nv, lib.lbf_train_op_cols(),
+                              dtype=x.dtype, device=x.device)
+            scratch = torch.empty(max(nc_out, nc_j)
                                   * lib.lbf_train_scratch(), **f32)
-            part = torch.zeros(nc_out + nc_rows + nc_j, lay["stride"], **f32)
+            part = torch.zeros(nc_out + nc_rows + nc_j + plan["nc_w"],
+                               lay["stride"], **f32)
             err = lib.lbf_train_bwd(
                 cuda_lib.kernel_dtype(x.dtype), x.data_ptr(), jt.data_ptr(),
                 w.data_ptr(), lay["offs_dev"].data_ptr(), gout.data_ptr(),
@@ -319,12 +363,13 @@ class LbfLayerTrain(torch.autograd.Function):
                 lse.data_ptr(), dx.data_ptr(), djt.data_ptr(),
                 da2.data_ptr(), dd.data_ptr(), dq2.data_ptr(),
                 dk2.data_ptr(), dv2.data_ptr(), djk.data_ptr(),
-                djv.data_ptr(), scratch.data_ptr(), part.data_ptr(),
-                lay["stride"], grads.data_ptr(), lay["stride"], b, nv, nj,
-                nc_out, nc_rows, nc_j, cfg.seed, cfg.layer,
+                djv.data_ptr(), ops.data_ptr(), scratch.data_ptr(),
+                part.data_ptr(), lay["stride"], grads.data_ptr(),
+                lay["stride"], b, nv, nj, nc_out, nc_rows, nc_j,
+                plan["nc_w"], plan["wper"], cfg.seed, cfg.layer,
                 *cfg.rate_args(), cuda_lib.stream_ptr(x))
             cuda_lib.check(err, "lbf_train_bwd")
-            lbf_stack_train.launches_bwd += 6
+            lbf_stack_train.launches_bwd += 7
         dparams = [grads[off:off + p.numel()].view(p.shape).to(p.dtype)
                    for off, p in zip(lay["offsets"], params)]
         return (dx, djt, None, None, *dparams)

@@ -40,6 +40,7 @@ GROUPS = (
     ("lbf_sa_bwd_dkv", "K4 backward, dk2/dv2 (lbf_sa_bwd_dkv)"),
     ("lbf_rows_bwd", "K4 backward, row-local (lbf_rows_bwd)"),
     ("lbf_joints_bwd", "K4 backward, joints (lbf_joints_bwd)"),
+    ("lbf_wgrad", "K4 backward, row-local weight gradients (lbf_wgrad)"),
     ("reduce_partials", "K4 + K5 gradient-partial reduction"),
 )
 

@@ -5,8 +5,11 @@ This file imports no JAX, so it runs on a machine with only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider \
         tests/test_torch_eval_kernels_cuda.py
 Shapes: the eval path's MDR self-attention (Nq = Nk = 431, 2 heads of 32)
-at B = 1, a ragged B = 5 and the eval batch B = 512; a Nq != Nk shape; the
-GAT attention shape (17 x 17, 8 heads of 16). Bars: f32 atol 1e-4; bf16
+at B = 1, a ragged B = 5 and the eval batch B = 512 (7168 CTAs, many
+waves); a Nq != Nk shape; the GAT attention shape (17 x 17, 8 heads of 16);
+and lengths that cross the kernel's edges (64-query CTAs, 16-row warps,
+64-key tiles, staged K/V chunks: 1, 17, 65, 431, 1000) at every head width
+(8, 16, 32, 64). Bars: f32 atol 1e-4; bf16
 atol 5e-2 (sums in another order can flip a bf16 rounding of a
 probability); the autograd Function's gradients scaled by their max within
 1e-4; repeat runs bit-identical.
@@ -16,7 +19,8 @@ import pytest
 import torch
 
 from gator_tpu_torch.nn import attend
-from gator_tpu_torch.nn.fused_attention import (fused_attention,
+from gator_tpu_torch.nn.fused_attention import (HEAD_DIMS, attention_plan,
+                                                fused_attention,
                                                 fused_attention_ref)
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
@@ -67,17 +71,63 @@ def test_fused_attention_kernel_matches_ref(card, shape, dtype, with_bias):
     assert err <= TOL[dtype], err
 
 
+EDGES = (1, 17, 65, 431, 1000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 16, 32, 64])
+@pytest.mark.parametrize("n", EDGES)
+def test_fused_attention_tile_edges(card, n, d, dtype, with_bias):
+    """Nq = Nk = n, and Nq and Nk apart (n queries against the next
+    length's keys), at each head width."""
+    nk = EDGES[(EDGES.index(n) + 1) % len(EDGES)]
+    for nq_, nk_ in ((n, n), (n, nk)):
+        q, k, v, bias = _inputs(card, (3, nq_, nk_, 2, d), dtype, with_bias,
+                                n + d)
+        scale = d ** -0.5
+        with torch.no_grad():
+            got = fused_attention(q, k, v, bias, scale)
+        torch.cuda.synchronize()
+        ref = fused_attention_ref(q, k, v, bias, scale)
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= TOL[dtype], (nq_, nk_, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_attention_many_waves_and_chunks(card, dtype):
+    """B = 300 at 1000 keys of width 64: K and V staged in several chunks
+    (both dtypes), 16 x 2 x 300 CTAs."""
+    q, k, v, _ = _inputs(card, (300, 1000, 1000, 2, 64), dtype, False, 9)
+    with torch.no_grad():
+        got = fused_attention(q, k, v, None, 0.125)
+    torch.cuda.synchronize()
+    err = (got.float() - fused_attention_ref(q, k, v, None, 0.125).float()
+           ).abs().max().item()
+    assert err <= TOL[dtype], err
+
+
 @pytest.mark.cuda
 def test_fused_attention_strided_views(card):
     """q, k, v as views of one [B, N, 3, H, D] tensor (the layout of a fused
     qkv projection): read in place, same result as contiguous copies."""
-    qkv = torch.randn(4, 431, 3, 2, 32, device=card)
-    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    with torch.no_grad():
-        got = fused_attention(q, k, v, None, 0.2)
-        want = fused_attention(q.contiguous(), k.contiguous(),
-                               v.contiguous(), None, 0.2)
-    assert torch.equal(got, want)
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = torch.randn(4, 431, 3, 2, 32, device=card).to(dtype)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        with torch.no_grad():
+            got = fused_attention(q, k, v, None, 0.2)
+            want = fused_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), None, 0.2)
+            # a view whose rows are not 16-byte aligned goes to a copy
+            flat = torch.randn(4 * 431 * 2 * 32 + 1, device=card).to(dtype)
+            odd = flat[1:].view(4, 431, 2, 32)
+            got_odd = fused_attention(odd, odd, odd, None, 0.2)
+            want_odd = fused_attention(odd.clone(), odd.clone(), odd.clone(),
+                                       None, 0.2)
+        assert torch.equal(got, want)
+        assert torch.equal(got_odd, want_odd)
 
 
 @pytest.mark.cuda
@@ -112,6 +162,22 @@ def test_attend_routes_large_tiles_to_the_kernel(card):
         attend(small, small, small, None, 0.25)
     torch.cuda.synchronize()
     assert fused_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_attention_plan_fits_two_ctas_per_sm(card):
+    """The kernel's own plan: K/V chunks of whole 64-key tiles, chunked
+    only when the keys do not fit, and two CTAs resident per SM."""
+    for d in HEAD_DIMS:
+        for dt in (torch.float32, torch.bfloat16):
+            for nk in (1, 17, 65, 431, 1000, 5000):
+                kc, ctas = attention_plan(nk, d, dt)
+                assert kc % 64 == 0 and kc >= 64, (nk, d, dt, kc)
+                assert ctas >= 2, (nk, d, dt, ctas)
+                if kc < nk:           # chunked only when the keys do not fit
+                    assert attention_plan(kc + 64, d, dt)[0] == kc
+    # the eval shape in bf16 stages every key once
+    assert attention_plan(431, 32, torch.bfloat16)[0] >= 431
 
 
 @pytest.mark.cuda

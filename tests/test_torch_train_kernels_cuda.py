@@ -133,10 +133,12 @@ def _run_k4(mdr, x0, j0, cot, rates, fn):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rates", sorted(K4_RATES))
-# (64, 431): 896 row tiles on the 264-CTA grid; (300, 50): 600 row tiles,
-# and 300 samples on the joints kernel's 264 CTAs, so CTAs loop
+# (64, 431): 1728 row tiles of 16 on the 264-CTA grid; (300, 50): 1200
+# row tiles, and 300 samples on the joints kernel's 264 CTAs, so CTAs loop
+# (and walk into the next sample); 433 = 27 * 16 + 1 and 17 leave one row
+# and one ragged row in the last tile
 @pytest.mark.parametrize("batch,nv", [(1, 431), (3, 50), (64, 431),
-                                      (300, 50)])
+                                      (300, 50), (5, 433), (2, 17)])
 def test_lbf_stack_train_kernels_match_plain(model, dtype, rates, batch, nv):
     mdr = model.pose2mesh
     j = mdr.spec.num_joint
@@ -147,12 +149,38 @@ def test_lbf_stack_train_kernels_match_plain(model, dtype, rates, batch, nv):
     before = (lbf_stack_train.launches_fwd, lbf_stack_train.launches_bwd)
     got = _run_k4(mdr, x0, j0, cot, K4_RATES[rates], lbf_stack_train)
     assert (lbf_stack_train.launches_fwd, lbf_stack_train.launches_bwd) == (
-        before[0] + 6, before[1] + 18)
+        before[0] + 6, before[1] + 21)
     want = _run_k4(mdr, x0, j0, cot, K4_RATES[rates], lbf_stack_train_ref)
     _check_masks(got[4], want[4])
     for a, b in zip(got[:3], want[:3]):
         assert _scaled(a, b) <= TOL[dtype]
     _check_grads(got[3], want[3], TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lbf_stack_train_repeat_runs_bit_identical(model, dtype):
+    """At a tiling where CTAs walk many tiles across samples (64 x 433):
+    two runs with one seed agree bit for bit (output, dx, djoints, every
+    parameter gradient and every exported mask); another seed differs."""
+    mdr = model.pose2mesh
+    j = mdr.spec.num_joint
+    rng = np.random.default_rng(433)
+    x0 = _randn(rng, 64, 433, 64).to(dtype)
+    j0 = _randn(rng, 64, j, 64).to(dtype)
+    cot = _randn(rng, 64, 433, 64).to(dtype)
+    runs = [_run_k4(mdr, x0, j0, cot, DEFAULT_RATES, lbf_stack_train)
+            for _ in range(2)]
+    for a, b in zip(runs[0][:3], runs[1][:3]):
+        assert torch.equal(a, b)
+    assert set(runs[0][3]) == set(runs[1][3])
+    for name in runs[0][3]:
+        assert torch.equal(runs[0][3][name], runs[1][3][name]), name
+    _check_masks(runs[0][4], runs[1][4])
+    x = x0.clone().requires_grad_(True)
+    other = lbf_stack_train(x, j0, [extract_layer_params(mdr, i)
+                                    for i in range(3)], 2, 56)
+    assert not torch.equal(other.detach(), runs[0][0])
 
 
 @pytest.mark.cuda
