@@ -7,13 +7,16 @@ Phases, one line each:
   1. card: name and power limit (nvidia-smi), CUDA version; TF32 off;
   2. build: compile K1 (csrc/gat_trunk.cu) and K2 (csrc/lbf_stack.cu);
   3. K1 against its plain version, full width, B=64, J=17 and 19;
-  4. K2 against its plain version, B=16, 431 vertices, J=17 and 19;
+  4. K2 against its plain version, B=16 and the serving batch B=2048 (f32),
+     431 vertices, J=17 and 19;
   5. end to end: full-width synthetic 6890-vertex model, kernel path
      against the plain path (f32 within 1e-4 m; bf16 within 5e-2 m of f32);
   6. the serve CLI on 300 seeded COCO poses: this is the main path the
      launch counts are read from (reset just before, read just after);
   7. times at B=2048, bf16: K1, K2 and the whole serving call, each kernel
-     path beside its plain version (CUDA events, median of 5).
+     path beside its plain version (CUDA events, median of 5); K2's two
+     launches (rows_kernel, lbf_selfattn_kernel) in device ms per serving
+     call from torch.profiler, each beside its bound.
 The training path (K4 csrc/lbf_stack_train.cu, K5 csrc/gat_trunk_train.cu):
   8. (a) K4 and K5 are built with the others in phase 2;
   9. (b) K5 at full width (depth 6, B=64 and 512) and K4 (3 layers,
@@ -153,9 +156,10 @@ def fma_lbf_layer(nv, j, c=64, hid=256):
 
 
 def fma_lbf_rows_fwd(nv, j, c=64, hid=256):
-    """FMA of K4's row-local forward launch (lbf_rows_fwd) for one sample
-    and layer: q, the cross-attention over j joints (scores and PV, both
-    heads), proj, fc1, fc2, q2/k2/v2, and the joints' k and v once."""
+    """FMA of K4's row-local forward launch (lbf_rows_fwd), and of K2's row
+    launch (rows_kernel), for one sample and layer: q, the cross-attention
+    over j joints (scores and PV, both heads), proj, fc1, fc2, q2/k2/v2,
+    and the joints' k and v once."""
     return nv * (5 * c * c + 2 * j * c + 2 * c * hid) + 2 * j * c * c
 
 
@@ -1027,24 +1031,27 @@ def main():
                    f"{err:.3e} vs plain" + (" (bar 1e-4)" if dt == f32
                                             else " (reported)"))
 
-    # 4. K2 against its plain version
+    # 4. K2 against its plain version, at B=16 and at the serving batch
     for joint_set, model in models.items():
         mdr = model.pose2mesh
         j = mdr.spec.num_joint
-        verts, joints = randn(16, coarse_v, 64), randn(16, j, 64)
-        for dt in (f32, bf16):
-            w = fold_stack_weights(mdr, dt, dev)
-            got = lbf_stack(verts.to(dt), joints.to(dt), w, 2)
-            ref = lbf_stack_ref(verts.to(dt), joints.to(dt), w, 2)
-            torch.cuda.synchronize()
-            err = max_err(got, ref)
-            check(np.isfinite(err), f"K2 {dt} finite")
-            if dt == f32:
-                check(err <= 1e-4, f"K2 f32 J={j} err {err} <= 1e-4")
-                errs["lbf_stack"] = max(errs["lbf_stack"], err)
-            say(4, f"K2 lbf_stack J={j} B=16 Nv={coarse_v} {str(dt)[6:]}: "
-                   f"max abs err {err:.3e} vs plain"
-                   + (" (bar 1e-4)" if dt == f32 else " (reported)"))
+        for nb, dts in ((16, (f32, bf16)), (2048, (f32,))):
+            verts, joints = randn(nb, coarse_v, 64), randn(nb, j, 64)
+            for dt in dts:
+                w = fold_stack_weights(mdr, dt, dev)
+                got = lbf_stack(verts.to(dt), joints.to(dt), w, 2)
+                ref = lbf_stack_ref(verts.to(dt), joints.to(dt), w, 2)
+                torch.cuda.synchronize()
+                err = max_err(got, ref)
+                check(np.isfinite(err), f"K2 {dt} finite")
+                if dt == f32:
+                    check(err <= 1e-4,
+                          f"K2 f32 J={j} B={nb} err {err} <= 1e-4")
+                    errs["lbf_stack"] = max(errs["lbf_stack"], err)
+                say(4, f"K2 lbf_stack J={j} B={nb} Nv={coarse_v} "
+                       f"{str(dt)[6:]}: max abs err {err:.3e} vs plain"
+                       + (" (bar 1e-4)" if dt == f32 else " (reported)"))
+            del verts, joints, got, ref
 
     # 5. end to end, kernel path against plain path
     for joint_set, model in models.items():
@@ -1137,6 +1144,37 @@ def main():
         say(7, f"{name} B={b} bf16 on {card}: kernel path {k:.3f} ms "
                f"({b / k * 1e3:,.0f} poses/s), plain {p:.3f} ms "
                f"({b / p * 1e3:,.0f} poses/s)")
+
+    # K2's two launches alone: device ms per serving call (3 layers) from
+    # torch.profiler, each beside its bound. Per row and layer the rows
+    # launch reads x (f32) and writes y3 (f32) and q2/k2/v2 (bf16); the
+    # self-attention reads those four and writes x' (f32): 896 bytes each.
+    from gator_tpu_torch.tools.profile_train import _device_us, _is_kernel
+    k2_ms = dict.fromkeys(("rows_kernel", "lbf_selfattn_kernel"), 0.0)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            lbf_stack(verts, joints, sw, 2)
+        torch.cuda.synchronize()
+    for evt in prof.key_averages():
+        for key in k2_ms:
+            if _is_kernel(evt) and key in evt.key:
+                k2_ms[key] += _device_us(evt) / 1e3 / 3
+    check(all(v > 0 for v in k2_ms.values()),
+          f"the profiler saw K2's two launches: {k2_ms}")
+    k2_io = 3 * b * coarse_v * 64 * (4 + 4 + 6)
+    k2_bounds = {
+        "rows_kernel": bound(3 * b * fma_lbf_rows_fwd(coarse_v, 17), k2_io),
+        "lbf_selfattn_kernel": bound(
+            3 * b * (2 * coarse_v * coarse_v * 64 + coarse_v * 64 * 64),
+            k2_io),
+    }
+    say(7, f"K2 launches per serving call (3 layers, B={b} bf16) on {card}: "
+           + "; ".join(
+               f"{key} {k2_ms[key]:.3f} ms device (bound "
+               f"{k2_bounds[key][0]:.3f} ms, {k2_bounds[key][1]}: "
+               f"{k2_io / 1e9:.2f} GB at 3.35 TB/s)" for key in k2_ms))
 
     j_full = 17
     bounds = {

@@ -65,6 +65,24 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&w)[4]) {
   w[3] = b.y;
 }
 
+// two adjacent values of T at an even index, as f32; and stored from f32
+// (each rounded as `Num<T>::from_float` rounds)
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
 __device__ __forceinline__ float gelu_exact(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
 }
@@ -80,6 +98,14 @@ constexpr int RM = 8;
 
 __host__ __device__ constexpr int round_up(int n, int m) {
   return (n + m - 1) / m * m;
+}
+
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+// the E at byte `off` of shared memory `s`
+template <typename E>
+__device__ __forceinline__ E* at(unsigned char* s, int off) {
+  return reinterpret_cast<E*>(s + off);
 }
 
 // out(r, c, sum_k A[r * lda + k] * W[k * ldw + c]) for r < rows, c < N.

@@ -11,26 +11,19 @@
 //
 // Numerics, as the TPU kernel: scores and softmax in f32; the normalised
 // probabilities rounded to v's dtype before the PV product, which
-// accumulates in f32. The products run on the tensor cores (mma.cuh): bf16
-// m16n8k16, or in f32 the 3xTF32 split, which keeps f32 accuracy (TF32 is
-// never used alone).
+// accumulates in f32, on the tensor cores (bf16 m16n8k16, or in f32 the
+// 3xTF32 split; TF32 is never used alone).
 //
 // Design. One CTA of eight warps per (128-query tile, head, sample) (four
-// warps measured 10 % slower on the H100); each warp owns 16 query rows,
-// whose q fragments stay in registers. The (sample, head)'s K and V are
-// staged in shared memory in their own dtype with cp.async, in chunks of
-// `kc` keys sized so that two CTAs fit on an SM (one chunk, staged once,
-// whenever the keys fit: bf16 at Nk = 431; f32 there takes two). Two
-// passes over 64-key tiles, as csrc/lbf_layer.cuh does for K2-layer:
-// pass 1 takes each row's max and sum online; pass 2 recomputes the
-// scores with the same mma chain, forms p = T(exp(s - max) / sum) and runs
-// PV, so the probabilities are rounded normalised, where the TPU kernel
-// rounds, and nothing of the [Nq, Nk] score tile is stored. The
-// exponentials are exp2 of scores scaled by log2(e), the division a
-// product with the row's reciprocal sum.
-// The score accumulators become PV's A operand in registers (bf16), or by
-// shuffles (TF32, whose A layout differs); K and V fragments come from
-// ldmatrix (bf16) or padded, conflict-free shared-memory rows (f32).
+// warps measured 10 % slower on the H100); each warp owns 16 query rows.
+// The body is attn_tc.cuh's two-pass attention, shared with K2's
+// self-attention (lbf_stack.cu): the (sample, head)'s K and V staged in
+// shared memory in their own dtype with cp.async, in chunks of `kc` keys
+// sized so that two CTAs fit on an SM (one chunk, staged once, whenever
+// the keys fit: bf16 at Nk = 431; f32 there takes two); pass 1 takes each
+// row's max and sum online, pass 2 recomputes the scores and runs
+// T(exp(s - max) / sum) v, so nothing of the [Nq, Nk] score tile is
+// stored. This file adds the optional bias and the strided layouts.
 //
 // What bounds it on the H100. At the eval shape (B = 512) the work is
 // 2 * 512 * 2 * 431 * 431 * 32 = 12.2 GFMA, twice that with pass 1's
@@ -39,113 +32,17 @@
 // bound it; in f32 the three TF32 products and the splits (0.30 ms at
 // 495 TFLOP/s for the products alone), and in both the two exponentials
 // per score.
-#include "mma.cuh"
+#include "attn_tc.cuh"
 
 namespace gator {
 namespace attn {
 
-constexpr int NW = 8;         // warps per CTA, 16 query rows each
-constexpr int KT = 64;        // keys per tile
-constexpr float LOG2E = 1.4426950408889634f;
+constexpr int NW = 8;  // warps per CTA, 16 query rows each
 
 struct Shape {
   int nq, nk, h, kc;
   long long q_b, q_n, q_h, k_b, k_n, k_h, v_b, v_n, v_h;
 };
-
-// shared memory of one CTA, so that two fit on an H100 SM (228 KB, 1 KB
-// of it reserved per CTA)
-constexpr int SMEM_PER_CTA = 113 * 1024;
-
-// padded row lengths of staged K and V, in elements: conflict-free
-// fragment loads (f32) and ldmatrix rows (bf16)
-template <typename T, int D>
-struct Pad {
-  static constexpr bool F32 = sizeof(T) == 4;
-  static constexpr int LK = D + (F32 ? 4 : 8);
-  static constexpr int LV = D + 8;
-  static constexpr int KEY_BYTES = (LK + LV) * (int)sizeof(T);
-  static_assert(SMEM_PER_CTA / KEY_BYTES >= KT, "one key tile must fit");
-};
-
-// keys per staged K/V chunk: every key (rounded up to KT) when they fit in
-// SMEM_PER_CTA, else the largest multiple of KT that does
-template <typename T, int D>
-int chunk_keys(int nk) {
-  const int whole = (nk + KT - 1) / KT * KT;
-  const int fit = SMEM_PER_CTA / Pad<T, D>::KEY_BYTES / KT * KT;
-  return whole < fit ? whole : fit;
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// Stage keys [key0, key0 + n) of K (and V) into shared memory; rows n ..
-// the next multiple of KT are zeroed, and so are K's pad columns where a
-// bf16 mma step (16) is deeper than D.
-template <typename T, int D>
-__device__ __forceinline__ void stage_kv(T* Ks, T* Vs, const T* kb,
-                                         const T* vb, const Shape& sh,
-                                         int key0, int n, bool with_v) {
-  using L = Pad<T, D>;
-  tc::stage(Ks, L::LK, kb + key0 * sh.k_n, (int)sh.k_n, n, D);
-  if (with_v) tc::stage(Vs, L::LV, vb + key0 * sh.v_n, (int)sh.v_n, n, D);
-  const int end = round_up(n, KT);
-  const T zero = Num<T>::from_float(0.0f);
-  for (int i = threadIdx.x; i < (end - n) * D; i += blockDim.x) {
-    const int r = n + i / D, c = i % D;
-    Ks[r * L::LK + c] = zero;
-    if (with_v) Vs[r * L::LV + c] = zero;
-  }
-  if (!L::F32 && D < 16)
-    for (int i = threadIdx.x; i < end * (16 - D); i += blockDim.x)
-      Ks[i / (16 - D) * L::LK + D + i % (16 - D)] = zero;
-}
-
-// the 64-key tile's scores of this warp's rows: s[j][i] is key 8j + 2t +
-// (i & 1), row g + 8 (i >> 1)
-template <typename T, int D>
-__host__ __device__ constexpr int ksteps() {  // mma steps over a head width
-  return (D + tc::Mma<T>::KS - 1) / tc::Mma<T>::KS;
-}
-
-template <typename T, int D>
-__device__ __forceinline__ void scores(
-    float (&s)[8][4], const typename tc::Mma<T>::A (&qf)[ksteps<T, D>()],
-    const T* Ks) {
-  using P = tc::Mma<T>;
-  using L = Pad<T, D>;
-  constexpr int KSTEPS = ksteps<T, D>();
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[j][i] = 0.0f;
-#pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      typename P::B b;
-      if constexpr (L::F32) {
-        const float* kr = reinterpret_cast<const float*>(Ks) +
-                          (8 * j + g) * L::LK + ks * 8 + t;
-        tc::split_tf32(kr[0], b.hi[0], b.lo[0]);
-        tc::split_tf32(kr[4], b.hi[1], b.lo[1]);
-      } else {
-        tc::ldsm_x2(b.r, Ks + (8 * j + (lane & 7)) * L::LK + ks * 16 +
-                             ((lane >> 3) & 1) * 8);
-      }
-      P::mma(s[j], qf[ks], b);
-    }
-  }
-}
 
 // two CTAs per SM at every head width: at most 128 registers a thread
 // (f32 at D = 64 takes 174 without the cap)
@@ -214,110 +111,13 @@ __global__ void __launch_bounds__(32 * NW, 2)
     }
   };
 
-  const int nchunks = (nk + sh.kc - 1) / sh.kc;
-  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.0f, 0.0f};
-  // pass 1: row max and sum, online
-  for (int c = 0; c < nchunks; ++c) {
-    const int key0 = c * sh.kc, n = min(sh.kc, nk - key0);
-    __syncthreads();
-    stage_kv<T, D>(Ks, Vs, kb, vb, sh, key0, n, nchunks == 1);
-    tc::cp_async_commit();
-    tc::cp_async_wait<0>();
-    __syncthreads();
-    if (!active) continue;
-    for (int kt = 0; kt < n; kt += KT) {
-      float s[8][4];
-      scores<T, D>(s, qf, Ks + kt * L::LK);
-      finish(s, key0 + kt);
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        float tm = -CUDART_INF_F;
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          tm = fmaxf(tm, fmaxf(s[j][2 * rr], s[j][2 * rr + 1]));
-        const float mn = fmaxf(mx[rr], quad_max(tm));
-        float acc = l[rr] * exp2f(mx[rr] - mn);
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          acc += exp2f(s[j][2 * rr] - mn) + exp2f(s[j][2 * rr + 1] - mn);
-        l[rr] = acc;
-        mx[rr] = mn;
-      }
-    }
-  }
-  const float inv[2] = {1.0f / quad_sum(l[0]), 1.0f / quad_sum(l[1])};
-
-  // pass 2: p = T(exp(s - max) / sum), out = p v
   float o[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o[j][i] = 0.0f;
-  for (int c = 0; c < nchunks; ++c) {
-    const int key0 = c * sh.kc, n = min(sh.kc, nk - key0);
-    if (nchunks > 1) {
-      __syncthreads();
-      stage_kv<T, D>(Ks, Vs, kb, vb, sh, key0, n, true);
-      tc::cp_async_commit();
-      tc::cp_async_wait<0>();
-      __syncthreads();
-    }
-    if (!active) continue;
-    for (int kt = 0; kt < n; kt += KT) {
-      float s[8][4];
-      scores<T, D>(s, qf, Ks + kt * L::LK);
-      finish(s, key0 + kt);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          s[j][i] = rnd<T>(exp2f(s[j][i] - mx[i >> 1]) * inv[i >> 1]);
-      const T* vt = Vs + kt * L::LV;
-      if constexpr (L::F32) {
-        const int src0 = (lane & ~3) | (t >> 1), src1 = src0 + 2;
-        const bool odd = t & 1;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          float x[8];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            x[i] = __shfl_sync(0xffffffffu, s[j][i], src0);
-            x[4 + i] = __shfl_sync(0xffffffffu, s[j][i], src1);
-          }
-          typename P::A a;
-          tc::split_tf32(odd ? x[1] : x[0], a.hi[0], a.lo[0]);
-          tc::split_tf32(odd ? x[3] : x[2], a.hi[1], a.lo[1]);
-          tc::split_tf32(odd ? x[5] : x[4], a.hi[2], a.lo[2]);
-          tc::split_tf32(odd ? x[7] : x[6], a.hi[3], a.lo[3]);
-          const float* vr = reinterpret_cast<const float*>(vt) +
-                            (8 * j + t) * L::LV + g;
-#pragma unroll
-          for (int jn = 0; jn < NO; ++jn) {
-            typename P::B bv;
-            tc::split_tf32(vr[8 * jn], bv.hi[0], bv.lo[0]);
-            tc::split_tf32(vr[4 * L::LV + 8 * jn], bv.hi[1], bv.lo[1]);
-            P::mma(o[jn], a, bv);
-          }
-        }
-      } else {
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          typename P::A a;
-          a.r[0] = tc::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-          a.r[1] = tc::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-          a.r[2] = tc::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-          a.r[3] = tc::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-          for (int jn = 0; jn < NO; ++jn) {
-            typename P::B bv;
-            tc::ldsm_x2_trans(bv.r,
-                              vt + (16 * kk + (lane & 15)) * L::LV + 8 * jn);
-            P::mma(o[jn], a, bv);
-          }
-        }
-      }
-    }
-  }
+  two_pass<T, D, D>(
+      o, qf, Ks, Vs, nk, sh.kc, active,
+      [&](int key0, int n, bool with_v) {
+        stage_kv<T, D>(Ks, Vs, kb, vb, sh.k_n, sh.v_n, key0, n, with_v);
+      },
+      finish);
   if (!active) return;
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {

@@ -24,10 +24,11 @@
 //
 // Design. The layer is cut where its rows stop being independent, as in
 // K2 (lbf_stack.cu):
-//   rows_kernel: per (32-row tile, sample): the cross-attention over the J
-//                joints, LN2, the MLP, the std-LN and the q2/k2/v2
+//   rows_kernel: per (32-row tile, sample; 16 in f32): the cross-attention
+//                over the J joints, LN2, the MLP, the std-LN and the q2/k2/v2
 //                projections (T1's preproj and fold1dot project v2 through
 //                L3 here). Row-local modes write the layer's output here.
+//                K2 runs it too.
 //   attn_kernel: per (64-query tile, sample), both heads: the softmax over
 //                all Nv keys in two passes over 64-key tiles staged in
 //                shared memory: the first takes each row's max and sum
@@ -35,20 +36,38 @@
 //                T(exp(s - max) / sum) * V, so the normalised probability
 //                is rounded where the TPU kernels round it and no score
 //                tile is stored (1.5x K2's QK work). Then L3 and the
-//                residual.
-// One CTA per (row tile, sample); past the grid's 65535 samples the host
-// launches again, so no CTA loops (a loop over samples took the row kernel
-// from 80 registers to 112 and cost it 15 % of its time). The ragged Nv edge
+//                residual. K2 has its own, on the tensor cores.
+// rows_kernel runs every product on the tensor cores (mma.cuh: bf16
+// m16n8k16 on the operands the FMA chain rounded to T anyway, so each
+// product is exact and only the f32 sums reorder; f32 as 3xTF32), the
+// cross-attention's J-wide scores and P @ V included (J padded to 32; on
+// the FMA pipes they took ~4 % of the row work, on the tensor cores they
+// cost less than the softmax between them, one warp per (row, head)).
+// Activations that only enter a product rounded live in shared memory in
+// T, the residual and the scores in f32. The weights pass through two
+// [64, 64] slots: cp.async fills one while the products read the other
+// (13 blocks a tile in `full`). A persistent grid (the CTAs the device
+// holds) walks the B * ceil(Nv / TR) (sample, tile) items in contiguous
+// runs, so a sample's joints get their LN1, K and V once per CTA that
+// meets it (the FMA design redid them for every tile), and no grid
+// dimension limits the batch. 69.5 KB of shared memory a CTA in bf16:
+// three fit on an SM.
+// attn_kernel is still the FMA design: one thread per (query row, head),
+// past the grid's 65535 samples the host launches again. The ragged Nv edge
 // is masked by row counts; the TPU kernels' 431->432 padding, their
 // block-diagonal cross mask and the A&S erf polynomial are gone (exact
 // erff; the two differ by 1.5e-7).
 //
-// What bounds it on the H100: FMA on the f32 pipes, as in K2: ~25 MFMA per
-// sample in the rows kernel and ~36 MFMA per sample in the self-attention
-// at Nv=431 (its QK products done twice). Tensor cores are the next step.
+// What bounds it on the H100. rows_kernel: ~25 MFMA per sample at Nv=431
+// (51 GFMA a layer at B = 2048: 0.10 ms on bf16 tensor cores) against
+// ~0.79 GB of x in and y3, q2, k2, v2 out in K2 (f32 x and y3: 0.24 ms);
+// below both, the element-wise work between the products (LayerNorms,
+// erf, the cross softmax), the block's syncs and the weight staging.
+// attn_kernel: ~36 MFMA per sample at Nv=431 on the f32 pipes (its QK
+// products done twice).
 #pragma once
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace gator {
 namespace lbf_layer {
@@ -58,7 +77,6 @@ constexpr int H = 2;      // heads
 constexpr int D = 32;     // head width
 constexpr int HID = 256;  // MLP hidden
 constexpr int JMAX = 32;  // most joint tokens
-constexpr int TR = 32;    // vertex rows per rows_kernel CTA
 constexpr int NT_ROWS = 256;
 constexpr int TQ = 64;    // query rows per attn_kernel CTA
 constexpr int TK = 64;    // keys per staged tile
@@ -88,6 +106,13 @@ __host__ __device__ constexpr int v_width(int mode) {
   return mode == FOLD1DOT ? H * C : C;
 }
 
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
 // a product or bias add under the rounding policy
 template <typename T, bool kRoundAll>
 __device__ __forceinline__ float rp(float v) {
@@ -112,226 +137,447 @@ __device__ __forceinline__ float activation(float v, float b) {
   }
 }
 
-constexpr int ROWS_SMEM_FLOATS = 3 * TR * C + TR * HID + 2 * JMAX * C;
+// Shared memory of rows_kernel, in bytes from the start. Rows of width w
+// are padded by 16 bytes (w + 4 f32, w + 16 / sizeof(T) T), so that the
+// fragment loads of a warp fall in distinct banks. Activations that only
+// ever enter a product rounded are held in T (the mma operands), the
+// residual and the scores in f32.
+template <typename T>
+struct RowsSmem {
+  // vertex rows per tile: 32 in bf16, 16 in f32, so that three and two
+  // CTAs fit on an SM (69.5 and 84.3 KB; 16 rows in bf16 measured 12 %
+  // slower)
+  static constexpr int TR = sizeof(T) == 2 ? 32 : 16;
+  static constexpr int E = 16 / (int)sizeof(T);
+  static constexpr int LF = C + 4;                 // f32 rows
+  static constexpr int LT = C + E, LTH = HID + E;  // T rows
+  static constexpr int FB = TR * LF * 4;               // [TR, C] f32
+  static constexpr int TB = TR * LT * (int)sizeof(T);  // [TR, C] T
+  static constexpr int JB = JMAX * LT * (int)sizeof(T);
+  static constexpr int WB = C * LT * (int)sizeof(T);   // a [64, 64] block
+  // X: the residual; Y: LN1, then LN2, then the rounded y3; Q: q, then
+  // the cross output, then T(v2) (preproj, fold1dot); KJ, VJ: the
+  // sample's joint keys and values; WS: the two weight slots
+  static constexpr int X = 0, Y = X + FB, Q = Y + TB, KJ = Q + TB,
+                       VJ = KJ + JB, WS = VJ + JB, U = WS + 2 * WB;
+  // U, in turn: the joints' input and LN1 while a sample's K and V are
+  // made; the cross scores [TR, H * JMAX] (lnonly: its f32 norms) and
+  // probabilities; the MLP hidden and fc2's partial sums
+  static constexpr int JT = U, YJ = JT + JMAX * LF * 4;
+  static constexpr int P = U, PM = P + FB;
+  static constexpr int H1 = U, ACC = H1 + TR * LTH * (int)sizeof(T);
+  static constexpr int BYTES =
+      cmax(YJ + JB, cmax(PM + TB, ACC + FB));
+  // CTAs an SM should hold (at most 85 registers a thread in bf16)
+  static constexpr int MIN_CTAS = sizeof(T) == 2 ? 3 : 2;
+  static_assert(TR % 16 == 0 && H * JMAX <= C && JMAX == 32, "tile shapes");
+};
 
-// x: TX [B, Nv, C]; joints: T [B, J, C]. Writes y3 (f32), q2, k2 (T
-// [B, Nv, C]) and v (T [B, Nv, v_width(kMode)]); the row-local modes write
-// out (T) alone.
-template <typename T, bool kRoundAll, int kMode, typename TX = T>
-__global__ void __launch_bounds__(NT_ROWS)
-    rows_kernel(const TX* __restrict__ x, const T* __restrict__ joints,
-                const T* __restrict__ p, const int* __restrict__ offs,
-                float* __restrict__ y3, T* __restrict__ q2,
-                T* __restrict__ k2, T* __restrict__ vout,
-                T* __restrict__ out, int b0, int Nv, int J) {
-  constexpr bool kCross =
+// an mma operand read element by element from global memory (the joints'
+// wk and wv, used once per sample a CTA meets)
+template <typename E>
+struct Global {
+  const E* w;
+  int ldw;
+  __device__ __forceinline__ float operator()(int i, int j) const {
+    return Num<E>::to_float(w[i * ldw + j]);
+  }
+};
+
+// What a mode computes of the row-local part.
+template <int kMode>
+struct Parts {
+  static constexpr bool kCross =
       kMode != LNONLY && kMode != MLPONLY && kMode != NOCROSS;
-  extern __shared__ __align__(16) float smem[];
-  float* X = smem;          // [TR, C]  residual rows
-  float* Y = X + TR * C;    // [TR, C]  LN outputs; scores [TR, H, J]
-  float* Qb = Y + TR * C;   // [TR, C]  cross queries; then T(v2)
-  float* Hb = Qb + TR * C;  // [TR, HID] normalised joints, o, MLP hidden
-  float* Kj = Hb + TR * HID;  // [JMAX, C]
-  float* Vj = Kj + JMAX * C;  // [JMAX, C]
+  static constexpr bool kMlp = kMode != LNONLY && kMode != NOMLP;
+  static constexpr bool kSelf =
+      kMode != LNONLY && kMode != MLPONLY && kMode != NOSELF;
+  static constexpr bool kL3 = kMode == PREPROJ || kMode == FOLD1DOT;
+  // weight blocks a tile's products take, in order: wq, proj; fc1's four
+  // column blocks, fc2's four row blocks; L0, L1, L2; L3
+  static constexpr int NBLK =
+      (kCross ? 2 : 0) + (kMlp ? 8 : 0) + (kSelf ? 3 : 0) + (kL3 ? 1 : 0);
+};
 
-  const int r0 = blockIdx.x * TR;
+struct WBlock {
+  int field, r0, c0, ldw;
+};
+
+template <int kMode>
+__device__ __forceinline__ WBlock wblock(int i) {
+  using M = Parts<kMode>;
+  if constexpr (M::kCross) {
+    if (i < 2) return {i == 0 ? WQ : PROJ_W, 0, 0, C};
+    i -= 2;
+  }
+  if constexpr (M::kMlp) {
+    if (i < 4) return {FC1_W, 0, i * C, HID};
+    if (i < 8) return {FC2_W, (i - 4) * C, 0, C};
+    i -= 8;
+  }
+  if constexpr (M::kSelf) {
+    if (i < 3) return {L0_W + 2 * i, 0, 0, C};
+  }
+  return {L3_W, 0, 0, C};
+}
+
+// The weight blocks of a CTA's tiles, through two [64, 64] slots: while a
+// product reads one, cp.async fills the other with the next block (the
+// next tile's first after a tile's last). Four slots, three blocks ahead,
+// measured no faster: the staging is not what holds the launch back.
+template <typename T, int kMode>
+struct WeightRing {
+  using S = RowsSmem<T>;
+  static constexpr int NBLK = Parts<kMode>::NBLK;
+  T* buf;
+  const T* p;
+  const int* offs;
+  long long left;  // blocks not yet fetched
+  int blk = 0;     // the next one's index in a tile's sequence
+  int cur = 0;     // slot of the block the next product takes
+
+  __device__ WeightRing(unsigned char* sm, const T* p_, const int* offs_,
+                        long long tiles)
+      : buf(at<T>(sm, S::WS)), p(p_), offs(offs_), left(tiles * NBLK) {
+    fetch(0);
+  }
+
+  __device__ void fetch(int slot) {
+    if (left == 0) return;
+    const WBlock w = wblock<kMode>(blk);
+    tc::stage(buf + slot * C * S::LT, S::LT,
+              p + offs[w.field] + w.r0 * w.ldw + w.c0, w.ldw, C, C);
+    tc::cp_async_commit();
+    blk = blk + 1 == NBLK ? 0 : blk + 1;
+    --left;
+  }
+
+  // the next block, once every thread's copy of it has landed and every
+  // warp is done with the previous product (whose slot then takes the
+  // block after it)
+  __device__ const T* next() {
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    const T* ws = buf + cur * C * S::LT;
+    cur ^= 1;
+    fetch(cur);
+    return ws;
+  }
+};
+
+template <typename T, typename TX>
+struct RowsArgs {
+  const TX* x;       // [B, Nv, C] layer input
+  const T* joints;   // [B, J, C]
+  const T* p;        // packed weights
+  const int* offs;   // field offsets
+  float* y3;         // [B, Nv, C]
+  T* q2;             // [B, Nv, C]
+  T* k2;
+  T* vout;           // [B, Nv, v_width(kMode)]
+  T* out;            // [B, Nv, C] (row-local modes)
+  int B, Nv, J;
+  int nrt;           // row tiles per sample
+};
+
+// The joints of sample b: LN1, rounded (rows J.. zero), then their K and
+// V, rounded, into KJ and VJ.
+template <typename T, typename TX>
+__device__ __forceinline__ void joints_kv(const RowsArgs<T, TX>& a,
+                                          unsigned char* sm, int b) {
+  using S = RowsSmem<T>;
+  using N = Num<T>;
+  float* JT = at<float>(sm, S::JT);
+  T* YJ = at<T>(sm, S::YJ);
+  T* KJ = at<T>(sm, S::KJ);
+  T* VJ = at<T>(sm, S::VJ);
+  const int J = a.J;
+  const T* p = a.p;
+  const int* o = a.offs;
+  for (int i = threadIdx.x; i < J * C; i += NT_ROWS)
+    JT[i / C * S::LF + i % C] = N::to_float(a.joints[(size_t)b * J * C + i]);
+  for (int i = threadIdx.x; i < (JMAX - J) * C; i += NT_ROWS)
+    YJ[(J + i / C) * S::LT + i % C] = N::from_float(0.0f);
+  __syncthreads();
+  layer_norm_rows<C>(JT, S::LF, J, p + o[LN1_W], p + o[LN1_B], 1e-5f, false,
+                     [&](int r, int c, float v) {
+                       YJ[r * S::LT + c] = N::from_float(v);
+                     });
+  __syncthreads();
+  tc::gemm<T, 1>(JMAX / 16, C / 8, C, tc::RowMajor<T>{YJ, S::LT},
+                 Global<T>{p + o[WK], C},
+                 [&](int r, int c, float v, float w) {
+                   st2(KJ + r * S::LT + c, v, w);
+                 });
+  tc::gemm<T, 1>(JMAX / 16, C / 8, C, tc::RowMajor<T>{YJ, S::LT},
+                 Global<T>{p + o[WV], C},
+                 [&](int r, int c, float v, float w) {
+                   st2(VJ + r * S::LT + c, v, w);
+                 });
+}
+
+// The row-local part of one (sample, TR-row tile). Rows past the last
+// vertex are computed from zero inputs (finite) and never written out.
+// `jb` is the sample whose joints' K and V are in shared memory.
+template <typename T, bool kRoundAll, int kMode, typename TX>
+__device__ __forceinline__ void rows_tile(const RowsArgs<T, TX>& a,
+                                          unsigned char* sm, int b, int tile,
+                                          int& jb,
+                                          WeightRing<T, kMode>& w) {
+  using S = RowsSmem<T>;
+  using M = Parts<kMode>;
+  using N = Num<T>;
+  using RM = tc::RowMajor<T>;
+  constexpr int TR = S::TR, MT = TR / 16, NB = TR / 16;
+  constexpr int LF = S::LF, LT = S::LT, LTH = S::LTH;
+  const int Nv = a.Nv, J = a.J, tid = threadIdx.x;
+  const int r0 = tile * TR;
   const int nr = min(TR, Nv - r0);
-  const int tid = threadIdx.x;
-  // each weight pointer is taken where it is used: taken up front they
-  // stay live through the whole kernel, at the cost of the GEMMs' registers
-  const int b = b0 + blockIdx.y;
   const size_t row0 = (size_t)b * Nv + r0;
-  for (int i = tid; i < nr * C; i += NT_ROWS)
-    X[i] = Num<TX>::to_float(x[row0 * C + i]);
-  if constexpr (kCross) {
-    for (int i = tid; i < J * C; i += NT_ROWS)
-      Hb[i] = Num<T>::to_float(joints[(size_t)b * J * C + i]);
+  // each weight pointer is taken where it is used: taken up front they
+  // stay live through the whole tile, at the cost of the products'
+  // registers
+  const T* p = a.p;
+  const int* o = a.offs;
+  float* X = at<float>(sm, S::X);
+  float* P = at<float>(sm, S::P);
+  T* Y = at<T>(sm, S::Y);
+  T* Q = at<T>(sm, S::Q);
+
+  __syncthreads();  // the previous tile is done with every buffer
+  if constexpr (M::kCross) {
+    if (b != jb) {
+      jb = b;
+      joints_kv(a, sm, b);
+    }
+  }
+  for (int i = tid; i < TR * C; i += NT_ROWS) {
+    const int r = i / C, c = i % C;
+    X[r * LF + c] =
+        r < nr ? Num<TX>::to_float(a.x[(row0 + r) * C + c]) : 0.0f;
   }
   __syncthreads();
 
   if constexpr (kMode == LNONLY) {
     // out = y3 + LN2(y3), y3 = StdLN(LN1(x)), all f32 until the output
-    layer_norm_rows<C>(X, C, nr, p + offs[LN1_W], p + offs[LN1_B], 1e-5f,
-                       false, [&](int r, int c, float v) { Y[r * C + c] = v; });
+    layer_norm_rows<C>(X, LF, nr, p + o[LN1_W], p + o[LN1_B], 1e-5f, false,
+                       [&](int r, int c, float v) { P[r * LF + c] = v; });
     __syncthreads();
-    layer_norm_rows<C>(Y, C, nr, p + offs[A2], p + offs[B2], 1e-6f, true,
-                       [&](int r, int c, float v) { Y[r * C + c] = v; });
+    layer_norm_rows<C>(P, LF, nr, p + o[A2], p + o[B2], 1e-6f, true,
+                       [&](int r, int c, float v) { P[r * LF + c] = v; });
     __syncthreads();
-    layer_norm_rows<C>(Y, C, nr, p + offs[LN2_W], p + offs[LN2_B], 1e-5f,
-                       false, [&](int r, int c, float v) {
-                         out[(row0 + r) * C + c] =
-                             Num<T>::from_float(Y[r * C + c] + v);
+    layer_norm_rows<C>(P, LF, nr, p + o[LN2_W], p + o[LN2_B], 1e-5f, false,
+                       [&](int r, int c, float v) {
+                         a.out[(row0 + r) * C + c] =
+                             N::from_float(P[r * LF + c] + v);
                        });
     return;
   }
-  if constexpr (kMode == MLPONLY) {
-    // out = x + fc2(gelu(fc1(T(LN2 x))))
-    layer_norm_rows<C>(X, C, nr, p + offs[LN2_W], p + offs[LN2_B], 1e-5f,
-                       false, [&](int r, int c, float v) {
-                         Y[r * C + c] = rnd<T>(v);
-                       });
-    __syncthreads();
-    const T* fc1_b = p + offs[FC1_B];
-    gemm<T>(Y, C, nr, C, p + offs[FC1_W], HID, HID,
-            [&](int r, int c, float v) {
-              Hb[r * HID + c] = rnd<T>(gelu_exact(v + ld(fc1_b + c)));
-            });
-    __syncthreads();
-    const T* fc2_b = p + offs[FC2_B];
-    gemm<T>(Hb, HID, nr, HID, p + offs[FC2_W], C, C,
-            [&](int r, int c, float v) {
-              out[(row0 + r) * C + c] =
-                  Num<T>::from_float(X[r * C + c] + (v + ld(fc2_b + c)));
-            });
-    return;
-  }
 
-  if constexpr (kCross) {
-    const T* ln1_w = p + offs[LN1_W];
-    const T* ln1_b = p + offs[LN1_B];
-    layer_norm_rows<C>(Hb, C, J, ln1_w, ln1_b, 1e-5f, false,
+  if constexpr (M::kCross) {
+    // q = T(T(LN1 x) @ wq)
+    layer_norm_rows<C>(X, LF, TR, p + o[LN1_W], p + o[LN1_B], 1e-5f, false,
                        [&](int r, int c, float v) {
-                         Hb[r * C + c] = rnd<T>(v);
+                         Y[r * LT + c] = N::from_float(v);
                        });
-    layer_norm_rows<C>(X, C, nr, ln1_w, ln1_b, 1e-5f, false,
-                       [&](int r, int c, float v) {
-                         Y[r * C + c] = rnd<T>(v);
-                       });
+    const T* wq = w.next();
+    tc::gemm<T, NB>(MT, C / 8, C, RM{Y, LT}, RM{wq, LT},
+                    [&](int r, int c, float v, float w) {
+                      st2(Q + r * LT + c, v, w);
+                    });
     __syncthreads();
-    gemm<T>(Hb, C, J, C, p + offs[WK], C, C,
-            [&](int r, int c, float v) { Kj[r * C + c] = rnd<T>(v); });
-    gemm<T>(Hb, C, J, C, p + offs[WV], C, C,
-            [&](int r, int c, float v) { Vj[r * C + c] = rnd<T>(v); });
-    gemm<T>(Y, C, nr, C, p + offs[WQ], C, C,
-            [&](int r, int c, float v) { Qb[r * C + c] = rnd<T>(v); });
-    __syncthreads();
-
-    // scores [r, h, m] into Y, then the normalised probabilities in T
-    float* S = Y;
-    for (int i = tid; i < nr * H * J; i += NT_ROWS) {
-      const int m = i % J;
-      const int h = (i / J) % H;
-      const int r = i / (J * H);
-      const float* q = Qb + r * C + h * D;
-      const float* k = Kj + m * C + h * D;
-      float s = 0.0f;
+    // scores per head over the J joints (padded to JMAX), the softmax per
+    // (row, head) rounded to T, then o = T(P @ V) into Q
+    T* PM = at<T>(sm, S::PM);
+    const T* KJ = at<T>(sm, S::KJ);
+    const T* VJ = at<T>(sm, S::VJ);
 #pragma unroll
-      for (int d = 0; d < D; ++d) s = fmaf(q[d], k[d], s);
-      S[i] = s * kScale;
+    for (int h = 0; h < H; ++h)
+      tc::gemm<T, 1>(MT, JMAX / 8, D, RM{Q + h * D, LT},
+                     tc::ColMajor<T>{KJ + h * D, LT},
+                     [&](int r, int m, float v, float w) {
+                       st2(P + r * LF + h * JMAX + m, v * kScale,
+                           w * kScale);
+                     });
+    __syncthreads();
+    // one warp per (row, head), one lane per joint (zero past J)
+    const int lane = tid & 31;
+    for (int task = tid >> 5; task < TR * H; task += NT_ROWS / 32) {
+      const int r = task / H, col = task % H * JMAX + lane;
+      const float sv = lane < J ? P[r * LF + col] : -CUDART_INF_F;
+      const float mx = warp_max(sv);
+      const float e = lane < J ? expf(sv - mx) : 0.0f;
+      PM[r * LT + col] = N::from_float(e / warp_sum(e));
     }
     __syncthreads();
-    for (int i = tid; i < nr * H; i += NT_ROWS) {
-      float* srow = S + i * J;
-      float mx = -CUDART_INF_F;
-      for (int m = 0; m < J; ++m) mx = fmaxf(mx, srow[m]);
-      float sum = 0.0f;
-      for (int m = 0; m < J; ++m) sum += expf(srow[m] - mx);
-      for (int m = 0; m < J; ++m) srow[m] = rnd<T>(expf(srow[m] - mx) / sum);
-    }
-    __syncthreads();
-    // o = T(P @ V) into Hb (the normalised joints are no longer needed)
-    for (int i = tid; i < nr * C; i += NT_ROWS) {
-      const int r = i / C;
-      const int c = i % C;
-      const float* pr = S + (r * H + c / D) * J;
-      float o = 0.0f;
-      for (int m = 0; m < J; ++m) o = fmaf(pr[m], Vj[m * C + c], o);
-      Hb[i] = rnd<T>(o);
-    }
-    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+      tc::gemm<T, 1>(MT, D / 8, JMAX, RM{PM + h * JMAX, LT},
+                     RM{VJ + h * D, LT},
+                     [&](int r, int c, float v, float w) {
+                       st2(Q + r * LT + h * D + c, v, w);
+                     });
     // x1 = x + (o @ Wproj + b)
-    const T* proj_b = p + offs[PROJ_B];
-    gemm<T>(Hb, C, nr, C, p + offs[PROJ_W], C, C,
-            [&](int r, int c, float v) {
-              X[r * C + c] +=
-                  rp<T, kRoundAll>(rp<T, kRoundAll>(v) + ld(proj_b + c));
-            });
-  } else {
+    const T* proj = w.next();
+    const T* proj_b = p + o[PROJ_B];
+    tc::gemm<T, NB>(MT, C / 8, C, RM{Q, LT}, RM{proj, LT},
+                    [&](int r, int c, float v, float w) {
+                      const float2 b = ld2(proj_b + c);
+                      float* x = X + r * LF + c;
+                      x[0] += rp<T, kRoundAll>(rp<T, kRoundAll>(v) + b.x);
+                      x[1] += rp<T, kRoundAll>(rp<T, kRoundAll>(w) + b.y);
+                    });
+  } else if constexpr (kMode != MLPONLY) {
     // nocross: x1 = x + proj_b
-    const T* proj_b = p + offs[PROJ_B];
-    for (int i = tid; i < nr * C; i += NT_ROWS) X[i] += ld(proj_b + i % C);
+    const T* proj_b = p + o[PROJ_B];
+    for (int i = tid; i < nr * C; i += NT_ROWS)
+      X[i / C * LF + i % C] += ld(proj_b + i % C);
   }
   __syncthreads();
 
   // x2 = x1 + fc2(act(fc1(T(LN2 x1))))
-  layer_norm_rows<C>(X, C, nr, p + offs[LN2_W], p + offs[LN2_B], 1e-5f, false,
-                     [&](int r, int c, float v) { Y[r * C + c] = rnd<T>(v); });
-  __syncthreads();
+  layer_norm_rows<C>(X, LF, TR, p + o[LN2_W], p + o[LN2_B], 1e-5f, false,
+                     [&](int r, int c, float v) {
+                       Y[r * LT + c] = N::from_float(v);
+                     });
   if constexpr (kMode == NOMLP) {
     // the hidden is zero: fc2 adds its bias
-    const T* fc2_b = p + offs[FC2_B];
-    for (int i = tid; i < nr * C; i += NT_ROWS) X[i] += ld(fc2_b + i % C);
-  } else {
-    const T* fc1_b = p + offs[FC1_B];
-    gemm<T>(Y, C, nr, C, p + offs[FC1_W], HID, HID,
-            [&](int r, int c, float v) {
-              Hb[r * HID + c] =
-                  rnd<T>(activation<T, kRoundAll, kMode>(v, ld(fc1_b + c)));
-            });
     __syncthreads();
-    const T* fc2_b = p + offs[FC2_B];
-    gemm<T>(Hb, HID, nr, HID, p + offs[FC2_W], C, C,
-            [&](int r, int c, float v) {
-              X[r * C + c] +=
-                  rp<T, kRoundAll>(rp<T, kRoundAll>(v) + ld(fc2_b + c));
-            });
+    const T* fc2_b = p + o[FC2_B];
+    for (int i = tid; i < nr * C; i += NT_ROWS)
+      X[i / C * LF + i % C] += ld(fc2_b + i % C);
+  } else {
+    T* H1 = at<T>(sm, S::H1);
+    float* ACC = at<float>(sm, S::ACC);
+    const T* fc1_b = p + o[FC1_B];
+    for (int nb = 0; nb < HID / C; ++nb) {  // fc1's four column blocks
+      const T* fc1 = w.next();
+      tc::gemm<T, NB>(MT, C / 8, C, RM{Y, LT}, RM{fc1, LT},
+                      [&](int r, int cc, float v, float w) {
+                        const int c = nb * C + cc;
+                        const float2 b = ld2(fc1_b + c);
+                        st2(H1 + r * LTH + c,
+                            activation<T, kRoundAll, kMode>(v, b.x),
+                            activation<T, kRoundAll, kMode>(w, b.y));
+                      });
+    }
+    const T* fc2_b = p + o[FC2_B];
+    for (int kb = 0; kb < HID / C; ++kb) {  // fc2's four row blocks
+      const T* fc2 = w.next();
+      tc::gemm<T, NB>(MT, C / 8, C, RM{H1 + kb * C, LTH}, RM{fc2, LT},
+                      [&](int r, int c, float v, float w) {
+                        float* acc = ACC + r * LF + c;
+                        if (kb > 0) {
+                          v += acc[0];
+                          w += acc[1];
+                        }
+                        if (kb + 1 < HID / C) {
+                          st2(acc, v, w);
+                          return;
+                        }
+                        const float2 b = ld2(fc2_b + c);
+                        float* x = X + r * LF + c;
+                        x[0] += rp<T, kRoundAll>(rp<T, kRoundAll>(v) + b.x);
+                        x[1] += rp<T, kRoundAll>(rp<T, kRoundAll>(w) + b.y);
+                      });
+    }
   }
   __syncthreads();
+  if constexpr (kMode == MLPONLY) {
+    // out = x + fc2(gelu(fc1(T(LN2 x))))
+    for (int i = tid; i < nr * C; i += NT_ROWS)
+      a.out[row0 * C + i] = N::from_float(X[i / C * LF + i % C]);
+    return;
+  }
 
   // y3 = StdLN(x2); rounded for L0/L1/L2 (and, under kRoundAll, for the
   // residual too)
-  const T* l3_b = p + offs[L3_B];
-  layer_norm_rows<C>(X, C, nr, p + offs[A2], p + offs[B2], 1e-6f, true,
+  const T* l3_b = p + o[L3_B];
+  layer_norm_rows<C>(X, LF, TR, p + o[A2], p + o[B2], 1e-6f, true,
                      [&](int r, int c, float v) {
                        const size_t i = (row0 + r) * C + c;
                        if constexpr (kMode == NOSELF) {
-                         out[i] = Num<T>::from_float(v + ld(l3_b + c));
+                         if (r < nr)
+                           a.out[i] = N::from_float(v + ld(l3_b + c));
                        } else {
-                         y3[i] = rp<T, kRoundAll>(v);
-                         Y[r * C + c] = rnd<T>(v);
+                         if (r < nr) a.y3[i] = rp<T, kRoundAll>(v);
+                         Y[r * LT + c] = N::from_float(v);
                        }
                      });
   if constexpr (kMode == NOSELF) return;
-  __syncthreads();
-  const T* l0_b = p + offs[L0_B];
-  const T* l1_b = p + offs[L1_B];
-  const T* l2_b = p + offs[L2_B];
-  gemm<T>(Y, C, nr, C, p + offs[L0_W], C, C, [&](int r, int c, float v) {
-    q2[(row0 + r) * C + c] =
-        Num<T>::from_float(rp<T, kRoundAll>(v) + ld(l0_b + c));
-  });
-  gemm<T>(Y, C, nr, C, p + offs[L1_W], C, C, [&](int r, int c, float v) {
-    k2[(row0 + r) * C + c] =
-        Num<T>::from_float(rp<T, kRoundAll>(v) + ld(l1_b + c));
-  });
-  if constexpr (kMode == PREPROJ || kMode == FOLD1DOT) {
-    // T(v2) into Qb, then through L3: preproj T((T(v2) @ L3) / H), the
-    // same row for both heads; fold1dot T(T(v2_h) @ L3[h rows]) per head
-    gemm<T>(Y, C, nr, C, p + offs[L2_W], C, C, [&](int r, int c, float v) {
-      Qb[r * C + c] = rnd<T>(v + ld(l2_b + c));
-    });
-    __syncthreads();
-    const T* l3_w = p + offs[L3_W];
+  T* const outs[2] = {a.q2, a.k2};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const T* wl = w.next();
+    const T* bias = p + o[L0_B + 2 * i];
+    tc::gemm<T, NB>(MT, C / 8, C, RM{Y, LT}, RM{wl, LT},
+                    [&](int r, int c, float v, float w) {
+                      const float2 b = ld2(bias + c);
+                      if (r < nr)
+                        st2(outs[i] + (row0 + r) * C + c,
+                            rp<T, kRoundAll>(v) + b.x,
+                            rp<T, kRoundAll>(w) + b.y);
+                    });
+  }
+  const T* l2 = w.next();
+  const T* l2_b = p + o[L2_B];
+  if constexpr (M::kL3) {
+    // T(v2) into Q, then through L3: preproj T((T(v2) @ L3) / H), the same
+    // row for both heads; fold1dot T(T(v2_h) @ L3[h rows]) per head
+    tc::gemm<T, NB>(MT, C / 8, C, RM{Y, LT}, RM{l2, LT},
+                    [&](int r, int c, float v, float w) {
+                      const float2 b = ld2(l2_b + c);
+                      st2(Q + r * LT + c, v + b.x, w + b.y);
+                    });
+    const T* l3 = w.next();
     if constexpr (kMode == PREPROJ) {
-      gemm<T>(Qb, C, nr, C, l3_w, C, C, [&](int r, int c, float v) {
-        vout[(row0 + r) * C + c] = Num<T>::from_float(v * (1.0f / H));
-      });
+      tc::gemm<T, NB>(MT, C / 8, C, RM{Q, LT}, RM{l3, LT},
+                      [&](int r, int c, float v, float w) {
+                        if (r < nr)
+                          st2(a.vout + (row0 + r) * C + c, v * (1.0f / H),
+                              w * (1.0f / H));
+                      });
     } else {
 #pragma unroll
-      for (int h = 0; h < H; ++h) {
-        gemm<T>(Qb + h * D, C, nr, D, l3_w + h * D * C, C, C,
-                [&](int r, int c, float v) {
-                  vout[(row0 + r) * (H * C) + h * C + c] =
-                      Num<T>::from_float(v);
-                });
-      }
+      for (int h = 0; h < H; ++h)
+        tc::gemm<T, NB>(MT, C / 8, D, RM{Q + h * D, LT},
+                        RM{l3 + h * D * LT, LT},
+                        [&](int r, int c, float v, float w) {
+                          if (r < nr)
+                            st2(a.vout + (row0 + r) * (H * C) + h * C + c, v,
+                                w);
+                        });
     }
   } else {
-    gemm<T>(Y, C, nr, C, p + offs[L2_W], C, C, [&](int r, int c, float v) {
-      vout[(row0 + r) * C + c] =
-          Num<T>::from_float(rp<T, kRoundAll>(v) + ld(l2_b + c));
-    });
+    tc::gemm<T, NB>(MT, C / 8, C, RM{Y, LT}, RM{l2, LT},
+                    [&](int r, int c, float v, float w) {
+                      const float2 b = ld2(l2_b + c);
+                      if (r < nr)
+                        st2(a.vout + (row0 + r) * C + c,
+                            rp<T, kRoundAll>(v) + b.x,
+                            rp<T, kRoundAll>(w) + b.y);
+                    });
   }
+}
+
+// x: TX [B, Nv, C]; joints: T [B, J, C]. Writes y3 (f32), q2, k2 (T
+// [B, Nv, C]) and v (T [B, Nv, v_width(kMode)]); the row-local modes write
+// out (T) alone. Each CTA walks a contiguous run of the B * nrt (sample,
+// tile) items, so a sample's joints are prepared once per CTA that meets
+// it and the weight ring runs on across tiles.
+template <typename T, bool kRoundAll, int kMode, typename TX = T>
+__global__ void __launch_bounds__(NT_ROWS, RowsSmem<T>::MIN_CTAS)
+    rows_kernel(RowsArgs<T, TX> a) {
+  extern __shared__ __align__(16) unsigned char sm[];
+  const long long total = (long long)a.B * a.nrt;
+  const long long beg = total * blockIdx.x / gridDim.x;
+  const long long end = total * (blockIdx.x + 1) / gridDim.x;
+  if (beg >= end) return;
+  WeightRing<T, kMode> w(sm, a.p, a.offs, end - beg);
+  int jb = -1;
+  for (long long t = beg; t < end; ++t)
+    rows_tile<T, kRoundAll, kMode, TX>(a, sm, (int)(t / a.nrt),
+                                       (int)(t % a.nrt), jb, w);
 }
 
 // q . k for one head from a staged f32 key row (the same FMA chain in
@@ -518,25 +764,41 @@ __global__ void __launch_bounds__(NT_ATTN)
   }
 }
 
+// CTAs of `kern` the device holds at once, or 0
+template <typename K>
+int rows_wave(K kern, int smem) {
+  int dev = 0, sms = 0, per = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kern, NT_ROWS,
+                                                    smem) != cudaSuccess)
+    return 0;
+  return per * sms;
+}
+
 template <typename T, bool kRoundAll, int kMode, typename TX = T>
 int launch_rows(const void* x, const void* joints, const void* weights,
                 const void* offs, void* y3, void* q2, void* k2, void* v,
                 void* out, int B, int Nv, int J, cudaStream_t stream) {
   auto kern = rows_kernel<T, kRoundAll, kMode, TX>;
-  const int smem = ROWS_SMEM_FLOATS * (int)sizeof(float);
+  const int smem = RowsSmem<T>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  for (int b0 = 0; b0 < B; b0 += MAX_GRID_B) {
-    dim3 grid((Nv + TR - 1) / TR, B - b0 < MAX_GRID_B ? B - b0 : MAX_GRID_B);
-    kern<<<grid, NT_ROWS, smem, stream>>>(
-        static_cast<const TX*>(x), static_cast<const T*>(joints),
-        static_cast<const T*>(weights), static_cast<const int*>(offs),
-        static_cast<float*>(y3), static_cast<T*>(q2), static_cast<T*>(k2),
-        static_cast<T*>(v), static_cast<T*>(out), b0, Nv, J);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-  return 0;
+  const RowsArgs<T, TX> a{
+      static_cast<const TX*>(x), static_cast<const T*>(joints),
+      static_cast<const T*>(weights), static_cast<const int*>(offs),
+      static_cast<float*>(y3), static_cast<T*>(q2), static_cast<T*>(k2),
+      static_cast<T*>(v), static_cast<T*>(out), B, Nv, J,
+      (Nv + RowsSmem<T>::TR - 1) / RowsSmem<T>::TR};
+  const long long total = (long long)B * a.nrt;
+  static int wave = 0;  // per kernel: each mode's registers differ
+  if (wave == 0) wave = rows_wave(kern, smem);
+  if (wave <= 0) return (int)cudaErrorInvalidConfiguration;
+  if (total == 0) return 0;
+  kern<<<(int)(total < wave ? total : wave), NT_ROWS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, bool kRoundAll, int kMode>

@@ -12,25 +12,44 @@
 // Design. One head's 431 x 431 score tile is 743 KB in f32, more than a
 // CTA's 227 KB of shared memory, so the layer is cut where the rows stop
 // being independent:
-//   rows:         per (32-row tile, sample): the cross-attention over the
-//                 whole J-key joint set, LN2, the MLP, the std-LN and the
-//                 q2/k2/v2 projections. Writes y3 (f32) and q2/k2/v2 (T).
-//                 This is lbf_layer.cuh's `rows_kernel` (shared with
+//   rows:         per (32-row tile, sample; 16 rows in f32): the
+//                 cross-attention over the whole J-key joint set, LN2, the
+//                 MLP, the std-LN and the q2/k2/v2 projections. Writes
+//                 y3 (f32) and q2/k2/v2 (T). This is lbf_layer.cuh's
+//                 `rows_kernel` (shared with
 //                 K2-layer and T1) under T1's rounding policy, which is
 //                 K2's: products and bias adds in f32, operands rounded to
-//                 T where they enter a product.
-//   lbf_selfattn: per (sample, 64-query tile), both heads: online softmax
-//                 over 64-key tiles staged in shared memory (flash-style;
-//                 no score matrix is stored), then L3 and the residual.
+//                 T where they enter a product. Its design and bounds are
+//                 written there: every product on the tensor cores, the
+//                 weights through a two-slot cp.async ring, a persistent
+//                 grid whose CTAs prepare a sample's joints once.
+//   lbf_selfattn: per (64-query tile, sample), both heads, one CTA of
+//                 eight warps (four per head, 16 query rows each): the
+//                 two-pass attention of attn_tc.cuh (shared with K3) on
+//                 the tensor cores, the sample's K and V staged whole-row
+//                 (both heads, 64 wide) with cp.async in chunks that let
+//                 two CTAs share an SM (bf16 at Nv = 431: 384 + 47 keys;
+//                 f32: 192-key chunks); the normalised probabilities
+//                 rounded to T, as the TPU kernel rounds them
+//                 (pallas_mdr.py:342), then PV in f32 rounded to T. The
+//                 epilogue puts the tile's T(o) [64, 64] in shared memory
+//                 beside L3's weights (cp.async) and adds o @ L3 + l3_b to
+//                 y3 on the tensor cores into x' (f32).
 // The residual stream between layers stays f32. The ragged 431 edge is
 // masked by row counts; the TPU kernel's 431->432 and J->24 row padding
-// and its block-diagonal cross mask are gone.
+// and its block-diagonal cross mask are gone. Past the grid's 65535
+// samples the self-attention launches again; the rows launch has a 1-D
+// persistent grid.
 //
-// What bounds it on the H100. Both launches are FMA-bound: ~52k FMA per
-// vertex row in the rows kernel and 2 * 2 * 32 * Nv FMA per vertex row in
-// lbf_selfattn (~49 GFMA per layer at B = 2048), on the f32 pipes. The
-// weights (61k values per layer) are read from L2. Tensor cores (mma /
-// wgmma for the QK and PV products) are the next step.
+// What bounds it on the H100 (B = 2048, Nv = 431, J = 17, a layer, bf16):
+// rows 49 GFMA (0.10 ms at 989 TFLOP/s) against 0.79 GB (0.24 ms);
+// self-attention 52 GFMA (0.11 ms; 76 with pass 1's scores) against
+// 0.79 GB of q2/k2/v2 and y3 in and x' out (0.24 ms), and 760 M
+// exponentials twice. Both are bound by the bytes; measured on one H100
+// 80GB HBM3 at 700 W they take 2.26 and 1.41 ms a layer (chip_smoke.py,
+// tools/profile_lbf.py). bf16 products are exact, so only the f32 sums
+// reorder; f32 runs as 3xTF32 (mma.cuh), never single TF32.
+#include "attn_tc.cuh"
 #include "lbf_layer.cuh"
 
 namespace gator {
@@ -38,99 +57,143 @@ namespace lbf {
 
 using namespace lbf_layer;
 
+constexpr int SA_WARPS = 8;  // four per head, 16 query rows each
+constexpr int SA_ROWS = 64;  // query rows per CTA
+
+// the staged K/V rows (both heads), and the epilogue's O tile and L3
+// weights, which reuse them
 template <typename T>
-__global__ void __launch_bounds__(NT_ATTN)
+struct SelfAttn {
+  using Pad = attn::Pad<T, C>;
+  static constexpr int LO = Pad::LK, LW = Pad::LV;
+  static int smem(int kc) { return kc * Pad::KEY_BYTES; }
+  static_assert(SA_ROWS * (LO + LW) <= attn::KT * (Pad::LK + Pad::LV),
+                "the epilogue fits in one key tile's staging");
+};
+
+// two CTAs per SM: at most 128 registers a thread
+template <typename T>
+__global__ void __launch_bounds__(32 * SA_WARPS, 2)
     lbf_selfattn_kernel(const T* __restrict__ q2, const T* __restrict__ k2,
                         const T* __restrict__ v2, const float* __restrict__ y3,
                         const T* __restrict__ p, const int* __restrict__ offs,
-                        float* __restrict__ xout, int Nv) {
-  __shared__ __align__(16) float Ks[TK * C];  // key tile; then o [TQ, C]
-  __shared__ __align__(16) float Vs[TK * C];
+                        float* __restrict__ xout, int b0, int Nv, int kc) {
+  using P = tc::Mma<T>;
+  using S = SelfAttn<T>;
+  constexpr int KSTEPS = attn::ksteps<T, D>();
+  constexpr int NO = D / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Ks = reinterpret_cast<T*>(smem);
+  T* Vs = Ks + kc * S::Pad::LK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = warp / 4;
+  const int r0 = blockIdx.x * SA_ROWS;
+  const int wr = (warp % 4) * 16;  // the warp's first row in the tile
+  const int m0 = r0 + wr;
+  const bool active = m0 < Nv;
+  const size_t base = (size_t)(b0 + blockIdx.y) * Nv;
 
-  const int b = blockIdx.y;
-  const int r0 = blockIdx.x * TQ;
-  const int tid = threadIdx.x;
-  const int h = tid / TQ;   // warps 0-1: head 0, warps 2-3: head 1
-  const int r = tid % TQ;
-  const int row = min(r0 + r, Nv - 1);
-  const size_t base = (size_t)b * Nv;
-
-  float q[D], acc[D];
+  typename P::A qf[KSTEPS];
+  {
+    const T* qb = q2 + (base + m0) * C + h * D;
+    const int nr = Nv - m0;
+    auto qa = [&](int m, int d) {
+      return m < nr ? ld(qb + m * C + d) : 0.0f;
+    };
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    q[d] = Num<T>::to_float(q2[(base + row) * C + h * D + d]);
-    acc[d] = 0.0f;
+    for (int ks = 0; ks < KSTEPS; ++ks) qf[ks] = P::load_a(qa, 0, ks * P::KS);
   }
-  float mx = -CUDART_INF_F;
-  float l = 0.0f;
-
-  for (int k0 = 0; k0 < Nv; k0 += TK) {
-    const int nk = min(TK, Nv - k0);
-    __syncthreads();
-    for (int i = tid; i < nk * C; i += NT_ATTN) {
-      Ks[i] = Num<T>::to_float(k2[(base + k0) * C + i]);
-      Vs[i] = Num<T>::to_float(v2[(base + k0) * C + i]);
+  // base-2 logits, s * scale * log2(e); -inf past the last key
+  constexpr float sl = kScale * attn::LOG2E;
+  auto finish = [&](float (&s)[8][4], int key0) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] *= sl;
+    if (key0 + attn::KT > Nv) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (key0 + 8 * j + 2 * t + (i & 1) >= Nv) s[j][i] = -CUDART_INF_F;
     }
-    __syncthreads();
-    for (int j = 0; j < nk; ++j) {
-      const float4* kr = reinterpret_cast<const float4*>(Ks + j * C + h * D);
-      float s = 0.0f;
+  };
+  float o[NO][4];
+  attn::two_pass<T, D, C>(
+      o, qf, Ks + h * D, Vs + h * D, Nv, kc, active,
+      [&](int key0, int n, bool with_v) {
+        attn::stage_kv<T, C>(Ks, Vs, k2 + base * C, v2 + base * C, C, C,
+                             key0, n, with_v);
+      },
+      finish);
+
+  // x' = y3 + (T(o) @ L3 + b): T(o) and L3 into the staging space
+  __syncthreads();  // K and V are read no more
+  T* O = Ks;
+  T* W3 = O + SA_ROWS * S::LO;
+  tc::stage(W3, S::LW, p + offs[L3_W], C, C, C);
+  tc::cp_async_commit();
 #pragma unroll
-      for (int d4 = 0; d4 < D / 4; ++d4) {
-        const float4 kv = kr[d4];
-        s = fmaf(q[4 * d4], kv.x, s);
-        s = fmaf(q[4 * d4 + 1], kv.y, s);
-        s = fmaf(q[4 * d4 + 2], kv.z, s);
-        s = fmaf(q[4 * d4 + 3], kv.w, s);
-      }
-      s *= kScale;
-      if (s > mx) {
-        const float corr = expf(mx - s);
-        l *= corr;
+  for (int rr = 0; rr < 2; ++rr) {
+    T* orow = O + (wr + g + 8 * rr) * S::LO + h * D + 2 * t;
 #pragma unroll
-        for (int d = 0; d < D; ++d) acc[d] *= corr;
-        mx = s;
-      }
-      const float pr = expf(s - mx);
-      l += pr;
-      const float4* vr = reinterpret_cast<const float4*>(Vs + j * C + h * D);
-#pragma unroll
-      for (int d4 = 0; d4 < D / 4; ++d4) {
-        const float4 vv = vr[d4];
-        acc[4 * d4] = fmaf(pr, vv.x, acc[4 * d4]);
-        acc[4 * d4 + 1] = fmaf(pr, vv.y, acc[4 * d4 + 1]);
-        acc[4 * d4 + 2] = fmaf(pr, vv.z, acc[4 * d4 + 2]);
-        acc[4 * d4 + 3] = fmaf(pr, vv.w, acc[4 * d4 + 3]);
-      }
+    for (int jn = 0; jn < NO; ++jn) {
+      orow[8 * jn] = Num<T>::from_float(o[jn][2 * rr]);
+      orow[8 * jn + 1] = Num<T>::from_float(o[jn][2 * rr + 1]);
     }
   }
+  tc::cp_async_wait<0>();
   __syncthreads();
-  float* O = Ks;
-  const float inv = 1.0f / l;
-#pragma unroll
-  for (int d = 0; d < D; ++d) O[r * C + h * D + d] = rnd<T>(acc[d] * inv);
-  __syncthreads();
-
-  // x' = y3 + o @ L3 + b
-  const int nq = min(TQ, Nv - r0);
+  const int nq = min(SA_ROWS, Nv - r0);
   const T* l3_b = p + offs[L3_B];
-  gemm<T>(O, C, nq, C, p + offs[L3_W], C, C, [&](int rr, int c, float v) {
-    const size_t i = (base + r0 + rr) * C + c;
-    xout[i] = y3[i] + v + ld(l3_b + c);
-  });
+  tc::gemm<T, 2>(SA_ROWS / 16, C / 8, C, tc::RowMajor<T>{O, S::LO},
+                 tc::RowMajor<T>{W3, S::LW},
+                 [&](int m, int c, float v, float w) {
+                   if (m < nq) {
+                     const size_t i = (base + r0 + m) * C + c;
+                     const float2 y = ld2(y3 + i), b = ld2(l3_b + c);
+                     st2(xout + i, y.x + v + b.x, y.y + w + b.y);
+                   }
+                 });
 }
 
 template <typename T>
 int launch_selfattn(const void* q2, const void* k2, const void* v2,
                     const void* y3, const void* weights, const void* offs,
                     void* xout, int B, int Nv, cudaStream_t stream) {
-  dim3 grid((Nv + TQ - 1) / TQ, B);
-  lbf_selfattn_kernel<T><<<grid, NT_ATTN, 0, stream>>>(
-      static_cast<const T*>(q2), static_cast<const T*>(k2),
-      static_cast<const T*>(v2), static_cast<const float*>(y3),
-      static_cast<const T*>(weights), static_cast<const int*>(offs),
-      static_cast<float*>(xout), Nv);
-  return (int)cudaGetLastError();
+  auto kern = lbf_selfattn_kernel<T>;
+  const int kc = attn::chunk_keys<T, C>(Nv);
+  const int smem = SelfAttn<T>::smem(kc);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  for (int b0 = 0; b0 < B; b0 += MAX_GRID_B) {
+    dim3 grid((Nv + SA_ROWS - 1) / SA_ROWS,
+              B - b0 < MAX_GRID_B ? B - b0 : MAX_GRID_B);
+    kern<<<grid, 32 * SA_WARPS, smem, stream>>>(
+        static_cast<const T*>(q2), static_cast<const T*>(k2),
+        static_cast<const T*>(v2), static_cast<const float*>(y3),
+        static_cast<const T*>(weights), static_cast<const int*>(offs),
+        static_cast<float*>(xout), b0, Nv, kc);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+// The self-attention launch's plan at Nv keys: keys per staged K/V chunk
+// into *kc, CTAs resident per SM on the current device into *ctas_per_sm
+template <typename T>
+int selfattn_plan(int Nv, int* kc, int* ctas_per_sm) {
+  auto kern = lbf_selfattn_kernel<T>;
+  *kc = attn::chunk_keys<T, C>(Nv);
+  const int smem = SelfAttn<T>::smem(*kc);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        ctas_per_sm, kern, 32 * SA_WARPS, smem);
+  return (int)err;
 }
 
 }  // namespace lbf
@@ -162,4 +225,38 @@ extern "C" int lbf_selfattn_launch(int dtype, const void* q2, const void* k2,
                                               xout, B, Nv, s);
   return gator::lbf::launch_selfattn<__nv_bfloat16>(q2, k2, v2, y3, weights,
                                                     offs, xout, B, Nv, s);
+}
+
+// The self-attention launch's plan (keys per K/V chunk, CTAs per SM) and
+// the rows launch's CTAs per SM at Nv keys. Returns a cudaError_t.
+extern "C" int lbf_stack_plan(int dtype, int Nv, int* kc, int* sa_ctas,
+                              int* rows_ctas) {
+  using gator::lbf_layer::FULL;
+  using gator::lbf_layer::NT_ROWS;
+  using gator::lbf_layer::RowsSmem;
+  using gator::lbf_layer::rows_kernel;
+  int err;
+  if (dtype == 0) {
+    err = gator::lbf::selfattn_plan<float>(Nv, kc, sa_ctas);
+    auto kern = rows_kernel<float, false, FULL, float>;
+    if (err == 0)
+      err = (int)cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          RowsSmem<float>::BYTES);
+    if (err == 0)
+      err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          rows_ctas, kern, NT_ROWS, RowsSmem<float>::BYTES);
+    return err;
+  }
+  using bf16 = __nv_bfloat16;
+  err = gator::lbf::selfattn_plan<bf16>(Nv, kc, sa_ctas);
+  auto kern = rows_kernel<bf16, false, FULL, float>;
+  if (err == 0)
+    err = (int)cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        RowsSmem<bf16>::BYTES);
+  if (err == 0)
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        rows_ctas, kern, NT_ROWS, RowsSmem<bf16>::BYTES);
+  return err;
 }

@@ -162,38 +162,8 @@ struct Export {
 
 __device__ __forceinline__ float* sj(float* S, int b) { return S + joff(b); }
 
-// element (i, j) of a row-major (RowMajor) or column-major (ColMajor)
-// buffer of E in shared memory as f32: an mma operand accessor (mma.cuh),
-// whose fragments load whole in bf16 (ld even, rows 16-byte aligned)
-template <typename E>
-struct RowMajor {
-  static constexpr tc::Layout kLayout =
-      sizeof(E) == 2 ? tc::kRowMajor : tc::kNone;
-  const E* p;
-  int ld;
-  __device__ __forceinline__ float operator()(int i, int j) const {
-    return Num<E>::to_float(p[i * ld + j]);
-  }
-  __device__ __forceinline__ const E* ptr(int i, int j) const {
-    return p + i * ld + j;
-  }
-};
-
-template <typename E>
-struct ColMajor {
-  static constexpr tc::Layout kLayout =
-      sizeof(E) == 2 ? tc::kColMajor : tc::kNone;
-  const E* p;
-  int ld;
-  __device__ __forceinline__ float operator()(int i, int j) const {
-    return Num<E>::to_float(p[j * ld + i]);
-  }
-  __device__ __forceinline__ const E* ptr(int i, int j) const {
-    return p + j * ld + i;
-  }
-};
-
-__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+using tc::ColMajor;
+using tc::RowMajor;
 
 // Shared memory of the rows kernels, in bytes from the start. Rows of
 // width w are padded by 16 bytes (w + 4 f32, w + 16 / sizeof(T) T), so
@@ -233,11 +203,6 @@ struct Rows {
                 "dq2/dk2/dv2 fit in R");
   static_assert(2 * TB <= TR * LFH * 4, "da1 and dq fit in R");
 };
-
-template <typename E>
-__device__ __forceinline__ E* at(unsigned char* s, int off) {
-  return reinterpret_cast<E*>(s + off);
-}
 
 // stage the [64, 64] block at (r0, c0) of a weight whose rows are ldw
 // apart into WS (rows 64 + 16 / sizeof(T) apart) and commit; `ready`

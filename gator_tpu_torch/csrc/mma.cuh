@@ -1,5 +1,6 @@
-// Tensor-core building blocks shared by K3 (fused_attention.cu) and K4's
-// row-local launches (lbf_stack_train.cu): warp-level mma.sync, ldmatrix,
+// Tensor-core building blocks shared by K3 (fused_attention.cu and
+// attn_tc.cuh), K4's row-local launches (lbf_stack_train.cu) and K2's two
+// launches (lbf_stack.cu, lbf_layer.cuh): warp-level mma.sync, ldmatrix,
 // cp.async, and a block-level product over operands in shared memory.
 //
 // Numerics. bf16: operands are rounded to bf16 (round to nearest even, as
@@ -13,6 +14,8 @@
 // f32 accuracy; a single TF32 product keeps about three decimal digits and
 // is never used.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -134,6 +137,37 @@ struct LayoutOf<F, decltype(void(F::kLayout))> {
   static constexpr Layout value = F::kLayout;
 };
 
+// element (i, j) of a row-major (RowMajor) or column-major (ColMajor)
+// buffer of E in shared memory as f32: an mma operand accessor (`gemm`),
+// whose fragments load whole in bf16 (ld even, rows 16-byte aligned)
+template <typename E>
+struct RowMajor {
+  static constexpr Layout kLayout =
+      sizeof(E) == 2 ? kRowMajor : kNone;
+  const E* p;
+  int ld;
+  __device__ __forceinline__ float operator()(int i, int j) const {
+    return Num<E>::to_float(p[i * ld + j]);
+  }
+  __device__ __forceinline__ const E* ptr(int i, int j) const {
+    return p + i * ld + j;
+  }
+};
+
+template <typename E>
+struct ColMajor {
+  static constexpr Layout kLayout =
+      sizeof(E) == 2 ? kColMajor : kNone;
+  const E* p;
+  int ld;
+  __device__ __forceinline__ float operator()(int i, int j) const {
+    return Num<E>::to_float(p[j * ld + i]);
+  }
+  __device__ __forceinline__ const E* ptr(int i, int j) const {
+    return p + j * ld + i;
+  }
+};
+
 // The fragments of one mma step for the working type T, loaded through
 // element accessors a(m, k) and b(k, n) that return f32 values.
 template <typename T>
@@ -239,7 +273,8 @@ struct Mma<float> {
 // against NB 8-column tiles (nt % NB == 0) and walks k in steps of
 // Mma<T>::KS (K a multiple of it). a and b return f32 values, which the
 // fragments round to T (bf16) or split (f32). Each (m, n) is passed to
-// `out` once, by one thread; the sum over k runs in a fixed order.
+// `out` once, by one thread; the sum over k runs in a fixed order. An
+// `out` that takes (m, n, v, w) gets columns n (even) and n + 1 together.
 template <typename T, int NB, class FA, class FB, class Out>
 __device__ __forceinline__ void gemm(int mt, int nt, int K, FA a, FB b,
                                      Out out) {
@@ -263,10 +298,15 @@ __device__ __forceinline__ void gemm(int mt, int nt, int K, FA a, FB b,
 #pragma unroll
     for (int j = 0; j < NB; ++j) {
       const int n = n0 + 8 * j + 2 * t;
-      out(m0 + g, n, acc[j][0]);
-      out(m0 + g, n + 1, acc[j][1]);
-      out(m0 + g + 8, n, acc[j][2]);
-      out(m0 + g + 8, n + 1, acc[j][3]);
+      if constexpr (std::is_invocable_v<Out, int, int, float, float>) {
+        out(m0 + g, n, acc[j][0], acc[j][1]);
+        out(m0 + g + 8, n, acc[j][2], acc[j][3]);
+      } else {
+        out(m0 + g, n, acc[j][0]);
+        out(m0 + g, n + 1, acc[j][1]);
+        out(m0 + g + 8, n, acc[j][2]);
+        out(m0 + g + 8, n + 1, acc[j][3]);
+      }
     }
   }
 }

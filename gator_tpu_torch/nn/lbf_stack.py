@@ -6,11 +6,14 @@ It replaces gator_tpu/nn/pallas_mdr.py:352 `lbf_stack_fused`; the math of
 one layer is gator_tpu/nn/pallas_mdr.py:87 `_layer_math` (reference:
 lib/models/MDR.py:139-153).
 
-Per layer the kernel path makes two launches: `lbf_rows` (everything that
-is local to a vertex row: the row-local kernel of csrc/lbf_layer.cuh, which
-K2-layer and T1 share) and `lbf_selfattn` (the Nv x Nv self-attention
-with an online softmax, then L3 and the residual). The residual stream
-between layers stays f32; the result is cast to the working dtype once.
+Per layer the kernel path makes two launches, both on the tensor cores:
+`lbf_rows` (everything that is local to a vertex row: the row-local kernel
+of csrc/lbf_layer.cuh, which K2-layer and T1 share) and `lbf_selfattn` (the
+Nv x Nv self-attention in two passes, the normalised probabilities rounded
+to the working dtype, then L3 and the residual; csrc/attn_tc.cuh, shared
+with K3). The residual stream between layers stays f32; the result is cast
+to the working dtype once. Any batch size: the rows launch has a 1-D grid,
+the self-attention launches again past the grid's 65535 samples.
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ _SIGNATURE = {
     + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     "lbf_selfattn_launch": [ctypes.c_int] + [ctypes.c_void_p] * 7
     + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+    "lbf_stack_plan": [ctypes.c_int] * 2
+    + [ctypes.POINTER(ctypes.c_int)] * 3,
 }
 
 
@@ -53,8 +58,9 @@ def lbf_stack_ref(verts: torch.Tensor, joints: torch.Tensor,
                   weights: cuda_lib.Packed, num_heads: int) -> torch.Tensor:
     """Plain PyTorch version of the kernels, rounding to the working dtype
     at the same places: verts [B, Nv, C], joints [B, J, C] (dtype of
-    `weights`). The self-attention probabilities stay f32, as the kernel's
-    online softmax never holds them normalised."""
+    `weights`). Both attentions round their normalised probabilities to
+    the working dtype, as the TPU kernel does (gator_tpu/nn/
+    pallas_mdr.py:342)."""
     dt = weights.dtype
 
     def rnd(t):
@@ -81,7 +87,7 @@ def lbf_stack_ref(verts: torch.Tensor, joints: torch.Tensor,
         y3d = rnd(y3)
         q2, k2, v2 = (_heads(rnd(y3d @ p[f"l{i}_w"] + p[f"l{i}_b"]), h)
                       for i in range(3))
-        prob = torch.softmax(q2 @ k2.transpose(-1, -2) * scale, dim=-1)
+        prob = rnd(torch.softmax(q2 @ k2.transpose(-1, -2) * scale, dim=-1))
         o = rnd(_merge(prob @ v2))
         x = y3 + o @ p["l3_w"] + p["l3_b"]
     return x.to(dt)
@@ -103,8 +109,6 @@ def lbf_stack_cuda(verts: torch.Tensor, joints: torch.Tensor,
         if t.device != verts.device:
             raise ValueError("lbf_stack: all tensors must be on verts' "
                              "device")
-    if b > 65535:
-        raise ValueError("lbf_stack kernels take at most 65535 samples")
     out = torch.empty_like(verts)
     if b == 0 or nv == 0:
         return out
@@ -133,6 +137,19 @@ def lbf_stack_cuda(verts: torch.Tensor, joints: torch.Tensor,
         lbf_stack.launches += 1
         x, x_next = x_next, x
     return out.copy_(x)
+
+
+def stack_plan(dtype: torch.dtype, nv: int) -> dict:
+    """The launches' plan on the current CUDA device at `nv` vertices:
+    keys per staged K/V chunk of the self-attention and the CTAs an SM
+    holds of each launch."""
+    lib = cuda_lib.load("lbf_stack", _SIGNATURE)
+    kc, sa, rows = (ctypes.c_int() for _ in range(3))
+    cuda_lib.check(lib.lbf_stack_plan(cuda_lib.kernel_dtype(dtype), nv,
+                                      ctypes.byref(kc), ctypes.byref(sa),
+                                      ctypes.byref(rows)), "lbf_stack_plan")
+    return {"chunk_keys": kc.value, "selfattn_ctas_per_sm": sa.value,
+            "rows_ctas_per_sm": rows.value}
 
 
 def lbf_stack(verts: torch.Tensor, joints: torch.Tensor,

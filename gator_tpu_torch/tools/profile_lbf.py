@@ -7,10 +7,11 @@ at B=2048 bf16 with 17 seeded random joint tokens, times K2
 (`nn.lbf_stack`, 3 layers), K2-layer (`nn.lbf_layer`, one layer) and T1
 `full` (`nn.run_layers`, 3 layers): the median of 5 runs of 3 calls by
 CUDA events. Then the device time per launch of each of their kernels
-under torch.profiler, and the registers ptxas gave each kernel of K2 and
-K2-layer (their build logs). Run it from two checkouts in one call to
-compare them on one card. `main` returns the numbers. Fails without a
-CUDA device.
+under torch.profiler, the registers ptxas gave each kernel of K2 and
+K2-layer (their build logs), and K2's plan on the card (keys per staged
+K/V chunk of its self-attention, CTAs per SM of both launches). Run it
+from two checkouts in one call to compare them on one card. `main`
+returns the numbers. Fails without a CUDA device.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import torch
 
 from ..nn import (cuda_lib, extract_layer_params, fold_stack_weights,
                   lbf_layer, lbf_stack, run_layers)
+from ..nn.lbf_stack import stack_plan
 from .profile_train import _device_us, _is_kernel
 from .timing import card_name, time_ms
 
@@ -88,6 +90,7 @@ def main(argv=None):
         (e.key, _device_us(e) / e.count / 1e3)
         for e in prof.key_averages() if _is_kernel(e))
     regs = {lib: registers(lib) for lib in REPORTED}
+    plan = stack_plan(bf16, mdr.spec.coarse_num)
     print(f"B={BATCH} bf16, 431 vertices, 17 joints, on {card}")
     for name, t in ms.items():
         print(f"  {name:10s} {t:8.3f} ms")
@@ -98,8 +101,9 @@ def main(argv=None):
     for lib, kerns in regs.items():
         for name, n in kerns.items():
             print(f"  {n:4d}  {lib}: {name}")
+    print(f"K2 plan: {plan}")
     return {"card": card, "ms": ms, "kernel_ms": dict(kernels),
-            "registers": regs}
+            "registers": regs, "plan": plan}
 
 
 if __name__ == "__main__":

@@ -9,12 +9,13 @@ from .fused_forward import (gat_train_forward, make_fused_forward,
                             mdr_train_forward, rates_from_spec)
 from .loop import (make_gat_eval_step, make_gat_train_step,
                    make_gator_eval_step, make_gator_train_step)
-from .schedule import Adam, ReduceLROnPlateau, make_optimizer, multistep_lr
+from .schedule import (Adam, ReduceLROnPlateau, RMSprop, make_optimizer,
+                       multistep_lr)
 from .state import TrainState
 
-__all__ = ["Adam", "ReduceLROnPlateau", "TrainState", "gat_train_forward",
-           "load_checkpoint", "load_weights", "make_fused_forward",
-           "make_gat_eval_step", "make_gat_train_step",
+__all__ = ["Adam", "RMSprop", "ReduceLROnPlateau", "TrainState",
+           "gat_train_forward", "load_checkpoint", "load_weights",
+           "make_fused_forward", "make_gat_eval_step", "make_gat_train_step",
            "make_gator_eval_step", "make_gator_train_step", "make_optimizer",
            "mdr_train_forward", "multistep_lr", "pick_checkpoint",
            "rates_from_spec", "run_eval", "save_checkpoint"]

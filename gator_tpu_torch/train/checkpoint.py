@@ -70,16 +70,29 @@ def pick_checkpoint(ckpt_dir: str, pick_best: bool = False) -> str:
     return osp.join(ckpt_dir, f"checkpoint{max(nums)}.pth.tar")
 
 
+# Leaf names of the reference model's non-parameter buffers (graph
+# tables, template vertices), which the port rebuilds from its assets as
+# non-persistent buffers; the same names as the JAX converter's
+# `_is_buffer` (gator_tpu/convert/torch_loader.py).
+REFERENCE_BUFFERS = ("graph_adj", "init_vertices", "init_vertices_6890",
+                     "adj", "spatial", "spatial_pos", "edg_adj")
+
+
 def load_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
     """Load a model's weights, strictly, from a checkpoint file (the
     reference layout, or a bare state dict), or from a directory of them
     (best first, as the eval CLI picks; `pick_checkpoint`). A DataParallel
-    "module." prefix is stripped."""
+    "module." prefix is stripped, and so are the reference's buffer keys
+    (`REFERENCE_BUFFERS`) that the model does not hold: a released
+    `.pth.tar` carries four. Any other unknown or missing key raises."""
     if osp.isdir(path):
         path = pick_checkpoint(path, pick_best=True)
     state = load_checkpoint(path)
     state = state.get("model_state_dict", state)
     state = {k[len("module."):] if k.startswith("module.") else k: v
              for k, v in state.items()}
+    own = model.state_dict()
+    state = {k: v for k, v in state.items()
+             if k in own or k.split(".")[-1] not in REFERENCE_BUFFERS}
     model.load_state_dict(state, strict=True)
     return model

@@ -1,7 +1,8 @@
 """Optimizers and LR schedules (counterpart of gator_tpu/train/schedule.py;
 reference: lib/funcs_utils.py:76-107): Adam, SGD and RMSprop built with the
-reference's hyperparameters, the step-indexed `multistep_lr`
-(MultiStepLR), and the host-side `ReduceLROnPlateau` controller.
+reference's hyperparameters in optax's arithmetic, the step-indexed
+`multistep_lr` (MultiStepLR), and the host-side `ReduceLROnPlateau`
+controller.
 """
 from __future__ import annotations
 
@@ -77,20 +78,54 @@ class Adam(torch.optim.Optimizer):
             torch._foreach_add_(params, upd)
 
 
+class RMSprop(torch.optim.Optimizer):
+    """RMSprop in optax.rmsprop's arithmetic and defaults (decay 0.9, eps
+    1e-8, initial scale 0, no centring, no momentum): nu = (1 - decay) g^2
+    + decay nu, then -lr * g * rsqrt(nu + eps), eps inside the square
+    root, where torch.optim.RMSprop adds it outside. Multi-tensor, as
+    `Adam`."""
+    DECAY, EPS = 0.9, 1e-8
+
+    def __init__(self, params, lr: float):
+        super().__init__(params, dict(lr=lr))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        d = self.DECAY
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            for p in params:
+                if not self.state[p]:
+                    self.state[p]["nu"] = torch.zeros_like(p)
+            grads = [p.grad for p in params]
+            nus = [self.state[p]["nu"] for p in params]
+            torch._foreach_mul_(nus, d)
+            torch._foreach_add_(nus, torch._foreach_mul(
+                torch._foreach_mul(grads, grads), 1 - d))
+            scale = torch._foreach_add(nus, self.EPS)
+            torch._foreach_rsqrt_(scale)
+            torch._foreach_mul_(scale, grads)
+            torch._foreach_mul_(scale, -group["lr"])
+            torch._foreach_add_(params, scale)
+
+
 def make_optimizer(name: str, params: Iterable[torch.nn.Parameter],
                    lr: float, momentum: float = 0.9
                    ) -> torch.optim.Optimizer:
-    """The optimizer by reference name (gator_tpu/train/schedule.py:25-36):
-    adam (b1=0.9, b2=0.999, eps=1e-8, optax's arithmetic), sgd (nesterov,
-    `momentum`), rmsprop (decay 0.9, eps 1e-8; torch adds eps outside the
-    sqrt, optax.rmsprop inside)."""
+    """The optimizer by reference name, as the JAX package builds it with
+    optax (gator_tpu/train/schedule.py:25-36): adam (b1=0.9, b2=0.999,
+    eps=1e-8, `Adam`), sgd (nesterov, `momentum`; torch.optim.SGD's
+    update is optax.sgd's), rmsprop (optax.rmsprop's defaults: decay 0.9,
+    eps 1e-8 inside the square root, `RMSprop`)."""
     if name == "adam":
         return Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
     if name == "sgd":
         return torch.optim.SGD(params, lr=lr, momentum=momentum,
                                nesterov=True)
     if name == "rmsprop":
-        return torch.optim.RMSprop(params, lr=lr, alpha=0.9, eps=1e-8)
+        return RMSprop(params, lr=lr)
     raise ValueError(f"unknown optimizer {name!r}")
 
 

@@ -104,8 +104,12 @@ def test_split_keeps_the_value_to_2_pow_minus_22():
 # query rows, D = 32, 64-key tiles), K4's row-tile products (16 rows: q,
 # proj, fc1, fc2, the stacked dq2/dk2/dv2 backward, the cross-attention
 # over 32 padded joints), each one chain, and a weight gradient over one
-# lbf_wgrad chunk (5568 rows) in chains of 64 rows added in f32
+# lbf_wgrad chunk (5568 rows) in chains of 64 rows added in f32; K2's row
+# launch (csrc/lbf_layer.cuh, 16 rows) takes fc2's K=256 as four chains
+# of 64 (one [64, 64] weight block each) added in f32, and its
+# self-attention's epilogue a [64, 64] tile through L3
 SHAPES = {
+    "k2_rows_fc2": (16, 256, 64, 64), "k2_l3": (64, 64, 64, 0),
     "k3_scores": (16, 32, 64, 0), "k3_pv": (16, 64, 32, 0),
     "k3_scores_d64": (16, 64, 64, 0),
     "k4_q": (16, 64, 64, 0), "k4_fc1": (16, 64, 256, 0),
