@@ -41,7 +41,9 @@ The training path (K4 csrc/lbf_stack_train.cu, K5 csrc/gat_trunk_train.cu):
  14. (g) times at B=512, bf16: the stage-2 and stage-1 steps, and K4/K5
      forward and backward, each beside the plain version; K4's row-local
      launches (lbf_rows_fwd, lbf_rows_bwd + lbf_wgrad, on the tensor
-     cores) in device ms per step from torch.profiler, beside their bounds.
+     cores) and K5's four (gat_block_fwd, gat_block_bwd, gat_block_wgrad,
+     the reductions) in device ms per step from torch.profiler, beside their
+     bounds; K5's registers and CTAs per SM; the bound of K4's rest.
 The evaluation path (K3 csrc/fused_attention.cu, the MDR vertex
 self-attention of the module form):
  15. (h) K3 is built with the others in phase 2;
@@ -145,6 +147,21 @@ def fma_gat_block(j, c=128, hid=512, c2=16):
     return (j * c * 3 * c + 2 * j * j * c + j * c * c + 2 * j * c * c
             + j * j * c + j * c * c + j * c * c2 + j * j * (c + c2)
             + j * (c + c2) * c + 2 * j * c * hid)
+
+
+def dense_gat_block(j, c=128, hid=512, c2=16):
+    """FMA of one GAT block's dense products for one sample: qkv, proj,
+    MGCN W0 and W1, XFeat x0, x1, back, fc1, fc2. The backward's input
+    gradients and its weight gradients each take as many."""
+    return j * (3 * c * c + 4 * c * c + c * c2 + c * c + c2 * c
+                + 2 * c * hid)
+
+
+def fma_gat_block_dgrad(j, c=128, c2=16):
+    """FMA of K5's row backward (gat_block_bwd) for one sample and block:
+    the dense products transposed, the attention backward (dp, dq, dk,
+    dv), MGCN's adjacency and its gradient, XFeat's ring transposes."""
+    return dense_gat_block(j) + 6 * j * j * c + j * j * (c + c2)
 
 
 def fma_lbf_layer(nv, j, c=64, hid=256):
@@ -609,6 +626,69 @@ def train_phases(torch, dev, card, randn):
             f"{rows['lbf_wgrad']:.3f} ms (bound together "
             f"{row_bounds['lbf_rows_bwd'][0]:.3f}, "
             f"{row_bounds['lbf_rows_bwd'][1]})")
+    # K5's launches alone, the same way: device ms per step (six blocks)
+    from gator_tpu_torch.nn.gat_trunk_train import (kernel_info,
+                                                    launch_plan,
+                                                    partial_strides)
+    y = gat_trunk_train(x5, bias5, bp5, gatm.spec.masks_xfeat, 8, 9)
+    y.backward(g5, retain_graph=True)
+    torch.cuda.synchronize()
+    k5l = dict.fromkeys(("gat_block_fwd", "gat_block_bwd",
+                         "gat_block_wgrad", "reduce_partials"), 0.0)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            y.backward(g5, retain_graph=True)
+            gat_trunk_train(x5, bias5, bp5, gatm.spec.masks_xfeat, 8, 9)
+        torch.cuda.synchronize()
+    for evt in prof.key_averages():
+        for key in k5l:
+            if _is_kernel(evt) and key in evt.key:
+                k5l[key] += _device_us(evt) / 1e3 / 3
+    del y
+    check(all(v > 0 for v in k5l.values()),
+          f"the profiler saw K5's launches: {k5l}")
+    # bytes each launch moves (bf16 rows of 128, f32 x1): the forward reads
+    # x and writes out, the saved operands (2,320 a row) and x1; the
+    # row backward reads x, gout, q/k/v, g0, g1, the pre-activation (1,152
+    # a row) and x1, writes dx and the cotangent operands (1,680 a row);
+    # gat_block_wgrad reads the 2,848 operand columns of the weight
+    # gradients and writes its chunks' partial rows (f32); the reductions
+    # read those and the tiles' rows. Weights: bf16 in, f32 gradients out.
+    plan = launch_plan(b, 17)
+    strides = partial_strides(17)
+    rows6 = 6 * b * 17
+    wbytes = 6 * GAT_BLOCK_WEIGHTS * 2
+    k5_bounds = {
+        "gat_block_fwd": bound(6 * b * fma_gat_block(17),
+                               rows6 * (2 * 128 * 2 + 2320 * 2
+                                        + 128 * 4) + wbytes),
+        "gat_block_bwd": bound(6 * b * fma_gat_block_dgrad(17),
+                               rows6 * (3 * 128 * 2 + 1152 * 2 + 128 * 4
+                                        + 1680 * 2) + wbytes),
+        "gat_block_wgrad": bound(6 * b * dense_gat_block(17),
+                                 rows6 * 2848 * 2 + 6 * plan["nc_w"]
+                                 * GAT_BLOCK_WEIGHTS * 4),
+        "reduce_partials": bound(0, 6 * 4 * (
+            (plan["nc_w"] + 1) * strides["weights"]
+            + (plan["ntiles"] + 1) * strides["small"])),
+    }
+    info = kernel_info(bf16)
+    say(14, f"K5 launches per stage-2 step (6 blocks, B={b} bf16, "
+            f"{plan['ntiles']} tiles) on {card}: " + "; ".join(
+                f"{k} {k5l[k]:.3f} ms (bound {k5_bounds[k][0]:.3f}, "
+                f"{k5_bounds[k][1]})" for k in k5l)
+            + "; registers / CTAs per SM / shared bytes: " + ", ".join(
+                f"{k} {v['registers']}/{v['ctas_per_sm']}/{v['smem_bytes']}"
+                for k, v in info.items()))
+    # K4's rest (self-attention, out, joints, reduce): K4's operations
+    # less those of its row launches
+    rest_fma = 3 * b * 3 * fma_lbf_layer(nv, 17) - 3 * b * (
+        fma_lbf_rows_fwd(nv, 17) + fma_lbf_rows_bwd(nv, 17))
+    say(14, f"K4's rest per stage-2 step (3 layers, B={b} bf16): bound "
+            f"{bound(rest_fma, 0)[0]:.3f} ms (operations, bf16 tensor "
+            f"rate)")
     out["ms"] = {
         "gat_trunk_train": t["k5_fwd"] + t["k5_bwd"],
         "gat_trunk_train_plain": t["k5_fwd_plain"] + t["k5_bwd_plain"],
@@ -619,7 +699,7 @@ def train_phases(torch, dev, card, randn):
     out["bounds"] = {
         "gat_trunk_train": bound(
             3 * b * 6 * fma_gat_block(17),
-            4 * b * 17 * 128 * 2 + 6 * GAT_BLOCK_WEIGHTS * (2 + 4)),
+            6 * 4 * b * 17 * 128 * 2 + 6 * GAT_BLOCK_WEIGHTS * (2 + 4)),
         "lbf_stack_train": bound(
             3 * b * 3 * fma_lbf_layer(nv, 17),
             (4 * b * nv * 64 + 2 * b * 17 * 64) * 2

@@ -1,33 +1,61 @@
 // K5: one GAT block in training mode, forward and backward kernels.
 //
 // Replaces gator_tpu/nn/pallas_gat_train.py:530 `gat_trunk_train` (custom
-// VJP `gat_block_train:478`; forward `_fwd_kernel:335`, backward
-// `_bwd_kernel:353`). Per block and sample (reference: lib/models/GAT.py):
+// VJP `gat_block_train:478`; forward `_fwd_kernel:335` / `_block_fwd:140`,
+// backward `_bwd_kernel:353` / `_block_bwd:227`). Per block and sample
+// (reference: lib/models/GAT.py):
 //   y   = LN1(x)
 //   z   = DropPath1(ProjDrop(Proj(AttnDrop(softmax(qk/4 + hop/path bias)) v))
 //                   + MGCN(y))
 //   x1  = x + XFeat(z)
 //   out = x1 + DropPath2(MlpDrop(fc2(MlpDrop(gelu(fc1(LN2(x1)))))))
 // with dropout drawn in-kernel from the hash of csrc/dropout.cuh, keyed per
-// (seed, 256 + block, sample, mask-id, element), so the backward regenerates
-// every mask whatever its tiling. DropPath is one draw per sample.
+// (seed, 256 + block, sample, mask-id, element), so every launch draws the
+// same mask whatever its tiling. DropPath is one draw per sample.
 //
-// Design. A CTA walks over groups of G samples (G*J <= 64 token rows),
-// grid-striding so the grid stays at most NCTA_MAX CTAs. Each CTA keeps its
-// group's activations in a private f32 scratch region in device memory
-// (the TPU kernel's VMEM tile; a block's forward intermediates are ~3k
-// floats per row, more than shared memory holds for 64 rows). The backward
-// recomputes the forward from the saved block input (recompute-in-backward,
-// as on the TPU), then backpropagates through MLP, LN2, XFeat, MGCN,
-// attention and LN1, writing dx and accumulating the 25 parameter
-// gradients and the hop/path-bias gradient into the CTA's own row of an f32
-// partial buffer; a second launch sums the rows in a fixed order, so repeat
-// runs are bit-identical.
+// Design. A CTA takes one tile of RT = 32 token rows holding G = 32 / J
+// whole samples (one sample at J = 17 or 19), so the three per-sample mixes
+// (attention over J keys, MGCN's J x J adjacency, XFeat's hop rings) see a
+// sample's rows together; they run as FMA loops. Every dense product
+// (qkv, proj, MGCN W0/W1, XFeat x0/x1/back, fc1, fc2 and their transposes)
+// runs on the tensor cores through csrc/mma.cuh: bf16 mma.sync with f32
+// accumulation, or 3xTF32 in f32. A tile's activations live in shared
+// memory (in T where they only meet a product, in f32 where the block keeps
+// f32) and in the products' register accumulators; the weights stream
+// through a two-slot cp.async ring of [64, 64] panels. The MLP walks its
+// 512 hidden units in chunks of 64 (fc1's chunk, then its share of fc2
+// into register accumulators), so the hidden layer is never held whole.
+// One tile per CTA and a 1-D grid: any batch size (B = 65537 runs).
+// Shared memory per CTA in bf16: 78 KB forward, 103 KB backward, so two
+// CTAs fit an SM; f32 takes one.
 //
-// What bounds it on the H100: the FMA pipes. A block is ~5 MFMA per sample
-// forward; the backward recomputes it and does ~2x more, all in f32 FMA
-// loops (tensor cores are the next step), with the weights (~266k values)
-// read from L2 by every CTA and the activations from the CTA's scratch.
+// Save, do not recompute. The forward writes, per row, every operand the
+// backward reads (`ops`, T: y, q/k/v, a1, g0, g1, z, f0, f1, y2, the MLP
+// pre-activation and its dropped GELU; x1 in f32): 4.6 KB a row in bf16,
+// 40 MB a block at B = 512 and J = 17, written once at the card's memory
+// rate. The TPU kernel recomputes the forward in its backward; here that
+// would cost a second forward of every tile, several times the bytes.
+// The backward (gat_block_bwd) walks its tile back through MLP, LN2,
+// XFeat, MGCN, attention and LN1, writes dx and, per row, the cotangent
+// operands of every weight gradient to the other columns of `ops`; the
+// bias, LayerNorm, MGCN graph and hop/path-bias gradients of the tile go
+// to the tile's row of `spart` (each entry written once, nothing zeroed).
+// gat_block_wgrad forms the ten weight gradients X^T dY over all B * J rows
+// on the tensor cores, in chunks of rows, each chunk's 64-row sums added in
+// f32 registers in a fixed order; reduce_partials sums the chunk rows and
+// the tile rows in order. No atomics: repeat runs are bit-identical.
+//
+// What bounds it on the H100: the operations, ~4.8 MFMA per sample and
+// block forward (J = 17), 0.09 ms for a stage-2 step's six blocks at
+// B = 512 on bf16 tensor cores, and about as long for the bytes the
+// launches move (x, out, gout, dx, the saved operands, the weights). The
+// forward and the row backward take about 15 and 20 times their bounds
+// (chip_smoke.py phase 14 prints each launch beside its own), spread over
+// the products' epilogues, the mma, the
+// panel copies and the mixes, none dominant: a tile of one sample leaves
+// each panel little work between barriers. Deeper rings (three or four
+// slots) ran no faster.
+#include "mma.cuh"
 #include "train_ops.cuh"
 
 namespace gator {
@@ -40,13 +68,16 @@ constexpr int C3 = 384;   // qkv width
 constexpr int HID = 512;  // MLP hidden
 constexpr int C2 = 16;    // second XFeat ring width
 constexpr int JMAX = 32;  // most joints
-constexpr int HJ = H * JMAX;
-constexpr int ROWS = 64;  // token rows per group
-constexpr int NT = 256;
+constexpr int RT = 32;    // token rows per tile
+constexpr int NT = 256;   // threads: 8 warps, 2 row tiles x 4 column groups
+constexpr int PK = 64;    // a staged weight panel is at most PK x PK
+constexpr int HG = 2;     // heads per group in the attention backward
+constexpr int LJ = JMAX + 1;  // row stride of the backward's [RT, J] buffers
+constexpr int WR = 64;    // rows of ops per gat_block_wgrad chain
 
-// Field order of a block's packed weights (gradients: the same offsets,
-// then HOP_BIAS); must match BLOCK_PARAM_KEYS in
-// gator_tpu_torch/nn/gat_trunk_train.py.
+// Field order of a block's packed weights; must match BLOCK_PARAM_KEYS in
+// gator_tpu_torch/nn/gat_trunk_train.py. HOP_BIAS: the gradient of the
+// [H, J, J] hop/path bias.
 enum Field {
   N1_W, N1_B, QKV_W, QKV_B, PROJ_W, PROJ_B,
   GCN_W0, GCN_W1, GCN_M, GCN_DIAG, GCN_OFF, GCN_B,
@@ -54,34 +85,59 @@ enum Field {
   N2_W, N2_B, FC1_W, FC1_B, FC2_W, FC2_B, HOP_BIAS, NFIELD
 };
 
-// Scratch buffers, each [ROWS, width] f32; the forward needs those before
-// GO, the backward all of them.
-enum Buf {
-  B_X, B_Y, B_QKV, B_P, B_MA, B_A1, B_TMP, B_G0, B_G1, B_Z, B_F0P, B_F1P,
-  B_F0, B_F1, B_X1, B_Y2, B_PRE, B_HHD,
-  B_GO, B_DX, B_DMM2, B_DHH, B_DY, B_DF0, B_DF1, B_DF0P, B_DF1P, B_DZ,
-  B_DH0, B_DH1, B_DATT, B_DA1, B_DS, B_DQKV, B_STATS, NBUF
+// Columns of one row of `ops` (T [B * J, O_W]): the forward's saved
+// operands, then the backward's cotangents (OP_COLS in the wrapper).
+enum OpCol {
+  O_Y = 0, O_QKV = 128, O_A1 = 512, O_G0 = 640, O_G1 = 768, O_Z = 896,
+  O_F0 = 1024, O_F1 = 1152, O_Y2 = 1168, O_PRE = 1296, O_HHD = 1808,
+  O_DMM2 = 2320, O_DPRE = 2448, O_DX1 = 2960, O_DF0P = 3088, O_DF1P = 3216,
+  O_DH0M = 3232, O_DH1M = 3360, O_DATT = 3488, O_DQKV = 3616, O_W = 4000
 };
 
-__host__ __device__ constexpr int bw(int b) {
-  return (b == B_QKV || b == B_DQKV)                 ? C3
-         : (b == B_P || b == B_MA || b == B_DS)      ? HJ
-         : (b == B_F1P || b == B_F1 || b == B_DF1 || b == B_DF1P) ? C2
-         : (b == B_PRE || b == B_HHD || b == B_DHH)  ? HID
-         : b == B_STATS                              ? 4
-                                                     : C;
-}
+using tc::ColMajor;
+using tc::RowMajor;
 
-__host__ __device__ constexpr int boff(int b) {
-  return b == 0 ? 0 : boff(b - 1) + bw(b - 1);
-}
-
-constexpr long long FWD_FLOATS = (long long)boff(B_GO) * ROWS;
-constexpr long long BWD_FLOATS = (long long)boff(NBUF) * ROWS;
-
-__device__ __forceinline__ float* buf(float* S, int b) {
-  return S + boff(b) * ROWS;
-}
+// Shared memory, in bytes from the start. Row strides are padded by 16
+// bytes (4 f32, 16 / sizeof(T) T) so a warp's fragment loads fall in
+// distinct banks. Regions are reused once their phase is over (comments).
+template <typename T>
+struct Sm {
+  static constexpr int E = 16 / (int)sizeof(T);
+  // q/k/v rows (never an ldmatrix operand) are padded by 2 elements only:
+  // an odd number of words apart in bf16, so the attention backward's
+  // lane-per-key loads fall in distinct banks
+  static constexpr int LF = C + 4, LT = C + E, LT3 = C3 + 2, LTP = PK + E,
+                       LT2 = C2 + E;
+  static constexpr int FB = RT * LF * 4;                // [RT, C] f32
+  static constexpr int TB = RT * LT * (int)sizeof(T);   // [RT, C] T
+  static constexpr int T3B = RT * LT3 * (int)sizeof(T);
+  static constexpr int T2B = RT * LT2 * (int)sizeof(T);
+  static constexpr int SLOT = PK * LTP;                 // T of a ring slot
+  static constexpr int RING = 2 * SLOT * (int)sizeof(T);
+  // per-tile table: each sample's stream keys, then the rows' LN stats
+  static constexpr int NKEY = 16;
+  static constexpr int KEYS = 0, STATS = KEYS + RT * NKEY * 4,
+                       BASE = STATS + RT * 8;
+  // forward: XS x then x1 (f32); YS y, then z, then y2; QA qkv, then the
+  // attention output plus MGCN (f32), then f0p | f1p | f1, then the MLP's
+  // chunk of hidden units; AB a1, then M * g1, then f0
+  static constexpr int XS = BASE, YS = XS + FB, QA = YS + TB, AB = QA + T3B,
+                       RING_F = AB + TB, FWD_BYTES = RING_F + RING;
+  // backward: DX dx (f32, to the end); DY dy2, the attention's ds and
+  // masked probabilities, then dy (f32); QR dz, M * g1, then q/k/v and
+  // dq/dk/dv; U0..U2 the phases' T buffers (see gat_block_bwd)
+  static constexpr int DX = BASE, DY = DX + FB, QR = DY + FB, U0 = QR + T3B,
+                       U1 = U0 + TB, U2 = U1 + TB, RING_B = U2 + TB,
+                       BWD_BYTES = RING_B + RING;
+  static constexpr int MIN_CTAS = sizeof(T) == 2 ? 2 : 1;
+  static_assert(FB <= T3B && TB + 2 * T2B <= T3B && RT * LTP <= RT * LT3,
+                "QA holds the attention output, f0p | f1p | f1, the chunk");
+  static_assert(2 * TB <= T3B && FB <= T3B, "QR holds x1, dz | M g1, x");
+  static_assert(HG * RT * LJ * (4 + (int)sizeof(T)) <= FB,
+                "a head group's ds and probabilities fit in DY");
+  static_assert(2 * T2B <= TB && RT * LTP * (int)sizeof(T) <= TB,
+                "U2 holds df1 | df1p, U1 the chunk of dpre");
+};
 
 template <typename T>
 struct Args {
@@ -89,12 +145,14 @@ struct Args {
   const float* bias;   // [H, J, J] hop/path bias
   const float* xm;     // [2, J, J] XFeat hop-ring masks
   const T* w;          // packed weights
-  const int* offs;     // field offsets (NFIELD; HOP_BIAS in the grad layout)
+  const int* offs;     // field offsets in w
+  const int* goffs;    // field offsets in the gradient rows (wpart / spart)
   const T* gout;       // [B, J, C] output cotangent (backward)
   T* out;              // [B, J, C] forward output / backward dx
-  float* scratch;      // per-CTA scratch
-  float* part;         // [gridDim.x, pstride] gradient partials (backward)
-  long long pstride;
+  T* ops;              // [B * J, O_W] saved operands and cotangents
+  float* x1s;          // [B * J, C] x1 (f32), saved by the forward
+  float* spart;        // [ntiles, sstride] the tiles' small gradients
+  long long sstride;
   float* masks;        // mask export (forward; may be null)
   int B, J, G;
   uint32_t seed;
@@ -102,521 +160,1010 @@ struct Args {
   Drop attn, proj, mlp, path;
 };
 
-// One group's forward: every intermediate the backward reads is left in
-// S. With a.out set (the forward kernel) the block output is written.
+// A [rows, cols] block of a weight (row-major, lds apart) to stage.
 template <typename T>
-__device__ void block_fwd(const Args<T>& a, float* S, int s0, int ns,
-                          bool write_out) {
+struct Pan {
+  const T* src;
+  int lds, rows, cols;
+};
+
+// Stream np weight panels through the two ring slots: panel i + 1 is
+// copied while `use(i, slot)` runs on panel i. Every thread calls it; one
+// barrier per panel (after which the slot of panel i - 1 is free for panel
+// i + 1), one at the end (the ring and the products' outputs are then free
+// and visible). Deeper rings (three or four slots) measured no faster.
+template <typename T, class PanOf, class Use>
+__device__ __forceinline__ void stream(T* ring, int np, PanOf pan, Use use) {
+  constexpr int E = Sm<T>::E, SLOT = Sm<T>::SLOT;
+  auto issue = [&](int i) {
+    const Pan<T> p = pan(i);
+    tc::stage(ring + (i & 1) * SLOT, p.cols + E, p.src, p.lds, p.rows,
+              p.cols);
+    tc::cp_async_commit();
+  };
+  issue(0);
+  for (int i = 0; i < np; ++i) {
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    if (i + 1 < np) issue(i + 1);
+    use(i, ring + (i & 1) * SLOT);
+  }
+  __syncthreads();
+}
+
+// acc += A[m0:m0+16, :K] @ B[:K, n0:n0+8*NB] on the tensor cores (one
+// warp; sums over k in a fixed order)
+template <typename T, int NB, class FA, class FB>
+__device__ __forceinline__ void mma_tile(float (&acc)[NB][4], FA a, FB b,
+                                         int m0, int n0, int K) {
+  using P = tc::Mma<T>;
+  for (int k0 = 0; k0 < K; k0 += P::KS) {
+    const typename P::A fa = P::load_a(a, m0, k0);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) P::mma(acc[j], fa, P::load_b(b, k0, n0 + 8 * j));
+  }
+}
+
+// the warp's accumulators to out(row, col, v, v') for columns col, col + 1
+template <int NB, class Out>
+__device__ __forceinline__ void emit(const float (&acc)[NB][4], int m0,
+                                     int n0, Out out) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    const int n = n0 + 8 * j + 2 * t;
+    out(m0 + g, n, acc[j][0], acc[j][1]);
+    out(m0 + g + 8, n, acc[j][2], acc[j][3]);
+  }
+}
+
+template <int NB>
+__device__ __forceinline__ void zero(float (&acc)[NB][4]) {
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
+}
+
+// One term of a product: A [RT, k] (T, shared memory, lda apart) times
+// B = W [k, N] (trans false) or W^T with W stored [N, k] (trans true), W
+// row-major in global memory, ldw apart.
+template <typename T>
+struct Term {
+  const T* a;
+  int lda;
+  const T* w;
+  int ldw, k;
+  bool trans;
+};
+
+// out(r, n, v, v') = sum over the terms of A @ B, for every row of the
+// tile and n < N (N = 16 or a multiple of 64), in [64-column] panels; each
+// warp owns a [16, 16] block of a panel, its sum over the terms and depth
+// in its registers.
+template <typename T, int NTERM, class Out>
+__device__ void product(T* ring, const Term<T> (&tm)[NTERM], int N,
+                        Out out) {
+  constexpr int E = Sm<T>::E;
+  const int warp = threadIdx.x >> 5;
+  const int m0 = (warp & 1) * 16, n0 = (warp >> 1) * 16;
+  const int NW = min(N, PK);
+  int per = 0;
+#pragma unroll
+  for (int t = 0; t < NTERM; ++t) per += (tm[t].k + PK - 1) / PK;
+  // panel i -> (column panel, term, depth panel)
+  auto where = [&](int i, int& nb, int& t, int& kb) {
+    nb = i / per;
+    kb = i % per;
+    t = 0;
+    while (kb >= (tm[t].k + PK - 1) / PK) kb -= (tm[t++].k + PK - 1) / PK;
+  };
+  float acc[2][4];
+  stream<T>(
+      ring, (N / NW) * per,
+      [&](int i) {
+        int nb, t, kb;
+        where(i, nb, t, kb);
+        const Term<T>& q = tm[t];
+        const int kp = min(q.k, PK);
+        return q.trans ? Pan<T>{q.w + (size_t)nb * NW * q.ldw + kb * kp,
+                                q.ldw, NW, kp}
+                       : Pan<T>{q.w + (size_t)kb * kp * q.ldw + nb * NW,
+                                q.ldw, kp, NW};
+      },
+      [&](int i, const T* s) {
+        int nb, t, kb;
+        where(i, nb, t, kb);
+        const Term<T>& q = tm[t];
+        const int kp = min(q.k, PK);
+        if (i % per == 0) zero(acc);
+        if (n0 >= NW) return;
+        const RowMajor<T> fa{q.a + kb * kp, q.lda};
+        if (q.trans)
+          mma_tile<T>(acc, fa, ColMajor<T>{s, kp + E}, m0, n0, kp);
+        else
+          mma_tile<T>(acc, fa, RowMajor<T>{s, NW + E}, m0, n0, kp);
+        if (i % per == per - 1) emit(acc, m0, nb * NW + n0, out);
+      });
+}
+
+template <typename T>
+__device__ __forceinline__ Term<T> term(const T* a, int lda, const T* w,
+                                        int ldw, int k, bool trans) {
+  return Term<T>{a, lda, w, ldw, k, trans};
+}
+
+// Column sums over the tile's R rows of a [RT, n] buffer (f32 or T) into
+// G[0..n) (a tile's bias gradient; each column one thread, rows in order)
+template <typename E>
+__device__ __forceinline__ void colsum(const E* buf, int ld, int R, int n,
+                                       float* G) {
+  for (int c = threadIdx.x; c < n; c += NT) {
+    float s = 0.0f;
+    for (int r = 0; r < R; ++r) s += Num<E>::to_float(buf[r * ld + c]);
+    G[c] = s;
+  }
+}
+
+// Sums over the tile's rows of dy * xhat and dy (a LayerNorm's weight and
+// bias gradients), xhat from X (f32, ldx apart) and the rows' stats
+__device__ __forceinline__ void ln_param_sums(const float* DY, int ldy,
+                                              const float* X, int ldx,
+                                              const float* stats, int R,
+                                              float* Gw, float* Gb) {
+  for (int c = threadIdx.x; c < C; c += NT) {
+    float sw = 0.0f, sb = 0.0f;
+    for (int r = 0; r < R; ++r) {
+      const float dy = DY[r * ldy + c];
+      sw += dy * (X[r * ldx + c] - stats[2 * r]) * stats[2 * r + 1];
+      sb += dy;
+    }
+    Gw[c] = sw;
+    Gb[c] = sb;
+  }
+}
+
+// the tile's stream keys: KEYS[g * NKEY + mid] for its samples
+template <typename T>
+__device__ __forceinline__ void make_keys(const Args<T>& a, uint32_t* KEYS,
+                                          int s0, int ns) {
+  for (int i = threadIdx.x; i < ns * 13; i += NT)
+    KEYS[(i / 13) * Sm<T>::NKEY + i % 13] =
+        stream_key(a.seed, a.unit, s0 + i / 13, i % 13);
+}
+
+// One tile's forward: the block output, the saved operands and x1, and
+// the exported masks.
+template <typename T>
+__global__ void __launch_bounds__(NT, Sm<T>::MIN_CTAS)
+    gat_block_fwd(Args<T> a) {
+  using L = Sm<T>;
+  using N = Num<T>;
+  extern __shared__ __align__(16) unsigned char sm[];
   const int J = a.J;
+  const int s0 = blockIdx.x * a.G;
+  const int ns = min(a.G, a.B - s0);
   const int R = ns * J;
+  const size_t row0 = (size_t)s0 * J;
   const int tid = threadIdx.x;
   const T* p = a.w;
   const int* o = a.offs;
-  float* X = buf(S, B_X);
-  float* Y = buf(S, B_Y);
-  float* QKV = buf(S, B_QKV);
-  float* P = buf(S, B_P);
-  float* MA = buf(S, B_MA);
-  float* A1 = buf(S, B_A1);
-  float* TMP = buf(S, B_TMP);
-  float* G0 = buf(S, B_G0);
-  float* G1 = buf(S, B_G1);
-  float* Z = buf(S, B_Z);
-  float* F0P = buf(S, B_F0P);
-  float* F1P = buf(S, B_F1P);
-  float* F0 = buf(S, B_F0);
-  float* F1 = buf(S, B_F1);
-  float* X1 = buf(S, B_X1);
-  float* Y2 = buf(S, B_Y2);
-  float* PRE = buf(S, B_PRE);
-  float* HHD = buf(S, B_HHD);
+  T* ops = a.ops + row0 * O_W;
+  uint32_t* KEYS = at<uint32_t>(sm, L::KEYS);
+  float* XS = at<float>(sm, L::XS);
+  T* YS = at<T>(sm, L::YS);
+  T* QKV = at<T>(sm, L::QA);
+  float* ZF = at<float>(sm, L::QA);
+  T* F0P = at<T>(sm, L::QA);
+  T* F1P = at<T>(sm, L::QA + L::TB);
+  T* F1 = at<T>(sm, L::QA + L::TB + L::T2B);
+  T* HC = at<T>(sm, L::QA);
+  T* A1 = at<T>(sm, L::AB);
+  T* G1M = at<T>(sm, L::AB);
+  T* F0 = at<T>(sm, L::AB);
+  T* ring = at<T>(sm, L::RING_F);
   const float scale = rsqrtf((float)D);
-  const bool dump = write_out && a.masks != nullptr;
+  const bool dump = a.masks != nullptr;
   const size_t o_proj = (size_t)a.B * H * J * J;
   const size_t o_dp1 = o_proj + (size_t)a.B * J * C;
   const size_t o_mlp1 = o_dp1 + a.B;
   const size_t o_mlp2 = o_mlp1 + (size_t)a.B * J * HID;
   const size_t o_dp2 = o_mlp2 + (size_t)a.B * J * C;
+  auto key = [&](int r, int mid) { return KEYS[(r / J) * L::NKEY + mid]; };
+  auto put = [&](int col, int r, int c, float v0, float v1) {
+    if (r < R) st2(ops + (size_t)r * O_W + col + c, v0, v1);
+  };
 
-  const T* xin = a.x + (size_t)s0 * J * C;
-  for (int i = tid; i < R * C; i += NT) X[i] = Num<T>::to_float(xin[i]);
+  make_keys(a, KEYS, s0, ns);
+  for (int i = tid; i < RT * C; i += NT) {
+    const int r = i / C, c = i % C;
+    XS[r * L::LF + c] =
+        r < R ? N::to_float(a.x[(row0 + r) * C + c]) : 0.0f;
+  }
   __syncthreads();
-  layer_norm_rows<C>(X, C, R, p + o[N1_W], p + o[N1_B], 1e-5f, false,
-                     [&](int r, int c, float v) { Y[r * C + c] = v; });
+  layer_norm_rows<C>(XS, L::LF, RT, p + o[N1_W], p + o[N1_B], 1e-5f, false,
+                     [&](int r, int c, float v) {
+                       YS[r * L::LT + c] = N::from_float(v);
+                       if (r < R) ops[(size_t)r * O_W + O_Y + c] = N::from_float(v);
+                     });
   __syncthreads();
+
+  // qkv = y @ Wqkv + b, rounded (the products read q, k, v rounded)
   const T* qkv_b = p + o[QKV_B];
-  gemm_nn<T>(Y, C, R, C, p + o[QKV_W], C3, C3, [&](int r, int c, float v) {
-    QKV[r * C3 + c] = v + ld(qkv_b + c);
-  });
-  __syncthreads();
+  {
+    const Term<T> tm[1] = {term(YS, L::LT, p + o[QKV_W], C3, C, false)};
+    product<T>(ring, tm, C3, [&](int r, int n, float v0, float v1) {
+      const float2 b = ld2(qkv_b + n);
+      st2(QKV + r * L::LT3 + n, v0 + b.x, v1 + b.y);
+      put(O_QKV, r, n, v0 + b.x, v1 + b.y);
+    });
+  }
 
-  // attention: one thread per (head, query row) of each sample
-  for (int task = tid; task < H * R; task += NT) {
-    const int h = task / R;
-    const int r = task % R;
-    const int g = r / J;
-    const int n = r % J;
-    const int smp = s0 + g;
-    const uint32_t key = stream_key(a.seed, a.unit, smp, M_ATTN0 + h);
-    float q[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) q[d] = rnd<T>(QKV[r * C3 + h * D + d]);
-    const float* kb = QKV + g * J * C3 + C + h * D;
-    const float* vb = QKV + g * J * C3 + 2 * C + h * D;
-    const float* brow = a.bias + (h * J + n) * J;
-    float* prow = P + r * HJ + h * J;
-    float* mrow = MA + r * HJ + h * J;
-    float mx = -CUDART_INF_F;
-    for (int m = 0; m < J; ++m) {
-      float s = 0.0f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) s = fmaf(q[d], rnd<T>(kb[m * C3 + d]), s);
-      s = s * scale + brow[m];
-      prow[m] = s;
-      mx = fmaxf(mx, s);
-    }
-    float sum = 0.0f;
-    for (int m = 0; m < J; ++m) {
-      const float e = expf(prow[m] - mx);
-      prow[m] = e;
-      sum += e;
-    }
+  // attention: one thread per (head, query row); scores recomputed in
+  // each of three passes (max, sum, probabilities), none stored
+  {
+    const int h = tid / RT, r = tid % RT;
     float acc[D];
 #pragma unroll
     for (int d = 0; d < D; ++d) acc[d] = 0.0f;
-    for (int m = 0; m < J; ++m) {
-      const float pr = prow[m] / sum;
-      const float mk = drop(key, n * J + m, a.attn);
-      prow[m] = pr;
-      mrow[m] = mk;
-      if (dump) a.masks[((size_t)smp * H + h) * J * J + n * J + m] = mk;
-      const float pd = rnd<T>(pr * mk);
+    if (r < R) {
+      const int g = r / J, n = r % J, smp = s0 + g;
+      float q[D];
 #pragma unroll
-      for (int d = 0; d < D; ++d)
-        acc[d] = fmaf(pd, rnd<T>(vb[m * C3 + d]), acc[d]);
+      for (int d = 0; d < D; ++d) q[d] = N::to_float(QKV[r * L::LT3 + h * D + d]);
+      const T* kb = QKV + g * J * L::LT3 + C + h * D;
+      const T* vb = QKV + g * J * L::LT3 + 2 * C + h * D;
+      const float* brow = a.bias + (h * J + n) * J;
+      auto score = [&](int m) {
+        float s = 0.0f;
+#pragma unroll
+        for (int d = 0; d < D; ++d)
+          s = fmaf(q[d], N::to_float(kb[m * L::LT3 + d]), s);
+        return s * scale + brow[m];
+      };
+      float mx = -CUDART_INF_F;
+      for (int m = 0; m < J; ++m) mx = fmaxf(mx, score(m));
+      float sum = 0.0f;
+      for (int m = 0; m < J; ++m) sum += expf(score(m) - mx);
+      const uint32_t kh = key(r, M_ATTN0 + h);
+      for (int m = 0; m < J; ++m) {
+        const float pr = expf(score(m) - mx) / sum;
+        const float mk = drop(kh, n * J + m, a.attn);
+        if (dump) a.masks[((size_t)smp * H + h) * J * J + n * J + m] = mk;
+        const float pd = rnd<T>(pr * mk);
+#pragma unroll
+        for (int d = 0; d < D; ++d)
+          acc[d] = fmaf(pd, N::to_float(vb[m * L::LT3 + d]), acc[d]);
+      }
     }
 #pragma unroll
-    for (int d = 0; d < D; ++d) A1[r * C + h * D + d] = acc[d];
+    for (int d = 0; d < D; d += 2) {
+      st2(A1 + r * L::LT + h * D + d, acc[d], acc[d + 1]);
+      put(O_A1, r, h * D + d, acc[d], acc[d + 1]);
+    }
   }
   __syncthreads();
 
-  // attn = ProjDrop(a1 @ Wproj + b) -> TMP; MGCN's y @ W0, y @ W1
+  // ZF = ProjDrop(a1 @ Wproj + b) (f32, over the dead qkv)
   const T* proj_b = p + o[PROJ_B];
-  gemm_nn<T>(A1, C, R, C, p + o[PROJ_W], C, C, [&](int r, int c, float v) {
-    const int smp = s0 + r / J;
-    const int n = r % J;
-    const float mk = drop(stream_key(a.seed, a.unit, smp, M_PROJ), n * C + c,
-                          a.proj);
-    if (dump) a.masks[o_proj + ((size_t)smp * J + n) * C + c] = mk;
-    TMP[r * C + c] = (v + ld(proj_b + c)) * mk;
-  });
-  gemm_nn<T>(Y, C, R, C, p + o[GCN_W0], C, C,
-             [&](int r, int c, float v) { G0[r * C + c] = v; });
-  gemm_nn<T>(Y, C, R, C, p + o[GCN_W1], C, C,
-             [&](int r, int c, float v) { G1[r * C + c] = v; });
-  __syncthreads();
-
-  // z = DropPath1(attn + diag * (M g0) + adj_off @ (M g1) + b)
+  {
+    const Term<T> tm[1] = {term(A1, L::LT, p + o[PROJ_W], C, C, false)};
+    product<T>(ring, tm, C, [&](int r, int c, float v0, float v1) {
+      float m0 = 0.0f, m1 = 0.0f;
+      if (r < R) {
+        const int n = r % J;
+        const uint32_t k = key(r, M_PROJ);
+        m0 = drop(k, n * C + c, a.proj);
+        m1 = drop(k, n * C + c + 1, a.proj);
+        if (dump) {
+          const size_t e = o_proj + ((size_t)(s0 + r / J) * J + n) * C + c;
+          a.masks[e] = m0;
+          a.masks[e + 1] = m1;
+        }
+      }
+      const float2 b = ld2(proj_b + c);
+      st2(ZF + r * L::LF + c, (v0 + b.x) * m0, (v1 + b.y) * m1);
+    });
+  }
+  // MGCN: ZF += diag * (M g0) + b, with g0 = y @ W0; G1M = M g1 (rounded,
+  // over the dead a1); g0 and g1 saved
   const T* gm = p + o[GCN_M];
   const T* gdiag = p + o[GCN_DIAG];
   const T* goff = p + o[GCN_OFF];
   const T* gb = p + o[GCN_B];
-  for (int i = tid; i < R * C; i += NT) {
-    const int r = i / C;
-    const int c = i % C;
-    const int g = r / J;
-    const int n = r % J;
-    const int smp = s0 + g;
-    float t = 0.0f;
-    for (int m = 0; m < J; ++m)
-      t = fmaf(ld(goff + n * J + m),
-               rnd<T>(G1[(g * J + m) * C + c] * ld(gm + m * C + c)), t);
-    const float gcn = ld(gdiag + n) * (G0[i] * ld(gm + n * C + c)) + t +
-                      ld(gb + c);
-    const float dp = drop(stream_key(a.seed, a.unit, smp, M_DP1), 0, a.path);
-    if (dump && n == 0 && c == 0) a.masks[o_dp1 + smp] = dp;
-    Z[i] = (TMP[i] + gcn) * dp;
+  {
+    const Term<T> tm[1] = {term(YS, L::LT, p + o[GCN_W0], C, C, false)};
+    product<T>(ring, tm, C, [&](int r, int c, float v0, float v1) {
+      if (r >= R) return;
+      const int n = r % J;
+      const float dg = ld(gdiag + n);
+      const float2 m = ld2(gm + n * C + c), b = ld2(gb + c);
+      float* z = ZF + r * L::LF + c;
+      z[0] += dg * (v0 * m.x) + b.x;
+      z[1] += dg * (v1 * m.y) + b.y;
+      put(O_G0, r, c, v0, v1);
+    });
+  }
+  {
+    const Term<T> tm[1] = {term(YS, L::LT, p + o[GCN_W1], C, C, false)};
+    product<T>(ring, tm, C, [&](int r, int c, float v0, float v1) {
+      float2 m = make_float2(0.0f, 0.0f);
+      if (r < R) m = ld2(gm + (r % J) * C + c);
+      st2(G1M + r * L::LT + c, v0 * m.x, v1 * m.y);
+      put(O_G1, r, c, v0, v1);
+    });
+  }
+  // z = DropPath1(ZF + adj_off @ (M g1)), rounded into YS (y is dead)
+  for (int i = tid; i < RT * C; i += NT) {
+    const int r = i / C, c = i % C;
+    float z = 0.0f;
+    if (r < R) {
+      const int g = r / J, n = r % J;
+      float t = 0.0f;
+      for (int m = 0; m < J; ++m)
+        t = fmaf(ld(goff + n * J + m),
+                 N::to_float(G1M[(g * J + m) * L::LT + c]), t);
+      const float dp = drop(key(r, M_DP1), 0, a.path);
+      if (dump && n == 0 && c == 0) a.masks[o_dp1 + s0 + g] = dp;
+      z = (ZF[r * L::LF + c] + t) * dp;
+      ops[(size_t)r * O_W + O_Z + c] = N::from_float(z);
+    }
+    YS[r * L::LT + c] = N::from_float(z);
   }
   __syncthreads();
 
-  // XFeat: ring projections, then the per-sample hop-ring sums
+  // XFeat: the ring projections (over the dead ZF), then the per-sample
+  // hop-ring sums f0 = m0 f0p (over the dead M g1), f1 = m1 f1p
   const T* x0_b = p + o[X0_B];
   const T* x1_b = p + o[X1_B];
-  gemm_nn<T>(Z, C, R, C, p + o[X0_W], C, C, [&](int r, int c, float v) {
-    F0P[r * C + c] = v + ld(x0_b + c);
-  });
-  gemm_nn<T>(Z, C, R, C, p + o[X1_W], C2, C2, [&](int r, int c, float v) {
-    F1P[r * C2 + c] = v + ld(x1_b + c);
-  });
-  __syncthreads();
-  for (int i = tid; i < R * (C + C2); i += NT) {
-    const int r = i / (C + C2);
-    const int c = i % (C + C2);
-    const int g = r / J;
-    const int n = r % J;
+  {
+    const Term<T> tm[1] = {term(YS, L::LT, p + o[X0_W], C, C, false)};
+    product<T>(ring, tm, C, [&](int r, int c, float v0, float v1) {
+      const float2 b = ld2(x0_b + c);
+      st2(F0P + r * L::LT + c, v0 + b.x, v1 + b.y);
+    });
+  }
+  {
+    const Term<T> tm[1] = {term(YS, L::LT, p + o[X1_W], C2, C, false)};
+    product<T>(ring, tm, C2, [&](int r, int c, float v0, float v1) {
+      const float2 b = ld2(x1_b + c);
+      st2(F1P + r * L::LT2 + c, v0 + b.x, v1 + b.y);
+    });
+  }
+  for (int i = tid; i < RT * (C + C2); i += NT) {
+    const int r = i / (C + C2), c = i % (C + C2);
+    const int g = r / J, n = r % J;
+    const bool ring0 = c < C;
     float s = 0.0f;
-    if (c < C) {
-      const float* mrow = a.xm + n * J;
+    if (r < R) {
+      const float* mrow = a.xm + (ring0 ? 0 : J * J) + n * J;
       for (int m = 0; m < J; ++m)
-        s = fmaf(mrow[m], rnd<T>(F0P[(g * J + m) * C + c]), s);
-      F0[r * C + c] = s;
-    } else {
-      const float* mrow = a.xm + J * J + n * J;
-      for (int m = 0; m < J; ++m)
-        s = fmaf(mrow[m], rnd<T>(F1P[(g * J + m) * C2 + c - C]), s);
-      F1[r * C2 + c - C] = s;
+        s = fmaf(mrow[m],
+                 ring0 ? N::to_float(F0P[(g * J + m) * L::LT + c])
+                       : N::to_float(F1P[(g * J + m) * L::LT2 + c - C]),
+                 s);
+      ops[(size_t)r * O_W + (ring0 ? O_F0 + c : O_F1 + c - C)] =
+          N::from_float(s);
     }
+    if (ring0)
+      F0[r * L::LT + c] = N::from_float(s);
+    else
+      F1[r * L::LT2 + c - C] = N::from_float(s);
   }
   __syncthreads();
-  // x1 = x + (f0 @ B0 + f1 @ B1 + b); each element has one owner thread in
-  // both products
+  // x1 = x + (f0 @ B0 + f1 @ B1 + b), in XS; saved in f32
   const T* back_b = p + o[BACK_B];
-  gemm_nn<T>(F0, C, R, C, p + o[BACK_W0], C, C,
-             [&](int r, int c, float v) { X1[r * C + c] = v; });
-  gemm_nn<T>(F1, C2, R, C2, p + o[BACK_W1], C, C, [&](int r, int c, float v) {
-    X1[r * C + c] = X[r * C + c] + (X1[r * C + c] + v + ld(back_b + c));
-  });
+  {
+    const Term<T> tm[2] = {term(F0, L::LT, p + o[BACK_W0], C, C, false),
+                           term(F1, L::LT2, p + o[BACK_W1], C, C2, false)};
+    product<T>(ring, tm, C, [&](int r, int c, float v0, float v1) {
+      const float2 b = ld2(back_b + c);
+      float* x = XS + r * L::LF + c;
+      x[0] += v0 + b.x;
+      x[1] += v1 + b.y;
+      if (r < R) st2(a.x1s + (row0 + r) * C + c, x[0], x[1]);
+    });
+  }
+  layer_norm_rows<C>(XS, L::LF, RT, p + o[N2_W], p + o[N2_B], 1e-5f, false,
+                     [&](int r, int c, float v) {
+                       YS[r * L::LT + c] = N::from_float(v);
+                       if (r < R) ops[(size_t)r * O_W + O_Y2 + c] = N::from_float(v);
+                     });
   __syncthreads();
 
-  // MLP: pre = LN2(x1) @ fc1 + b, hhd = MlpDrop(gelu(pre))
-  layer_norm_rows<C>(X1, C, R, p + o[N2_W], p + o[N2_B], 1e-5f, false,
-                     [&](int r, int c, float v) { Y2[r * C + c] = v; });
-  __syncthreads();
+  // MLP in chunks of 64 hidden units: panels fc1[:, chunk] (two depth
+  // halves), then fc2[chunk, :] (two column halves) into acc2
+  const int warp = tid >> 5, m0 = (warp & 1) * 16, n0 = (warp >> 1) * 16;
   const T* fc1_b = p + o[FC1_B];
-  gemm_nn<T>(Y2, C, R, C, p + o[FC1_W], HID, HID, [&](int r, int c, float v) {
-    const int smp = s0 + r / J;
-    const int n = r % J;
-    const float pre = v + ld(fc1_b + c);
-    const float mk = drop(stream_key(a.seed, a.unit, smp, M_MLP1),
-                          n * HID + c, a.mlp);
-    if (dump) a.masks[o_mlp1 + ((size_t)smp * J + n) * HID + c] = mk;
-    PRE[r * HID + c] = pre;
-    HHD[r * HID + c] = gelu_exact(pre) * mk;
-  });
-  __syncthreads();
-  if (!write_out) return;
-
+  const T* fc1 = p + o[FC1_W];
+  const T* fc2 = p + o[FC2_W];
+  float acc1[2][4], acc2[2][2][4];
+  zero(acc2[0]);
+  zero(acc2[1]);
+  stream<T>(
+      ring, 4 * (HID / PK),
+      [&](int i) {
+        const int hc = i / 4, q = i % 4;
+        return q < 2 ? Pan<T>{fc1 + (size_t)q * PK * HID + hc * PK, HID, PK, PK}
+                     : Pan<T>{fc2 + (size_t)hc * PK * C + (q - 2) * PK, C, PK,
+                              PK};
+      },
+      [&](int i, const T* s) {
+        const int hc = i / 4, q = i % 4;
+        if (q < 2) {
+          if (q == 0) zero(acc1);
+          mma_tile<T>(acc1, RowMajor<T>{YS + q * PK, L::LT},
+                      RowMajor<T>{s, L::LTP}, m0, n0, PK);
+          if (q == 0) return;
+          emit(acc1, m0, n0, [&](int r, int cc, float v0, float v1) {
+            const int c = hc * PK + cc;
+            const float2 b = ld2(fc1_b + c);
+            const float pre0 = v0 + b.x, pre1 = v1 + b.y;
+            float m0k = 0.0f, m1k = 0.0f;
+            if (r < R) {
+              const uint32_t k = key(r, M_MLP1);
+              const int n = r % J;
+              m0k = drop(k, n * HID + c, a.mlp);
+              m1k = drop(k, n * HID + c + 1, a.mlp);
+              if (dump) {
+                const size_t e =
+                    o_mlp1 + ((size_t)(s0 + r / J) * J + n) * HID + c;
+                a.masks[e] = m0k;
+                a.masks[e + 1] = m1k;
+              }
+            }
+            const float h0 = gelu_exact(pre0) * m0k,
+                        h1 = gelu_exact(pre1) * m1k;
+            st2(HC + r * L::LTP + cc, h0, h1);
+            put(O_PRE, r, c, pre0, pre1);
+            put(O_HHD, r, c, h0, h1);
+          });
+        } else {
+          mma_tile<T>(acc2[q - 2], RowMajor<T>{HC, L::LTP},
+                      RowMajor<T>{s, L::LTP}, m0, n0, PK);
+        }
+      });
   // out = x1 + DropPath2(MlpDrop(hhd @ fc2 + b))
   const T* fc2_b = p + o[FC2_B];
-  T* xo = a.out + (size_t)s0 * J * C;
-  gemm_nn<T>(HHD, HID, R, HID, p + o[FC2_W], C, C, [&](int r, int c, float v) {
-    const int smp = s0 + r / J;
-    const int n = r % J;
-    const float mk = drop(stream_key(a.seed, a.unit, smp, M_MLP2), n * C + c,
-                          a.mlp);
-    const float dp = drop(stream_key(a.seed, a.unit, smp, M_DP2), 0, a.path);
-    if (dump) {
-      a.masks[o_mlp2 + ((size_t)smp * J + n) * C + c] = mk;
-      if (n == 0 && c == 0) a.masks[o_dp2 + smp] = dp;
-    }
-    xo[r * C + c] =
-        Num<T>::from_float(X1[r * C + c] + (v + ld(fc2_b + c)) * mk * dp);
-  });
+  for (int half = 0; half < 2; ++half)
+    emit(acc2[half], m0, half * PK + n0,
+         [&](int r, int c, float v0, float v1) {
+           if (r >= R) return;
+           const int n = r % J, smp = s0 + r / J;
+           const uint32_t k = key(r, M_MLP2);
+           const float mk0 = drop(k, n * C + c, a.mlp),
+                       mk1 = drop(k, n * C + c + 1, a.mlp);
+           const float dp = drop(key(r, M_DP2), 0, a.path);
+           if (dump) {
+             const size_t e = o_mlp2 + ((size_t)smp * J + n) * C + c;
+             a.masks[e] = mk0;
+             a.masks[e + 1] = mk1;
+             if (n == 0 && c == 0) a.masks[o_dp2 + smp] = dp;
+           }
+           const float2 b = ld2(fc2_b + c);
+           const float* x1 = XS + r * L::LF + c;
+           st2(a.out + (row0 + r) * C + c, x1[0] + (v0 + b.x) * mk0 * dp,
+               x1[1] + (v1 + b.y) * mk1 * dp);
+         });
 }
 
-// One group's backward, after block_fwd left the intermediates in S
-// (gator_tpu/nn/pallas_gat_train.py `_block_bwd:227`).
+// One tile's backward (gator_tpu/nn/pallas_gat_train.py `_block_bwd:227`)
+// from the saved operands: dx, the cotangent operands of the weight
+// gradients (to ops) and the tile's small gradients (to its spart row).
 template <typename T>
-__device__ void block_bwd(const Args<T>& a, float* S, int s0, int ns,
-                          float* PG) {
+__global__ void __launch_bounds__(NT, Sm<T>::MIN_CTAS)
+    gat_block_bwd(Args<T> a) {
+  using L = Sm<T>;
+  using N = Num<T>;
+  extern __shared__ __align__(16) unsigned char sm[];
   const int J = a.J;
+  const int s0 = blockIdx.x * a.G;
+  const int ns = min(a.G, a.B - s0);
   const int R = ns * J;
+  const size_t row0 = (size_t)s0 * J;
   const int tid = threadIdx.x;
   const T* p = a.w;
   const int* o = a.offs;
-  float* X = buf(S, B_X);
-  float* Y = buf(S, B_Y);
-  float* QKV = buf(S, B_QKV);
-  float* P = buf(S, B_P);
-  float* MA = buf(S, B_MA);
-  float* A1 = buf(S, B_A1);
-  float* TMP = buf(S, B_TMP);
-  float* G0 = buf(S, B_G0);
-  float* G1 = buf(S, B_G1);
-  float* Z = buf(S, B_Z);
-  float* F0 = buf(S, B_F0);
-  float* F1 = buf(S, B_F1);
-  float* X1 = buf(S, B_X1);
-  float* Y2 = buf(S, B_Y2);
-  float* PRE = buf(S, B_PRE);
-  float* HHD = buf(S, B_HHD);
-  float* DX = buf(S, B_DX);
-  float* DMM2 = buf(S, B_DMM2);
-  float* DHH = buf(S, B_DHH);
-  float* DY = buf(S, B_DY);
-  float* DF0 = buf(S, B_DF0);
-  float* DF1 = buf(S, B_DF1);
-  float* DF0P = buf(S, B_DF0P);
-  float* DF1P = buf(S, B_DF1P);
-  float* DZ = buf(S, B_DZ);
-  float* DH0 = buf(S, B_DH0);
-  float* DH1 = buf(S, B_DH1);
-  float* DATT = buf(S, B_DATT);
-  float* DA1 = buf(S, B_DA1);
-  float* DS = buf(S, B_DS);
-  float* DQKV = buf(S, B_DQKV);
-  float* STATS = buf(S, B_STATS);
+  const int* go = a.goffs;
+  T* ops = a.ops + row0 * O_W;
+  float* SG = a.spart + (size_t)blockIdx.x * a.sstride;
+  uint32_t* KEYS = at<uint32_t>(sm, L::KEYS);
+  float* STATS = at<float>(sm, L::STATS);
+  float* DX = at<float>(sm, L::DX);
+  float* DY = at<float>(sm, L::DY);
+  float* DS = at<float>(sm, L::DY);                      // [HG][RT][LJ]
+  T* PD = at<T>(sm, L::DY + HG * RT * LJ * 4);          // [HG][RT][LJ]
+  T* DZT = at<T>(sm, L::QR);
+  T* G1M = at<T>(sm, L::QR + L::TB);
+  T* QKV = at<T>(sm, L::QR);
+  T* DMM2 = at<T>(sm, L::U0);
+  T* DPC = at<T>(sm, L::U1);
+  T* DX1T = at<T>(sm, L::U0);
+  T* DF0P = at<T>(sm, L::U0);
+  T* DF0 = at<T>(sm, L::U1);
+  T* DF1 = at<T>(sm, L::U2);
+  T* DF1P = at<T>(sm, L::U2 + L::T2B);
+  T* DATT = at<T>(sm, L::U1);
+  T* DA1 = at<T>(sm, L::U2);
+  T* DH0M = at<T>(sm, L::U0);
+  T* DH1M = at<T>(sm, L::U1);
+  T* ring = at<T>(sm, L::RING_B);
   const float scale = rsqrtf((float)D);
+  auto key = [&](int r, int mid) { return KEYS[(r / J) * L::NKEY + mid]; };
+  auto opv = [&](int r, int col) { return N::to_float(ops[(size_t)r * O_W + col]); };
+  auto put = [&](int col, int r, int c, float v0, float v1) {
+    if (r < R) st2(ops + (size_t)r * O_W + col + c, v0, v1);
+  };
 
+  make_keys(a, KEYS, s0, ns);
+  __syncthreads();
   // out = x1 + dp2 * m2 * mm2: dx1 = g, dmm2 = g * dp2 * m2
-  const T* gin = a.gout + (size_t)s0 * J * C;
-  for (int i = tid; i < R * C; i += NT) {
-    const int r = i / C;
-    const int c = i % C;
-    const int smp = s0 + r / J;
-    const int n = r % J;
-    const float go = Num<T>::to_float(gin[i]);
-    DX[i] = go;
-    DMM2[i] = go * drop(stream_key(a.seed, a.unit, smp, M_DP2), 0, a.path) *
-              drop(stream_key(a.seed, a.unit, smp, M_MLP2), n * C + c, a.mlp);
-  }
-  __syncthreads();
-
-  // MLP backward
-  gemm_nt<T>(DMM2, C, R, C, p + o[FC2_W], C, HID, [&](int r, int k, float v) {
-    const int smp = s0 + r / J;
-    const int n = r % J;
-    const float mk = drop(stream_key(a.seed, a.unit, smp, M_MLP1),
-                          n * HID + k, a.mlp);
-    DHH[r * HID + k] = v * mk * gelu_grad(PRE[r * HID + k]);
-  });
-  gemm_tn_acc<T>(HHD, HID, DMM2, C, R, HID, C, PG + o[FC2_W], C);
-  colsum_acc(DMM2, C, R, C, PG + o[FC2_B]);
-  __syncthreads();
-  gemm_tn_acc<T>(Y2, C, DHH, HID, R, C, HID, PG + o[FC1_W], HID);
-  colsum_acc(DHH, HID, R, HID, PG + o[FC1_B]);
-  gemm_nt<T>(DHH, HID, R, HID, p + o[FC1_W], HID, C,
-             [&](int r, int k, float v) { DY[r * C + k] = v; });
-  __syncthreads();
-  ln_bwd_rows<C>(DY, C, X1, C, R, p + o[N2_W], 1e-5f, STATS,
-                 [&](int r, int c, float v) { DX[r * C + c] += v; });
-  __syncthreads();
-  norm_param_acc(DY, C, X1, C, STATS, R, C, PG + o[N2_W], PG + o[N2_B]);
-
-  // XFeat backward (dxf = dx1)
-  gemm_nt<T>(DX, C, R, C, p + o[BACK_W0], C, C,
-             [&](int r, int k, float v) { DF0[r * C + k] = v; });
-  gemm_nt<T>(DX, C, R, C, p + o[BACK_W1], C, C2,
-             [&](int r, int k, float v) { DF1[r * C2 + k] = v; });
-  gemm_tn_acc<T>(F0, C, DX, C, R, C, C, PG + o[BACK_W0], C);
-  gemm_tn_acc<T>(F1, C2, DX, C, R, C2, C, PG + o[BACK_W1], C);
-  colsum_acc(DX, C, R, C, PG + o[BACK_B]);
-  __syncthreads();
-  // df0p = m0^T df0, df1p = m1^T df1 (per sample)
-  for (int i = tid; i < R * (C + C2); i += NT) {
-    const int r = i / (C + C2);
-    const int c = i % (C + C2);
-    const int g = r / J;
-    const int m = r % J;
-    float s = 0.0f;
-    if (c < C) {
-      for (int n = 0; n < J; ++n)
-        s = fmaf(a.xm[n * J + m], rnd<T>(DF0[(g * J + n) * C + c]), s);
-      DF0P[r * C + c] = s;
-    } else {
-      for (int n = 0; n < J; ++n)
-        s = fmaf(a.xm[J * J + n * J + m],
-                 rnd<T>(DF1[(g * J + n) * C2 + c - C]), s);
-      DF1P[r * C2 + c - C] = s;
+  for (int i = tid; i < RT * C; i += NT) {
+    const int r = i / C, c = i % C;
+    float go_ = 0.0f, d = 0.0f;
+    if (r < R) {
+      go_ = N::to_float(a.gout[(row0 + r) * C + c]);
+      d = go_ * drop(key(r, M_DP2), 0, a.path) *
+          drop(key(r, M_MLP2), (r % J) * C + c, a.mlp);
+      ops[(size_t)r * O_W + O_DMM2 + c] = N::from_float(d);
     }
+    DX[r * L::LF + c] = go_;
+    DMM2[r * L::LT + c] = N::from_float(d);
   }
   __syncthreads();
-  gemm_nt<T>(DF0P, C, R, C, p + o[X0_W], C, C,
-             [&](int r, int k, float v) { DZ[r * C + k] = v; });
-  gemm_nt<T>(DF1P, C2, R, C2, p + o[X1_W], C2, C,
-             [&](int r, int k, float v) { DZ[r * C + k] += v; });
-  gemm_tn_acc<T>(Z, C, DF0P, C, R, C, C, PG + o[X0_W], C);
-  colsum_acc(DF0P, C, R, C, PG + o[X0_B]);
-  gemm_tn_acc<T>(Z, C, DF1P, C2, R, C, C2, PG + o[X1_W], C2);
-  colsum_acc(DF1P, C2, R, C2, PG + o[X1_B]);
-  __syncthreads();
+  colsum(DMM2, L::LT, R, C, SG + go[FC2_B]);
 
-  // dzpre = dz * dp1; it is both dattn and dgcn
-  for (int i = tid; i < R * C; i += NT) {
-    const int smp = s0 + i / C / J;
-    DZ[i] *= drop(stream_key(a.seed, a.unit, smp, M_DP1), 0, a.path);
+  // MLP in chunks of 64 hidden units: dpre = (dmm2 fc2^T) * m1 * gelu'(pre)
+  // (fc2's rows of the chunk, two depth halves), then its share of
+  // dy2 = dpre fc1^T (fc1's columns of the chunk, two column halves)
+  const int warp = tid >> 5, m0 = (warp & 1) * 16, n0 = (warp >> 1) * 16;
+  const T* fc1 = p + o[FC1_W];
+  const T* fc2 = p + o[FC2_W];
+  float acc1[2][4], acc2[2][2][4];
+  zero(acc2[0]);
+  zero(acc2[1]);
+  stream<T>(
+      ring, 4 * (HID / PK),
+      [&](int i) {
+        const int hc = i / 4, q = i % 4;
+        return q < 2 ? Pan<T>{fc2 + (size_t)hc * PK * C + q * PK, C, PK, PK}
+                     : Pan<T>{fc1 + (size_t)(q - 2) * PK * HID + hc * PK, HID,
+                              PK, PK};
+      },
+      [&](int i, const T* s) {
+        const int hc = i / 4, q = i % 4;
+        if (q < 2) {
+          if (q == 0) zero(acc1);
+          mma_tile<T>(acc1, RowMajor<T>{DMM2 + q * PK, L::LT},
+                      ColMajor<T>{s, L::LTP}, m0, n0, PK);
+          if (q == 0) return;
+          emit(acc1, m0, n0, [&](int r, int cc, float v0, float v1) {
+            const int c = hc * PK + cc;
+            float d0 = 0.0f, d1 = 0.0f;
+            if (r < R) {
+              const uint32_t k = key(r, M_MLP1);
+              const int n = r % J;
+              d0 = v0 * drop(k, n * HID + c, a.mlp) *
+                   gelu_grad(opv(r, O_PRE + c));
+              d1 = v1 * drop(k, n * HID + c + 1, a.mlp) *
+                   gelu_grad(opv(r, O_PRE + c + 1));
+            }
+            st2(DPC + r * L::LTP + cc, d0, d1);
+            put(O_DPRE, r, c, d0, d1);
+          });
+        } else {
+          if (q == 2) colsum(DPC, L::LTP, R, PK, SG + go[FC1_B] + hc * PK);
+          mma_tile<T>(acc2[q - 2], RowMajor<T>{DPC, L::LTP},
+                      ColMajor<T>{s, L::LTP}, m0, n0, PK);
+        }
+      });
+  for (int half = 0; half < 2; ++half)
+    emit(acc2[half], m0, half * PK + n0,
+         [&](int r, int c, float v0, float v1) {
+           st2(DY + r * L::LF + c, v0, v1);
+         });
+  __syncthreads();
+  // LN2: dx1 = g + LN2'(dy2), from the saved x1 (staged in QR)
+  float* X1 = at<float>(sm, L::QR);
+  for (int i = tid; i < R * C / 4; i += NT) {
+    const int r = i / (C / 4), c = i % (C / 4) * 4;
+    *reinterpret_cast<float4*>(X1 + r * L::LF + c) =
+        *reinterpret_cast<const float4*>(a.x1s + (row0 + r) * C + c);
   }
   __syncthreads();
+  ln_bwd_rows<C>(DY, L::LF, X1, L::LF, R, p + o[N2_W], 1e-5f, STATS,
+                 [&](int r, int c, float v) { DX[r * L::LF + c] += v; });
+  __syncthreads();
+  ln_param_sums(DY, L::LF, X1, L::LF, STATS, R, SG + go[N2_W], SG + go[N2_B]);
+  for (int i = tid; i < RT * C; i += NT) {
+    const int r = i / C, c = i % C;
+    const float v = DX[r * L::LF + c];
+    DX1T[r * L::LT + c] = N::from_float(v);
+    if (r < R) ops[(size_t)r * O_W + O_DX1 + c] = N::from_float(v);
+  }
+  __syncthreads();
+  colsum(DX1T, L::LT, R, C, SG + go[BACK_B]);
 
-  // MGCN backward
+  // XFeat: df0 = dx1 B0^T, df1 = dx1 B1^T (rounded); the per-sample ring
+  // transposes df0p = m0^T df0, df1p = m1^T df1
+  {
+    const Term<T> tm[1] = {term(DX1T, L::LT, p + o[BACK_W0], C, C, true)};
+    product<T>(ring, tm, C, [&](int r, int c, float v0, float v1) {
+      st2(DF0 + r * L::LT + c, v0, v1);
+    });
+  }
+  {
+    const Term<T> tm[1] = {term(DX1T, L::LT, p + o[BACK_W1], C, C, true)};
+    product<T>(ring, tm, C2, [&](int r, int c, float v0, float v1) {
+      st2(DF1 + r * L::LT2 + c, v0, v1);
+    });
+  }
+  for (int i = tid; i < RT * (C + C2); i += NT) {
+    const int r = i / (C + C2), c = i % (C + C2);
+    const int g = r / J, m = r % J;
+    const bool ring0 = c < C;
+    float s = 0.0f;
+    if (r < R) {
+      const float* mcol = a.xm + (ring0 ? 0 : J * J) + m;
+      for (int n = 0; n < J; ++n)
+        s = fmaf(mcol[n * J],
+                 ring0 ? N::to_float(DF0[(g * J + n) * L::LT + c])
+                       : N::to_float(DF1[(g * J + n) * L::LT2 + c - C]),
+                 s);
+      ops[(size_t)r * O_W + (ring0 ? O_DF0P + c : O_DF1P + c - C)] =
+          N::from_float(s);
+    }
+    if (ring0)
+      DF0P[r * L::LT + c] = N::from_float(s);
+    else
+      DF1P[r * L::LT2 + c - C] = N::from_float(s);
+  }
+  __syncthreads();
+  colsum(DF0P, L::LT, R, C, SG + go[X0_B]);
+  colsum(DF1P, L::LT2, R, C2, SG + go[X1_B]);
+  // dz = df0p X0^T + df1p X1^T; dzpre = dz * dp1 (rounded, in QR) is both
+  // dgcn and, times the projection mask, dattn
+  {
+    const Term<T> tm[2] = {term(DF0P, L::LT, p + o[X0_W], C, C, true),
+                           term(DF1P, L::LT2, p + o[X1_W], C2, C2, true)};
+    product<T>(ring, tm, C, [&](int r, int c, float v0, float v1) {
+      float z0 = 0.0f, z1 = 0.0f, t0 = 0.0f, t1 = 0.0f;
+      if (r < R) {
+        const float dp = drop(key(r, M_DP1), 0, a.path);
+        const uint32_t k = key(r, M_PROJ);
+        const int n = r % J;
+        z0 = rnd<T>(v0 * dp);
+        z1 = rnd<T>(v1 * dp);
+        t0 = z0 * drop(k, n * C + c, a.proj);
+        t1 = z1 * drop(k, n * C + c + 1, a.proj);
+      }
+      st2(DZT + r * L::LT + c, z0, z1);
+      st2(DATT + r * L::LT + c, t0, t1);
+      put(O_DATT, r, c, t0, t1);
+    });
+  }
+  colsum(DZT, L::LT, R, C, SG + go[GCN_B]);
+  colsum(DATT, L::LT, R, C, SG + go[PROJ_B]);
+  // da1 = dattn Wproj^T
+  {
+    const Term<T> tm[1] = {term(DATT, L::LT, p + o[PROJ_W], C, C, true)};
+    product<T>(ring, tm, C, [&](int r, int c, float v0, float v1) {
+      st2(DA1 + r * L::LT + c, v0, v1);
+    });
+  }
+
+  // MGCN: dh0 = diag * dz, dh1 = adj_off^T dz (per sample); M's gradient
+  // dh0 g0 + dh1 g1, summed over the tile's samples; dh0 M and dh1 M
+  // (rounded) are the cotangents of W0 and W1's products
   const T* gm = p + o[GCN_M];
   const T* gdiag = p + o[GCN_DIAG];
   const T* goff = p + o[GCN_OFF];
-  colsum_acc(DZ, C, R, C, PG + o[GCN_B]);
-  for (int i = tid; i < R * C; i += NT) {
-    const int r = i / C;
-    const int c = i % C;
-    const int g = r / J;
-    const int n = r % J;
-    const float dh0 = ld(gdiag + n) * DZ[i];
-    float dh1 = 0.0f;
-    for (int m = 0; m < J; ++m)
-      dh1 = fmaf(ld(goff + m * J + n), rnd<T>(DZ[(g * J + m) * C + c]), dh1);
-    const float mv = ld(gm + n * C + c);
-    TMP[i] = dh0 * G0[i] + dh1 * G1[i];  // dM, per row
-    DH0[i] = dh0 * mv;
-    DH1[i] = dh1 * mv;
+  for (int i = tid; i < RT * C; i += NT) {
+    const int r = i / C, c = i % C;
+    G1M[r * L::LT + c] =
+        N::from_float(r < R ? opv(r, O_G1 + c) * ld(gm + (r % J) * C + c)
+                            : 0.0f);
   }
-  __syncthreads();
+  for (int i = R * C + tid; i < RT * C; i += NT) {
+    DH0M[(i / C) * L::LT + i % C] = N::from_float(0.0f);
+    DH1M[(i / C) * L::LT + i % C] = N::from_float(0.0f);
+  }
   for (int i = tid; i < J * C; i += NT) {
-    float s = 0.0f;
-    for (int g = 0; g < ns; ++g) s += TMP[g * J * C + i];
-    PG[o[GCN_M] + i] += s;
-  }
-  for (int i = tid; i < J * J; i += NT) {
-    const int n = i / J;
-    const int m = i % J;
-    float s = 0.0f;
-    for (int g = 0; g < ns; ++g) {
-      const float* dz = DZ + (g * J + n) * C;
-      const float* g1 = G1 + (g * J + m) * C;
-      for (int c = 0; c < C; ++c)
-        s = fmaf(rnd<T>(dz[c]), rnd<T>(g1[c] * ld(gm + m * C + c)), s);
-    }
-    PG[o[GCN_OFF] + i] += s;
-  }
-  for (int n = tid; n < J; n += NT) {
-    float s = 0.0f;
+    const int n = i / C, c = i % C;
+    const float mv = ld(gm + n * C + c);
+    const float dg = ld(gdiag + n);
+    float dmv = 0.0f;
     for (int g = 0; g < ns; ++g) {
       const int r = g * J + n;
-      for (int c = 0; c < C; ++c)
-        s = fmaf(G0[r * C + c] * ld(gm + n * C + c), DZ[r * C + c], s);
+      const float dz = N::to_float(DZT[r * L::LT + c]);
+      float dh1 = 0.0f;
+      for (int m = 0; m < J; ++m)
+        dh1 = fmaf(ld(goff + m * J + n),
+                   N::to_float(DZT[(g * J + m) * L::LT + c]), dh1);
+      const float dh0 = dg * dz;
+      dmv += dh0 * opv(r, O_G0 + c) + dh1 * opv(r, O_G1 + c);
+      const T h0 = N::from_float(dh0 * mv), h1 = N::from_float(dh1 * mv);
+      DH0M[r * L::LT + c] = h0;
+      DH1M[r * L::LT + c] = h1;
+      ops[(size_t)r * O_W + O_DH0M + c] = h0;
+      ops[(size_t)r * O_W + O_DH1M + c] = h1;
     }
-    PG[o[GCN_DIAG] + n] += s;
-  }
-  gemm_nt<T>(DH0, C, R, C, p + o[GCN_W0], C, C,
-             [&](int r, int k, float v) { DY[r * C + k] = v; });
-  gemm_nt<T>(DH1, C, R, C, p + o[GCN_W1], C, C,
-             [&](int r, int k, float v) { DY[r * C + k] += v; });
-  gemm_tn_acc<T>(Y, C, DH0, C, R, C, C, PG + o[GCN_W0], C);
-  gemm_tn_acc<T>(Y, C, DH1, C, R, C, C, PG + o[GCN_W1], C);
-  for (int i = tid; i < R * C; i += NT) {
-    const int smp = s0 + i / C / J;
-    const int n = i / C % J;
-    DATT[i] = DZ[i] * drop(stream_key(a.seed, a.unit, smp, M_PROJ),
-                           n * C + i % C, a.proj);
+    SG[go[GCN_M] + i] = dmv;
   }
   __syncthreads();
-
-  // projection backward
-  gemm_nt<T>(DATT, C, R, C, p + o[PROJ_W], C, C,
-             [&](int r, int k, float v) { DA1[r * C + k] = v; });
-  gemm_tn_acc<T>(A1, C, DATT, C, R, C, C, PG + o[PROJ_W], C);
-  colsum_acc(DATT, C, R, C, PG + o[PROJ_B]);
-  __syncthreads();
-
-  // attention backward: ds = p * (dprob - <dprob, p>), dprob = m * (da v)
-  for (int task = tid; task < H * R; task += NT) {
-    const int h = task / R;
-    const int r = task % R;
-    const int g = r / J;
-    float da[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) da[d] = rnd<T>(DA1[r * C + h * D + d]);
-    const float* vb = QKV + g * J * C3 + 2 * C + h * D;
-    const float* prow = P + r * HJ + h * J;
-    const float* mrow = MA + r * HJ + h * J;
-    float* dsrow = DS + r * HJ + h * J;
-    float dot = 0.0f;
-    for (int m = 0; m < J; ++m) {
+  // the diagonal's gradient: one warp per joint; the off-diagonal part's:
+  // one thread per (n, m), dz[n] . (M g1)[m] over the tile's samples
+  {
+    const int lane = tid & 31;
+    for (int n = warp; n < J; n += NT / 32) {
       float s = 0.0f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) s = fmaf(da[d], rnd<T>(vb[m * C3 + d]), s);
-      const float dprob = s * mrow[m];
-      dsrow[m] = dprob;
-      dot = fmaf(dprob, prow[m], dot);
+      for (int g = 0; g < ns; ++g) {
+        const int r = g * J + n;
+        for (int c = lane; c < C; c += 32)
+          s = fmaf(opv(r, O_G0 + c) * ld(gm + n * C + c),
+                   N::to_float(DZT[r * L::LT + c]), s);
+      }
+      s = warp_sum(s);
+      if (lane == 0) SG[go[GCN_DIAG] + n] = s;
     }
-    for (int m = 0; m < J; ++m) dsrow[m] = prow[m] * (dsrow[m] - dot);
+  }
+  for (int i = tid; i < J * J; i += NT) {
+    const int n = i / J, m = i % J;
+    float s = 0.0f;
+    for (int g = 0; g < ns; ++g) {
+      const T* dz = DZT + (g * J + n) * L::LT;
+      const T* hm = G1M + (g * J + m) * L::LT;
+      for (int c = 0; c < C; ++c)
+        s = fmaf(N::to_float(dz[c]), N::to_float(hm[c]), s);
+    }
+    SG[go[GCN_OFF] + i] = s;
   }
   __syncthreads();
-  for (int i = tid; i < H * J * J; i += NT) {
-    const int h = i / (J * J);
-    const int n = i / J % J;
-    const int m = i % J;
-    float s = 0.0f;
-    for (int g = 0; g < ns; ++g) s += DS[(g * J + n) * HJ + h * J + m];
-    PG[o[HOP_BIAS] + i] += s;
+
+  // attention: q, k, v again (over dz and M g1), then per group of HG
+  // heads: ds = p * (m * (da v^T) - <m * (da v^T), p>) with p recomputed
+  // (one warp per (head, query row), lane = key), then dq, dk, dv (one
+  // thread per (head, row, which)) written over q, k, v of those heads
+  for (int i = tid; i < RT * C3 / 2; i += NT) {
+    const int r = i / (C3 / 2), c = i % (C3 / 2) * 2;
+    const float2 v = r < R ? make_float2(opv(r, O_QKV + c), opv(r, O_QKV + c + 1))
+                           : make_float2(0.0f, 0.0f);
+    st2(QKV + r * L::LT3 + c, v.x, v.y);
   }
-  // dq (row as query), dk and dv (row as key)
-  for (int task = tid; task < H * R; task += NT) {
-    const int h = task / R;
-    const int r = task % R;
-    const int g = r / J;
-    const int n = r % J;
-    float dq[D], dk[D], dv[D];
+  __syncthreads();
+  const int lane = tid & 31;
+  for (int h0 = 0; h0 < H; h0 += HG) {
+    for (int pr = warp; pr < HG * RT; pr += NT / 32) {
+      const int hl = pr / RT, r = pr % RT, h = h0 + hl;
+      if (r >= R) continue;
+      const int g = r / J, n = r % J, m = lane;
+      const bool on = m < J;
+      const int km = g * J + (on ? m : 0);
+      float s = 0.0f, dpd = 0.0f;
 #pragma unroll
-    for (int d = 0; d < D; ++d) dq[d] = dk[d] = dv[d] = 0.0f;
-    for (int m = 0; m < J; ++m) {
-      const int rm = g * J + m;
-      const float ds_q = rnd<T>(DS[r * HJ + h * J + m]);   // ds[n, m]
-      const float ds_k = rnd<T>(DS[rm * HJ + h * J + n]);  // ds[m, n]
-      const float pd = rnd<T>(P[rm * HJ + h * J + n] * MA[rm * HJ + h * J + n]);
+      for (int d = 0; d < D; d += 2) {
+        const float2 q = ld2(QKV + r * L::LT3 + h * D + d),
+                     k = ld2(QKV + km * L::LT3 + C + h * D + d),
+                     da = ld2(DA1 + r * L::LT + h * D + d),
+                     v = ld2(QKV + km * L::LT3 + 2 * C + h * D + d);
+        s = fmaf(q.y, k.y, fmaf(q.x, k.x, s));
+        dpd = fmaf(da.y, v.y, fmaf(da.x, v.x, dpd));
+      }
+      s = on ? s * scale + a.bias[(h * J + n) * J + m] : -CUDART_INF_F;
+      float mx = s;
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        dq[d] = fmaf(ds_q, rnd<T>(QKV[rm * C3 + C + h * D + d]), dq[d]);
-        dk[d] = fmaf(ds_k, rnd<T>(QKV[rm * C3 + h * D + d]), dk[d]);
-        dv[d] = fmaf(pd, rnd<T>(DA1[rm * C + h * D + d]), dv[d]);
+      for (int w = 16; w > 0; w >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+      const float e = on ? expf(s - mx) : 0.0f;
+      const float pr_ = e / warp_sum(e);
+      const float mk = on ? drop(key(r, M_ATTN0 + h), n * J + m, a.attn) : 0.0f;
+      const float dprob = dpd * mk;
+      const float dot = warp_sum(dprob * pr_);
+      if (on) {
+        DS[(hl * RT + r) * LJ + m] = pr_ * (dprob - dot);
+        PD[(hl * RT + r) * LJ + m] = N::from_float(pr_ * mk);
       }
     }
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      DQKV[r * C3 + h * D + d] = dq[d] * scale;
-      DQKV[r * C3 + C + h * D + d] = dk[d] * scale;
-      DQKV[r * C3 + 2 * C + h * D + d] = dv[d];
+    __syncthreads();
+    // the hop/path bias's gradient: ds summed over the tile's samples
+    for (int i = tid; i < HG * J * J; i += NT) {
+      const int hl = i / (J * J), n = i / J % J, m = i % J;
+      float s = 0.0f;
+      for (int g = 0; g < ns; ++g) s += DS[(hl * RT + g * J + n) * LJ + m];
+      SG[go[HOP_BIAS] + ((h0 + hl) * J + n) * J + m] = s;
     }
-  }
-  __syncthreads();
-  colsum_acc(DQKV, C3, R, C3, PG + o[QKV_B]);
-  gemm_tn_acc<T>(Y, C, DQKV, C3, R, C, C3, PG + o[QKV_W], C3);
-  gemm_nt<T>(DQKV, C3, R, C3, p + o[QKV_W], C3, C,
-             [&](int r, int k, float v) { DY[r * C + k] += v; });
-  __syncthreads();
-  ln_bwd_rows<C>(DY, C, X, C, R, p + o[N1_W], 1e-5f, STATS,
-                 [&](int r, int c, float v) { DX[r * C + c] += v; });
-  __syncthreads();
-  norm_param_acc(DY, C, X, C, STATS, R, C, PG + o[N1_W], PG + o[N1_B]);
-  T* dxo = a.out + (size_t)s0 * J * C;
-  for (int i = tid; i < R * C; i += NT) dxo[i] = Num<T>::from_float(DX[i]);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT) gat_block_fwd_kernel(Args<T> a) {
-  const int ngroups = (a.B + a.G - 1) / a.G;
-  float* S = a.scratch + (size_t)blockIdx.x * FWD_FLOATS;
-  for (int grp = blockIdx.x; grp < ngroups; grp += gridDim.x) {
-    const int s0 = grp * a.G;
-    block_fwd(a, S, s0, min(a.G, a.B - s0), true);
+    float res[D];
+    const int which = tid / (HG * RT), hl = tid / RT % HG, r = tid % RT;
+    const int h = h0 + hl;
+    const bool mine = which < 3 && r < R;
+    if (mine) {
+      const int g = r / J, n = r % J;
+#pragma unroll
+      for (int d = 0; d < D; ++d) res[d] = 0.0f;
+      for (int m = 0; m < J; ++m) {
+        const int rm = g * J + m;
+        float wgt;
+        const T* src;
+        if (which == 0) {         // dq[n] = sum_m ds[n, m] k[m]
+          wgt = rnd<T>(DS[(hl * RT + r) * LJ + m]);
+          src = QKV + rm * L::LT3 + C + h * D;
+        } else if (which == 1) {  // dk[n] = sum_m ds[m, n] q[m]
+          wgt = rnd<T>(DS[(hl * RT + rm) * LJ + n]);
+          src = QKV + rm * L::LT3 + h * D;
+        } else {                  // dv[n] = sum_m pd[m, n] da[m]
+          wgt = N::to_float(PD[(hl * RT + rm) * LJ + n]);
+          src = DA1 + rm * L::LT + h * D;
+        }
+#pragma unroll
+        for (int d = 0; d < D; ++d)
+          res[d] = fmaf(wgt, N::to_float(src[d]), res[d]);
+      }
+      if (which < 2)
+#pragma unroll
+        for (int d = 0; d < D; ++d) res[d] *= scale;
+    }
+    __syncthreads();
+    if (mine)
+#pragma unroll
+      for (int d = 0; d < D; d += 2)
+        st2(QKV + r * L::LT3 + which * C + h * D + d, res[d], res[d + 1]);
     __syncthreads();
   }
+  for (int i = tid; i < R * C3 / 2; i += NT) {
+    const int r = i / (C3 / 2), c = i % (C3 / 2) * 2;
+    const float2 v = ld2(QKV + r * L::LT3 + c);
+    st2(ops + (size_t)r * O_W + O_DQKV + c, v.x, v.y);
+  }
+  colsum(QKV, L::LT3, R, C3, SG + go[QKV_B]);
+
+  // dy = dqkv Wqkv^T + (dh0 M) W0^T + (dh1 M) W1^T, then LN1
+  {
+    const Term<T> tm[3] = {term(QKV, L::LT3, p + o[QKV_W], C3, C3, true),
+                           term(DH0M, L::LT, p + o[GCN_W0], C, C, true),
+                           term(DH1M, L::LT, p + o[GCN_W1], C, C, true)};
+    product<T>(ring, tm, C, [&](int r, int c, float v0, float v1) {
+      st2(DY + r * L::LF + c, v0, v1);
+    });
+  }
+  // x in f32 over the dead dqkv, for LN1's backward
+  float* XF = at<float>(sm, L::QR);
+  for (int i = tid; i < RT * C; i += NT) {
+    const int r = i / C, c = i % C;
+    XF[r * L::LF + c] = r < R ? N::to_float(a.x[(row0 + r) * C + c]) : 0.0f;
+  }
+  __syncthreads();
+  ln_bwd_rows<C>(DY, L::LF, XF, L::LF, R, p + o[N1_W], 1e-5f, STATS,
+                 [&](int r, int c, float v) {
+                   a.out[(row0 + r) * C + c] =
+                       N::from_float(DX[r * L::LF + c] + v);
+                 });
+  __syncthreads();
+  ln_param_sums(DY, L::LF, XF, L::LF, STATS, R, SG + go[N1_W], SG + go[N1_B]);
 }
 
-// Capped at 128 registers (two CTAs per SM): at its natural 184 one CTA
-// fit per SM, and the cap measured faster on the H100 despite its spills.
+// gat_block_wgrad's products: G[k][n] = sum_r ops[r][ca + k] * ops[r][cb + n]
+// for k < ka, n < nb, a tile of field `field` at element g0 of its
+// gradient, rows ldg apart. A 16-wide operand is read as 64 columns (the
+// next 48 of the row come along) and only its valid part is written.
+struct WJob {
+  int ca, cb, field, g0, ldg, ka, nb;
+};
+
+constexpr int NWJOB = 68;
+
+__device__ __forceinline__ WJob wjob(int j) {
+  if (j < 12)  // qkv_w [128, 384]: y x dqkv
+    return {O_Y + 64 * (j / 6), O_DQKV + 64 * (j % 6), QKV_W,
+            64 * (j / 6) * C3 + 64 * (j % 6), C3, 64, 64};
+  j -= 12;
+  if (j < 16) {  // [128, 128]: proj_w, gcn_w0, gcn_w1, x0_w
+    const int f = j / 4, i = j % 4 / 2, k = j % 2;
+    const int ca[4] = {O_A1, O_Y, O_Y, O_Z};
+    const int cb[4] = {O_DATT, O_DH0M, O_DH1M, O_DF0P};
+    const int fd[4] = {PROJ_W, GCN_W0, GCN_W1, X0_W};
+    return {ca[f] + 64 * i, cb[f] + 64 * k, fd[f], 64 * i * C + 64 * k, C,
+            64, 64};
+  }
+  j -= 16;
+  if (j < 2)  // x1_w [128, 16]: z x df1p
+    return {O_Z + 64 * j, O_DF1P, X1_W, 64 * j * C2, C2, 64, C2};
+  j -= 2;
+  if (j < 4)  // back_w0 [128, 128]: f0 x dx1
+    return {O_F0 + 64 * (j / 2), O_DX1 + 64 * (j % 2), BACK_W0,
+            64 * (j / 2) * C + 64 * (j % 2), C, 64, 64};
+  j -= 4;
+  if (j < 2)  // back_w1 [16, 128]: f1 x dx1
+    return {O_F1, O_DX1 + 64 * j, BACK_W1, 64 * j, C, C2, 64};
+  j -= 2;
+  if (j < 16)  // fc1_w [128, 512]: y2 x dpre
+    return {O_Y2 + 64 * (j / 8), O_DPRE + 64 * (j % 8), FC1_W,
+            64 * (j / 8) * HID + 64 * (j % 8), HID, 64, 64};
+  j -= 16;  // fc2_w [512, 128]: hhd x dmm2
+  return {O_HHD + 64 * (j / 2), O_DMM2 + 64 * (j % 2), FC2_W,
+          64 * (j / 2) * C + 64 * (j % 2), C, 64, 64};
+}
+
+// One CTA per (weight tile, chunk of `per` rows): the chunk's rows staged
+// through shared memory in a two-deep cp.async ring, each 64 rows' product
+// on the tensor cores, the running sum in f32 registers (each chain added
+// rounded, in a fixed order); the tile written to the chunk's row of
+// `part` (every element of every weight field once per chunk).
 template <typename T>
-__global__ void __launch_bounds__(NT, 2) gat_block_bwd_kernel(Args<T> a) {
-  const int ngroups = (a.B + a.G - 1) / a.G;
-  float* S = a.scratch + (size_t)blockIdx.x * BWD_FLOATS;
-  float* PG = a.part + (size_t)blockIdx.x * a.pstride;
-  for (int grp = blockIdx.x; grp < ngroups; grp += gridDim.x) {
-    const int s0 = grp * a.G;
-    const int ns = min(a.G, a.B - s0);
-    block_fwd(a, S, s0, ns, false);
-    block_bwd(a, S, s0, ns, PG);
+__global__ void __launch_bounds__(NT) gat_block_wgrad(
+    const T* __restrict__ ops, const int* __restrict__ goffs, float* part,
+    long long pstride, int R, int per) {
+  using Pm = tc::Mma<T>;
+  constexpr int LD = 64 + 16 / (int)sizeof(T);
+  extern __shared__ __align__(16) unsigned char sm[];
+  T* As = reinterpret_cast<T*>(sm);  // [2][WR][LD]
+  T* Bs = As + 2 * WR * LD;
+  const WJob job = wjob(blockIdx.x);
+  const int rb = blockIdx.y * per, re = min(R, rb + per);
+  const int nchunk = re > rb ? (re - rb + WR - 1) / WR : 0;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
+            t = threadIdx.x & 3;
+  const int m0 = (warp & 3) * 16, n0 = (warp >> 2) * 32;
+  auto fetch = [&](int buf, int c) {
+    const int r = rb + c * WR, n = min(WR, re - r);
+    T* A = As + buf * WR * LD;
+    T* B = Bs + buf * WR * LD;
+    tc::stage(A, LD, ops + (size_t)r * O_W + job.ca, O_W, n, 64);
+    tc::stage(B, LD, ops + (size_t)r * O_W + job.cb, O_W, n, 64);
+    for (int i = threadIdx.x; i < (WR - n) * 64; i += NT) {
+      A[(n + i / 64) * LD + i % 64] = Num<T>::from_float(0.0f);
+      B[(n + i / 64) * LD + i % 64] = Num<T>::from_float(0.0f);
+    }
+    tc::cp_async_commit();
+  };
+  float tot[4][4];
+  zero(tot);
+  if (nchunk > 0) fetch(0, 0);
+  for (int c = 0; c < nchunk; ++c) {
+    if (c + 1 < nchunk) {
+      fetch((c + 1) & 1, c + 1);
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
     __syncthreads();
+    float acc[4][4];
+    zero(acc);
+    mma_tile<T>(acc, ColMajor<T>{As + (c & 1) * WR * LD, LD},
+                RowMajor<T>{Bs + (c & 1) * WR * LD, LD}, m0, n0, WR);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) tot[j][i] += acc[j][i];
+    __syncthreads();
+  }
+  float* G = part + (size_t)blockIdx.y * pstride + goffs[job.field] + job.g0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int n = n0 + 8 * j + 2 * t;
+    if (n >= job.nb) continue;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int k = m0 + g + 8 * hh;
+      if (k >= job.ka) continue;
+      G[k * job.ldg + n] = tot[j][2 * hh];
+      G[k * job.ldg + n + 1] = tot[j][2 * hh + 1];
+    }
   }
 }
 
 template <typename T>
 Args<T> make_args(const void* x, const void* bias, const void* xm,
-                  const void* w, const void* offs, int B, int J, int G,
-                  unsigned seed, int unit, const unsigned* thr,
-                  const float* scl) {
+                  const void* w, const void* offs, void* ops, void* x1s,
+                  int B, int J, int G, unsigned seed, int unit,
+                  const unsigned* thr, const float* scl) {
   Args<T> a{};
   a.x = static_cast<const T*>(x);
   a.bias = static_cast<const float*>(bias);
   a.xm = static_cast<const float*>(xm);
   a.w = static_cast<const T*>(w);
   a.offs = static_cast<const int*>(offs);
+  a.ops = static_cast<T*>(ops);
+  a.x1s = static_cast<float*>(x1s);
   a.B = B;
   a.J = J;
   a.G = G;
@@ -629,27 +1176,90 @@ Args<T> make_args(const void* x, const void* bias, const void* xm,
   return a;
 }
 
+// launch a kernel of NT threads that takes `smem` bytes of dynamic shared
+// memory
+template <typename K, typename... A>
+int launch_smem(K kern, dim3 grid, int smem, cudaStream_t s, A... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, NT, smem, s>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int wgrad_smem() {
+  return 4 * WR * (64 + 16 / (int)sizeof(T)) * (int)sizeof(T);
+}
+
+template <typename T>
+int run_bwd(Args<T> a, int ntiles, float* wpart, long long wstride,
+            int nc_w, int wper, float* sgrads, float* wgrads,
+            cudaStream_t s) {
+  int err = launch_smem(gat_block_bwd<T>, dim3(ntiles), Sm<T>::BWD_BYTES, s,
+                        a);
+  if (err != 0) return err;
+  err = launch_smem(gat_block_wgrad<T>, dim3(NWJOB, nc_w), wgrad_smem<T>(),
+                    s, (const T*)a.ops, a.goffs, wpart, wstride, a.B * a.J,
+                    wper);
+  if (err != 0) return err;
+  err = reduce_partials(wpart, nc_w, wstride, (int)wstride, wgrads, s);
+  if (err != 0) return err;
+  return reduce_partials(a.spart, ntiles, a.sstride, (int)a.sstride, sgrads,
+                         s);
+}
+
+// what: 0 registers a thread, 1 CTAs resident per SM, 2 shared-memory bytes
+template <typename K>
+int kernel_info(K kern, int smem, int what) {
+  if (what == 2) return smem;
+  cudaFuncAttributes attr;
+  int per = 0;
+  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess ||
+      cudaFuncGetAttributes(&attr, kern) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kern, NT, smem) !=
+          cudaSuccess)
+    return -1;
+  return what == 0 ? attr.numRegs : per;
+}
+
+template <typename T>
+int info(int kernel, int what) {
+  if (kernel == 0) return kernel_info(gat_block_fwd<T>, Sm<T>::FWD_BYTES, what);
+  if (kernel == 1) return kernel_info(gat_block_bwd<T>, Sm<T>::BWD_BYTES, what);
+  return kernel_info(gat_block_wgrad<T>, wgrad_smem<T>(), what);
+}
+
 }  // namespace gtrain
 }  // namespace gator
 
 using gator::gtrain::Args;
 using gator::gtrain::make_args;
 
-// Floats of scratch per CTA: the forward's (backward = 0) or the
-// backward's (backward = 1).
-extern "C" int gat_block_train_scratch(int backward) {
-  return (int)(backward ? gator::gtrain::BWD_FLOATS : gator::gtrain::FWD_FLOATS);
+// Columns of a row of the saved operands and cotangents (`ops`).
+extern "C" int gat_block_train_op_cols() { return gator::gtrain::O_W; }
+
+// Registers a thread (what = 0), CTAs resident per SM (1) or shared-memory
+// bytes (2) of gat_block_fwd (kernel = 0), gat_block_bwd (1) or
+// gat_block_wgrad (2) for dtype (0 = float32, 1 = bfloat16); -1 if the
+// query fails.
+extern "C" int gat_block_train_info(int dtype, int kernel, int what) {
+  if (dtype == 0) return gator::gtrain::info<float>(kernel, what);
+  return gator::gtrain::info<__nv_bfloat16>(kernel, what);
 }
 
-// dtype: 0 = float32, 1 = bfloat16. thr/scl: (attn, proj, mlp, path) keep
-// thresholds and scales. masks (may be null): the export buffer, laid out
-// attn [B,H,J,J] | proj [B,J,C] | dp1 [B] | mlp1 [B,J,4C] | mlp2 [B,J,C] |
-// dp2 [B]. Returns the cudaError_t of the launch.
+// Forward, one CTA per tile of G samples (ntiles = ceil(B / G)). dtype: 0 =
+// float32, 1 = bfloat16 (x, w, out, ops). ops: [B * J, op_cols]; x1s: [B * J,
+// 128] f32. thr/scl: (attn, proj, mlp, path) keep thresholds and scales.
+// masks (may be null): the export buffer, laid out attn [B,H,J,J] | proj
+// [B,J,C] | dp1 [B] | mlp1 [B,J,4C] | mlp2 [B,J,C] | dp2 [B]. Returns the
+// cudaError_t of the launch.
 extern "C" int gat_block_train_fwd(int dtype, const void* x, const void* bias,
                                    const void* xm, const void* w,
-                                   const void* offs, void* out, void* scratch,
-                                   void* masks, int B, int J, int G,
-                                   int nctas, unsigned seed, int unit,
+                                   const void* offs, void* out, void* ops,
+                                   void* x1s, void* masks, int B, int J,
+                                   int G, int ntiles, unsigned seed, int unit,
                                    unsigned t_attn, float s_attn,
                                    unsigned t_proj, float s_proj,
                                    unsigned t_mlp, float s_mlp,
@@ -658,67 +1268,64 @@ extern "C" int gat_block_train_fwd(int dtype, const void* x, const void* bias,
   const unsigned thr[4] = {t_attn, t_proj, t_mlp, t_path};
   const float scl[4] = {s_attn, s_proj, s_mlp, s_path};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using gator::gtrain::Sm;
   if (dtype == 0) {
-    auto a = make_args<float>(x, bias, xm, w, offs, B, J, G, seed, unit, thr,
-                              scl);
+    auto a = make_args<float>(x, bias, xm, w, offs, ops, x1s, B, J, G, seed,
+                              unit, thr, scl);
     a.out = static_cast<float*>(out);
-    a.scratch = static_cast<float*>(scratch);
     a.masks = static_cast<float*>(masks);
-    gator::gtrain::gat_block_fwd_kernel<float>
-        <<<nctas, gator::gtrain::NT, 0, s>>>(a);
-  } else {
-    auto a = make_args<__nv_bfloat16>(x, bias, xm, w, offs, B, J, G, seed,
-                                      unit, thr, scl);
-    a.out = static_cast<__nv_bfloat16*>(out);
-    a.scratch = static_cast<float*>(scratch);
-    a.masks = static_cast<float*>(masks);
-    gator::gtrain::gat_block_fwd_kernel<__nv_bfloat16>
-        <<<nctas, gator::gtrain::NT, 0, s>>>(a);
+    return gator::gtrain::launch_smem(gator::gtrain::gat_block_fwd<float>,
+                                      dim3(ntiles), Sm<float>::FWD_BYTES, s,
+                                      a);
   }
-  return (int)cudaGetLastError();
+  auto a = make_args<__nv_bfloat16>(x, bias, xm, w, offs, ops, x1s, B, J, G,
+                                    seed, unit, thr, scl);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.masks = static_cast<float*>(masks);
+  return gator::gtrain::launch_smem(
+      gator::gtrain::gat_block_fwd<__nv_bfloat16>, dim3(ntiles),
+      Sm<__nv_bfloat16>::FWD_BYTES, s, a);
 }
 
-// The backward kernel, then the reduction of its per-CTA gradient partials
-// (part: [nctas, pstride] f32, zeroed by the caller) into grads
-// ([ngrad] f32: the packed fields' gradients, then the hop/path bias's).
-extern "C" int gat_block_train_bwd(int dtype, const void* x, const void* bias,
-                                   const void* xm, const void* w,
-                                   const void* offs, const void* gout,
-                                   void* dx, void* scratch, void* part,
-                                   long long pstride, void* grads, int ngrad,
-                                   int B, int J, int G, int nctas,
-                                   unsigned seed, int unit, unsigned t_attn,
-                                   float s_attn, unsigned t_proj,
-                                   float s_proj, unsigned t_mlp, float s_mlp,
-                                   unsigned t_path, float s_path,
-                                   void* stream) {
+// Backward: gat_block_bwd (one CTA per tile; the tiles' small gradients to
+// spart [ntiles, sstride]), gat_block_wgrad (68 weight tiles x nc_w chunks
+// of wper rows into wpart [nc_w, wstride]), then the two reductions in
+// order into wgrads [wstride] and sgrads [sstride] (f32). goffs: each
+// field's offset in its gradient row (the ten weights in wpart's, the rest
+// and the hop/path bias in spart's). ops and x1s as the forward left them.
+extern "C" int gat_block_train_bwd(
+    int dtype, const void* x, const void* bias, const void* xm, const void* w,
+    const void* offs, const void* goffs, const void* gout, void* ops,
+    void* x1s, void* dx, void* spart, long long sstride, void* wpart,
+    long long wstride, void* sgrads, void* wgrads, int B, int J, int G,
+    int ntiles, int nc_w, int wper, unsigned seed, int unit, unsigned t_attn,
+    float s_attn, unsigned t_proj, float s_proj, unsigned t_mlp, float s_mlp,
+    unsigned t_path, float s_path, void* stream) {
   const unsigned thr[4] = {t_attn, t_proj, t_mlp, t_path};
   const float scl[4] = {s_attn, s_proj, s_mlp, s_path};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    auto a = make_args<float>(x, bias, xm, w, offs, B, J, G, seed, unit, thr,
-                              scl);
+    auto a = make_args<float>(x, bias, xm, w, offs, ops, x1s, B, J, G, seed,
+                              unit, thr, scl);
+    a.goffs = static_cast<const int*>(goffs);
     a.gout = static_cast<const float*>(gout);
     a.out = static_cast<float*>(dx);
-    a.scratch = static_cast<float*>(scratch);
-    a.part = static_cast<float*>(part);
-    a.pstride = pstride;
-    gator::gtrain::gat_block_bwd_kernel<float>
-        <<<nctas, gator::gtrain::NT, 0, s>>>(a);
-  } else {
-    auto a = make_args<__nv_bfloat16>(x, bias, xm, w, offs, B, J, G, seed,
-                                      unit, thr, scl);
-    a.gout = static_cast<const __nv_bfloat16*>(gout);
-    a.out = static_cast<__nv_bfloat16*>(dx);
-    a.scratch = static_cast<float*>(scratch);
-    a.part = static_cast<float*>(part);
-    a.pstride = pstride;
-    gator::gtrain::gat_block_bwd_kernel<__nv_bfloat16>
-        <<<nctas, gator::gtrain::NT, 0, s>>>(a);
+    a.spart = static_cast<float*>(spart);
+    a.sstride = sstride;
+    return gator::gtrain::run_bwd(a, ntiles, static_cast<float*>(wpart),
+                                  wstride, nc_w, wper,
+                                  static_cast<float*>(sgrads),
+                                  static_cast<float*>(wgrads), s);
   }
-  const int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  return gator::reduce_partials(static_cast<const float*>(part), nctas,
-                                pstride, ngrad, static_cast<float*>(grads),
-                                s);
+  auto a = make_args<__nv_bfloat16>(x, bias, xm, w, offs, ops, x1s, B, J, G,
+                                    seed, unit, thr, scl);
+  a.goffs = static_cast<const int*>(goffs);
+  a.gout = static_cast<const __nv_bfloat16*>(gout);
+  a.out = static_cast<__nv_bfloat16*>(dx);
+  a.spart = static_cast<float*>(spart);
+  a.sstride = sstride;
+  return gator::gtrain::run_bwd(a, ntiles, static_cast<float*>(wpart),
+                                wstride, nc_w, wper,
+                                static_cast<float*>(sgrads),
+                                static_cast<float*>(wgrads), s);
 }

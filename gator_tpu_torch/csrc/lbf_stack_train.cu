@@ -570,11 +570,11 @@ __global__ void __launch_bounds__(NT) lbf_out_bwd_kernel(Args<T> a) {
       DSA[i] = Num<T>::to_float(a.gout[row0 * C + i]) *
                drop(kout, (r0 + i / C) * C + i % C, a.outd);
     __syncthreads();
-    gemm_nt<T, 2>(DSA, C, nr, C, p + o[L3_W], C, C, [&](int r, int k,
-                                                        float v) {
+    gemm_nt<T>(DSA, C, nr, C, p + o[L3_W], C, C, [&](int r, int k,
+                                                     float v) {
       a.da2[(row0 + r) * C + k] = v;
     });
-    gemm_tn_acc<T, 4>(a.a2 + row0 * C, C, DSA, C, nr, C, C, PG + o[L3_W], C);
+    gemm_tn_acc<T>(a.a2 + row0 * C, C, DSA, C, nr, C, C, PG + o[L3_W], C);
     colsum_acc(DSA, C, nr, C, PG + o[L3_B]);
     __syncthreads();
     for (int task = tid; task < H * nr; task += NT) {
@@ -1064,12 +1064,12 @@ __global__ void __launch_bounds__(NT) lbf_joints_bwd_kernel(Args<T> a) {
     layer_norm_rows<C>(JT, C, J, p + o[N1_W], p + o[N1_B], 1e-5f, false,
                        [&](int r, int c, float v) { YJ[r * C + c] = v; });
     __syncthreads();
-    gemm_tn_acc<T, 4>(YJ, C, DK, C, J, C, C, PG + o[WK], C);
-    gemm_tn_acc<T, 4>(YJ, C, DV, C, J, C, C, PG + o[WV], C);
-    gemm_nt<T, 2>(DK, C, J, C, p + o[WK], C, C,
-                  [&](int r, int k, float v) { DYJ[r * C + k] = v; });
-    gemm_nt<T, 2>(DV, C, J, C, p + o[WV], C, C,
-                  [&](int r, int k, float v) { DYJ[r * C + k] += v; });
+    gemm_tn_acc<T>(YJ, C, DK, C, J, C, C, PG + o[WK], C);
+    gemm_tn_acc<T>(YJ, C, DV, C, J, C, C, PG + o[WV], C);
+    gemm_nt<T>(DK, C, J, C, p + o[WK], C, C,
+               [&](int r, int k, float v) { DYJ[r * C + k] = v; });
+    gemm_nt<T>(DV, C, J, C, p + o[WV], C, C,
+               [&](int r, int k, float v) { DYJ[r * C + k] += v; });
     __syncthreads();
     ln_bwd_rows<C>(DYJ, C, JT, C, J, p + o[N1_W], 1e-5f, STATS,
                    [&](int r, int c, float v) {

@@ -1,15 +1,16 @@
-// Device helpers of the training kernels (gat_trunk_train.cu,
-// lbf_stack_train.cu): the three matrix products of a backward pass, row
-// LayerNorm backwards, column sums and the cross-CTA reduction of
-// parameter-gradient partials.
+// Device helpers of the training kernels: K4's FMA launches
+// (lbf_stack_train.cu: the three matrix products of a backward pass, column
+// sums, norm-parameter sums, the std-LayerNorm backward), and, shared with
+// K5 (gat_trunk_train.cu), the LayerNorm backward, GELU's derivative and
+// the fixed-order reduction of gradient partials.
 //
 // Activations are f32 (in shared or CTA-private global scratch). Every
 // product rounds its activation operands to the working type T where it
 // reads them (`rnd<T>`), as the JAX training kernels cast both operands of
 // every matmul to the compute dtype; sums accumulate in f32. Parameter
-// gradients are accumulated per CTA into a private f32 partial row and
-// summed across CTAs by `reduce_partials` in a fixed order, so repeat runs
-// are bit-identical (no atomics).
+// gradients are accumulated into f32 partial rows and summed across them
+// by `reduce_partials` in a fixed order, so repeat runs are bit-identical
+// (no atomics).
 #pragma once
 
 #include "common.cuh"
@@ -18,25 +19,22 @@
 namespace gator {
 
 // out(r, c, sum_k rnd(A[r, k]) * W[k, c]); as `gemm` (common.cuh), with the
-// activation operand rounded to T. Each thread owns an RT x 4 output tile:
-// RT = RM reuses each weight load most, a smaller RT gives a narrow product
-// over few rows (64 columns of a 32-row tile) enough tiles for every thread.
-// The sum over k runs in the same order whatever RT is.
-template <typename T, int RT = RM, typename Out>
+// activation operand rounded to T. Each thread owns an RM x 4 output tile.
+template <typename T, typename Out>
 __device__ __forceinline__ void gemm_nn(const float* A, int lda, int rows,
                                         int K, const T* __restrict__ W,
                                         int ldw, int N, Out out) {
   const int nq = N >> 2;
-  const int items = (rows + RT - 1) / RT * nq;
+  const int items = (rows + RM - 1) / RM * nq;
   for (int item = threadIdx.x; item < items; item += blockDim.x) {
-    const int r0 = item / nq * RT;
+    const int r0 = item / nq * RM;
     const int c0 = item % nq * 4;
-    const float* arow[RT];
+    const float* arow[RM];
 #pragma unroll
-    for (int i = 0; i < RT; ++i) arow[i] = A + min(r0 + i, rows - 1) * lda;
-    float acc[RT][4];
+    for (int i = 0; i < RM; ++i) arow[i] = A + min(r0 + i, rows - 1) * lda;
+    float acc[RM][4];
 #pragma unroll
-    for (int i = 0; i < RT; ++i)
+    for (int i = 0; i < RM; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
     const T* wp = W + c0;
@@ -45,7 +43,7 @@ __device__ __forceinline__ void gemm_nn(const float* A, int lda, int rows,
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) load4(wp + (size_t)(k + kk) * ldw, w[kk]);
 #pragma unroll
-      for (int i = 0; i < RT; ++i) {
+      for (int i = 0; i < RM; ++i) {
         const float4 a = *reinterpret_cast<const float4*>(arow[i] + k);
         const float ax = rnd<T>(a.x), ay = rnd<T>(a.y), az = rnd<T>(a.z),
                     aw = rnd<T>(a.w);
@@ -61,7 +59,7 @@ __device__ __forceinline__ void gemm_nn(const float* A, int lda, int rows,
       }
     }
 #pragma unroll
-    for (int i = 0; i < RT; ++i) {
+    for (int i = 0; i < RM; ++i) {
       if (r0 + i < rows) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) out(r0 + i, c0 + j, acc[i][j]);
@@ -72,11 +70,13 @@ __device__ __forceinline__ void gemm_nn(const float* A, int lda, int rows,
 
 // out(r, k, sum_n rnd(A[r, n]) * W[k, n]) for k < Kout: a product with the
 // transposed weight (W is [Kout, ldw] row-major, the forward's [in, out]).
-// Nin % 4 == 0, Kout % 4 == 0, ldw % 4 == 0, lda % 4 == 0. RT as gemm_nn.
-template <typename T, int RT = RM, typename Out>
+// Nin % 4 == 0, Kout % 4 == 0, ldw % 4 == 0, lda % 4 == 0. Each thread owns
+// an RT x 4 tile, RT = 2 (K4's narrow products over few rows).
+template <typename T, typename Out>
 __device__ __forceinline__ void gemm_nt(const float* A, int lda, int rows,
                                         int Nin, const T* __restrict__ W,
                                         int ldw, int Kout, Out out) {
+  constexpr int RT = 2;
   const int kq = Kout >> 2;
   const int items = (rows + RT - 1) / RT * kq;
   for (int item = threadIdx.x; item < items; item += blockDim.x) {
@@ -121,13 +121,14 @@ __device__ __forceinline__ void gemm_nt(const float* A, int lda, int rows,
 }
 
 // G[k * ldg + n] += sum_r rnd(A[r, k]) * rnd(B[r, n]) for k < K, n < N:
-// a weight gradient over this CTA's rows. Each thread owns a KT x 4 tile
-// (KT = 8, or 4 for a narrow [64, 64] gradient); K % KT == 0, N % 4 == 0,
+// a weight gradient over this CTA's rows. Each thread owns a KT x 4 tile,
+// KT = 4 (K4's narrow [64, 64] gradients); K % KT == 0, N % 4 == 0,
 // lda % 4 == 0, ldb % 4 == 0. Each (k, n) has one owner thread.
-template <typename T, int KT = 8>
+template <typename T>
 __device__ __forceinline__ void gemm_tn_acc(const float* A, int lda,
                                             const float* B, int ldb, int rows,
                                             int K, int N, float* G, int ldg) {
+  constexpr int KT = 4;
   const int nq = N >> 2;
   const int items = K / KT * nq;
   for (int item = threadIdx.x; item < items; item += blockDim.x) {

@@ -125,14 +125,20 @@ def field_offsets(numels: Sequence[int]) -> Tuple[List[int], int]:
 def pack_fields(tensors: Sequence[torch.Tensor], offsets: Sequence[int],
                 stride: int, dtype: torch.dtype, device=None) -> torch.Tensor:
     """Copy `tensors` (detached) into one flat [stride] tensor at
-    `offsets`, zero between the fields. The training Functions pack inside
-    their forward and return the parameters' gradients themselves."""
+    `offsets`, zero between the fields, in one concatenation (a handful of
+    launches, not two per field). The training Functions pack inside their
+    forward and return the parameters' gradients themselves."""
     device = tensors[0].device if device is None else device
-    flat = torch.zeros(stride, dtype=dtype, device=device)
+    zeros = torch.zeros(8, dtype=tensors[0].dtype, device=device)
+    pieces, pos = [], 0
     for t, off in zip(tensors, offsets):
-        flat[off:off + t.numel()] = t.detach().reshape(-1).to(device=device,
-                                                              dtype=dtype)
-    return flat
+        if off > pos:
+            pieces.append(zeros[:off - pos])
+        pieces.append(t.detach().reshape(-1).to(device=device))
+        pos = off + t.numel()
+    if stride > pos:
+        pieces.append(zeros[:stride - pos])
+    return torch.cat(pieces).to(dtype)
 
 
 def _views(flat: torch.Tensor, shapes: Dict[str, torch.Size],

@@ -16,6 +16,15 @@ Function's gradients flow back to the module's parameters through autograd.
 The Function packs them (detached) inside its forward and returns one
 gradient per input.
 
+On the card a block takes four kernels (csrc/gat_trunk_train.cu): the
+forward, one CTA per tile of TILE_ROWS token rows holding whole samples,
+which also saves per row the operands its backward reads (`ops`); the
+backward per tile, which writes dx, the weight gradients' cotangent
+operands and the tile's bias, LayerNorm, MGCN-graph and hop/path-bias sums;
+`gat_block_wgrad`, the ten weight gradients over all B * J rows in
+`launch_plan`'s chunks; and the fixed-order reduction of chunks and tiles.
+Dense products run on the tensor cores, activations stay in shared memory.
+
 Dtypes, as the JAX kernel: the block output and dx are in x's dtype (a
 bf16 residual stream is rounded to bf16 at each block boundary), every
 matmul rounds its operands to that dtype and accumulates in f32, the
@@ -48,19 +57,70 @@ BLOCK_PARAM_KEYS = (
 )
 
 EMBED, HEADS, HIDDEN, RING2, JOINTS_MAX = 128, 8, 512, 16, 32
-ROWS = 64                    # token rows per CTA group
-NCTA_MAX = 264               # grid of both kernels (2 CTAs per H100 SM)
+TILE_ROWS = 32               # token rows of a CTA's tile (csrc RT): G = 32 // J
+WGRAD_ROWS = 64              # rows of one gat_block_wgrad chain
+WGRAD_CHUNKS = 8             # row chunks of gat_block_wgrad (grid 68 x chunks)
+GRID_MAX = 2 ** 31 - 1       # CTAs of a 1-D grid on the card
+
+# the ten matrices whose gradients gat_block_wgrad forms from `ops`; the other
+# fields and the hop/path bias are summed per tile (`spart`)
+WEIGHT_KEYS = ("qkv_w", "proj_w", "gcn_w0", "gcn_w1", "x0_w", "x1_w",
+               "back_w0", "back_w1", "fc1_w", "fc2_w")
 
 _RATE_ARGS = [ctypes.c_uint, ctypes.c_float] * 4
 _SIGNATURE = {
-    "gat_block_train_scratch": [ctypes.c_int],
-    "gat_block_train_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 8
+    "gat_block_train_op_cols": [],
+    "gat_block_train_info": [ctypes.c_int] * 3,
+    "gat_block_train_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 9
     + [ctypes.c_int] * 4 + [ctypes.c_uint, ctypes.c_int] + _RATE_ARGS
     + [ctypes.c_void_p],
-    "gat_block_train_bwd": [ctypes.c_int] + [ctypes.c_void_p] * 9
-    + [ctypes.c_longlong, ctypes.c_void_p] + [ctypes.c_int] * 5
+    "gat_block_train_bwd": [ctypes.c_int] + [ctypes.c_void_p] * 11
+    + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong]
+    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
     + [ctypes.c_uint, ctypes.c_int] + _RATE_ARGS + [ctypes.c_void_p],
 }
+
+
+def launch_plan(b: int, j: int) -> Dict[str, int]:
+    """The K5 launches' geometry for a batch of b samples of j joints:
+    g samples per tile (whole samples, g * j <= TILE_ROWS rows), one CTA
+    per tile (`ntiles`, any batch: a 1-D grid), and gat_block_wgrad's rows
+    in `nc_w` chunks of `wper` (a multiple of WGRAD_ROWS). Refuses what
+    the kernels do not take."""
+    if b < 1:
+        raise ValueError(f"gat_trunk_train kernels need a batch, got {b}")
+    if not 1 <= j <= JOINTS_MAX:
+        raise ValueError(f"gat_trunk_train kernels take 1..{JOINTS_MAX} "
+                         f"joints, got {j}")
+    rows = b * j
+    g = TILE_ROWS // j
+    ntiles = -(-b // g)
+    if ntiles > GRID_MAX or rows > GRID_MAX:
+        raise ValueError(f"gat_trunk_train: {b} samples of {j} joints "
+                         "exceed the card's grid")
+    chains = -(-rows // WGRAD_ROWS)
+    wper = -(-chains // min(WGRAD_CHUNKS, chains)) * WGRAD_ROWS
+    return {"g": g, "ntiles": ntiles, "rows": rows, "wper": wper,
+            "nc_w": -(-rows // wper)}
+
+
+def partial_strides(j: int) -> Dict[str, int]:
+    """Floats in a row of gat_block_wgrad's chunk partials (`weights`: the
+    ten WEIGHT_KEYS) and of a tile's small gradients (`small`)."""
+    lay = _layout(j, "cpu")
+    return {"weights": lay["gwstride"], "small": lay["gsstride"]}
+
+
+def kernel_info(dtype: torch.dtype) -> Dict[str, Dict[str, int]]:
+    """Registers a thread, CTAs resident per SM and shared-memory bytes of
+    the three K5 kernels for `dtype`, from the current card."""
+    lib = cuda_lib.load("gat_trunk_train", _SIGNATURE)
+    code = cuda_lib.kernel_dtype(dtype)
+    return {name: {what: lib.gat_block_train_info(code, k, w)
+                   for w, what in enumerate(("registers", "ctas_per_sm",
+                                             "smem_bytes"))}
+            for k, name in enumerate(("gat_block_fwd", "gat_block_bwd",
+                                      "gat_block_wgrad"))}
 
 
 def extract_block_params(blk) -> Dict[str, torch.Tensor]:
@@ -194,8 +254,11 @@ def gat_block_train_ref(x: torch.Tensor, bias: torch.Tensor,
 # --- the CUDA path ---------------------------------------------------------
 
 def _layout(j: int, device) -> Dict:
-    """Element offsets of the packed fields (8-aligned), the weight stride
-    and the gradient stride (the fields, then the [H, J, J] bias)."""
+    """Element offsets of the packed fields (8-aligned) and the weight
+    stride; the gradients' two rows: the ten WEIGHT_KEYS in a row of
+    `wstride` (gat_block_wgrad's chunks), the other fields and the [H, J, J]
+    hop/path bias in a row of `sstride` (a tile's sums); `goffs` gives each
+    field's offset in its row, in the kernel's field order."""
     key = (j, str(device))
     if key not in _LAYOUTS:
         c = EMBED
@@ -213,12 +276,21 @@ def _layout(j: int, device) -> Dict:
         }
         offsets, pos = cuda_lib.field_offsets(
             np.prod(shapes[name]) for name in BLOCK_PARAM_KEYS)
-        gstride = pos + -(-HEADS * j * j // 8) * 8
+        small = [k for k in BLOCK_PARAM_KEYS if k not in WEIGHT_KEYS]
+        woffs, wstride = cuda_lib.field_offsets(
+            np.prod(shapes[k]) for k in WEIGHT_KEYS)
+        soffs, sstride = cuda_lib.field_offsets(
+            [np.prod(shapes[k]) for k in small] + [HEADS * j * j])
+        goffs = {**dict(zip(WEIGHT_KEYS, woffs)), **dict(zip(small, soffs))}
         _LAYOUTS[key] = {
             "offsets": offsets, "shapes": shapes, "wstride": pos,
-            "gstride": gstride,
+            "gwstride": wstride, "gsstride": sstride, "hop": soffs[-1],
+            "goffs": goffs,
             "offs_dev": torch.tensor(offsets + [pos], dtype=torch.int32,
-                                     device=device)}
+                                     device=device),
+            "goffs_dev": torch.tensor(
+                [goffs[k] for k in BLOCK_PARAM_KEYS] + [soffs[-1]],
+                dtype=torch.int32, device=device)}
     return _LAYOUTS[key]
 
 
@@ -241,20 +313,16 @@ def _check(x: torch.Tensor, bias: torch.Tensor, masks_xfeat: torch.Tensor,
                              "device")
 
 
-def _geometry(b: int, j: int):
-    g = max(1, ROWS // j)
-    ngroups = -(-b // g)
-    return g, min(ngroups, NCTA_MAX)
-
-
 class GatBlockTrain(torch.autograd.Function):
-    """One block on the K5 kernels: forward `gat_block_train_fwd`,
-    backward `gat_block_train_bwd` (recompute, backpropagate, reduce the
-    per-CTA gradient partials). Inputs: x [B, J, 128] (f32 or bf16), the
-    hop/path bias [8, J, J] (gets a gradient), the XFeat masks [2, J, J]
-    (constants), a `BlockCfg`, an optional dict that receives the exported
-    masks, then the 25 parameters in BLOCK_PARAM_KEYS order. The output
-    and dx are in x's dtype, as the JAX kernel writes them
+    """One block on the K5 kernels: forward `gat_block_fwd` (which also
+    saves, per row, the operands the backward reads: `ops` in x's dtype and
+    x1 in f32), backward `gat_block_bwd` (dx, the weight gradients'
+    cotangent operands, each tile's small gradients), `gat_block_wgrad`
+    and the two fixed-order reductions. Inputs: x [B, J, 128] (f32 or
+    bf16), the hop/path bias [8, J, J] (gets a gradient), the XFeat masks
+    [2, J, J] (constants), a `BlockCfg`, an optional dict that receives the
+    exported masks, then the 25 parameters in BLOCK_PARAM_KEYS order. The
+    output and dx are in x's dtype, as the JAX kernel writes them
     (pallas_gat_train.py:350): a bf16 stream is rounded at each block
     boundary; dbias and the parameter gradients are f32."""
 
@@ -270,65 +338,69 @@ class GatBlockTrain(torch.autograd.Function):
         w = cuda_lib.pack_fields(params, lay["offsets"], lay["wstride"],
                                  x.dtype)
         out = torch.empty_like(x)
-        g, nctas = _geometry(b, j)
+        ops = torch.empty(b * j, lib.gat_block_train_op_cols(),
+                          dtype=x.dtype, device=x.device)
+        x1s = torch.empty(b * j, c, dtype=torch.float32, device=x.device)
         mask_buf = None
         if export is not None:
             mask_buf = torch.empty(
                 b * (HEADS * j * j + 2 * j * c + j * HIDDEN + 2),
                 dtype=torch.float32, device=x.device)
         if b > 0:
-            scratch = torch.empty(
-                nctas * lib.gat_block_train_scratch(0), dtype=torch.float32,
-                device=x.device)
+            plan = launch_plan(b, j)
             err = lib.gat_block_train_fwd(
                 cuda_lib.kernel_dtype(x.dtype), x.data_ptr(),
                 bias32.data_ptr(), xm.data_ptr(), w.data_ptr(),
-                lay["offs_dev"].data_ptr(), out.data_ptr(),
-                scratch.data_ptr(),
-                None if mask_buf is None else mask_buf.data_ptr(), b, j, g,
-                nctas, cfg.seed, cfg.unit, *cfg.rate_args(),
-                cuda_lib.stream_ptr(x))
+                lay["offs_dev"].data_ptr(), out.data_ptr(), ops.data_ptr(),
+                x1s.data_ptr(),
+                None if mask_buf is None else mask_buf.data_ptr(), b, j,
+                plan["g"], plan["ntiles"], cfg.seed, cfg.unit,
+                *cfg.rate_args(), cuda_lib.stream_ptr(x))
             cuda_lib.check(err, "gat_block_train_fwd")
             gat_trunk_train.launches_fwd += 1
         if export is not None:
             export.update(_split_masks(mask_buf, b, j, c))
         ctx.cfg = cfg
-        ctx.save_for_backward(x, bias32, xm, w, *params)
+        ctx.save_for_backward(x, bias32, xm, w, ops, x1s, *params)
         return out
 
     @staticmethod
     def backward(ctx, gout):
         cfg = ctx.cfg
-        x, bias32, xm, w, *params = ctx.saved_tensors
+        x, bias32, xm, w, ops, x1s, *params = ctx.saved_tensors
         b, j, c = x.shape
         lay = _layout(j, x.device)
         lib = cuda_lib.load("gat_trunk_train", _SIGNATURE)
         gout = gout.to(x.dtype).contiguous()
         dx = torch.empty_like(x)
-        g, nctas = _geometry(b, j)
-        grads = torch.zeros(lay["gstride"], dtype=torch.float32,
-                            device=x.device)
+        f32 = dict(dtype=torch.float32, device=x.device)
+        alloc = torch.empty if b > 0 else torch.zeros
+        wgrads = alloc(lay["gwstride"], **f32)
+        sgrads = alloc(lay["gsstride"], **f32)
         if b > 0:
-            scratch = torch.empty(
-                nctas * lib.gat_block_train_scratch(1), dtype=torch.float32,
-                device=x.device)
-            part = torch.zeros(nctas, lay["gstride"], dtype=torch.float32,
-                               device=x.device)
+            plan = launch_plan(b, j)
+            spart = torch.empty(plan["ntiles"], lay["gsstride"], **f32)
+            wpart = torch.empty(plan["nc_w"], lay["gwstride"], **f32)
             err = lib.gat_block_train_bwd(
                 cuda_lib.kernel_dtype(x.dtype), x.data_ptr(),
                 bias32.data_ptr(), xm.data_ptr(), w.data_ptr(),
-                lay["offs_dev"].data_ptr(), gout.data_ptr(), dx.data_ptr(),
-                scratch.data_ptr(), part.data_ptr(), lay["gstride"],
-                grads.data_ptr(), lay["gstride"], b, j, g, nctas, cfg.seed,
-                cfg.unit, *cfg.rate_args(), cuda_lib.stream_ptr(x))
+                lay["offs_dev"].data_ptr(), lay["goffs_dev"].data_ptr(),
+                gout.data_ptr(), ops.data_ptr(), x1s.data_ptr(),
+                dx.data_ptr(), spart.data_ptr(), lay["gsstride"],
+                wpart.data_ptr(), lay["gwstride"], sgrads.data_ptr(),
+                wgrads.data_ptr(), b, j, plan["g"], plan["ntiles"],
+                plan["nc_w"], plan["wper"], cfg.seed, cfg.unit,
+                *cfg.rate_args(), cuda_lib.stream_ptr(x))
             cuda_lib.check(err, "gat_block_train_bwd")
-            gat_trunk_train.launches_bwd += 2
+            gat_trunk_train.launches_bwd += 4
         dparams = []
-        for name, off, p in zip(BLOCK_PARAM_KEYS, lay["offsets"], params):
-            dparams.append(grads[off:off + p.numel()].view(p.shape).to(
+        for name, p in zip(BLOCK_PARAM_KEYS, params):
+            src = wgrads if name in WEIGHT_KEYS else sgrads
+            off = lay["goffs"][name]
+            dparams.append(src[off:off + p.numel()].view(p.shape).to(
                 p.dtype))
-        wst = lay["wstride"]
-        dbias = grads[wst:wst + HEADS * j * j].view(HEADS, j, j)
+        hop = lay["hop"]
+        dbias = sgrads[hop:hop + HEADS * j * j].view(HEADS, j, j)
         return (dx, dbias, None, None, None, *dparams)
 
 

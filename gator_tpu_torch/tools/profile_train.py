@@ -32,7 +32,8 @@ from .timing import card_name
 BATCH, STEPS = 512, 5
 GROUPS = (
     ("gat_block_fwd", "K5 forward (gat_block_fwd)"),
-    ("gat_block_bwd", "K5 backward (gat_block_bwd)"),
+    ("gat_block_bwd", "K5 backward, rows (gat_block_bwd)"),
+    ("gat_block_wgrad", "K5 backward, weight gradients (gat_block_wgrad)"),
     ("lbf_rows_fwd", "K4 forward, row-local (lbf_rows_fwd)"),
     ("lbf_sa_fwd", "K4 forward, self-attention (lbf_sa_fwd)"),
     ("lbf_out_bwd", "K4 backward, L3 and D (lbf_out_bwd)"),

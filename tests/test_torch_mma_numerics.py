@@ -1,5 +1,5 @@
 """The numerical contract of the tensor-core kernels (csrc/mma.cuh), on the
-CPU, and the host-side launch arithmetic of K3 and K4's row launches.
+CPU, and the host-side launch arithmetic of K3, K4's row launches and K5.
 
 - f32 runs as "3xTF32": each operand x is cut into hi = tf32(x) and
   lo = tf32(x - hi), rounded as `cvt.rna.tf32.f32` rounds (to nearest,
@@ -27,6 +27,7 @@ import torch
 # the modules (the package exports functions of the same names)
 k3 = importlib.import_module("gator_tpu_torch.nn.fused_attention")
 k4 = importlib.import_module("gator_tpu_torch.nn.lbf_stack_train")
+k5 = importlib.import_module("gator_tpu_torch.nn.gat_trunk_train")
 profile_attention = importlib.import_module(
     "gator_tpu_torch.tools.profile_attention")
 
@@ -107,8 +108,14 @@ def test_split_keeps_the_value_to_2_pow_minus_22():
 # lbf_wgrad chunk (5568 rows) in chains of 64 rows added in f32; K2's row
 # launch (csrc/lbf_layer.cuh, 16 rows) takes fc2's K=256 as four chains
 # of 64 (one [64, 64] weight block each) added in f32, and its
-# self-attention's epilogue a [64, 64] tile through L3
+# self-attention's epilogue a [64, 64] tile through L3. K5 (32-row
+# tiles) keeps a product's sum in one accumulator across its [64, 64]
+# weight panels: fc2 over the 512 hidden units, the backward's dy over
+# dqkv, dh0 M and dh1 M (384 + 128 + 128); its weight gradients sum one
+# gat_block_wgrad chunk at B=512, J=17 (1,088 rows) in 64-row chains
 SHAPES = {
+    "k5_fc2": (32, 512, 128, 0), "k5_dy": (32, 640, 128, 0),
+    "k5_wgrad": (64, 1088, 64, 64),
     "k2_rows_fc2": (16, 256, 64, 64), "k2_l3": (64, 64, 64, 0),
     "k3_scores": (16, 32, 64, 0), "k3_pv": (16, 64, 32, 0),
     "k3_scores_d64": (16, 64, 64, 0),
@@ -227,3 +234,32 @@ def test_lbf_launch_plan_covers_every_row(b, nv, wave):
 def test_lbf_launch_plan_refuses_what_the_kernels_do_not_take(b, nv, wave):
     with pytest.raises(ValueError):
         k4.launch_plan(b, nv, wave)
+
+
+@pytest.mark.parametrize("b", [1, 5, 512, 800, 65537])
+@pytest.mark.parametrize("j", [1, 17, 19, 32])
+def test_gat_launch_plan_takes_whole_samples_once(b, j):
+    """K5's tiles: consecutive runs of whole samples, each sample in
+    exactly one tile, at most TILE_ROWS rows a tile, a 1-D grid within the
+    card's limit; gat_block_wgrad's chunks cover the B * J rows once."""
+    plan = k5.launch_plan(b, j)
+    g = plan["g"]
+    assert g >= 1 and g * j <= k5.TILE_ROWS
+    seen = np.zeros(b, dtype=np.int64)
+    for t in range(plan["ntiles"]):
+        first, last = t * g, min(b, t * g + g)
+        assert first < last
+        seen[first:last] += 1
+    assert (seen == 1).all()
+    assert 1 <= plan["ntiles"] <= k5.GRID_MAX
+    assert plan["rows"] == b * j
+    assert plan["wper"] % k5.WGRAD_ROWS == 0
+    assert plan["nc_w"] <= k5.WGRAD_CHUNKS
+    assert plan["nc_w"] * plan["wper"] >= b * j > (plan["nc_w"] - 1) * plan[
+        "wper"]
+
+
+@pytest.mark.parametrize("b,j", [(0, 17), (-1, 17), (4, 33), (4, 0)])
+def test_gat_launch_plan_refuses_what_the_kernels_do_not_take(b, j):
+    with pytest.raises(ValueError):
+        k5.launch_plan(b, j)

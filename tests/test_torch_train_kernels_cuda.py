@@ -17,9 +17,12 @@ import torch
 
 from gator_tpu_torch.assets import build_assets
 from gator_tpu_torch.models import GatorSpec, build_gator
-from gator_tpu_torch.nn.gat_trunk_train import (extract_block_params,
+from gator_tpu_torch.nn.gat_trunk_train import (BlockCfg, block_masks,
+                                                extract_block_params,
+                                                gat_block_train_ref,
                                                 gat_trunk_train,
-                                                gat_trunk_train_ref)
+                                                gat_trunk_train_ref,
+                                                kernel_info)
 from gator_tpu_torch.nn.lbf_stack_train import (DEFAULT_RATES, ZERO_RATES,
                                                 extract_layer_params,
                                                 lbf_stack_train,
@@ -98,7 +101,8 @@ def _run_k5(gat, x0, cot, rates, fn):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rates", sorted(K5_RATES))
-# 800 samples: 267 groups of 3 on the 264-CTA grid, so CTAs loop
+# 800 samples: 800 one-sample tiles, three waves of two CTAs per SM, and
+# 13,600 rows in gat_block_wgrad's eight chunks
 @pytest.mark.parametrize("batch", [1, 5, 800])
 def test_gat_trunk_train_kernels_match_plain(model, dtype, rates, batch):
     gat = model.pose_lifter
@@ -108,13 +112,86 @@ def test_gat_trunk_train_kernels_match_plain(model, dtype, rates, batch):
     cot = _randn(rng, batch, j, 128).to(dtype)
     before = (gat_trunk_train.launches_fwd, gat_trunk_train.launches_bwd)
     got = _run_k5(gat, x0, cot, K5_RATES[rates], gat_trunk_train)
+    # per block: one forward launch; four backward (gat_block_bwd,
+    # gat_block_wgrad, the two reductions)
     assert (gat_trunk_train.launches_fwd, gat_trunk_train.launches_bwd) == (
-        before[0] + 2, before[1] + 4)
+        before[0] + 2, before[1] + 8)
     want = _run_k5(gat, x0, cot, K5_RATES[rates], gat_trunk_train_ref)
     _check_masks(got[4], want[4])
     for a, b in zip(got[:3], want[:3]):
         assert _scaled(a, b) <= TOL[dtype]
     _check_grads(got[3], want[3], TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gat_trunk_train_repeat_runs_bit_identical(model, dtype):
+    """At the main path's batch (512 tiles, gat_block_wgrad's eight
+    chunks): two runs with one seed agree bit for bit (output, dx, dbias,
+    every parameter gradient, every exported mask); another seed
+    differs."""
+    gat = model.pose_lifter
+    j = gat.spec.num_joint
+    rng = np.random.default_rng(512)
+    x0 = _randn(rng, 512, j, 128).to(dtype)
+    cot = _randn(rng, 512, j, 128).to(dtype)
+    runs = [_run_k5(gat, x0, cot, K5_RATES["default"], gat_trunk_train)
+            for _ in range(2)]
+    for a, b in zip(runs[0][:3], runs[1][:3]):
+        assert torch.equal(a, b)
+    assert set(runs[0][3]) == set(runs[1][3])
+    for name in runs[0][3]:
+        assert torch.equal(runs[0][3][name], runs[1][3][name]), name
+    _check_masks(runs[0][4], runs[1][4])
+    other = gat_trunk_train(x0, gat.get_hop_path_encoding().detach().float(),
+                            [extract_block_params(b) for b in gat.blocks],
+                            gat.spec.masks_xfeat, 8, 78)
+    assert not torch.equal(other.detach(), runs[0][0])
+
+
+@pytest.mark.cuda
+def test_gat_block_train_takes_65537_samples(model):
+    """One block at B=65537 (65,537 tiles, a 1-D grid past 65,535): the
+    first and last 16 samples' output and dx equal the plain version run
+    on those samples with the masks the kernel exported for them (f32,
+    1e-4); the first 16 samples' masks equal the hash's."""
+    gat = model.pose_lifter
+    j = gat.spec.num_joint
+    b = 65537
+    rng = np.random.default_rng(65537)
+    x0 = _randn(rng, b, j, 128)
+    cot = _randn(rng, b, j, 128)
+    bias = gat.get_hop_path_encoding().detach().float()
+    bp = {k: t.detach()
+          for k, t in extract_block_params(gat.blocks[0]).items()}
+    x = x0.clone().requires_grad_(True)
+    export = []
+    out = gat_trunk_train(x, bias, [bp], gat.spec.masks_xfeat, 8, 91,
+                          export=export, **K5_RATES["default"])
+    out.backward(cot)
+    torch.cuda.synchronize()
+    got = export[0]
+    cfg = BlockCfg(num_heads=8, block=0, seed=91, attn_rate=0.4,
+                   proj_rate=0.4, mlp_rate=0.1, path_rate=0.0)
+    _check_masks([{k: m[:16] for k, m in got.items()}],
+                 [block_masks(cfg, 16, j, 128, x0.device)])
+    xm = torch.as_tensor(gat.spec.masks_xfeat, dtype=torch.float32,
+                         device="cuda")
+    for part in (slice(0, 16), slice(b - 16, b)):
+        xs = x0[part].clone().requires_grad_(True)
+        mk = {k: m[part] for k, m in got.items()}
+        want = gat_block_train_ref(xs, bias, bp, xm, mk, 8)
+        want.backward(cot[part])
+        assert _scaled(out[part].detach(), want.detach()) <= TOL[
+            torch.float32]
+        assert _scaled(x.grad[part], xs.grad) <= TOL[torch.float32]
+
+
+@pytest.mark.cuda
+def test_gat_trunk_train_kernels_fit_two_ctas_per_sm_in_bf16(model):
+    info = kernel_info(torch.bfloat16)
+    assert info["gat_block_fwd"]["ctas_per_sm"] >= 2, info
+    assert info["gat_block_bwd"]["ctas_per_sm"] >= 2, info
 
 
 def _run_k4(mdr, x0, j0, cot, rates, fn):
