@@ -39,11 +39,14 @@ The training path (K4 csrc/lbf_stack_train.cu, K5 csrc/gat_trunk_train.cu):
  13. (f) 10 stage-1 steps at B=256 (configs/gat_synthetic_e2e.yml), the same
      checks;
  14. (g) times at B=512, bf16: the stage-2 and stage-1 steps, and K4/K5
-     forward and backward, each beside the plain version; K4's row-local
-     launches (lbf_rows_fwd, lbf_rows_bwd + lbf_wgrad, on the tensor
-     cores) and K5's four (gat_block_fwd, gat_block_bwd, gat_block_wgrad,
-     the reductions) in device ms per step from torch.profiler, beside their
-     bounds; K5's registers and CTAs per SM; the bound of K4's rest.
+     forward and backward, each beside the plain version; K4's eight
+     launches (the row-local lbf_rows_fwd, lbf_rows_bwd + lbf_wgrad; the
+     rest: lbf_sa_fwd, lbf_sa_bwd_dq, lbf_sa_bwd_dkv, lbf_joints_bwd,
+     lbf_reduce) and K5's four (gat_block_fwd, gat_block_bwd,
+     gat_block_wgrad, the reductions) in device ms per step from
+     torch.profiler, each beside its bound (the rest's from the bytes the
+     function needs, with the interface's beside them where they differ);
+     the registers and CTAs per SM of K5's launches and of K4's rest.
 The evaluation path (K3 csrc/fused_attention.cu, the MDR vertex
 self-attention of the module form):
  15. (h) K3 is built with the others in phase 2;
@@ -185,10 +188,56 @@ def fma_lbf_rows_bwd(nv, j, c=64, hid=256):
     sample and layer, as the code does it: the forward again up to y3, the
     transposed products (dy3 from dq2/dk2/dv2, dh1, dy2, da1, dyv), the
     cross-attention's four (dp, dq, the joints' dk and dv), the weight
-    gradients (L0-L2, fc2, fc1, proj, wq)."""
+    gradients (L0-L3, fc2, fc1, proj, wq)."""
     return (fma_lbf_rows_fwd(nv, j, c, hid) - 3 * nv * c * c
             + nv * (5 * c * c + 2 * c * hid + 4 * j * c)
-            + nv * (5 * c * c + 2 * c * hid))
+            + nv * (6 * c * c + 2 * c * hid))
+
+
+# K4's launches, by the names torch.profiler shows
+K4_ROWS = ("lbf_rows_fwd", "lbf_rows_bwd", "lbf_wgrad")
+K4_REST = ("lbf_sa_fwd", "lbf_sa_bwd_dq", "lbf_sa_bwd_dkv", "lbf_joints_bwd",
+           "lbf_reduce")
+
+
+def lbf_rest_bounds(b, nv, j, plan, c=64, layers=3):
+    """{launch: (bound with the bytes the function needs, bound with the
+    bytes its interface moves)} for K4's rest at one stage-2 step (bf16
+    rows, f32 where the kernels keep f32), each input read once and each
+    output written once. Operations: the self-attention's products once
+    each (the forward's two passes compute S twice), L3 in the forward and
+    its da2 in the dq launch (L3's weight gradient is lbf_wgrad's), the
+    joints' four [J, 64] x [64, 64] products. Bytes per vertex row:
+    lbf_sa_fwd reads q2/k2/v2 (bf16) and y3, writes out (bf16), a2 and the
+    log-sum-exp; lbf_sa_bwd_dq reads gout, q2/k2/v2, a2 and the log-sum-
+    exp, writes da2 (bf16), D, dq2 and L3's two weight-gradient operands
+    (bf16, to ops); lbf_sa_bwd_dkv reads q2/k2/v2, da2, the log-sum-exp
+    and D, writes dk2/dv2. lbf_joints_bwd needs the joints in, djoints out
+    and the summed dk/dv of each sample; its interface reads each row
+    tile's share of them (and L3's bias shares). lbf_reduce reads the
+    compact partial rows and writes the gradients."""
+    sa_fma = layers * b * nv * nv * c  # one [Nv, Nv] product, width 64
+    rows = layers * b * nv
+    bf, f4 = 2, 4
+    per_layer_partials = (plan["nc_w"] * 14 * c * c + plan["nc_rows"]
+                          * (11 * c + 256) + plan["nc_j"]
+                          * (2 * c * c + 3 * c)) * f4
+    joints_need = layers * b * j * c * (bf + bf + 2 * f4)
+    joints_io = joints_need + layers * b * (
+        2 * plan["nrt"] * j * c * f4 + plan["nqt"] * c * f4)
+    out = {
+        "lbf_sa_fwd": (bound(2 * sa_fma + rows * c * c,
+                             rows * (c * (3 * bf + f4 + bf + f4) + 2 * f4)),),
+        "lbf_sa_bwd_dq": (bound(3 * sa_fma + rows * c * c, rows * (
+            c * (bf + 3 * bf + f4 + bf + f4 + 2 * bf) + 4 * f4)),),
+        "lbf_sa_bwd_dkv": (bound(4 * sa_fma,
+                                 rows * (c * (4 * bf + 2 * f4) + 4 * f4)),),
+        "lbf_joints_bwd": (bound(layers * b * 4 * j * c * c, joints_need),
+                           bound(layers * b * 4 * j * c * c, joints_io)),
+        "lbf_reduce": (bound(0, layers * (per_layer_partials
+                                         + LBF_LAYER_WEIGHTS * f4)),),
+    }
+    return {k: v if len(v) == 2 else v * 2 for k, v in out.items()}
 
 
 def bound(fma, nbytes, flop_per_s=BF16_FLOP_PER_S):
@@ -583,13 +632,15 @@ def train_phases(torch, dev, card, randn):
                 f"plain {p:.3f} ms" + (
                     f" ({b / k * 1e3:,.0f} vs {b / p * 1e3:,.0f} poses/s)"
                     if name.startswith("stage") else ""))
-    # K4's row-local launches alone: device ms per call of the 3-layer
-    # stack (one stage-2 step's worth), from torch.profiler
+    # K4's launches alone: device ms per call of the 3-layer stack (one
+    # stage-2 step's worth), from torch.profiler
+    from gator_tpu_torch.nn.lbf_stack_train import card_plan
+    from gator_tpu_torch.nn.lbf_stack_train import kernel_info as k4_info
     from gator_tpu_torch.tools.profile_train import _device_us, _is_kernel
     y = lbf_stack_train(x4, j4, lp4, 2, 9)
     y.backward(g4, retain_graph=True)
     torch.cuda.synchronize()
-    rows = dict.fromkeys(("lbf_rows_fwd", "lbf_rows_bwd", "lbf_wgrad"), 0.0)
+    k4l = dict.fromkeys(K4_ROWS + K4_REST, 0.0)
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -598,34 +649,46 @@ def train_phases(torch, dev, card, randn):
             lbf_stack_train(x4, j4, lp4, 2, 9)
         torch.cuda.synchronize()
     for evt in prof.key_averages():
-        for key in rows:
+        for key in k4l:
             if _is_kernel(evt) and key in evt.key:
-                rows[key] += _device_us(evt) / 1e3 / 3
+                k4l[key] += _device_us(evt) / 1e3 / 3
     del y
-    check(all(v > 0 for v in rows.values()),
-          f"the profiler saw K4's row launches: {rows}")
+    check(all(v > 0 for v in k4l.values()),
+          f"the profiler saw K4's launches: {k4l}")
     # bytes each must move: x in, y3 (f32, the residual) and q2/k2/v2
-    # (bf16: the self-attention reads them rounded) out; x, gout and
-    # dq2/dk2/dv2 (f32: their bias gradients sum them unrounded) in, dx out.
-    # The launch writes q2/k2/v2 in f32, the self-attention launches'
-    # interface: 18 bytes a row element where the function needs 12.
+    # (bf16: every reader rounds them) out; x, gout and dq2/dk2/dv2 (f32:
+    # their bias gradients sum them unrounded) in, dx out.
     row_bounds = {
         "lbf_rows_fwd": bound(3 * b * fma_lbf_rows_fwd(nv, 17),
                               3 * b * nv * 64 * (2 + 4 + 6)),
         "lbf_rows_bwd": bound(3 * b * fma_lbf_rows_bwd(nv, 17),
                               3 * b * nv * 64 * (2 + 2 + 12 + 2)),
     }
-    fwd_f32_io = bound(3 * b * fma_lbf_rows_fwd(nv, 17),
-                       3 * b * nv * 64 * (2 + 16))
     say(14, f"K4 row launches per stage-2 step (3 layers, B={b} bf16) on "
-            f"{card}: lbf_rows_fwd {rows['lbf_rows_fwd']:.3f} ms (bound "
+            f"{card}: lbf_rows_fwd {k4l['lbf_rows_fwd']:.3f} ms (bound "
             f"{row_bounds['lbf_rows_fwd'][0]:.3f}, "
-            f"{row_bounds['lbf_rows_fwd'][1]}; {fwd_f32_io[0]:.3f} with "
-            f"q2/k2/v2 written in f32); lbf_rows_bwd "
-            f"{rows['lbf_rows_bwd']:.3f} + lbf_wgrad "
-            f"{rows['lbf_wgrad']:.3f} ms (bound together "
+            f"{row_bounds['lbf_rows_fwd'][1]}); lbf_rows_bwd "
+            f"{k4l['lbf_rows_bwd']:.3f} + lbf_wgrad "
+            f"{k4l['lbf_wgrad']:.3f} ms (bound together "
             f"{row_bounds['lbf_rows_bwd'][0]:.3f}, "
             f"{row_bounds['lbf_rows_bwd'][1]})")
+    # K4's rest, each launch beside its own bound (lbf_rest_bounds); where
+    # the interface moves more than the function needs, both
+    plan4 = card_plan(b, nv, bf16)
+    rest = lbf_rest_bounds(b, nv, 17, plan4)
+    say(14, f"K4's rest per stage-2 step (3 layers, B={b} bf16) on {card}: "
+            + "; ".join(
+                f"{key} {k4l[key]:.3f} ms (bound {rest[key][0][0]:.3f}, "
+                f"{rest[key][0][1]}" + (
+                    f"; {rest[key][1][0]:.3f} with the interface's bytes"
+                    if rest[key][1] != rest[key][0] else "") + ")"
+                for key in K4_REST)
+            + f"; together {sum(k4l[k] for k in K4_REST):.3f} ms against "
+            f"{sum(v[0][0] for v in rest.values()):.3f} ms (the interfaces' "
+            f"{sum(v[1][0] for v in rest.values()):.3f}); registers / CTAs "
+            f"per SM / shared bytes: " + ", ".join(
+                f"{k} {v['registers']}/{v['ctas_per_sm']}/{v['smem_bytes']}"
+                for k, v in k4_info(bf16, nv).items()))
     # K5's launches alone, the same way: device ms per step (six blocks)
     from gator_tpu_torch.nn.gat_trunk_train import (kernel_info,
                                                     launch_plan,
@@ -682,13 +745,6 @@ def train_phases(torch, dev, card, randn):
             + "; registers / CTAs per SM / shared bytes: " + ", ".join(
                 f"{k} {v['registers']}/{v['ctas_per_sm']}/{v['smem_bytes']}"
                 for k, v in info.items()))
-    # K4's rest (self-attention, out, joints, reduce): K4's operations
-    # less those of its row launches
-    rest_fma = 3 * b * 3 * fma_lbf_layer(nv, 17) - 3 * b * (
-        fma_lbf_rows_fwd(nv, 17) + fma_lbf_rows_bwd(nv, 17))
-    say(14, f"K4's rest per stage-2 step (3 layers, B={b} bf16): bound "
-            f"{bound(rest_fma, 0)[0]:.3f} ms (operations, bf16 tensor "
-            f"rate)")
     out["ms"] = {
         "gat_trunk_train": t["k5_fwd"] + t["k5_bwd"],
         "gat_trunk_train_plain": t["k5_fwd_plain"] + t["k5_bwd_plain"],

@@ -1,7 +1,9 @@
 // The two-pass softmax attention of one warp's 16 query rows on the tensor
-// cores, shared by K3 (fused_attention.cu: one head per CTA) and K2's
+// cores, shared by K3 (fused_attention.cu: one head per CTA), K2's
 // self-attention (lbf_stack.cu: both heads of a query tile per CTA, then
-// L3 and the residual).
+// L3 and the residual) and K4's (lbf_stack_train.cu: the same, with the
+// dropout mask and the log-sum-exp its backward reads, through two_pass's
+// hooks); K4's backward launches build on `scores` and `pv`.
 //
 // Numerics, as the TPU kernels: scores and softmax in f32; the normalised
 // probabilities rounded to the working type T before the PV product,
@@ -99,23 +101,23 @@ __host__ __device__ constexpr int ksteps() {  // mma steps over a head width
 template <typename T, int D>
 using QFrags = typename tc::Mma<T>::A[ksteps<T, D>()];
 
-// the 64-key tile's scores of this warp's rows against one head's keys
-// (Ks: the tile's first row at the head's first column, rows LK apart):
-// s[j][i] is key 8j + 2t + (i & 1), row g + 8 (i >> 1)
-template <typename T, int D, int LK>
-__device__ __forceinline__ void scores(float (&s)[8][4],
+// the scores of this warp's rows against 8 NJ keys of one head (a 64-key
+// tile by default; Ks: the first key's row at the head's first column,
+// rows LK apart): s[j][i] is key 8j + 2t + (i & 1), row g + 8 (i >> 1)
+template <typename T, int D, int LK, int NJ = 8>
+__device__ __forceinline__ void scores(float (&s)[NJ][4],
                                        const QFrags<T, D>& qf, const T* Ks) {
   using P = tc::Mma<T>;
   constexpr int KSTEPS = ksteps<T, D>();
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) s[j][i] = 0.0f;
 #pragma unroll
   for (int ks = 0; ks < KSTEPS; ++ks) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < NJ; ++j) {
       typename P::B b;
       if constexpr (sizeof(T) == 4) {
         const float* kr = reinterpret_cast<const float*>(Ks) +
@@ -131,6 +133,68 @@ __device__ __forceinline__ void scores(float (&s)[8][4],
   }
 }
 
+// o += p v for this warp's 16 rows: p in the accumulator layout of
+// `scores` (8 NJ keys, values already as T holds them), v the keys' rows
+// (Vt: the first key's row at the head's first column, rows LV apart),
+// 8 NO columns; o[jn][i] is column 8 jn + 2t + (i & 1) of row
+// g + 8 (i >> 1). The accumulators become the A operand in registers
+// (bf16) or by shuffles (TF32, whose A layout differs).
+template <typename T, int NO, int LV, int NJ = 8>
+__device__ __forceinline__ void pv(float (&o)[NO][4], const float (&p)[NJ][4],
+                                   const T* vt) {
+  using P = tc::Mma<T>;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  if constexpr (sizeof(T) == 4) {
+    const int src0 = (lane & ~3) | (t >> 1), src1 = src0 + 2;
+    const bool odd = t & 1;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      float x[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        x[i] = __shfl_sync(0xffffffffu, p[j][i], src0);
+        x[4 + i] = __shfl_sync(0xffffffffu, p[j][i], src1);
+      }
+      typename P::A a;
+      tc::split_tf32(odd ? x[1] : x[0], a.hi[0], a.lo[0]);
+      tc::split_tf32(odd ? x[3] : x[2], a.hi[1], a.lo[1]);
+      tc::split_tf32(odd ? x[5] : x[4], a.hi[2], a.lo[2]);
+      tc::split_tf32(odd ? x[7] : x[6], a.hi[3], a.lo[3]);
+      const float* vr =
+          reinterpret_cast<const float*>(vt) + (8 * j + t) * LV + g;
+#pragma unroll
+      for (int jn = 0; jn < NO; ++jn) {
+        typename P::B bv;
+        tc::split_tf32(vr[8 * jn], bv.hi[0], bv.lo[0]);
+        tc::split_tf32(vr[4 * LV + 8 * jn], bv.hi[1], bv.lo[1]);
+        P::mma(o[jn], a, bv);
+      }
+    }
+  } else {
+    static_assert(NJ % 2 == 0, "bf16 steps take 16 keys");
+#pragma unroll
+    for (int kk = 0; kk < NJ / 2; ++kk) {
+      typename P::A a;
+      a.r[0] = tc::pack_bf16(p[2 * kk][0], p[2 * kk][1]);
+      a.r[1] = tc::pack_bf16(p[2 * kk][2], p[2 * kk][3]);
+      a.r[2] = tc::pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
+      a.r[3] = tc::pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
+#pragma unroll
+      for (int jn = 0; jn < NO; ++jn) {
+        typename P::B bv;
+        tc::ldsm_x2_trans(bv.r, vt + (16 * kk + (lane & 15)) * LV + 8 * jn);
+        P::mma(o[jn], a, bv);
+      }
+    }
+  }
+}
+
+// two_pass's default hooks: nothing
+struct NoHook {
+  template <class... A>
+  __device__ __forceinline__ void operator()(A&&...) const {}
+};
+
 // o = T(softmax(q k^T)) v for this warp's 16 rows and one head of width D,
 // over nk keys staged W wide (`Ks`, `Vs`: the staged buffers at the head's
 // first column). Called by every thread of the CTA (it syncs the block);
@@ -138,18 +202,26 @@ __device__ __forceinline__ void scores(float (&s)[8][4],
 //   stage(key0, n, with_v)  starts the cp.async copies of keys [key0,
 //                           key0 + n) into the buffers (`stage_kv`);
 //   finish(s, key0)         turns a tile's raw scores into base-2 logits,
-//                           -inf past the last key.
+//                           -inf past the last key;
+//   stats(mx, sum)          (optional) after pass 1: each of the thread's
+//                           rows g, g + 8 (index i >> 1)'s base-2 max and
+//                           sum of exp2(logit - max), whole over the quad;
+//   keep(p, key0)           (optional) in pass 2: multiplies a tile's
+//                           normalised probabilities (the layout of `s`)
+//                           in place before they are rounded to T.
+// The default hooks do nothing, and K3's and K2's calls compile to the
+// code they compiled to before the hooks.
 // o[jn][i] is column 8 jn + 2t + (i & 1) of row g + 8 (i >> 1), f32.
-template <typename T, int D, int W, class Stage, class Finish>
+template <typename T, int D, int W, class Stage, class Finish,
+          class Stats = NoHook, class Keep = NoHook>
 __device__ __forceinline__ void two_pass(float (&o)[D / 8][4],
                                          const QFrags<T, D>& qf, const T* Ks,
                                          const T* Vs, int nk, int kc,
                                          bool active, Stage stage,
-                                         Finish finish) {
-  using P = tc::Mma<T>;
+                                         Finish finish, Stats stats = {},
+                                         Keep keep = {}) {
   using L = Pad<T, W>;
   constexpr int NO = D / 8;  // output column tiles
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int nchunks = (nk + kc - 1) / kc;
   float mx[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.0f, 0.0f};
   // pass 1: row max and sum, online
@@ -181,7 +253,9 @@ __device__ __forceinline__ void two_pass(float (&o)[D / 8][4],
       }
     }
   }
-  const float inv[2] = {1.0f / quad_sum(l[0]), 1.0f / quad_sum(l[1])};
+  const float sum[2] = {quad_sum(l[0]), quad_sum(l[1])};
+  if (active) stats(mx, sum);
+  const float inv[2] = {1.0f / sum[0], 1.0f / sum[1]};
 
   // pass 2: p = T(exp(s - max) / sum), o = p v
 #pragma unroll
@@ -206,51 +280,13 @@ __device__ __forceinline__ void two_pass(float (&o)[D / 8][4],
       for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          s[j][i] = rnd<T>(exp2f(s[j][i] - mx[i >> 1]) * inv[i >> 1]);
-      const T* vt = Vs + kt * L::LV;
-      if constexpr (L::F32) {
-        const int src0 = (lane & ~3) | (t >> 1), src1 = src0 + 2;
-        const bool odd = t & 1;
+          s[j][i] = exp2f(s[j][i] - mx[i >> 1]) * inv[i >> 1];
+      keep(s, key0 + kt);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          float x[8];
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            x[i] = __shfl_sync(0xffffffffu, s[j][i], src0);
-            x[4 + i] = __shfl_sync(0xffffffffu, s[j][i], src1);
-          }
-          typename P::A a;
-          tc::split_tf32(odd ? x[1] : x[0], a.hi[0], a.lo[0]);
-          tc::split_tf32(odd ? x[3] : x[2], a.hi[1], a.lo[1]);
-          tc::split_tf32(odd ? x[5] : x[4], a.hi[2], a.lo[2]);
-          tc::split_tf32(odd ? x[7] : x[6], a.hi[3], a.lo[3]);
-          const float* vr = reinterpret_cast<const float*>(vt) +
-                            (8 * j + t) * L::LV + g;
-#pragma unroll
-          for (int jn = 0; jn < NO; ++jn) {
-            typename P::B bv;
-            tc::split_tf32(vr[8 * jn], bv.hi[0], bv.lo[0]);
-            tc::split_tf32(vr[4 * L::LV + 8 * jn], bv.hi[1], bv.lo[1]);
-            P::mma(o[jn], a, bv);
-          }
-        }
-      } else {
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          typename P::A a;
-          a.r[0] = tc::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-          a.r[1] = tc::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-          a.r[2] = tc::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-          a.r[3] = tc::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-          for (int jn = 0; jn < NO; ++jn) {
-            typename P::B bv;
-            tc::ldsm_x2_trans(bv.r,
-                              vt + (16 * kk + (lane & 15)) * L::LV + 8 * jn);
-            P::mma(o[jn], a, bv);
-          }
-        }
-      }
+        for (int i = 0; i < 4; ++i) s[j][i] = rnd<T>(s[j][i]);
+      pv<T, NO, L::LV>(o, s, Vs + kt * L::LV);
     }
   }
 }

@@ -16,34 +16,43 @@
 // rows stop being independent, as K2 (csrc/lbf_stack.cu), and the
 // self-attention is flash-style:
 //   forward   lbf_rows_fwd   per TR-row tile: cross-attention, MLP,
-//                            std-LN, q2/k2/v2 (saved, f32);
-//             lbf_sa_fwd     per 64-query tile: online softmax over
-//                            64-key tiles with the dropped probabilities;
-//                            saves the attention output a2 and the
-//                            per-row log-sum-exp, then L3 and the residual;
-//   backward  lbf_out_bwd    da2 = (g * m_out) @ L3^T, L3's gradients and
-//                            D_i = <da2_i, a2_i> (a2 after dropout);
-//             lbf_sa_bwd_dq  per query tile: probabilities recomputed tile
-//                            by tile from q2, k2 and the LSE, the mask
-//                            regenerated from the hash; dq2;
-//             lbf_sa_bwd_dkv per key tile: dk2, dv2;
+//                            std-LN, q2/k2/v2 (saved in T);
+//             lbf_sa_fwd     per 64-query tile, both heads: attn_tc.cuh's
+//                            two passes over 64-key tiles, the normalised
+//                            probabilities times the self mask rounded to
+//                            T before PV (pallas_mdr_train.py:257); saves
+//                            the output a2 (f32) and each row's base-2
+//                            log-sum-exp, then L3, the out mask and y3;
+//   backward  lbf_sa_bwd_dq  per 64-query tile: dsa = g * m_out, L3's
+//                            bias share and the operands of its weight
+//                            gradient (to `ops`), da2 = dsa L3^T (saved in
+//                            T), D = <da2, a2> per head; then over 64-key
+//                            tiles P = exp2(s - lse), the mask from the
+//                            hash, dS = T(P (M dP - D) scale), dq2 += dS K;
+//             lbf_sa_bwd_dkv per 64-key tile, over 32-query steps: the
+//                            same transposed, dv2 += T(P M)^T dA, dk2 +=
+//                            dS^T Q;
 //             lbf_rows_bwd   per TR-row tile: recomputes the row-local
 //                            forward, backpropagates to dx, leaves its
 //                            tile's share of the joints' dk/dv, the bias
 //                            and norm gradients, and, per row, the two
 //                            operands of every weight gradient (`ops`);
-//             lbf_joints_bwd per sample: sums those shares, LN1 backward
-//                            of the joint rows -> djoints;
-//             lbf_wgrad      the row-local weight gradients, X^T dY over
-//                            all B * Nv rows of `ops` in fixed chunks;
-//             reduce         sums the per-CTA parameter-gradient rows.
+//             lbf_joints_bwd per sample: sums those shares (and L3's bias
+//                            shares) in order; wk/wv gradients and the LN1
+//                            backward of the joint rows -> djoints;
+//             lbf_wgrad      the weight gradients, X^T dY over all B * Nv
+//                            rows of `ops` in fixed chunks (L3's too);
+//             lbf_reduce     sums each gradient field over the partial rows
+//                            that wrote it.
 // No launch holds a probability matrix; dS = P * (M * dP - D) per tile.
-// Parameter gradients go to per-CTA partial rows (fixed grids, fixed
-// chunks) summed in a fixed order: repeat runs are bit-identical.
+// Each launch writes only the gradient fields it owns, into compact
+// partial rows (per lbf_wgrad chunk, lbf_rows_bwd CTA, lbf_joints_bwd CTA)
+// of fixed grids, summed in a fixed order; no atomics, so repeat runs are
+// bit-identical.
 //
-// The row-local launches run every product on the tensor cores
-// (csrc/mma.cuh): bf16 m16n8k16 on the operands the kernel rounds to bf16
-// anyway, or in f32 the 3xTF32 split. A tile's activations live in shared
+// Every product runs on the tensor cores (csrc/mma.cuh): bf16 m16n8k16 on
+// the operands the kernel rounds to bf16 anyway, or in f32 the 3xTF32
+// split. The row-local launches keep a tile's activations in shared
 // memory, in T where they only ever meet a product rounded (layer-norm
 // outputs, q, a1, h1, the probabilities times the masks, da1, dq) and in
 // f32 where the layer keeps f32 (residuals, scores, backward cotangents);
@@ -53,15 +62,34 @@
 // on the H100). A CTA walks a contiguous run of tiles, so the joints' LN1,
 // K and V are computed once per sample it meets, not once per tile. The
 // weight gradients are not accumulated per tile: lbf_rows_bwd writes each
-// row's operands (`ops`, 2.3 KB a row in bf16) and lbf_wgrad sums them.
+// row's operands (`ops`, 2.5 KB a row in bf16) and lbf_wgrad sums them.
+// The self-attention launches keep each warp's 16 rows of q (or k and v,
+// or dA) as mma fragments in registers, stage the sample's other operand
+// rows (both heads, 64 wide) with cp.async in their own dtype in chunks
+// that let two CTAs share an SM, and turn score accumulators into the next
+// product's A operand in registers (attn_tc.cuh's `scores` and `pv`).
+//
+// Interfaces between the launches, by type: q2/k2/v2 and da2 are saved in
+// T (every reader rounds them to T: the JAX backward's mmT/mmf/mTm round
+// their operands), so cp.async stages them as they are; y3, a2, the
+// log-sum-exp, D and dq2/dk2/dv2 stay f32 (the residual, D's sum and the
+// bias gradients take them unrounded).
 //
 // What bounds it on the H100: a stage-2 step's row launches need ~37 GFMA
 // forward and ~100 backward (0.07 and 0.2 ms on bf16 tensor cores) and
 // move ~0.76 GB each way (0.23 ms); they take about 10x and 30x that,
 // in the element-wise work between the products (dropout hashes,
-// exponentials, GELU, LayerNorms), the block's syncs and the staging.
-// The flash self-attention launches still run f32 FMA loops.
-#include "mma.cuh"
+// exponentials, GELU, LayerNorms), the block's syncs and the staging. The
+// self-attention launches need ~2 Nv^2 C FMA forward and ~7 Nv^2 C
+// backward per sample and layer (~0.35 ms in all on bf16 tensor cores at
+// B = 512, Nv = 431, 3 layers) and move ~2.3 GB through their interfaces
+// (~0.7 ms): bytes bound. On one H100 80GB HBM3 at 700 W they take about
+// 1.5 (forward), 1.4 (dq) and 1.2 ms (dk/dv) per stage-2 step, ~6x their
+// bounds, with one dropout hash and one or two exponentials per score;
+// the joints' launch ~0.3 ms, reading each row tile's share, and the
+// reduction ~0.04 ms (chip_smoke.py phase 14 prints each launch beside
+// its bound; tools/profile_train.py).
+#include "attn_tc.cuh"
 #include "train_ops.cuh"
 
 namespace gator {
@@ -72,13 +100,16 @@ constexpr int H = 2;      // heads
 constexpr int D = 32;     // head width
 constexpr int HID = 256;  // MLP hidden
 constexpr int JMAX = 32;  // most joint tokens
-constexpr int HJ = H * JMAX;
 constexpr int TR = 16;    // vertex rows per rows-kernel tile
-constexpr int TO = 32;    // vertex rows per lbf_out_bwd tile
-constexpr int NT = 256;   // threads of the rows kernels
+constexpr int NT = 256;   // threads of every launch but the reduction's
 constexpr int TQ = 64;    // query (or key) rows per self-attention CTA
-constexpr int TK = 64;    // rows per staged tile
-constexpr int NT_SA = TQ * H;
+constexpr float SCALE = 0.17677669529663687f;  // D^-0.5
+// The self-attention works in base 2: logits s * SL, and the forward saves
+// each row's log-sum-exp in that base, lse2 = max + log2(sum of
+// exp2(logit - max)), so that the backward's probabilities are
+// P = exp2(s * SL - lse2).
+constexpr float SL = SCALE * attn::LOG2E;
+constexpr int QSTEP = 4;  // 8-column tiles per step of the backward's loops
 
 // Field order of a layer's packed weights (and of its gradients); must
 // match LAYER_PARAM_KEYS in gator_tpu_torch/nn/lbf_stack_train.py.
@@ -89,24 +120,41 @@ enum Field {
 };
 
 // Columns of one row of `ops` (T [B * Nv, O_W]): the forward activations
-// and backward cotangents that meet in a row-local weight gradient.
+// and backward cotangents that meet in a weight gradient (O_A2 and O_DSA,
+// L3's, are written by lbf_sa_bwd_dq, the rest by lbf_rows_bwd).
 enum OpCol {
   O_YV = 0, O_A1 = 64, O_Y2 = 128, O_Y3 = 192, O_H1D = 256,
   O_DQ2 = 512, O_DK2 = 576, O_DV2 = 640, O_DQ = 704, O_DO = 768,
-  O_DH2 = 832, O_DH1 = 896, O_W = 1152
+  O_DH2 = 832, O_DH1 = 896, O_A2 = 1152, O_DSA = 1216, O_W = 1280
 };
 
-// Global scratch of lbf_out_bwd ([TO, C] at 0) and lbf_joints_bwd (joint
-// buffers of [JMAX, C]), per CTA.
-enum JBuf { J_JT, J_YJ, J_DK, J_DV, J_DYJ, J_STATS, NJBUF };
-
-__host__ __device__ constexpr int jw(int b) { return b == J_STATS ? 4 : C; }
-
-__host__ __device__ constexpr int joff(int b) {
-  return b == 0 ? TO * C : joff(b - 1) + jw(b - 1) * JMAX;
+// The compact gradient partials (f32). A row of each kind holds only the
+// fields its launch owns, at these offsets (-1: not there):
+//   woff   per lbf_wgrad chunk, the eight weights it forms (NW floats);
+//   roff   per lbf_rows_bwd CTA, the row-local biases and norms (NR);
+//   jpoff  per lbf_joints_bwd CTA, wk, wv, norm1 and L3's bias (NJP).
+__host__ __device__ constexpr int woff(int f) {
+  return f == WQ ? 0 : f == PROJ_W ? C * C : f == FC1_W ? 2 * C * C
+       : f == FC2_W ? 6 * C * C : f == L0_W ? 10 * C * C
+       : f == L1_W ? 11 * C * C : f == L2_W ? 12 * C * C
+       : f == L3_W ? 13 * C * C : -1;
 }
+constexpr int NW = 14 * C * C;
 
-constexpr long long SCRATCH_FLOATS = joff(NJBUF);
+__host__ __device__ constexpr int roff(int f) {
+  return f == N1_W ? 0 : f == N1_B ? C : f == PROJ_B ? 2 * C
+       : f == N2_W ? 3 * C : f == N2_B ? 4 * C : f == FC1_B ? 5 * C
+       : f == FC2_B ? 5 * C + HID : f == A2W ? 6 * C + HID
+       : f == B2W ? 7 * C + HID : f == L0_B ? 8 * C + HID
+       : f == L1_B ? 9 * C + HID : f == L2_B ? 10 * C + HID : -1;
+}
+constexpr int NR = 11 * C + HID;
+
+__host__ __device__ constexpr int jpoff(int f) {
+  return f == WK ? 0 : f == WV ? C * C : f == N1_W ? 2 * C * C
+       : f == N1_B ? 2 * C * C + C : f == L3_B ? 2 * C * C + 2 * C : -1;
+}
+constexpr int NJP = 2 * C * C + 3 * C;
 
 template <typename T>
 struct Args {
@@ -120,25 +168,26 @@ struct Args {
   T* djt;            // [B, J, C]
   T* ops;            // [B * Nv, O_W] weight-gradient operands (backward)
   float* y3;         // [B, Nv, C] (forward)
-  float* q2;         // [B, Nv, C] saved by the forward
-  float* k2;
-  float* v2;
+  T* q2;             // [B, Nv, C] saved by the forward
+  T* k2;
+  T* v2;
   float* a2;         // [B, Nv, C] self-attention output after dropout
-  float* lse;        // [B, H, Nv] its log-sum-exp
-  float* da2;        // [B, Nv, C]
+  float* lse;        // [B, H, Nv] its base-2 log-sum-exp
+  T* da2;            // [B, Nv, C]
   float* dd;         // [B, H, Nv] D_i
   float* dq2;        // [B, Nv, C]
   float* dk2;
   float* dv2;
   float* djk;        // [B, nrt, J, C] per-tile shares of the joints' dk
   float* djv;        // and dv
-  float* scratch;    // per-CTA scratch (SCRATCH_FLOATS each)
-  float* part;       // per-CTA gradient partial rows (pstride each)
-  long long pstride;
+  float* l3b;        // [B, nqt, C] per-query-tile shares of L3's bias grad
+  float* pw;         // [nc_w, NW] lbf_wgrad's partial rows
+  float* pr;         // [nc_rows, NR] lbf_rows_bwd's
+  float* pj;         // [nc_j, NJP] lbf_joints_bwd's
   float* masks;      // mask export (forward; may be null)
   int B, Nv, J;
-  int ntiles;        // TO-row tiles of lbf_out_bwd per sample
   int nrt;           // row tiles of the rows kernels per sample
+  int nqt;           // 64-row tiles of the self-attention per sample
   uint32_t seed;
   int unit;
   Drop attn, proj, path, mlp, self_, outd;
@@ -159,8 +208,6 @@ struct Export {
     out = self_ + B * H * Nv * Nv;
   }
 };
-
-__device__ __forceinline__ float* sj(float* S, int b) { return S + joff(b); }
 
 using tc::ColMajor;
 using tc::RowMajor;
@@ -435,16 +482,16 @@ __device__ void rows_fwd(const Args<T>& a, unsigned char* sm, int b, int tile,
                          a.y3[(row0 + r) * C + c] = v;
                      });
   if (!fwd) return;
-  float* const outs[3] = {a.q2, a.k2, a.v2};
+  T* const outs[3] = {a.q2, a.k2, a.v2};
   for (int i = 0; i < 3; ++i) {
     __syncthreads();
     load_w(WS, p + o[L0_W + 2 * i], C, 0, 0);
     ready();
     const T* bias = p + o[L0_B + 2 * i];
-    float* dst = outs[i] + row0 * C;
+    T* dst = outs[i] + row0 * C;
     tc::gemm<T, NB>(MT, C / 8, C, RowMajor<T>{Y3, L::LT},
                     RowMajor<T>{WS, L::LT}, [&](int r, int c, float v) {
-                      if (r < nr) dst[r * C + c] = v + ld(bias + c);
+                      if (r < nr) dst[r * C + c] = N::from_float(v + ld(bias + c));
                     });
   }
 }
@@ -462,252 +509,387 @@ __global__ void __launch_bounds__(NT, Rows<T>::MIN_CTAS)
     rows_fwd<T>(a, sm, t / a.nrt, t % a.nrt, true, jb);
 }
 
-// Self-attention forward, one thread per (head, query row) of a 64-row
-// tile: online softmax of the raw scores, the kept probabilities times v.
+// ---- the self-attention launches, on attn_tc.cuh ----------------------
+
+// Staged K/V (or Q/dA) rows of both heads, 64 wide, in T; the forward's
+// epilogue reuses the first key tile's room for T(a2) and L3's weights.
+// Two CTAs per SM in bf16 (at most 128 registers a thread).
 template <typename T>
-__global__ void __launch_bounds__(NT_SA) lbf_sa_fwd_kernel(Args<T> a) {
-  __shared__ __align__(16) float Ks[TK * C];  // key tile; then a2 [TQ, C]
-  __shared__ __align__(16) float Vs[TK * C];
+struct Sa {
+  using Pad = attn::Pad<T, C>;
+  static constexpr int LK = Pad::LK, LV = Pad::LV;
+  static constexpr int MIN_CTAS = sizeof(T) == 2 ? 2 : 1;
+};
+
+// the A fragments of 16 rows x one head (row m at p + m * C, zero from row
+// nr on) for D-wide products
+template <typename T>
+__device__ __forceinline__ void row_frags(attn::QFrags<T, D>& f, const T* p,
+                                          int nr) {
+  using P = tc::Mma<T>;
+  auto get = [&](int m, int d) { return m < nr ? ld(p + m * C + d) : 0.0f; };
+#pragma unroll
+  for (int ks = 0; ks < attn::ksteps<T, D>(); ++ks)
+    f[ks] = P::load_a(get, 0, ks * P::KS);
+}
+
+// lbf_sa_fwd: per (64-query tile, sample), eight warps, four per head of
+// 16 query rows: two_pass with the self mask and the log-sum-exp, then
+// out = y3 + OutDrop(T(a2) L3 + b) on the tensor cores.
+template <typename T>
+__global__ void __launch_bounds__(NT, Sa<T>::MIN_CTAS)
+    lbf_sa_fwd_kernel(Args<T> a, int kc) {
+  using S = Sa<T>;
+  constexpr int NO = D / 8;
+  extern __shared__ __align__(16) unsigned char sm[];
+  T* Ks = reinterpret_cast<T*>(sm);
+  T* Vs = Ks + kc * S::LK;
   const int Nv = a.Nv;
-  const int b = blockIdx.y;
-  const int r0 = blockIdx.x * TQ;
-  const int tid = threadIdx.x;
-  const int h = tid / TQ;
-  const int r = tid % TQ;
-  const int row = min(r0 + r, Nv - 1);
-  const bool valid = r0 + r < Nv;
-  const float scale = rsqrtf((float)D);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = warp / 4, wr = (warp % 4) * 16;
+  const int b = blockIdx.y, r0 = blockIdx.x * TQ, m0 = r0 + wr;
+  const bool active = m0 < Nv;
   const size_t base = (size_t)b * Nv;
-  const bool dump = a.masks != nullptr && valid;
+  const bool dump = a.masks != nullptr;
   const Export<T> ex(a);
   const uint32_t key = stream_key(a.seed, a.unit, b, M_SELF0 + h);
 
-  float q[D], acc[D];
+  attn::QFrags<T, D> qf;
+  row_frags<T>(qf, a.q2 + (base + m0) * C + h * D, Nv - m0);
+  // base-2 logits; -inf past the last key
+  auto finish = [&](float (&s)[8][4], int key0) {
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    q[d] = rnd<T>(a.q2[(base + row) * C + h * D + d]);
-    acc[d] = 0.0f;
-  }
-  float mx = -CUDART_INF_F;
-  float l = 0.0f;
-  for (int k0 = 0; k0 < Nv; k0 += TK) {
-    const int nk = min(TK, Nv - k0);
-    __syncthreads();
-    for (int i = tid; i < nk * C; i += NT_SA) {
-      Ks[i] = rnd<T>(a.k2[(base + k0) * C + i]);
-      Vs[i] = rnd<T>(a.v2[(base + k0) * C + i]);
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] *= SL;
+    if (key0 + attn::KT > Nv) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (key0 + 8 * j + 2 * t + (i & 1) >= Nv) s[j][i] = -CUDART_INF_F;
     }
-    __syncthreads();
-    for (int j = 0; j < nk; ++j) {
-      const float* kr = Ks + j * C + h * D;
-      float s = 0.0f;
+  };
+  auto stats = [&](const float (&mx)[2], const float (&sum)[2]) {
+    if (t != 0) return;
 #pragma unroll
-      for (int d = 0; d < D; ++d) s = fmaf(q[d], kr[d], s);
-      s *= scale;
-      if (s > mx) {
-        const float corr = expf(mx - s);
-        l *= corr;
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = m0 + g + 8 * rr;
+      if (row < Nv)
+        a.lse[((size_t)b * H + h) * Nv + row] = mx[rr] + log2f(sum[rr]);
+    }
+  };
+  // the self mask times the normalised probabilities, before they are
+  // rounded to T (the JAX kernel's pd.astype(dtype))
+  auto keep = [&](float (&p)[8][4], int key0) {
 #pragma unroll
-        for (int d = 0; d < D; ++d) acc[d] *= corr;
-        mx = s;
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = m0 + g + 8 * (i >> 1);
+        const int col = key0 + 8 * j + 2 * t + (i & 1);
+        const float mk = drop(key, (uint32_t)(row * Nv + col), a.self_);
+        p[j][i] *= mk;
+        if (dump && row < Nv && col < Nv)
+          a.masks[ex.self_ + (((size_t)b * H + h) * Nv + row) * Nv + col] =
+              mk;
       }
-      const float e = expf(s - mx);
-      l += e;
-      const float mk = drop(key, row * Nv + k0 + j, a.self_);
-      if (dump)
-        a.masks[ex.self_ + ((base * H + (size_t)h * Nv) + row) * Nv + k0 + j] =
-            mk;
-      const float em = e * mk;
-      const float* vr = Vs + j * C + h * D;
+  };
+  float o[NO][4];
+  attn::two_pass<T, D, C>(
+      o, qf, Ks + h * D, Vs + h * D, Nv, kc, active,
+      [&](int key0, int n, bool with_v) {
+        attn::stage_kv<T, C>(Ks, Vs, a.k2 + base * C, a.v2 + base * C, C, C,
+                             key0, n, with_v);
+      },
+      finish, stats, keep);
+
+  // a2 in f32 (the backward's D reads it unrounded)
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(em, vr[d], acc[d]);
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = m0 + g + 8 * rr;
+    if (row < Nv) {
+      float* dst = a.a2 + (base + row) * C + h * D + 2 * t;
+#pragma unroll
+      for (int jn = 0; jn < NO; ++jn)
+        st2(dst + 8 * jn, o[jn][2 * rr], o[jn][2 * rr + 1]);
     }
   }
-  __syncthreads();
-  float* O = Ks;
-  const float inv = 1.0f / l;
+  // out = y3 + OutDrop(T(a2) @ L3 + b): T(a2) and L3 into the staging room
+  __syncthreads();  // K and V are read no more
+  T* O = Ks;
+  T* W3 = O + TQ * S::LK;
+  tc::stage(W3, S::LV, a.w + a.offs[L3_W], C, C, C);
+  tc::cp_async_commit();
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    const float v = acc[d] * inv;
-    O[r * C + h * D + d] = v;
-    if (valid) a.a2[(base + row) * C + h * D + d] = v;
+  for (int rr = 0; rr < 2; ++rr) {
+    T* orow = O + (wr + g + 8 * rr) * S::LK + h * D + 2 * t;
+#pragma unroll
+    for (int jn = 0; jn < NO; ++jn) {
+      orow[8 * jn] = Num<T>::from_float(o[jn][2 * rr]);
+      orow[8 * jn + 1] = Num<T>::from_float(o[jn][2 * rr + 1]);
+    }
   }
-  if (valid) a.lse[(b * H + h) * (size_t)Nv + row] = mx + logf(l);
+  tc::cp_async_wait<0>();
   __syncthreads();
-
-  // out = y3 + OutDrop(a2 @ L3 + b)
   const int nq = min(TQ, Nv - r0);
   const T* l3_b = a.w + a.offs[L3_B];
   const uint32_t kout = stream_key(a.seed, a.unit, b, M_OUT);
-  gemm_nn<T>(O, C, nq, C, a.w + a.offs[L3_W], C, C,
-             [&](int rr, int c, float v) {
-               const int n = r0 + rr;
-               const size_t i = (base + n) * C + c;
-               const float mk = drop(kout, n * C + c, a.outd);
-               if (a.masks) a.masks[ex.out + i] = mk;
-               a.out[i] = Num<T>::from_float(a.y3[i] + (v + ld(l3_b + c)) * mk);
-             });
+  tc::gemm<T, 2>(TQ / 16, C / 8, C, RowMajor<T>{O, S::LK},
+                 RowMajor<T>{W3, S::LV}, [&](int m, int c, float v, float w) {
+                   if (m >= nq) return;
+                   const int n = r0 + m;
+                   const size_t i = (base + n) * C + c;
+                   const float k0 = drop(kout, n * C + c, a.outd);
+                   const float k1 = drop(kout, n * C + c + 1, a.outd);
+                   if (dump) {
+                     a.masks[ex.out + i] = k0;
+                     a.masks[ex.out + i + 1] = k1;
+                   }
+                   const float2 y = ld2(a.y3 + i), bb = ld2(l3_b + c);
+                   st2(a.out + i, y.x + (v + bb.x) * k0, y.y + (w + bb.y) * k1);
+                 });
 }
 
-// da2 = (g * m_out) @ L3^T, L3's gradients, D_i = <rnd(da2_i), a2_i> per
-// head; one TO-row tile per step of a grid-stride loop.
+// lbf_sa_bwd_dq's prologue buffers (bytes), in the room the K/V chunks
+// take afterwards: L3's weights, T(dsa), T(da2) (rows C + 16 / sizeof(T)
+// apart), f32 dsa and a2, D per head.
 template <typename T>
-__global__ void __launch_bounds__(NT) lbf_out_bwd_kernel(Args<T> a) {
-  float* S = a.scratch + (size_t)blockIdx.x * SCRATCH_FLOATS;
-  float* PG = a.part + (size_t)blockIdx.x * a.pstride;
-  float* DSA = S;
-  const int Nv = a.Nv;
-  const int tid = threadIdx.x;
-  const T* p = a.w;
-  const int* o = a.offs;
-  for (int t = blockIdx.x; t < a.B * a.ntiles; t += gridDim.x) {
-    const int b = t / a.ntiles;
-    const int r0 = t % a.ntiles * TO;
-    const int nr = min(TO, Nv - r0);
-    const size_t row0 = (size_t)b * Nv + r0;
-    const uint32_t kout = stream_key(a.seed, a.unit, b, M_OUT);
-    for (int i = tid; i < nr * C; i += NT)
-      DSA[i] = Num<T>::to_float(a.gout[row0 * C + i]) *
-               drop(kout, (r0 + i / C) * C + i % C, a.outd);
-    __syncthreads();
-    gemm_nt<T>(DSA, C, nr, C, p + o[L3_W], C, C, [&](int r, int k,
-                                                     float v) {
-      a.da2[(row0 + r) * C + k] = v;
-    });
-    gemm_tn_acc<T>(a.a2 + row0 * C, C, DSA, C, nr, C, C, PG + o[L3_W], C);
-    colsum_acc(DSA, C, nr, C, PG + o[L3_B]);
-    __syncthreads();
-    for (int task = tid; task < H * nr; task += NT) {
-      const int h = task / nr;
-      const int r = task % nr;
-      float s = 0.0f;
-      for (int d = 0; d < D; ++d) {
-        const size_t i = (row0 + r) * C + h * D + d;
-        s = fmaf(rnd<T>(a.da2[i]), a.a2[i], s);
-      }
-      a.dd[(b * H + h) * (size_t)Nv + r0 + r] = s;
-    }
-    __syncthreads();
+struct DqSmem {
+  static constexpr int LT = C + 16 / (int)sizeof(T), LF = C + 4;
+  static constexpr int TB = TQ * LT * (int)sizeof(T);
+  static constexpr int W3 = 0, G = W3 + TB, DA = G + TB, DSF = DA + TB,
+                       A2F = DSF + TQ * LF * 4, DD = A2F + TQ * LF * 4,
+                       BYTES = DD + H * TQ * 4;
+  static int bytes(int kc) {
+    return cmax(BYTES, kc * attn::Pad<T, C>::KEY_BYTES);
   }
-}
+};
 
-// dq2 per (head, query row): probabilities recomputed from the LSE.
+// lbf_sa_bwd_dq: per (64-query tile, sample), warps as in lbf_sa_fwd.
+// First the tile's share of L3's backward (out = y3 + m_out * (a2 L3 + b)):
+// dsa = g * m_out, L3's bias share, T(a2) and T(dsa) to `ops`, da2 =
+// T(dsa) L3^T (to da2 in T), D = <T(da2), a2> per head; then, in steps of
+// 8 QSTEP keys, S = q k^T and dP = dA v^T in registers, P = exp2(S SL -
+// lse2) (0 past the last key), dS = T(P (M dP - D) scale), dq += dS k.
 template <typename T>
-__global__ void __launch_bounds__(NT_SA) lbf_sa_bwd_dq_kernel(Args<T> a) {
-  __shared__ __align__(16) float Ks[TK * C];
-  __shared__ __align__(16) float Vs[TK * C];
-  const int Nv = a.Nv;
-  const int b = blockIdx.y;
-  const int r0 = blockIdx.x * TQ;
-  const int tid = threadIdx.x;
-  const int h = tid / TQ;
-  const int r = tid % TQ;
-  const int row = min(r0 + r, Nv - 1);
-  const float scale = rsqrtf((float)D);
-  const size_t base = (size_t)b * Nv;
+__global__ void __launch_bounds__(NT, Sa<T>::MIN_CTAS)
+    lbf_sa_bwd_dq_kernel(Args<T> a, int kc) {
+  using P = tc::Mma<T>;
+  using S = Sa<T>;
+  using L = DqSmem<T>;
+  using N = Num<T>;
+  constexpr int NO = D / 8;
+  extern __shared__ __align__(16) unsigned char sm[];
+  const int Nv = a.Nv, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int h = warp / 4, wr = (warp % 4) * 16;
+  const int b = blockIdx.y, r0 = blockIdx.x * TQ, m0 = r0 + wr;
+  const int nq = min(TQ, Nv - r0);
+  const bool active = m0 < Nv;
+  const size_t base = (size_t)b * Nv, row0 = base + r0;
+  T* W3 = at<T>(sm, L::W3);
+  T* G = at<T>(sm, L::G);
+  T* DA = at<T>(sm, L::DA);
+  float* DSF = at<float>(sm, L::DSF);
+  float* A2F = at<float>(sm, L::A2F);
+  float* DD = at<float>(sm, L::DD);
+
+  tc::stage(W3, L::LT, a.w + a.offs[L3_W], C, C, C);
+  tc::cp_async_commit();
+  const uint32_t kout = stream_key(a.seed, a.unit, b, M_OUT);
+  for (int i = tid; i < TQ * C; i += NT) {
+    const int r = i / C, c = i % C;
+    float v = 0.0f, a2 = 0.0f;
+    if (r < nq) {
+      const size_t e = (row0 + r) * C + c;
+      v = N::to_float(a.gout[e]) * drop(kout, (r0 + r) * C + c, a.outd);
+      a2 = a.a2[e];
+      T* op = a.ops + (row0 + r) * O_W;
+      op[O_DSA + c] = N::from_float(v);
+      op[O_A2 + c] = N::from_float(a2);
+    }
+    DSF[r * L::LF + c] = v;
+    A2F[r * L::LF + c] = a2;
+    G[r * L::LT + c] = N::from_float(v);
+  }
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  if (tid < C) {  // this tile's share of L3's bias gradient, rows in order
+    float s = 0.0f;
+    for (int r = 0; r < nq; ++r) s += DSF[r * L::LF + tid];
+    a.l3b[((size_t)b * a.nqt + blockIdx.x) * C + tid] = s;
+  }
+  tc::gemm<T, 2>(TQ / 16, C / 8, C, RowMajor<T>{G, L::LT},
+                 ColMajor<T>{W3, L::LT}, [&](int m, int c, float v, float w) {
+                   st2(DA + m * L::LT + c, v, w);
+                   if (m < nq) st2(a.da2 + (row0 + m) * C + c, v, w);
+                 });
+  __syncthreads();
+  // D per (row, head): two threads a pair, half the head's columns each
+  {
+    static_assert(2 * TQ * H == NT, "a thread pair per (row, head)");
+    const int r = tid / (2 * H), hh = tid / 2 % H, half = tid & 1;
+    const int c0 = hh * D + half * (D / 2);
+    float v = 0.0f;
+#pragma unroll
+    for (int c = c0; c < c0 + D / 2; ++c)
+      v += N::to_float(DA[r * L::LT + c]) * A2F[r * L::LF + c];
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    if (half == 0) {
+      DD[hh * TQ + r] = v;
+      if (r < nq) a.dd[((size_t)b * H + hh) * Nv + r0 + r] = v;
+    }
+  }
+  __syncthreads();
+  attn::QFrags<T, D> qf, df;
+  row_frags<T>(qf, a.q2 + (base + m0) * C + h * D, Nv - m0);
+#pragma unroll
+  for (int ks = 0; ks < attn::ksteps<T, D>(); ++ks)
+    df[ks] = P::load_a(RowMajor<T>{DA + wr * L::LT + h * D, L::LT}, 0,
+                       ks * P::KS);
+  float lse[2], dd[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = min(m0 + g + 8 * rr, Nv - 1);
+    lse[rr] = a.lse[((size_t)b * H + h) * Nv + row];
+    dd[rr] = DD[h * TQ + wr + g + 8 * rr];
+  }
   const uint32_t key = stream_key(a.seed, a.unit, b, M_SELF0 + h);
-  float q[D], da[D], dq[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    q[d] = rnd<T>(a.q2[(base + row) * C + h * D + d]);
-    da[d] = rnd<T>(a.da2[(base + row) * C + h * D + d]);
-    dq[d] = 0.0f;
-  }
-  const float lse = a.lse[(b * H + h) * (size_t)Nv + row];
-  const float Di = a.dd[(b * H + h) * (size_t)Nv + row];
-  for (int k0 = 0; k0 < Nv; k0 += TK) {
-    const int nk = min(TK, Nv - k0);
+  float dq[NO][4] = {};
+  T* Ks = reinterpret_cast<T*>(sm);
+  T* Vs = Ks + kc * S::LK;
+  for (int key0 = 0; key0 < Nv; key0 += kc) {
+    const int n = min(kc, Nv - key0);
+    __syncthreads();  // the prologue's buffers, or the last chunk, are dead
+    attn::stage_kv<T, C>(Ks, Vs, a.k2 + base * C, a.v2 + base * C, C, C,
+                         key0, n, true);
+    tc::cp_async_commit();
+    tc::cp_async_wait<0>();
     __syncthreads();
-    for (int i = tid; i < nk * C; i += NT_SA) {
-      Ks[i] = rnd<T>(a.k2[(base + k0) * C + i]);
-      Vs[i] = rnd<T>(a.v2[(base + k0) * C + i]);
-    }
-    __syncthreads();
-    for (int j = 0; j < nk; ++j) {
-      const float* kr = Ks + j * C + h * D;
-      const float* vr = Vs + j * C + h * D;
-      float s = 0.0f, dpd = 0.0f;
+    if (!active) continue;
+    for (int kt = 0; kt < n; kt += 8 * QSTEP) {
+      float s[QSTEP][4], dp[QSTEP][4];
+      attn::scores<T, D, S::LK, QSTEP>(s, qf, Ks + kt * S::LK + h * D);
+      attn::scores<T, D, S::LV, QSTEP>(dp, df, Vs + kt * S::LV + h * D);
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        s = fmaf(q[d], kr[d], s);
-        dpd = fmaf(da[d], vr[d], dpd);
-      }
-      const float pr = expf(s * scale - lse);
-      const float mk = drop(key, row * Nv + k0 + j, a.self_);
-      const float ds = rnd<T>(pr * (mk * dpd - Di) * scale);
+      for (int j = 0; j < QSTEP; ++j)
 #pragma unroll
-      for (int d = 0; d < D; ++d) dq[d] = fmaf(ds, kr[d], dq[d]);
+        for (int i = 0; i < 4; ++i) {
+          const int row = m0 + g + 8 * (i >> 1);
+          const int col = key0 + kt + 8 * j + 2 * t + (i & 1);
+          const float p =
+              col < Nv ? exp2f(s[j][i] * SL - lse[i >> 1]) : 0.0f;
+          const float mk = drop(key, (uint32_t)(row * Nv + col), a.self_);
+          s[j][i] = rnd<T>(p * (mk * dp[j][i] - dd[i >> 1]) * SCALE);
+        }
+      attn::pv<T, NO, S::LK, QSTEP>(dq, s, Ks + kt * S::LK + h * D);
     }
   }
-  if (r0 + r < Nv) {
 #pragma unroll
-    for (int d = 0; d < D; ++d) a.dq2[(base + row) * C + h * D + d] = dq[d];
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = m0 + g + 8 * rr;
+    if (row < Nv) {
+      float* dst = a.dq2 + (base + row) * C + h * D + 2 * t;
+#pragma unroll
+      for (int jn = 0; jn < NO; ++jn)
+        st2(dst + 8 * jn, dq[jn][2 * rr], dq[jn][2 * rr + 1]);
+    }
   }
 }
 
-// dk2, dv2 per (head, key row): the query tiles staged in shared memory.
+// lbf_sa_bwd_dkv's staging per query: Q and dA rows of both heads in T,
+// lse2 and D per head
 template <typename T>
-__global__ void __launch_bounds__(NT_SA) lbf_sa_bwd_dkv_kernel(Args<T> a) {
-  __shared__ __align__(16) float Qs[TQ * C];
-  __shared__ __align__(16) float DAs[TQ * C];
-  __shared__ float LSEs[H * TQ];
-  __shared__ float DDs[H * TQ];
-  const int Nv = a.Nv;
-  const int b = blockIdx.y;
-  const int c0 = blockIdx.x * TK;
-  const int tid = threadIdx.x;
-  const int h = tid / TK;
-  const int r = tid % TK;
-  const int col = min(c0 + r, Nv - 1);
-  const float scale = rsqrtf((float)D);
+struct Dkv {
+  static constexpr int QUERY_BYTES =
+      attn::Pad<T, C>::KEY_BYTES + 2 * H * (int)sizeof(float);
+};
+
+// queries per staged chunk of lbf_sa_bwd_dkv: all of them (rounded up to
+// 64) where they fit the CTA's share of the SM, else the most that do
+template <typename T>
+int dkv_chunk(int nv) {
+  const int whole = round_up(nv, attn::KT);
+  const int fit =
+      attn::SMEM_PER_CTA / Dkv<T>::QUERY_BYTES / attn::KT * attn::KT;
+  return whole < fit ? whole : fit;
+}
+
+// lbf_sa_bwd_dkv: per (64-key tile, sample), eight warps, four per head
+// of 16 keys whose k and v stay in registers; over the queries in steps of
+// 8 QSTEP: S^T = k q^T, dP^T = v dA^T, P = exp2(S SL - lse2) (0 past the
+// last query, whose lse2 is staged as +inf), the mask regenerated from
+// the hash at (query * Nv + key), dv += T(P M)^T dA, dk += dS^T q.
+template <typename T>
+__global__ void __launch_bounds__(NT, Sa<T>::MIN_CTAS)
+    lbf_sa_bwd_dkv_kernel(Args<T> a, int kc) {
+  using S = Sa<T>;
+  constexpr int NO = D / 8;
+  extern __shared__ __align__(16) unsigned char sm[];
+  T* Qs = reinterpret_cast<T*>(sm);
+  T* As = Qs + kc * S::LK;
+  float* LS = reinterpret_cast<float*>(As + kc * S::LV);  // [H][kc]
+  float* DS = LS + H * kc;
+  const int Nv = a.Nv, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int h = warp / 4, wr = (warp % 4) * 16;
+  const int b = blockIdx.y, m0 = blockIdx.x * TQ + wr;
+  const bool active = m0 < Nv;
   const size_t base = (size_t)b * Nv;
+  attn::QFrags<T, D> kf, vf;
+  row_frags<T>(kf, a.k2 + (base + m0) * C + h * D, Nv - m0);
+  row_frags<T>(vf, a.v2 + (base + m0) * C + h * D, Nv - m0);
   const uint32_t key = stream_key(a.seed, a.unit, b, M_SELF0 + h);
-  float k[D], v[D], dk[D], dv[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    k[d] = rnd<T>(a.k2[(base + col) * C + h * D + d]);
-    v[d] = rnd<T>(a.v2[(base + col) * C + h * D + d]);
-    dk[d] = dv[d] = 0.0f;
-  }
-  for (int i0 = 0; i0 < Nv; i0 += TQ) {
-    const int ni = min(TQ, Nv - i0);
-    __syncthreads();
-    for (int i = tid; i < ni * C; i += NT_SA) {
-      Qs[i] = rnd<T>(a.q2[(base + i0) * C + i]);
-      DAs[i] = rnd<T>(a.da2[(base + i0) * C + i]);
+  float dk[NO][4] = {}, dv[NO][4] = {};
+  for (int q0 = 0; q0 < Nv; q0 += kc) {
+    const int n = min(kc, Nv - q0), nr = round_up(n, attn::KT);
+    __syncthreads();  // the last chunk is read no more
+    attn::stage_kv<T, C>(Qs, As, a.q2 + base * C, a.da2 + base * C, C, C,
+                         q0, n, true);
+    for (int i = tid; i < H * nr; i += NT) {
+      const int hh = i / nr, qq = i % nr;
+      const size_t e = ((size_t)b * H + hh) * Nv + q0 + qq;
+      LS[hh * kc + qq] = qq < n ? a.lse[e] : CUDART_INF_F;
+      DS[hh * kc + qq] = qq < n ? a.dd[e] : 0.0f;
     }
-    for (int i = tid; i < H * ni; i += NT_SA) {
-      const int hh = i / ni;
-      const int ii = i % ni;
-      LSEs[hh * TQ + ii] = a.lse[(b * H + hh) * (size_t)Nv + i0 + ii];
-      DDs[hh * TQ + ii] = a.dd[(b * H + hh) * (size_t)Nv + i0 + ii];
-    }
+    tc::cp_async_commit();
+    tc::cp_async_wait<0>();
     __syncthreads();
-    for (int i = 0; i < ni; ++i) {
-      const float* qr = Qs + i * C + h * D;
-      const float* dr = DAs + i * C + h * D;
-      float s = 0.0f, dpd = 0.0f;
+    if (!active) continue;
+    const float* ls = LS + h * kc;
+    const float* ds = DS + h * kc;
+    for (int qt = 0; qt < n; qt += 8 * QSTEP) {
+      float s[QSTEP][4], dp[QSTEP][4];
+      attn::scores<T, D, S::LK, QSTEP>(s, kf, Qs + qt * S::LK + h * D);
+      attn::scores<T, D, S::LV, QSTEP>(dp, vf, As + qt * S::LV + h * D);
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        s = fmaf(qr[d], k[d], s);
-        dpd = fmaf(dr[d], v[d], dpd);
-      }
-      const float pr = expf(s * scale - LSEs[h * TQ + i]);
-      const float mk = drop(key, (i0 + i) * Nv + col, a.self_);
-      const float ds = rnd<T>(pr * (mk * dpd - DDs[h * TQ + i]) * scale);
-      const float pd = rnd<T>(pr * mk);
+      for (int j = 0; j < QSTEP; ++j)
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        dk[d] = fmaf(ds, qr[d], dk[d]);
-        dv[d] = fmaf(pd, dr[d], dv[d]);
-      }
+        for (int i = 0; i < 4; ++i) {
+          const int qq = qt + 8 * j + 2 * t + (i & 1);
+          const int col = m0 + g + 8 * (i >> 1);
+          const float p = exp2f(s[j][i] * SL - ls[qq]);
+          const float mk =
+              drop(key, (uint32_t)((q0 + qq) * Nv + col), a.self_);
+          s[j][i] = rnd<T>(p * mk);
+          dp[j][i] = rnd<T>(p * (mk * dp[j][i] - ds[qq]) * SCALE);
+        }
+      attn::pv<T, NO, S::LV, QSTEP>(dv, s, As + qt * S::LV + h * D);
+      attn::pv<T, NO, S::LK, QSTEP>(dk, dp, Qs + qt * S::LK + h * D);
     }
   }
-  if (c0 + r < Nv) {
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-      a.dk2[(base + col) * C + h * D + d] = dk[d];
-      a.dv2[(base + col) * C + h * D + d] = dv[d];
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = m0 + g + 8 * rr;
+    if (row < Nv) {
+      const size_t e = (base + row) * C + h * D + 2 * t;
+#pragma unroll
+      for (int jn = 0; jn < NO; ++jn) {
+        st2(a.dk2 + e + 8 * jn, dk[jn][2 * rr], dk[jn][2 * rr + 1]);
+        st2(a.dv2 + e + 8 * jn, dv[jn][2 * rr], dv[jn][2 * rr + 1]);
+      }
     }
   }
 }
@@ -715,7 +897,7 @@ __global__ void __launch_bounds__(NT_SA) lbf_sa_bwd_dkv_kernel(Args<T> a) {
 
 // The row-local backward of one (sample, tile), after rows_fwd: dx, this
 // tile's shares of the joints' dk/dv, the bias and norm gradients into the
-// CTA's partial row PG, and the cotangent operands of the weight
+// CTA's partial row PG (at roff), and the cotangent operands of the weight
 // gradients to `ops` (lbf_wgrad forms the products).
 template <typename T>
 __device__ void rows_bwd(const Args<T>& a, unsigned char* sm, float* PG,
@@ -768,9 +950,9 @@ __device__ void rows_bwd(const Args<T>& a, unsigned char* sm, float* PG,
     const int r = i / C, c = i % C;
     S0[r * L::LF + c] = r < nr ? N::to_float(a.gout[(row0 + r) * C + c]) : 0.0f;
   }
-  colsum_acc(a.dq2 + row0 * C, C, nr, C, PG + o[L0_B]);
-  colsum_acc(a.dk2 + row0 * C, C, nr, C, PG + o[L1_B]);
-  colsum_acc(a.dv2 + row0 * C, C, nr, C, PG + o[L2_B]);
+  colsum_acc(a.dq2 + row0 * C, C, nr, C, PG + roff(L0_B));
+  colsum_acc(a.dk2 + row0 * C, C, nr, C, PG + roff(L1_B));
+  colsum_acc(a.dv2 + row0 * C, C, nr, C, PG + roff(L2_B));
   for (int i = 0; i < 3; ++i) {
     ready();
     tc::gemm<T, NB>(MT, C / 8, C, RowMajor<T>{D3 + i * C, L::LT3},
@@ -783,8 +965,8 @@ __device__ void rows_bwd(const Args<T>& a, unsigned char* sm, float* PG,
   stdln_bwd_rows<C>(S0, L::LF, X2, L::LF, TR, p + o[A2W], 1e-6f, STATS,
                     [&](int r, int c, float v) { DX[r * L::LF + c] = v; });
   __syncthreads();
-  norm_param_acc(S0, L::LF, X2, L::LF, STATS, nr, C, PG + o[A2W],
-                 PG + o[B2W]);
+  norm_param_acc(S0, L::LF, X2, L::LF, STATS, nr, C, PG + roff(A2W),
+                 PG + roff(B2W));
   load_w(WS, p + o[FC1_W], HID, 0, 0);
   // x2 = x1 + dp2 * m2 * h2
   const float dp2 = drop(stream_key(a.seed, a.unit, b, M_DP2), 0, a.path);
@@ -797,7 +979,7 @@ __device__ void rows_bwd(const Args<T>& a, unsigned char* sm, float* PG,
     put(O_DH2, r, c, v);
   }
   ready();
-  colsum_acc(S2, L::LF, nr, C, PG + o[FC2_B]);
+  colsum_acc(S2, L::LF, nr, C, PG + roff(FC2_B));
   // MLP: the pre-activation again (the forward's chain, the same values),
   // then dh1 = (dh2 fc2^T) * m1 * gelu'(pre) in its place, by 64 columns
   const T* fc1_b = p + o[FC1_B];
@@ -832,7 +1014,7 @@ __device__ void rows_bwd(const Args<T>& a, unsigned char* sm, float* PG,
     else
       load_w(WS, p + o[FC1_W], HID, 0, 0);
   }
-  colsum_acc(RR, L::LFH, nr, HID, PG + o[FC1_B]);
+  colsum_acc(RR, L::LFH, nr, HID, PG + roff(FC1_B));
   // dy2 = dh1 fc1^T, fc1's four column blocks summed in S0
   for (int kb = 0; kb < HID / C; ++kb) {
     ready();
@@ -847,8 +1029,8 @@ __device__ void rows_bwd(const Args<T>& a, unsigned char* sm, float* PG,
   ln_bwd_rows<C>(S0, L::LF, X1, L::LF, TR, p + o[N2_W], 1e-5f, STATS,
                  [&](int r, int c, float v) { DX[r * L::LF + c] += v; });
   __syncthreads();
-  norm_param_acc(S0, L::LF, X1, L::LF, STATS, nr, C, PG + o[N2_W],
-                 PG + o[N2_B]);
+  norm_param_acc(S0, L::LF, X1, L::LF, STATS, nr, C, PG + roff(N2_W),
+                 PG + roff(N2_B));
   load_w(WS, p + o[PROJ_W], C, 0, 0);
   // x1 = x + dp1 * mproj * (a1 @ proj + b)
   const float dp1 = drop(stream_key(a.seed, a.unit, b, M_DP1), 0, a.path);
@@ -861,7 +1043,7 @@ __device__ void rows_bwd(const Args<T>& a, unsigned char* sm, float* PG,
     put(O_DO, r, c, v);
   }
   ready();
-  colsum_acc(S2, L::LF, nr, C, PG + o[PROJ_B]);
+  colsum_acc(S2, L::LF, nr, C, PG + roff(PROJ_B));
   tc::gemm<T, NB>(MT, C / 8, C, RowMajor<float>{S2, L::LF},
                   ColMajor<T>{WS, L::LT}, [&](int r, int k, float v) {
                     DA1[r * L::LT + k] = N::from_float(v);
@@ -921,15 +1103,16 @@ __device__ void rows_bwd(const Args<T>& a, unsigned char* sm, float* PG,
                          N::from_float(DX[r * L::LF + c] + v);
                  });
   __syncthreads();
-  norm_param_acc(S2, L::LF, X, L::LF, STATS, nr, C, PG + o[N1_W],
-                 PG + o[N1_B]);
+  norm_param_acc(S2, L::LF, X, L::LF, STATS, nr, C, PG + roff(N1_W),
+                 PG + roff(N1_B));
 }
 
 template <typename T>
 __global__ void __launch_bounds__(NT, Rows<T>::MIN_CTAS)
     lbf_rows_bwd_kernel(Args<T> a) {
   extern __shared__ __align__(16) unsigned char sm[];
-  float* PG = a.part + (size_t)blockIdx.x * a.pstride;
+  float* PG = a.pr + (size_t)blockIdx.x * NR;
+  for (int i = threadIdx.x; i < NR; i += NT) PG[i] = 0.0f;  // rows_fwd syncs
   const int total = a.B * a.nrt;
   const int per = (total + gridDim.x - 1) / gridDim.x;
   const int end = min(total, (int)(blockIdx.x + 1) * per);
@@ -942,19 +1125,21 @@ __global__ void __launch_bounds__(NT, Rows<T>::MIN_CTAS)
 }
 
 // lbf_wgrad's products: G[k][n] = sum_r ops[r][ca + k] * ops[r][cb + n],
-// a 64 x 64 tile of field `field`, at element g0 of it, rows ldg apart
+// a 64 x 64 tile of field `field`, at element g0 of it, rows ldg apart;
+// the 14 tiles cover the eight weight fields of a partial row (woff)
 struct WJob {
   int ca, cb, field, g0, ldg;
 };
 
-constexpr int NWJOB = 13;
+constexpr int NWJOB = 14;
 
 __device__ __forceinline__ WJob wjob(int j) {
   if (j < 3) return {O_Y3, O_DQ2 + C * j, L0_W + 2 * j, 0, C};
   if (j < 7) return {O_H1D + C * (j - 3), O_DH2, FC2_W, C * C * (j - 3), C};
   if (j < 11) return {O_Y2, O_DH1 + C * (j - 7), FC1_W, C * (j - 7), HID};
   if (j == 11) return {O_A1, O_DO, PROJ_W, 0, C};
-  return {O_YV, O_DQ, WQ, 0, C};
+  if (j == 12) return {O_YV, O_DQ, WQ, 0, C};
+  return {O_A2, O_DSA, L3_W, 0, C};
 }
 
 constexpr int WR = 64;  // rows of ops per staged chunk
@@ -964,11 +1149,10 @@ constexpr int WR = 64;  // rows of ops per staged chunk
 // the tensor cores and the running sum in f32 registers (rounded to
 // nearest: the tensor cores' accumulation does not round so, and a chunk
 // of thousands of rows would drift), in a fixed order; the tile written
-// to the chunk's partial row of `part`.
+// to the chunk's partial row of `pw`.
 template <typename T>
 __global__ void __launch_bounds__(NT) lbf_wgrad_kernel(
-    const T* __restrict__ ops, const int* __restrict__ offs, float* part,
-    long long pstride, int R, int per) {
+    const T* __restrict__ ops, float* pw, int R, int per) {
   using Pm = tc::Mma<T>;
   constexpr int LD = C + 16 / (int)sizeof(T);
   extern __shared__ __align__(16) unsigned char sm[];
@@ -1021,7 +1205,7 @@ __global__ void __launch_bounds__(NT) lbf_wgrad_kernel(
       for (int i = 0; i < 4; ++i) tot[j][i] += acc[j][i];
     __syncthreads();
   }
-  float* G = part + (size_t)blockIdx.y * pstride + offs[job.field] + job.g0;
+  float* G = pw + (size_t)blockIdx.y * NW + woff(job.field) + job.g0;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int n = n0 + 8 * j + 2 * t;
@@ -1032,53 +1216,224 @@ __global__ void __launch_bounds__(NT) lbf_wgrad_kernel(
   }
 }
 
-// Per sample: the joints' dk, dv summed over the tiles (in order), wk/wv
-// gradients, and the LN1 backward of the joint rows -> djoints.
+// lbf_joints_bwd's shared memory (bytes): wk and wv (T, staged once per
+// CTA), per sample the joints' input (f32), LN1 (T), the summed dk and dv
+// (T) and dyj (f32), JMAX rows each; the CTA's gradient sums (f32): wk,
+// wv, then norm1's scale and bias and L3's bias, in the order of its
+// partial row (jpoff); the LN rows' statistics.
+template <typename T>
+struct JointsSmem {
+  static constexpr int LT = C + 16 / (int)sizeof(T), LF = C + 4;
+  static constexpr int WB = C * LT * (int)sizeof(T);
+  static constexpr int JTB = JMAX * LT * (int)sizeof(T);
+  static constexpr int SWK = 0, SWV = SWK + WB, JT = SWV + WB,
+                       YJ = JT + JMAX * LF * 4, DK = YJ + JTB, DV = DK + JTB,
+                       DYJ = DV + JTB, GS = DYJ + JMAX * LF * 4,
+                       STATS = GS + NJP * 4, BYTES = STATS + 2 * JMAX * 4;
+};
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Per sample (a grid-stride loop): the joints' dk and dv summed over the
+// sample's row tiles in order, and L3's bias over its query tiles; LN1 of
+// the joint rows again; wk/wv gradients yj^T [dk | dv] and dyj = dk wk^T +
+// dv wv^T on the tensor cores; the LN1 backward -> djoints. The CTA's sums
+// go to its partial row at the end.
 template <typename T>
 __global__ void __launch_bounds__(NT) lbf_joints_bwd_kernel(Args<T> a) {
-  float* S = a.scratch + (size_t)blockIdx.x * SCRATCH_FLOATS;
-  float* PG = a.part + (size_t)blockIdx.x * a.pstride;
-  float* JT = sj(S, J_JT);
-  float* YJ = sj(S, J_YJ);
-  float* DK = sj(S, J_DK);
-  float* DV = sj(S, J_DV);
-  float* DYJ = sj(S, J_DYJ);
-  float* STATS = sj(S, J_STATS);
-  const int J = a.J;
-  const int tid = threadIdx.x;
+  using L = JointsSmem<T>;
+  using N = Num<T>;
+  extern __shared__ __align__(16) unsigned char sm[];
+  T* WKs = at<T>(sm, L::SWK);
+  T* WVs = at<T>(sm, L::SWV);
+  float* JT = at<float>(sm, L::JT);
+  T* YJ = at<T>(sm, L::YJ);
+  T* DK = at<T>(sm, L::DK);
+  T* DV = at<T>(sm, L::DV);
+  float* DYJ = at<float>(sm, L::DYJ);
+  float* GS = at<float>(sm, L::GS);
+  float* STATS = at<float>(sm, L::STATS);
+  const int J = a.J, tid = threadIdx.x;
   const T* p = a.w;
   const int* o = a.offs;
+  tc::stage(WKs, L::LT, p + o[WK], C, C, C);
+  tc::stage(WVs, L::LT, p + o[WV], C, C, C);
+  tc::cp_async_commit();
+  for (int i = tid; i < NJP; i += NT) GS[i] = 0.0f;
+  tc::cp_async_wait<0>();
   for (int b = blockIdx.x; b < a.B; b += gridDim.x) {
-    for (int i = tid; i < J * C; i += NT) {
-      JT[i] = Num<T>::to_float(a.jt[(size_t)b * J * C + i]);
-      float sk = 0.0f, sv = 0.0f;
+    __syncthreads();  // the last sample is done with every buffer
+    // each thread's JMAX * C / NT elements, four consecutive ones (i =
+    // 4 (tid + NT k)) at a time, the tiles' shares summed in tile order with
+    // several tiles' loads in flight
+    {
+      constexpr int PER = JMAX * C / (4 * NT);
+      const int n = J * C;
+      const float* pk = a.djk + (size_t)b * a.nrt * n;
+      const float* pv = a.djv + (size_t)b * a.nrt * n;
+      float4 sk[PER], sv[PER];
+#pragma unroll
+      for (int k = 0; k < PER; ++k) sk[k] = sv[k] = make_float4(0, 0, 0, 0);
+#pragma unroll 3
       for (int t = 0; t < a.nrt; ++t) {
-        const size_t at = (((size_t)b * a.nrt + t) * J) * C + i;
-        sk += a.djk[at];
-        sv += a.djv[at];
+#pragma unroll
+        for (int k = 0; k < PER; ++k) {
+          const int i = 4 * (tid + NT * k);
+          if (i < n) {
+            const float4 u = ld4(pk + (size_t)t * n + i);
+            const float4 v = ld4(pv + (size_t)t * n + i);
+            sk[k] = make_float4(sk[k].x + u.x, sk[k].y + u.y, sk[k].z + u.z,
+                                sk[k].w + u.w);
+            sv[k] = make_float4(sv[k].x + v.x, sv[k].y + v.y, sv[k].z + v.z,
+                                sv[k].w + v.w);
+          }
+        }
       }
-      DK[i] = sk;
-      DV[i] = sv;
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        const int i = 4 * (tid + NT * k), r = i / C, c = i % C;
+        const float ks[4] = {sk[k].x, sk[k].y, sk[k].z, sk[k].w};
+        const float vs[4] = {sv[k].x, sv[k].y, sv[k].z, sv[k].w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          JT[r * L::LF + c + e] =
+              i < n ? N::to_float(a.jt[(size_t)b * n + i + e]) : 0.0f;
+          DK[r * L::LT + c + e] = N::from_float(ks[e]);
+          DV[r * L::LT + c + e] = N::from_float(vs[e]);
+          if (i >= n) YJ[r * L::LT + c + e] = N::from_float(0.0f);
+        }
+      }
+    }
+    if (tid < C) {
+      float s = 0.0f;
+      for (int t = 0; t < a.nqt; ++t)
+        s += a.l3b[((size_t)b * a.nqt + t) * C + tid];
+      GS[jpoff(L3_B) + tid] += s;
     }
     __syncthreads();
-    layer_norm_rows<C>(JT, C, J, p + o[N1_W], p + o[N1_B], 1e-5f, false,
-                       [&](int r, int c, float v) { YJ[r * C + c] = v; });
+    layer_norm_rows<C>(JT, L::LF, J, p + o[N1_W], p + o[N1_B], 1e-5f, false,
+                       [&](int r, int c, float v) {
+                         YJ[r * L::LT + c] = N::from_float(v);
+                       });
     __syncthreads();
-    gemm_tn_acc<T>(YJ, C, DK, C, J, C, C, PG + o[WK], C);
-    gemm_tn_acc<T>(YJ, C, DV, C, J, C, C, PG + o[WV], C);
-    gemm_nt<T>(DK, C, J, C, p + o[WK], C, C,
-               [&](int r, int k, float v) { DYJ[r * C + k] = v; });
-    gemm_nt<T>(DV, C, J, C, p + o[WV], C, C,
-               [&](int r, int k, float v) { DYJ[r * C + k] += v; });
+    // one owner thread per element, the same for every sample
+    for (int k = 0; k < 2; ++k) {
+      float* G = GS + (k == 0 ? jpoff(WK) : jpoff(WV));
+      tc::gemm<T, 2>(C / 16, C / 8, JMAX, ColMajor<T>{YJ, L::LT},
+                     RowMajor<T>{k == 0 ? DK : DV, L::LT},
+                     [&](int m, int n, float v, float w) {
+                       G[m * C + n] += v;
+                       G[m * C + n + 1] += w;
+                     });
+      tc::gemm<T, 2>(JMAX / 16, C / 8, C, RowMajor<T>{k == 0 ? DK : DV, L::LT},
+                     ColMajor<T>{k == 0 ? WKs : WVs, L::LT},
+                     [&](int r, int n, float v, float w) {
+                       float* e = DYJ + r * L::LF + n;
+                       if (k == 0) {
+                         e[0] = v;
+                         e[1] = w;
+                       } else {
+                         e[0] += v;
+                         e[1] += w;
+                       }
+                     });
+    }
     __syncthreads();
-    ln_bwd_rows<C>(DYJ, C, JT, C, J, p + o[N1_W], 1e-5f, STATS,
+    ln_bwd_rows<C>(DYJ, L::LF, JT, L::LF, J, p + o[N1_W], 1e-5f, STATS,
                    [&](int r, int c, float v) {
-                     a.djt[((size_t)b * J + r) * C + c] = Num<T>::from_float(v);
+                     a.djt[((size_t)b * J + r) * C + c] = N::from_float(v);
                    });
     __syncthreads();
-    norm_param_acc(DYJ, C, JT, C, STATS, J, C, PG + o[N1_W], PG + o[N1_B]);
-    __syncthreads();
+    norm_param_acc(DYJ, L::LF, JT, L::LF, STATS, J, C, GS + jpoff(N1_W),
+                   GS + jpoff(N1_B));
   }
+  __syncthreads();
+  float* PJ = a.pj + (size_t)blockIdx.x * NJP;
+  for (int i = tid; i < NJP; i += NT) PJ[i] = GS[i];
+}
+
+// lbf_reduce's plan: for each gradient field, its length, where it goes in
+// `grads`, and the (at most two) kinds of partial rows that hold it, as
+// (first row's element 0 of the field, rows, row stride); and the first
+// 32-wide strip of each field (a block each).
+struct RSrc {
+  const float* p;
+  int rows, ld;
+};
+
+struct RField {
+  int len, dst;
+  RSrc src[2];
+};
+
+struct RPlan {
+  RField f[NFIELD];
+  int strip0[NFIELD + 1];
+};
+
+// Each block sums one 32-element strip of a field: warp w takes rows w,
+// w + 8, ... of each source in turn (lane = element, four rows' loads in
+// flight), then warp 0 adds the eight warps' sums in order. Fixed order:
+// repeat runs are bit-identical.
+__global__ void __launch_bounds__(256) lbf_reduce_kernel(const RPlan plan,
+                                                         float* grads) {
+  __shared__ float acc[8][33];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int f = 0;
+  while ((int)blockIdx.x >= plan.strip0[f + 1]) ++f;
+  const RField& F = plan.f[f];
+  const int e = ((int)blockIdx.x - plan.strip0[f]) * 32 + lane;
+  float s = 0.0f;
+  if (e < F.len) {
+    for (int k = 0; k < 2; ++k) {
+      const RSrc src = F.src[k];
+#pragma unroll 4
+      for (int r = warp; r < src.rows; r += 8)
+        s += src.p[(size_t)r * src.ld + e];
+    }
+  }
+  acc[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && e < F.len) {
+    float tot = 0.0f;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) tot += acc[w][lane];
+    grads[F.dst + e] = tot;
+  }
+}
+
+__host__ __device__ constexpr int field_len(int f) {
+  return f == FC1_W || f == FC2_W ? C * HID
+       : f == FC1_B ? HID
+       : f == WQ || f == WK || f == WV || f == PROJ_W || f == L0_W ||
+                 f == L1_W || f == L2_W || f == L3_W
+           ? C * C
+           : C;
+}
+
+// grads[offs[f] + e] = the sum of field f over every partial row holding
+// it (offs: the fields' offsets, on the host)
+inline int reduce_fields(const float* pw, int nc_w, const float* pr,
+                         int nc_rows, const float* pj, int nc_j,
+                         const int* offs, float* grads, cudaStream_t s) {
+  RPlan plan{};
+  int strips = 0;
+  for (int f = 0; f < NFIELD; ++f) {
+    RField& F = plan.f[f];
+    F.len = field_len(f);
+    F.dst = offs[f];
+    int k = 0;
+    if (woff(f) >= 0) F.src[k++] = {pw + woff(f), nc_w, NW};
+    if (roff(f) >= 0) F.src[k++] = {pr + roff(f), nc_rows, NR};
+    if (jpoff(f) >= 0) F.src[k++] = {pj + jpoff(f), nc_j, NJP};
+    plan.strip0[f] = strips;
+    strips += (F.len + 31) / 32;
+  }
+  plan.strip0[NFIELD] = strips;
+  lbf_reduce_kernel<<<strips, 256, 0, s>>>(plan, grads);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -1094,8 +1449,8 @@ Args<T> make_args(const void* x, const void* jt, const void* w,
   a.B = B;
   a.Nv = Nv;
   a.J = J;
-  a.ntiles = (Nv + TO - 1) / TO;
   a.nrt = (Nv + TR - 1) / TR;
+  a.nqt = (Nv + TQ - 1) / TQ;
   a.seed = seed;
   a.unit = unit;
   a.attn = Drop{thr[0], scl[0]};
@@ -1107,9 +1462,10 @@ Args<T> make_args(const void* x, const void* jt, const void* w,
   return a;
 }
 
-// launch a kernel that takes `smem` bytes of dynamic shared memory
+// launch a kernel of NT threads that takes `smem` bytes of dynamic shared
+// memory
 template <typename K, typename... A>
-int launch_smem(K kern, int grid, int smem, cudaStream_t s, A... args) {
+int launch_smem(K kern, dim3 grid, int smem, cudaStream_t s, A... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -1136,43 +1492,86 @@ int rows_wave() {
 
 // the pointers of one call, in the order of the C interface below
 struct Ptrs {
-  void *out, *y3, *q2, *k2, *v2, *a2, *lse, *scratch, *masks;
+  void *out, *y3, *q2, *k2, *v2, *a2, *lse, *masks;
   const void* gout;
   void *dx, *djt, *da2, *dd, *dq2, *dk2, *dv2, *djk, *djv, *ops, *part,
       *grads;
 };
 
+// K4's rest, by number: 0 lbf_sa_fwd, 1 lbf_sa_bwd_dq, 2 lbf_sa_bwd_dkv,
+// 3 lbf_joints_bwd; the dynamic shared memory each takes at Nv vertices
+// (the self-attention launches' keys or queries per staged chunk: kc)
+template <typename T>
+int rest_smem(int kernel, int nv) {
+  const int kc = attn::chunk_keys<T, C>(nv);
+  if (kernel == 0) return kc * attn::Pad<T, C>::KEY_BYTES;
+  if (kernel == 1) return DqSmem<T>::bytes(kc);
+  if (kernel == 2) return dkv_chunk<T>(nv) * Dkv<T>::QUERY_BYTES;
+  return JointsSmem<T>::BYTES;
+}
+
+// what: 0 registers a thread, 1 CTAs resident per SM, 2 shared-memory
+// bytes, of rest kernel `kernel` at Nv vertices
+template <typename K>
+int kernel_info(K kern, int smem, int what) {
+  if (what == 2) return smem;
+  cudaFuncAttributes attr;
+  int per = 0;
+  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess ||
+      cudaFuncGetAttributes(&attr, kern) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kern, NT, smem) !=
+          cudaSuccess)
+    return -1;
+  return what == 0 ? attr.numRegs : per;
+}
+
+template <typename T>
+int info(int kernel, int nv, int what) {
+  const int smem = rest_smem<T>(kernel, nv);
+  if (kernel == 0) return kernel_info(lbf_sa_fwd_kernel<T>, smem, what);
+  if (kernel == 1) return kernel_info(lbf_sa_bwd_dq_kernel<T>, smem, what);
+  if (kernel == 2) return kernel_info(lbf_sa_bwd_dkv_kernel<T>, smem, what);
+  return kernel_info(lbf_joints_bwd_kernel<T>, smem, what);
+}
+
 template <typename T>
 int run_fwd(Args<T> a, const Ptrs& q, int nctas, cudaStream_t s) {
   a.out = static_cast<T*>(q.out);
   a.y3 = static_cast<float*>(q.y3);
-  a.q2 = static_cast<float*>(q.q2);
-  a.k2 = static_cast<float*>(q.k2);
-  a.v2 = static_cast<float*>(q.v2);
+  a.q2 = static_cast<T*>(q.q2);
+  a.k2 = static_cast<T*>(q.k2);
+  a.v2 = static_cast<T*>(q.v2);
   a.a2 = static_cast<float*>(q.a2);
   a.lse = static_cast<float*>(q.lse);
   a.masks = static_cast<float*>(q.masks);
   int err = launch_smem(lbf_rows_fwd_kernel<T>, nctas, Rows<T>::BYTES, s, a);
   if (err != 0) return err;
-  dim3 grid((a.Nv + TQ - 1) / TQ, a.B);
-  lbf_sa_fwd_kernel<T><<<grid, NT_SA, 0, s>>>(a);
-  return (int)cudaGetLastError();
+  return launch_smem(lbf_sa_fwd_kernel<T>, dim3(a.nqt, a.B),
+                     rest_smem<T>(0, a.Nv), s, a,
+                     attn::chunk_keys<T, C>(a.Nv));
+}
+
+// floats of the backward's partial buffer: lbf_wgrad's, lbf_rows_bwd's and
+// lbf_joints_bwd's rows, then L3's bias shares per query tile
+inline long long part_floats(int B, int Nv, int nc_rows, int nc_j,
+                             int nc_w) {
+  return (long long)nc_w * NW + (long long)nc_rows * NR +
+         (long long)nc_j * NJP + (long long)B * ((Nv + TQ - 1) / TQ) * C;
 }
 
 template <typename T>
-int run_bwd(Args<T> a, const Ptrs& q, int nc_out, int nc_rows,
-            int nc_j, int nc_w, int wper, long long pstride, int ngrad,
-            cudaStream_t s) {
-  a.q2 = static_cast<float*>(q.q2);
-  a.k2 = static_cast<float*>(q.k2);
-  a.v2 = static_cast<float*>(q.v2);
+int run_bwd(Args<T> a, const Ptrs& q, int nc_rows, int nc_j, int nc_w,
+            int wper, const int* host_offs, cudaStream_t s) {
+  a.q2 = static_cast<T*>(q.q2);
+  a.k2 = static_cast<T*>(q.k2);
+  a.v2 = static_cast<T*>(q.v2);
   a.a2 = static_cast<float*>(q.a2);
   a.lse = static_cast<float*>(q.lse);
-  a.scratch = static_cast<float*>(q.scratch);
   a.gout = static_cast<const T*>(q.gout);
   a.dx = static_cast<T*>(q.dx);
   a.djt = static_cast<T*>(q.djt);
-  a.da2 = static_cast<float*>(q.da2);
+  a.da2 = static_cast<T*>(q.da2);
   a.dd = static_cast<float*>(q.dd);
   a.dq2 = static_cast<float*>(q.dq2);
   a.dk2 = static_cast<float*>(q.dk2);
@@ -1180,36 +1579,33 @@ int run_bwd(Args<T> a, const Ptrs& q, int nc_out, int nc_rows,
   a.djk = static_cast<float*>(q.djk);
   a.djv = static_cast<float*>(q.djv);
   a.ops = static_cast<T*>(q.ops);
-  a.pstride = pstride;
-  float* part = static_cast<float*>(q.part);
+  a.pw = static_cast<float*>(q.part);
+  a.pr = a.pw + (size_t)nc_w * NW;
+  a.pj = a.pr + (size_t)nc_rows * NR;
+  a.l3b = a.pj + (size_t)nc_j * NJP;
   int err;
-  a.part = part;
-  lbf_out_bwd_kernel<T><<<nc_out, NT, 0, s>>>(a);
-  if ((err = (int)cudaGetLastError()) != 0) return err;
-  dim3 grid((a.Nv + TQ - 1) / TQ, a.B);
-  lbf_sa_bwd_dq_kernel<T><<<grid, NT_SA, 0, s>>>(a);
-  if ((err = (int)cudaGetLastError()) != 0) return err;
-  lbf_sa_bwd_dkv_kernel<T><<<grid, NT_SA, 0, s>>>(a);
-  if ((err = (int)cudaGetLastError()) != 0) return err;
-  a.part = part + (size_t)nc_out * pstride;
+  const dim3 sa_grid(a.nqt, a.B);
+  if ((err = launch_smem(lbf_sa_bwd_dq_kernel<T>, sa_grid,
+                         rest_smem<T>(1, a.Nv), s, a,
+                         attn::chunk_keys<T, C>(a.Nv))) != 0)
+    return err;
+  if ((err = launch_smem(lbf_sa_bwd_dkv_kernel<T>, sa_grid,
+                         rest_smem<T>(2, a.Nv), s, a,
+                         dkv_chunk<T>(a.Nv))) != 0)
+    return err;
   if ((err = launch_smem(lbf_rows_bwd_kernel<T>, nc_rows, Rows<T>::BYTES, s,
                          a)) != 0)
     return err;
-  a.part = part + (size_t)(nc_out + nc_rows) * pstride;
-  lbf_joints_bwd_kernel<T><<<nc_j, NT, 0, s>>>(a);
-  if ((err = (int)cudaGetLastError()) != 0) return err;
-  constexpr int LD = C + 16 / (int)sizeof(T);
-  const int wsmem = 4 * WR * LD * (int)sizeof(T);
-  auto wk = lbf_wgrad_kernel<T>;
-  if ((err = (int)cudaFuncSetAttribute(
-           wk, cudaFuncAttributeMaxDynamicSharedMemorySize, wsmem)) != 0)
+  if ((err = launch_smem(lbf_joints_bwd_kernel<T>, nc_j,
+                         rest_smem<T>(3, a.Nv), s, a)) != 0)
     return err;
-  wk<<<dim3(NWJOB, nc_w), NT, wsmem, s>>>(
-      a.ops, a.offs, part + (size_t)(nc_out + nc_rows + nc_j) * pstride,
-      pstride, a.B * a.Nv, wper);
-  if ((err = (int)cudaGetLastError()) != 0) return err;
-  return reduce_partials(part, nc_out + nc_rows + nc_j + nc_w, pstride, ngrad,
-                         static_cast<float*>(q.grads), s);
+  constexpr int LD = C + 16 / (int)sizeof(T);
+  if ((err = launch_smem(lbf_wgrad_kernel<T>, dim3(NWJOB, nc_w),
+                         4 * WR * LD * (int)sizeof(T), s, a.ops, a.pw,
+                         a.B * a.Nv, wper)) != 0)
+    return err;
+  return reduce_fields(a.pw, nc_w, a.pr, nc_rows, a.pj, nc_j, host_offs,
+                       static_cast<float*>(q.grads), s);
 }
 
 }  // namespace ltrain
@@ -1217,13 +1613,24 @@ int run_bwd(Args<T> a, const Ptrs& q, int nc_out, int nc_rows,
 
 using gator::ltrain::Ptrs;
 
-// Floats of global scratch per CTA of lbf_out_bwd and lbf_joints_bwd.
-extern "C" int lbf_train_scratch() {
-  return (int)gator::ltrain::SCRATCH_FLOATS;
-}
-
 // Columns of one row of the backward's weight-gradient operands (`ops`).
 extern "C" int lbf_train_op_cols() { return gator::ltrain::O_W; }
+
+// Floats of the backward's f32 partial buffer (`part`) for a call at B
+// samples of Nv vertices on these grids.
+extern "C" int lbf_train_part_floats(int B, int Nv, int nc_rows, int nc_j,
+                                     int nc_w) {
+  return (int)gator::ltrain::part_floats(B, Nv, nc_rows, nc_j, nc_w);
+}
+
+// Registers a thread (what = 0), CTAs resident per SM (1) or shared-memory
+// bytes (2) of lbf_sa_fwd (kernel = 0), lbf_sa_bwd_dq (1), lbf_sa_bwd_dkv
+// (2) or lbf_joints_bwd (3) at Nv vertices for dtype (0 = float32, 1 =
+// bfloat16); -1 if the query fails.
+extern "C" int lbf_train_info(int dtype, int kernel, int Nv, int what) {
+  if (dtype == 0) return gator::ltrain::info<float>(kernel, Nv, what);
+  return gator::ltrain::info<__nv_bfloat16>(kernel, Nv, what);
+}
 
 // CTAs of the rows kernels resident at once on the current device for
 // dtype (0 = float32, 1 = bfloat16); 0 if the query fails. The wrapper
@@ -1233,12 +1640,12 @@ extern "C" int lbf_train_rows_wave(int dtype) {
   return gator::ltrain::rows_wave<__nv_bfloat16>();
 }
 
-// Forward: lbf_rows_fwd (nctas CTAs) then
-// lbf_sa_fwd. dtype: 0 = float32, 1 = bfloat16; x, jt, out in that dtype;
-// y3, q2, k2, v2, a2 f32 [B, Nv, 64]; lse f32 [B, 2, Nv]. thr/scale pairs
-// in the order (attn, proj, path, mlp, self, out). masks (may be null): the
-// export buffer, attn [B,H,Nv,J] | proj [B,Nv,C] | dp1 [B] | mlp1
-// [B,Nv,4C] | mlp2 [B,Nv,C] | dp2 [B] | self [B,H,Nv,Nv] | out [B,Nv,C].
+// Forward: lbf_rows_fwd (nctas CTAs) then lbf_sa_fwd. dtype: 0 = float32,
+// 1 = bfloat16; x, jt, out, q2, k2, v2 in that dtype; y3, a2 f32 [B, Nv,
+// 64]; lse f32 [B, 2, Nv] (base 2). thr/scale pairs in the order (attn,
+// proj, path, mlp, self, out). masks (may be null): the export buffer, attn
+// [B,H,Nv,J] | proj [B,Nv,C] | dp1 [B] | mlp1 [B,Nv,4C] | mlp2 [B,Nv,C] |
+// dp2 [B] | self [B,H,Nv,Nv] | out [B,Nv,C].
 extern "C" int lbf_train_fwd(int dtype, const void* x, const void* jt,
                              const void* w, const void* offs, void* out,
                              void* y3, void* q2, void* k2, void* v2, void* a2,
@@ -1271,22 +1678,22 @@ extern "C" int lbf_train_fwd(int dtype, const void* x, const void* jt,
       q, nctas, s);
 }
 
-// Backward: lbf_out_bwd, lbf_sa_bwd_dq, lbf_sa_bwd_dkv, lbf_rows_bwd,
-// lbf_joints_bwd, lbf_wgrad (nc_w chunks of wper rows), then the reduction
-// of the gradient partials (part: [nc_out + nc_rows + nc_j + nc_w,
-// pstride] f32, zeroed by the caller) into grads ([ngrad] f32). da2, dd,
-// dq2, dk2, dv2, djk, djv: f32 work buffers; ops: [B * Nv, op_cols] in the
-// input's dtype.
+// Backward: lbf_sa_bwd_dq, lbf_sa_bwd_dkv, lbf_rows_bwd (nc_rows CTAs),
+// lbf_joints_bwd (nc_j), lbf_wgrad (nc_w chunks of wper rows), then
+// lbf_reduce into grads ([the packed fields' stride] f32; every field's
+// elements written, the padding between fields not). q2, k2, v2, da2 and
+// ops ([B * Nv, op_cols]) in the input's dtype; a2, lse, dd, dq2, dk2, dv2,
+// djk, djv f32; part: lbf_train_part_floats f32, written before it is
+// read. host_offs: the fields' offsets (int[23], host memory).
 extern "C" int lbf_train_bwd(
     int dtype, const void* x, const void* jt, const void* w, const void* offs,
     const void* gout, void* q2, void* k2, void* v2, void* a2, void* lse,
     void* dx, void* djt, void* da2, void* dd, void* dq2, void* dk2, void* dv2,
-    void* djk, void* djv, void* ops, void* scratch, void* part,
-    long long pstride, void* grads, int ngrad, int B, int Nv, int J,
-    int nc_out, int nc_rows, int nc_j, int nc_w, int wper, unsigned seed,
-    int unit, unsigned t0, float s0, unsigned t1, float s1, unsigned t2,
-    float s2, unsigned t3, float s3, unsigned t4, float s4, unsigned t5,
-    float s5, void* stream) {
+    void* djk, void* djv, void* ops, void* part, void* grads,
+    const void* host_offs, int B, int Nv, int J, int nc_rows, int nc_j,
+    int nc_w, int wper, unsigned seed, int unit, unsigned t0, float s0,
+    unsigned t1, float s1, unsigned t2, float s2, unsigned t3, float s3,
+    unsigned t4, float s4, unsigned t5, float s5, void* stream) {
   const unsigned thr[6] = {t0, t1, t2, t3, t4, t5};
   const float scl[6] = {s0, s1, s2, s3, s4, s5};
   Ptrs q{};
@@ -1295,7 +1702,6 @@ extern "C" int lbf_train_bwd(
   q.v2 = v2;
   q.a2 = a2;
   q.lse = lse;
-  q.scratch = scratch;
   q.gout = gout;
   q.dx = dx;
   q.djt = djt;
@@ -1309,14 +1715,15 @@ extern "C" int lbf_train_bwd(
   q.ops = ops;
   q.part = part;
   q.grads = grads;
+  const int* ho = static_cast<const int*>(host_offs);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return gator::ltrain::run_bwd(
         gator::ltrain::make_args<float>(x, jt, w, offs, B, Nv, J, seed, unit,
                                         thr, scl),
-        q, nc_out, nc_rows, nc_j, nc_w, wper, pstride, ngrad, s);
+        q, nc_rows, nc_j, nc_w, wper, ho, s);
   return gator::ltrain::run_bwd(
       gator::ltrain::make_args<__nv_bfloat16>(x, jt, w, offs, B, Nv, J, seed,
                                               unit, thr, scl),
-      q, nc_out, nc_rows, nc_j, nc_w, wper, pstride, ngrad, s);
+      q, nc_rows, nc_j, nc_w, wper, ho, s);
 }

@@ -15,17 +15,18 @@ returns one gradient per input.
 
 What the Function saves differs from the JAX custom VJP (which keeps only
 the layer input and recomputes everything): besides the input it keeps the
-self-attention's q2/k2/v2, its output a2 and the per-row log-sum-exp (a few
-MB per layer), so that the backward recomputes the [431, 431] probabilities
-tile by tile instead of holding them. The result is the same function.
+self-attention's q2/k2/v2 (in the input's dtype: every reader rounds them
+to it), its output a2 and the per-row log-sum-exp (base 2), a few MB per
+layer, so that the backward recomputes the [431, 431] probabilities tile
+by tile instead of holding them. The result is the same function.
 
 Dtypes, as the JAX kernel: the layer output, dx and djoints are in the
 input's dtype (a bf16 stream is rounded at each layer boundary), every
-matmul rounds its operands to that dtype and accumulates in f32 (the row
-launches on bf16 tensor cores; in f32 the 3xTF32 split of csrc/mma.cuh,
-which keeps f32 accuracy); the
-self-attention probabilities stay f32 (an online softmax never holds them
-normalised, as in K2); parameter gradients are f32.
+matmul rounds its operands to that dtype and accumulates in f32 (bf16
+tensor cores; in f32 the 3xTF32 split of csrc/mma.cuh, which keeps f32
+accuracy); the dropped self-attention probabilities are rounded to that
+dtype before the PV product (pallas_mdr_train.py:257), as the
+cross-attention's are; parameter gradients are f32.
 """
 from __future__ import annotations
 
@@ -61,33 +62,35 @@ ZERO_RATES = (0.0,) * 6
 
 EMBED, HEADS, HIDDEN, JOINTS_MAX = 64, 2, 256, 32
 ROW_TILE = 16                # vertex rows per rows-kernel tile (TR)
-OUT_TILE = 32                # vertex rows per lbf_out_bwd tile
-NCTA_MAX = 264               # grid of the grid-stride kernels
-WGRAD_CHUNKS = 40            # row chunks of lbf_wgrad (13 tiles each)
+SA_TILE = 64                 # query (key) rows per self-attention CTA (TQ)
+NCTA_MAX = 264               # grid of lbf_joints_bwd
+WGRAD_CHUNKS = 40            # row chunks of lbf_wgrad (14 tiles each)
 WGRAD_ROWS = 64              # rows per chunk step of lbf_wgrad
 
 _RATE_ARGS = [ctypes.c_uint, ctypes.c_float] * 6
 _SIGNATURE = {
-    "lbf_train_scratch": [],
     "lbf_train_op_cols": [],
+    "lbf_train_part_floats": [ctypes.c_int] * 5,
     "lbf_train_rows_wave": [ctypes.c_int],
+    "lbf_train_info": [ctypes.c_int] * 4,
     "lbf_train_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 12
     + [ctypes.c_int] * 4 + [ctypes.c_uint, ctypes.c_int] + _RATE_ARGS
     + [ctypes.c_void_p],
-    "lbf_train_bwd": [ctypes.c_int] + [ctypes.c_void_p] * 22
-    + [ctypes.c_longlong, ctypes.c_void_p] + [ctypes.c_int] * 9
-    + [ctypes.c_uint, ctypes.c_int] + _RATE_ARGS + [ctypes.c_void_p],
+    "lbf_train_bwd": [ctypes.c_int] + [ctypes.c_void_p] * 23
+    + [ctypes.c_int] * 7 + [ctypes.c_uint, ctypes.c_int] + _RATE_ARGS
+    + [ctypes.c_void_p],
 }
 
 
 def launch_plan(b: int, nv: int, rows_wave: int) -> Dict[str, int]:
     """The grids of one layer's launches at batch b and nv vertices: row
-    tiles per sample (`nrt`), lbf_out_bwd tiles (`ntiles`), CTAs of the
+    tiles per sample (`nrt`), self-attention tiles per sample (`nqt`; the
+    self-attention launches take one CTA per tile and sample), CTAs of the
     rows kernels (at most `rows_wave`, the CTAs the card holds at once,
-    each walking a contiguous run of the b * nrt tiles), of lbf_out_bwd and
-    of lbf_joints_bwd, and lbf_wgrad's row chunks (`nc_w` chunks of `wper`
-    rows, a multiple of WGRAD_ROWS). Raises on what the kernels do not
-    take."""
+    each walking a contiguous run of the b * nrt tiles) and of
+    lbf_joints_bwd (a grid-stride loop over the samples), and lbf_wgrad's
+    row chunks (`nc_w` chunks of `wper` rows, a multiple of WGRAD_ROWS).
+    Raises on what the kernels do not take."""
     if rows_wave < 1:
         raise ValueError(f"the rows kernels fit no CTA on the card "
                          f"({rows_wave})")
@@ -97,12 +100,13 @@ def launch_plan(b: int, nv: int, rows_wave: int) -> Dict[str, int]:
         raise ValueError(f"lbf_stack_train kernels take at most 65535 "
                          f"samples and 2^31 rows, not b={b}, nv={nv}")
     rows = b * nv
-    nrt, ntiles = -(-nv // ROW_TILE), -(-nv // OUT_TILE)
+    nrt = -(-nv // ROW_TILE)
     wper = -(-rows // WGRAD_CHUNKS)
     wper = -(-wper // WGRAD_ROWS) * WGRAD_ROWS
-    return {"nrt": nrt, "ntiles": ntiles,
-            "nc_rows": min(b * nrt, rows_wave), "nc_out": _ncta(b * ntiles),
-            "nc_j": _ncta(b), "nc_w": -(-rows // wper), "wper": wper}
+    return {"nrt": nrt, "nqt": -(-nv // SA_TILE),
+            "nc_rows": min(b * nrt, rows_wave),
+            "nc_j": min(b, NCTA_MAX), "nc_w": -(-rows // wper),
+            "wper": wper}
 
 
 def extract_layer_params(mdr, layer: int) -> Dict[str, torch.Tensor]:
@@ -190,8 +194,8 @@ def lbf_layer_train_ref(x: torch.Tensor, jt: torch.Tensor,
     """Plain version of one training layer with explicit scaled masks
     (gator_tpu/nn/pallas_mdr_train.py:614 `lbf_layer_train_ref`), batched:
     x [B, Nv, C], jt [B, J, C], masks as `layer_masks`. Matmul operands
-    are rounded to x's dtype, as the kernels round them (the self-attention
-    probabilities stay f32, as the kernels keep them)."""
+    are rounded to x's dtype, as the kernels round them, the dropped
+    attention probabilities of both attentions included."""
     dt = x.dtype
 
     def r(t):
@@ -223,7 +227,7 @@ def lbf_layer_train_ref(x: torch.Tensor, jt: torch.Tensor,
     q2, k2, v2 = (_heads(r(y3) @ p[f"l{i}_w"] + p[f"l{i}_b"], h)
                   for i in range(3))
     prob2 = torch.softmax(r(q2) @ r(k2).transpose(-1, -2) * scale, dim=-1)
-    a2 = _merge(_ap(prob2, m("self")) @ r(v2))
+    a2 = _merge(r(_ap(prob2, m("self"))) @ r(v2))
     sa = r(a2) @ p["l3_w"] + p["l3_b"]
     return (y3 + _ap(sa, m("out"))).to(dt)
 
@@ -244,7 +248,8 @@ def _layout(device) -> Dict:
             sizes.get(name, c) for name in LAYER_PARAM_KEYS)
         _LAYOUTS[key] = {"offsets": offsets, "stride": stride,
                          "offs_dev": torch.tensor(offsets, dtype=torch.int32,
-                                                  device=device)}
+                                                  device=device),
+                         "offs_host": (ctypes.c_int * len(offsets))(*offsets)}
     return _LAYOUTS[key]
 
 
@@ -264,10 +269,6 @@ def _check(x, jt, params, num_heads):
                              "device")
 
 
-def _ncta(n: int) -> int:
-    return max(1, min(n, NCTA_MAX))
-
-
 _WAVES: Dict = {}
 
 
@@ -279,12 +280,33 @@ def _rows_wave(lib, dtype: torch.dtype) -> int:
     return _WAVES[dtype]
 
 
+def card_plan(b: int, nv: int, dtype: torch.dtype) -> Dict[str, int]:
+    """`launch_plan` on the current card for dtype (builds the kernels)."""
+    lib = cuda_lib.load("lbf_stack_train", _SIGNATURE)
+    return launch_plan(b, nv, _rows_wave(lib, dtype))
+
+
+def kernel_info(dtype: torch.dtype,
+                nv: int = 431) -> Dict[str, Dict[str, int]]:
+    """Registers a thread, CTAs resident per SM and shared-memory bytes of
+    K4's self-attention and joint launches for `dtype` at nv vertices, from
+    the current card."""
+    lib = cuda_lib.load("lbf_stack_train", _SIGNATURE)
+    code = cuda_lib.kernel_dtype(dtype)
+    return {name: {what: lib.lbf_train_info(code, k, nv, w)
+                   for w, what in enumerate(("registers", "ctas_per_sm",
+                                             "smem_bytes"))}
+            for k, name in enumerate(("lbf_sa_fwd", "lbf_sa_bwd_dq",
+                                      "lbf_sa_bwd_dkv", "lbf_joints_bwd"))}
+
+
 class LbfLayerTrain(torch.autograd.Function):
-    """One layer on the K4 kernels: forward `lbf_train_fwd` (row-local
-    launch on the tensor cores, then the flash-style self-attention),
-    backward `lbf_train_bwd` (five launches, the row-local weight
-    gradients over the per-row operands the row launch leaves in `ops`,
-    and the reduction of the per-CTA gradient partials). Inputs: x
+    """One layer on the K4 kernels, every product on the tensor cores:
+    forward `lbf_train_fwd` (the row-local launch, then the self-attention
+    with its mask and log-sum-exp), backward `lbf_train_bwd` (the
+    self-attention's dq and dk/dv launches, the row-local and joint
+    launches, the weight gradients over the per-row operands left in
+    `ops`, and the reduction of the compact gradient partials). Inputs: x
     [B, Nv, 64], joints [B, J, 64] (f32 or bf16, one dtype), a
     `LayerCfg`, an optional dict that receives the exported masks, then
     the 23 parameters in LAYER_PARAM_KEYS order. The
@@ -304,7 +326,8 @@ class LbfLayerTrain(torch.autograd.Function):
                                  x.dtype)
         f32 = dict(dtype=torch.float32, device=x.device)
         out = torch.empty_like(x)
-        y3, q2, k2, v2, a2 = (torch.empty(b, nv, c, **f32) for _ in range(5))
+        y3, a2 = (torch.empty(b, nv, c, **f32) for _ in range(2))
+        q2, k2, v2 = (torch.empty_like(x) for _ in range(3))
         lse = torch.empty(b, HEADS, nv, **f32)
         mask_buf = None
         if export is not None:
@@ -312,7 +335,7 @@ class LbfLayerTrain(torch.autograd.Function):
                 b * (HEADS * nv * nj + 3 * nv * c + nv * HIDDEN + 2
                      + HEADS * nv * nv), **f32)
         if b > 0 and nv > 0:
-            plan = launch_plan(b, nv, _rows_wave(lib, x.dtype))
+            plan = card_plan(b, nv, x.dtype)
             err = lib.lbf_train_fwd(
                 cuda_lib.kernel_dtype(x.dtype), x.data_ptr(), jt.data_ptr(),
                 w.data_ptr(), lay["offs_dev"].data_ptr(), out.data_ptr(),
@@ -340,22 +363,22 @@ class LbfLayerTrain(torch.autograd.Function):
         gout = gout.to(x.dtype).contiguous()
         dx, djt = torch.empty_like(x), torch.empty_like(jt)
         f32 = dict(dtype=torch.float32, device=x.device)
-        grads = torch.zeros(lay["stride"], **f32)
+        # lbf_reduce writes every field's elements (the padding between
+        # fields is never read); with no rows every gradient is zero
+        grads = (torch.empty if b > 0 and nv > 0 else torch.zeros)(
+            lay["stride"], **f32)
         if b > 0 and nv > 0:
-            plan = launch_plan(b, nv, _rows_wave(lib, x.dtype))
-            nc_out, nc_rows = plan["nc_out"], plan["nc_rows"]
-            nc_j = plan["nc_j"]
-            da2, dq2, dk2, dv2 = (torch.empty(b, nv, c, **f32)
-                                  for _ in range(4))
+            plan = card_plan(b, nv, x.dtype)
+            nc_rows, nc_j, nc_w = plan["nc_rows"], plan["nc_j"], plan["nc_w"]
+            da2 = torch.empty_like(x)
+            dq2, dk2, dv2 = (torch.empty(b, nv, c, **f32) for _ in range(3))
             dd = torch.empty(b, HEADS, nv, **f32)
             djk, djv = (torch.empty(b, plan["nrt"], nj, c, **f32)
                         for _ in range(2))
             ops = torch.empty(b * nv, lib.lbf_train_op_cols(),
                               dtype=x.dtype, device=x.device)
-            scratch = torch.empty(max(nc_out, nc_j)
-                                  * lib.lbf_train_scratch(), **f32)
-            part = torch.zeros(nc_out + nc_rows + nc_j + plan["nc_w"],
-                               lay["stride"], **f32)
+            part = torch.empty(lib.lbf_train_part_floats(
+                b, nv, nc_rows, nc_j, nc_w), **f32)
             err = lib.lbf_train_bwd(
                 cuda_lib.kernel_dtype(x.dtype), x.data_ptr(), jt.data_ptr(),
                 w.data_ptr(), lay["offs_dev"].data_ptr(), gout.data_ptr(),
@@ -363,13 +386,12 @@ class LbfLayerTrain(torch.autograd.Function):
                 lse.data_ptr(), dx.data_ptr(), djt.data_ptr(),
                 da2.data_ptr(), dd.data_ptr(), dq2.data_ptr(),
                 dk2.data_ptr(), dv2.data_ptr(), djk.data_ptr(),
-                djv.data_ptr(), ops.data_ptr(), scratch.data_ptr(),
-                part.data_ptr(), lay["stride"], grads.data_ptr(),
-                lay["stride"], b, nv, nj, nc_out, nc_rows, nc_j,
-                plan["nc_w"], plan["wper"], cfg.seed, cfg.layer,
+                djv.data_ptr(), ops.data_ptr(), part.data_ptr(),
+                grads.data_ptr(), ctypes.addressof(lay["offs_host"]), b, nv,
+                nj, nc_rows, nc_j, nc_w, plan["wper"], cfg.seed, cfg.layer,
                 *cfg.rate_args(), cuda_lib.stream_ptr(x))
             cuda_lib.check(err, "lbf_train_bwd")
-            lbf_stack_train.launches_bwd += 7
+            lbf_stack_train.launches_bwd += 6
         dparams = [grads[off:off + p.numel()].view(p.shape).to(p.dtype)
                    for off, p in zip(lay["offsets"], params)]
         return (dx, djt, None, None, *dparams)

@@ -9,9 +9,9 @@ bf16 (the JAX package's TRAIN_BATCH, bench.py:58) on a fixed batch of
 bench.py's training shapes, times five steps on the host clock, then
 profiles five more with
 torch.profiler (CPU and CUDA activities). Prints the step time on the host
-clock (synchronised), the device time per kernel group (K5 forward and
-backward, each launch of K4, the gradient-partial reduction, and the
-largest plain-torch kernels), and the device's busy and idle shares of the
+clock (synchronised), the device time per kernel group (each launch of
+K5 and of K4, K4's and K5's gradient reductions apart, and the largest
+plain-torch kernels), and the device's busy and idle shares of the
 profiled window; writes the same as JSON to --out. Fails without a CUDA
 device.
 """
@@ -36,13 +36,13 @@ GROUPS = (
     ("gat_block_wgrad", "K5 backward, weight gradients (gat_block_wgrad)"),
     ("lbf_rows_fwd", "K4 forward, row-local (lbf_rows_fwd)"),
     ("lbf_sa_fwd", "K4 forward, self-attention (lbf_sa_fwd)"),
-    ("lbf_out_bwd", "K4 backward, L3 and D (lbf_out_bwd)"),
-    ("lbf_sa_bwd_dq", "K4 backward, dq2 (lbf_sa_bwd_dq)"),
+    ("lbf_sa_bwd_dq", "K4 backward, L3, D and dq2 (lbf_sa_bwd_dq)"),
     ("lbf_sa_bwd_dkv", "K4 backward, dk2/dv2 (lbf_sa_bwd_dkv)"),
     ("lbf_rows_bwd", "K4 backward, row-local (lbf_rows_bwd)"),
     ("lbf_joints_bwd", "K4 backward, joints (lbf_joints_bwd)"),
-    ("lbf_wgrad", "K4 backward, row-local weight gradients (lbf_wgrad)"),
-    ("reduce_partials", "K4 + K5 gradient-partial reduction"),
+    ("lbf_wgrad", "K4 backward, weight gradients (lbf_wgrad)"),
+    ("lbf_reduce", "K4 gradient reduction (lbf_reduce)"),
+    ("reduce_partials", "K5 gradient-partial reduction (reduce_partials)"),
 )
 
 

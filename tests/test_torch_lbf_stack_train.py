@@ -6,12 +6,18 @@ tests/test_pallas_mdr_train.py runs it).
 The masks come from the port's hash and are handed to both sides as numpy
 arrays. Bars: values atol 1e-5, every VJP cotangent scaled by its max
 within 1e-4, in f32; the self-attention key bias (l1_b) has a zero true
-gradient and is held to an absolute bar instead.
+gradient and is held to an absolute bar instead. In bf16 the plain version
+is held to the JAX training stack compiled with every bf16 cast kept
+(test_torch_lbf_layer.exact), by the bit-equal share and the mean and max
+differences stated in the test.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
+
+from test_torch_lbf_layer import exact, random_layer_params
 
 from gator_tpu.nn import pallas_mdr_train as pmt
 from gator_tpu_torch.nn.lbf_stack_train import (DEFAULT_RATES,
@@ -137,3 +143,47 @@ def test_layer_masks_shapes_and_zero_rates():
     other = layer_masks(LayerCfg(num_heads=H, layer=1, seed=1,
                                  rates=DEFAULT_RATES), 2, NV, NJ, C)
     assert not torch.equal(other["self"], masks["self"])
+
+
+@pytest.mark.parametrize("depth,min_equal,mean_bar", [(1, 0.95, 2e-4),
+                                                      (3, 0.6, 2.5e-3)])
+def test_plain_stack_bf16_matches_jax_kernel(depth, min_equal, mean_bar):
+    """bf16, rate 0: the plain version against the JAX training stack in
+    interpret mode, every cast to bf16 kept. The JAX kernel rounds the
+    dropped self-attention probabilities to bf16 before the PV product
+    (pallas_mdr_train.py:257), and so does the plain version. The weights
+    are bf16 values held in f32, as the kernels pack them, so that the JAX
+    kernel's f32 biases and norm scales equal them. Measured at seeds 8
+    and 9: one layer 98.1-98.7 % bit-equal, mean abs 3.6e-5-4.0e-5 (with
+    the probabilities left in f32, 74.2-74.5 % and 6.6e-4-6.9e-4); three
+    layers 68.4-69.7 %, 1.45e-3-1.73e-3 (39.1-42.3 %, 3.2e-3-3.7e-3).
+    Bars: the shares and means above, max abs 2^-5 (two bf16 ulps at the
+    outputs' scale)."""
+    rng = np.random.default_rng(8)
+    ps = [{k: torch.from_numpy(v).to(torch.bfloat16).float().numpy()
+           for k, v in random_layer_params(rng).items()}
+          for _ in range(depth)]
+    x = rng.normal(size=(B, NV, C)).astype(np.float32)
+    jt = rng.normal(size=(B, NJ, C)).astype(np.float32)
+    n = len(LAYER_PARAM_KEYS)
+
+    def jax_stack(x, jt, *plist):
+        lps = [dict(zip(LAYER_PARAM_KEYS, plist[i * n:(i + 1) * n]))
+               for i in range(depth)]
+        return pmt.lbf_stack_train(x, jt, lps, H, jnp.asarray([9], jnp.int32),
+                                   rates=pmt.ZERO_RATES, interpret=True)
+
+    want = exact(jax_stack, jnp.asarray(x, jnp.bfloat16),
+                 jnp.asarray(jt, jnp.bfloat16),
+                 *[jnp.asarray(p[k]) for p in ps for k in LAYER_PARAM_KEYS])
+    want = torch.from_numpy(np.asarray(want.astype(jnp.float32)))
+    got = lbf_stack_train(torch.from_numpy(x).to(torch.bfloat16),
+                          torch.from_numpy(jt).to(torch.bfloat16),
+                          [{k: torch.from_numpy(v) for k, v in p.items()}
+                           for p in ps], H, 9, rates=ZERO_RATES)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    diff = (got.float() - want).abs()
+    stats = ((got.float() == want).float().mean().item(),
+             diff.mean().item(), diff.max().item())
+    assert stats[0] >= min_equal and stats[1] <= mean_bar \
+        and stats[2] <= 2.0 ** -5, stats

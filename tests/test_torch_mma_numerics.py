@@ -226,6 +226,9 @@ def test_lbf_launch_plan_covers_every_row(b, nv, wave):
     assert plan["nc_w"] * plan["wper"] >= rows > (plan["nc_w"] - 1) * plan[
         "wper"]
     assert plan["nc_w"] <= k4.WGRAD_CHUNKS
+    sa = k4.SA_TILE
+    assert plan["nqt"] * sa >= nv > (plan["nqt"] - 1) * sa
+    assert plan["nc_j"] == min(b, k4.NCTA_MAX)
 
 
 @pytest.mark.parametrize("b,nv,wave", [(0, 431, 396), (4, 0, 396),

@@ -27,6 +27,7 @@ from gator_tpu_torch.nn.lbf_stack_train import (DEFAULT_RATES, ZERO_RATES,
                                                 extract_layer_params,
                                                 lbf_stack_train,
                                                 lbf_stack_train_ref)
+from gator_tpu_torch.nn.lbf_stack_train import kernel_info as k4_info
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 K5_RATES = {"default": dict(attn_rate=0.4, proj_rate=0.4, mlp_rate=0.1,
@@ -225,8 +226,10 @@ def test_lbf_stack_train_kernels_match_plain(model, dtype, rates, batch, nv):
     cot = _randn(rng, batch, nv, 64).to(dtype)
     before = (lbf_stack_train.launches_fwd, lbf_stack_train.launches_bwd)
     got = _run_k4(mdr, x0, j0, cot, K4_RATES[rates], lbf_stack_train)
+    # per layer two forward launches and six backward ones (dq, dk/dv, rows,
+    # joints, weight gradients, the reduction)
     assert (lbf_stack_train.launches_fwd, lbf_stack_train.launches_bwd) == (
-        before[0] + 6, before[1] + 21)
+        before[0] + 6, before[1] + 18)
     want = _run_k4(mdr, x0, j0, cot, K4_RATES[rates], lbf_stack_train_ref)
     _check_masks(got[4], want[4])
     for a, b in zip(got[:3], want[:3]):
@@ -258,6 +261,16 @@ def test_lbf_stack_train_repeat_runs_bit_identical(model, dtype):
     other = lbf_stack_train(x, j0, [extract_layer_params(mdr, i)
                                     for i in range(3)], 2, 56)
     assert not torch.equal(other.detach(), runs[0][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nv", [17, 431, 433])
+def test_lbf_stack_train_self_attention_fits_two_ctas_per_sm_in_bf16(model,
+                                                                     nv):
+    info = k4_info(torch.bfloat16, nv)
+    for name in ("lbf_sa_fwd", "lbf_sa_bwd_dq", "lbf_sa_bwd_dkv"):
+        assert info[name]["ctas_per_sm"] >= 2, info
+    assert info["lbf_joints_bwd"]["ctas_per_sm"] >= 1, info
 
 
 @pytest.mark.cuda
