@@ -6,7 +6,9 @@
 Phases, one line each:
   1. card: name and power limit (nvidia-smi), CUDA version; TF32 off;
   2. build: compile K1 (csrc/gat_trunk.cu) and K2 (csrc/lbf_stack.cu);
-  3. K1 against its plain version, full width, B=64, J=17 and 19;
+  3. K1 against its plain version, full width, at B=1, 300 (a few
+     tiles), 1001 (a ragged last tile) and 2048, J=17 and 19 (f32 within
+     1e-4, bf16 reported);
   4. K2 against its plain version, B=16 and the serving batch B=2048 (f32),
      431 vertices, J=17 and 19;
   5. end to end: full-width synthetic 6890-vertex model, kernel path
@@ -16,7 +18,9 @@ Phases, one line each:
   7. times at B=2048, bf16: K1, K2 and the whole serving call, each kernel
      path beside its plain version (CUDA events, median of 5); K2's two
      launches (rows_kernel, lbf_selfattn_kernel) in device ms per serving
-     call from torch.profiler, each beside its bound.
+     call and K1's launch from torch.profiler, each beside its bound, with
+     K1's registers, CTAs per SM and shared bytes; K1 and the serving call
+     at B=1, 64 and 256, each beside its plain version.
 The training path (K4 csrc/lbf_stack_train.cu, K5 csrc/gat_trunk_train.cu):
   8. (a) K4 and K5 are built with the others in phase 2;
   9. (b) K5 at full width (depth 6, B=64 and 512) and K4 (3 layers,
@@ -1100,6 +1104,8 @@ def main():
     from gator_tpu_torch.nn import (cuda_lib, fold_stack_weights,
                                     fold_trunk_weights, gat_trunk,
                                     gat_trunk_ref, lbf_stack, lbf_stack_ref)
+    from gator_tpu_torch.nn.gat_trunk import kernel_info as trunk_info
+    from gator_tpu_torch.nn.gat_trunk import launch_plan as trunk_plan
     from gator_tpu_torch.serving import make_serving_fn
     from gator_tpu_torch.tools.timing import card_name, time_ms
 
@@ -1146,26 +1152,38 @@ def main():
 
     errs = {name: 0.0 for name in KERNELS}
 
-    # 3. K1 against its plain version
+    # 3. K1 against its plain version at its tile edges: one sample, a few
+    # tiles, a ragged last tile, the serving batch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for joint_set, model in models.items():
         gat = model.pose_lifter
         j = gat.spec.num_joint
         bias = gat.get_hop_path_encoding().float()
         masks = gat.blocks[0].x_feat.masks
-        x = randn(64, j, 128)
-        for dt in (f32, bf16):
-            w = fold_trunk_weights(gat.blocks, dt, dev)
-            got = gat_trunk(x.to(dt), bias, masks, w, 8)
-            ref = gat_trunk_ref(x.to(dt), bias, masks, w, 8)
-            torch.cuda.synchronize()
-            err = max_err(got, ref)
-            check(np.isfinite(err), f"K1 {dt} finite")
-            if dt == f32:
-                check(err <= 1e-4, f"K1 f32 J={j} err {err} <= 1e-4")
-                errs["gat_trunk"] = max(errs["gat_trunk"], err)
-            say(3, f"K1 gat_trunk J={j} B=64 {str(dt)[6:]}: max abs err "
-                   f"{err:.3e} vs plain" + (" (bar 1e-4)" if dt == f32
-                                            else " (reported)"))
+        ws = {dt: fold_trunk_weights(gat.blocks, dt, dev)
+              for dt in (f32, bf16)}
+        for nb in (1, 300, 1001, 2048):
+            x = randn(nb, j, 128)
+            for dt in (f32, bf16):
+                plan = trunk_plan(nb, j, dt, sms)
+                got = gat_trunk(x.to(dt), bias, masks, ws[dt], 8)
+                ref = gat_trunk_ref(x.to(dt), bias, masks, ws[dt], 8)
+                torch.cuda.synchronize()
+                err = max_err(got, ref)
+                check(got.shape == x.shape and np.isfinite(err),
+                      f"K1 {dt} B={nb} shape and finite")
+                if dt == f32:
+                    check(err <= 1e-4,
+                          f"K1 f32 J={j} B={nb} err {err} <= 1e-4")
+                    errs["gat_trunk"] = max(errs["gat_trunk"], err)
+                ragged = nb % plan["g"] != 0
+                check(ragged or nb != 1001, "B=1001 leaves a ragged tile")
+                say(3, f"K1 gat_trunk J={j} B={nb} {str(dt)[6:]} "
+                       f"({plan['ctas']} CTAs of {plan['g']} samples"
+                       + (", the last ragged" if ragged else "")
+                       + f"): max abs err {err:.3e} vs plain"
+                       + (" (bar 1e-4)" if dt == f32 else " (reported)"))
+            del x, got, ref
 
     # 4. K2 against its plain version, at B=16 and at the serving batch
     for joint_set, model in models.items():
@@ -1312,11 +1330,45 @@ def main():
                f"{k2_bounds[key][0]:.3f} ms, {k2_bounds[key][1]}: "
                f"{k2_io / 1e9:.2f} GB at 3.35 TB/s)" for key in k2_ms))
 
+    # K1 alone: device ms per launch (six blocks) from torch.profiler
+    # beside its bound (x in and out, the weights once), and its registers,
+    # CTAs per SM and shared bytes
+    def k1_bound(nb, j=17):
+        return bound(nb * 6 * fma_gat_block(j),
+                     2 * nb * j * 128 * 2 + 6 * GAT_BLOCK_WEIGHTS * 2)
+
+    k1_dev = 0.0
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            gat_trunk(x, bias, masks, tw, 8)
+        torch.cuda.synchronize()
+    for evt in prof.key_averages():
+        if _is_kernel(evt) and "gat_trunk_kernel" in evt.key:
+            k1_dev += _device_us(evt) / 1e3 / 3
+    check(k1_dev > 0, f"the profiler saw K1's launch: {k1_dev}")
+    info = trunk_info(bf16)
+    plan = trunk_plan(b, 17, bf16, sms)
+    say(7, f"K1 gat_trunk_kernel B={b} bf16 on {card}: {k1_dev:.3f} ms "
+           f"device (bound {k1_bound(b)[0]:.3f} ms, {k1_bound(b)[1]}); "
+           f"{plan['ctas']} CTAs of {plan['g']} samples; registers "
+           f"{info['registers']}, CTAs per SM {info['ctas_per_sm']}, "
+           f"shared bytes {info['smem_bytes']}")
+
+    # K1 and the whole serving call at the serve CLI's chunk and below
+    for nb in (1, 64, 256):
+        xs, ps = randn(nb, 17, 128).to(bf16), randn(nb, 17, 2)
+        t = [time_ms(lambda: gat_trunk(xs, bias, masks, tw, 8)),
+             time_ms(lambda: gat_trunk_ref(xs, bias, masks, tw, 8)),
+             time_ms(lambda: serve_k(ps)), time_ms(lambda: serve_p(ps))]
+        say(7, f"B={nb} bf16 on {card}: K1 {t[0]:.3f} ms (plain "
+               f"{t[1]:.3f}; bound {k1_bound(nb)[0]:.4f}), serving call "
+               f"{t[2]:.3f} ms (plain {t[3]:.3f})")
+
     j_full = 17
     bounds = {
-        "gat_trunk": bound(
-            b * 6 * fma_gat_block(j_full),
-            2 * b * j_full * 128 * 2 + 6 * GAT_BLOCK_WEIGHTS * 2),
+        "gat_trunk": k1_bound(b, j_full),
         "lbf_stack": bound(
             b * 3 * fma_lbf_layer(coarse_v, j_full),
             (2 * b * coarse_v * 64 + b * j_full * 64) * 2

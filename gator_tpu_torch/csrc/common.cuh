@@ -1,9 +1,13 @@
-// Device helpers shared by the serving kernels (gat_trunk.cu, lbf_stack.cu).
+// Device helpers shared by the hand-written kernels: the working type T's
+// conversions and rounding, LayerNorm rows, the exact GELU, warp sums.
 //
-// Activations live in shared memory as f32. Where the JAX kernels cast an
-// intermediate to the working dtype T before the next matmul, these kernels
-// keep the f32 value that T would hold (`rnd<T>`), so a bf16 run rounds at
-// the same places while every sum still accumulates in f32.
+// Where the JAX kernels cast an intermediate to the working dtype T before
+// the next matmul, these kernels round to what T would hold (`rnd<T>`, or
+// by storing in T), so a bf16 run rounds at the same places while every
+// sum still accumulates in f32. `gemm<T>` below is the FMA product of the
+// first ports; its one caller left is `attn_kernel`'s output projection
+// (csrc/lbf_layer.cuh, run by K2-layer and T1): every other product runs
+// on the tensor cores (csrc/mma.cuh).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -8,22 +8,49 @@
 //   x += XFeat(z)                    (two hop-ring masks, widths 128 and 16)
 //   x += MLP(LN2(x))                 (exact GELU, hidden 512)
 //
-// Design. One CTA holds G samples (G*J <= 64 token rows) for the whole
-// trunk: the token rows are read from device memory once and written once,
-// and every intermediate stays in shared memory. Attention, MGCN and the
-// XFeat ring sums are computed per sample on its own J x J structure; the
-// block-diagonal [G*J, G*J] tiles, one-hot tiling matrices and J->32
-// padding that the TPU kernel used to fill its matrix unit are gone. The
-// MGCN adjacency diagonal is folded into the modulation on the host
-// (mdiag = diag(adj) * M), as the TPU kernel does.
+// Design. One CTA holds a tile of G whole samples (G * J <= RT token rows:
+// 80 in bf16, 48 in f32) for the whole trunk: the token rows are read from
+// device memory once and written once, and every intermediate stays in
+// shared memory, in T wherever it only enters a product (the residual
+// stream x stays f32). Every dense product (qkv, proj, MGCN W0 and W1,
+// XFeat x0, x1 and back, fc1, fc2) runs on the tensor cores through
+// csrc/mma.cuh: bf16 mma.sync with f32 accumulation (fragments by
+// ldmatrix), or 3xTF32 in f32. The operands are rounded to T where they
+// enter a product, so the bf16 products are exact and only the order of
+// the sums differs from the plain version. The weights come as [KP, 64]
+// panels (KP = 64 in bf16, 32 in f32), packed on the host in the order the
+// kernel takes them (nn/gat_trunk.py `pack_panels`), and stream through a
+// ring of cp.async slots that never drains across products and blocks;
+// warp w owns rows 16 * (w / 2) .. + 16 and columns 32 * (w % 2) .. + 32
+// of each panel and keeps its sums over the depth in registers. The MLP
+// takes its 512 hidden units in chunks of 64 (fc1's chunk, then its share
+// of fc2 into register accumulators). A block's vectors and [J, C] tables
+// (biases, LayerNorm weights, MGCN's M and diag(adj) * M) are staged in
+// shared memory as f32 at the block's start, so the products' epilogues
+// read no device memory. The per-sample J x J mixes (attention over J keys
+// with the hop/path bias, MGCN's off-diagonal adjacency, XFeat's two hop
+// rings) are ~3 % of the work. They run on the tensor cores too (`mix`,
+// `attention_tc`; the f32 attention as FMA loops), each attention score
+// formed once and kept in registers. The MGCN adjacency diagonal is folded into
+// the modulation on the host (mdiag = diag(adj) * M), as the TPU kernel
+// does.
 //
-// What bounds it on the H100. The matmuls are FMA loops with f32
-// accumulation (~9 MFLOP per sample and block); a block's weights (~266k
-// values) are streamed from L2 by every CTA, so L2 traffic scales with
-// B*J / RM times the weight bytes. The design keeps RM = 8 rows per thread
-// tile to cut that traffic, and T = bf16 halves it. Tensor cores (mma /
-// wgmma) are the next step.
-#include "common.cuh"
+// What bounds it on the H100: the operations, ~4.7 MFMA per sample and
+// block (J = 17): 0.116 ms for six blocks at B = 2048 on bf16 tensor
+// cores; the bytes the function needs (x in, out) take 0.005 ms. Each CTA
+// reads a block's weight panels (0.56 MB in bf16) once through L2, so more
+// rows per CTA cut that traffic: ~1.7 GB per B = 2048 call at 68 rows a
+// CTA. One CTA fits an SM (~225 KB of shared memory, eleven warps in
+// bf16); the wrapper (nn/gat_trunk.py `launch_plan`) chooses G from B so
+// that the CTAs spread evenly over the SMs (B = 256: 128 CTAs of 2
+// samples). The kernel takes about 12 times its bound at B = 2048
+// (chip_smoke.py phase 7 prints it beside the bound;
+// tools/trunk_phases.py splits a CTA's cycles by phase): the products'
+// mma.sync and ldmatrix issue, a panel and a barrier at a time, and the
+// exact-erf GELU of the MLP's epilogues, the LayerNorms, the attention and
+// the constants' staging, which run between barriers with no products
+// beside them.
+#include "mma.cuh"
 
 namespace gator {
 namespace trunk {
@@ -35,11 +62,13 @@ constexpr int C3 = 384;   // qkv width
 constexpr int HID = 512;  // MLP hidden
 constexpr int C2 = 16;    // second XFeat ring width
 constexpr int CF = 144;   // XFeat concat width
-constexpr int HC = 256;   // MLP hidden chunk
-constexpr int NT = 512;   // threads per CTA
+constexpr int JMAX = 19;  // most joints a sample may have
+constexpr int NP = 64;    // columns of a weight panel
+constexpr int HC = 64;    // MLP hidden units per chunk
 
 // Field order of one block's packed weights; must match
-// gator_tpu_torch/nn/gat_trunk.py TRUNK_FIELDS.
+// gator_tpu_torch/nn/gat_trunk.py TRUNK_FIELDS. The kernel reads the
+// vectors and [J, *] tables from here; the matrices come as panels.
 enum Field {
   LN1_W, LN1_B, QKV_W, QKV_B, PROJ_W, PROJ_B,
   GCN_W0, GCN_W1, GCN_M, GCN_MDIAG, GCN_OFF, GCN_B,
@@ -47,214 +76,779 @@ enum Field {
   LN2_W, LN2_B, FC1_W, FC1_B, FC2_W, FC2_B, NFIELD
 };
 
+// A block's constants as staged in shared memory (f32): where each field
+// starts, in order; M and mdiag hold J rows of C.
+enum Konst {
+  K_LN1W = 0, K_LN1B = K_LN1W + C, K_QKVB = K_LN1B + C,
+  K_PROJB = K_QKVB + C3, K_GCNB = K_PROJB + C, K_X0B = K_GCNB + C,
+  K_X1B = K_X0B + C, K_BACKB = K_X1B + C2, K_LN2W = K_BACKB + C,
+  K_LN2B = K_LN2W + C, K_FC1B = K_LN2B + C, K_FC2B = K_FC1B + HID,
+  K_M = K_FC2B + C, K_MDIAG = K_M + JMAX * C, K_N = K_MDIAG + JMAX * C
+};
+
+// The tile and its shared memory, in bytes from the start. Row strides
+// are padded by 16 bytes (E elements of T; 4 floats for X) so that a
+// warp's fragment loads fall in distinct banks. Must match
+// nn/gat_trunk.py TILE_ROWS and smem_bytes.
 template <typename T>
-__global__ void __launch_bounds__(NT)
+struct Tile {
+  static constexpr int E = 16 / (int)sizeof(T);
+  static constexpr int MT = sizeof(T) == 2 ? 5 : 3;  // 16-row tiles
+  static constexpr int RT = 16 * MT;                 // token rows
+  // two warps per 16-row tile, then the warp that copies the panels
+  static constexpr int NT = 64 * MT + 32;
+  static constexpr int KP = sizeof(T) == 2 ? 64 : 32;  // panel depth
+  static constexpr int NSLOT = sizeof(T) == 2 ? 4 : 3;  // ring slots
+  static constexpr int LX = C + 4, LT = C + E, LP = C3 + E, LO = CF + E;
+  // ZF, the f32 sum that becomes z, sits in P past the T columns [0, ZC)
+  // that hold M * g1; later f1p sits at column ZC
+  static constexpr int ZC = C + E;
+  static constexpr int LZ = LP * (int)sizeof(T) / 4;
+  static constexpr int SLOT = KP * NP;  // elements of a panel
+  static constexpr int LJ = 32 + E;  // row stride of a [32, 32] table
+  // X: the residual stream (f32). Y: y, then z, then y2. P: qkv, then
+  // M * g1 | ZF, then f0p | f1p, then the MLP's chunk of hidden units. O:
+  // the attention output, then the ring sums f0 | f1. TAB (T): the two
+  // hop-ring masks, then the block's MGCN off-diagonal adjacency, each
+  // [J, J] zero-padded to [32, 32] (`mix`). KV (f32): the block's
+  // constants (`Konst`). HB (f32): the [H, J, J] hop/path bias.
+  static constexpr int XS = 0, YS = XS + RT * LX * 4,
+                       PS = YS + RT * LT * (int)sizeof(T),
+                       OS = PS + RT * LP * (int)sizeof(T),
+                       RING = OS + RT * LO * (int)sizeof(T),
+                       TAB = RING + NSLOT * SLOT * (int)sizeof(T),
+                       KV = TAB + 3 * 32 * LJ * (int)sizeof(T),
+                       HB = KV + K_N * 4, BYTES = HB + H * JMAX * JMAX * 4;
+  static_assert(BYTES <= 232448, "one CTA fits an SM");
+  static_assert(ZC * (int)sizeof(T) + 4 * C <= LP * (int)sizeof(T),
+                "P holds M * g1 and ZF side by side");
+  static_assert(C % KP == 0 && HC % KP == 0 && CF % 16 == 0,
+                "panels cover the products' depths");
+};
+
+// The products of a block in the order they run (depth K, width N); the
+// MLP follows them (`MLP_PANEL`).
+enum Prod { P_QKV, P_W1, P_PROJ, P_W0, P_X0, P_X1, P_BACK, NPROD };
+
+__host__ __device__ constexpr int prod_k(int k) { return k == P_BACK ? CF : C; }
+__host__ __device__ constexpr int prod_n(int k) {
+  return k == P_QKV ? C3 : k == P_X1 ? C2 : C;
+}
+// [KP, NP] panels of product k: its depth panels for each column panel
+__host__ __device__ constexpr int prod_panels(int k, int kp) {
+  return (prod_k(k) + kp - 1) / kp * ((prod_n(k) + NP - 1) / NP);
+}
+// the block's panel index of product k's first panel
+__host__ __device__ constexpr int prod_first(int k, int kp) {
+  return k == 0 ? 0 : prod_first(k - 1, kp) + prod_panels(k - 1, kp);
+}
+
+// The weight panels of the whole trunk, in the order the products take
+// them, block by block (nn/gat_trunk.py `pack_panels`): each a [KP, 64]
+// block of a weight matrix, zero past the matrix's edge, stored whole and
+// contiguous with the 16-byte pieces of row k permuted (`mma_panel`), so
+// that a copy is contiguous and the fragment loads fall in distinct banks.
+// They stream through NSLOT ring slots: while panel i is in use, panels
+// i + 1 .. i + NSLOT - 2 are in flight, across the products' ends and the
+// phases between them, so the ring never drains. The CTA's last warp
+// issues the copies (it owns no rows of the products, so the others go on
+// to their products at once); every thread takes part in every call.
+template <typename T>
+struct Ring {
+  using L = Tile<T>;
+  // MLP: per chunk of HC hidden units, fc1's depth panels, then fc2's for
+  // each of the two column halves
+  static constexpr int P1 = C / L::KP, P2 = HC / L::KP, PCH = P1 + 2 * P2;
+  static constexpr int MLP_PANEL = prod_first(NPROD, L::KP);
+  static constexpr int PER_BLOCK = MLP_PANEL + HID / HC * PCH;
+
+  T* buf;
+  const T* panels;
+  int total;   // panels of the trunk
+  int issued;  // panels issued so far
+
+  // the copying warp: copy the next panel into its slot (an empty group
+  // past the last)
+  __device__ void issue() {
+    if (threadIdx.x >= L::NT - 32) {
+      if (issued < total) {
+        constexpr int V = 16 / (int)sizeof(T);
+        T* dst = buf + (issued % L::NSLOT) * L::SLOT;
+        const T* src = panels + (size_t)issued * L::SLOT;
+        for (int i = (threadIdx.x & 31) * V; i < L::SLOT; i += 32 * V)
+          tc::cp_async16(dst + i, src + i);
+      }
+      tc::cp_async_commit();
+    }
+    ++issued;
+  }
+
+  __device__ void start() {
+    for (int i = 0; i < L::NSLOT - 1; ++i) issue();
+  }
+
+  // Panel i, once the copying warp's copies of it have landed; the
+  // barrier also frees panel i - 1's slot for panel i + NSLOT - 1 and makes
+  // what the previous phase wrote visible.
+  __device__ const T* acquire(int i) {
+    tc::cp_async_wait<L::NSLOT - 2>();
+    __syncthreads();
+    issue();
+    return buf + (i % L::NSLOT) * L::SLOT;
+  }
+};
+
+__device__ __forceinline__ void zero(float (&acc)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(tc::smem_addr(p)));
+}
+
+// A warp's 16 rows of a product's A operand: T in shared memory, lda
+// apart (rows 16-byte aligned), from row m0.
+template <typename T>
+struct ARows {
+  const T* a;
+  int lda, m0;
+};
+
+// acc[j] += A[m0:m0+16, k0:k0+KD] @ S[0:KD, n0+8j:n0+8j+8] for
+// n0 + 8j < nw, on the tensor cores (one warp; the sum over the depth in a
+// fixed order); S: a ring slot. bf16: each 16-deep step loads A's
+// fragment with one ldmatrix and B's for two column tiles with one more, a
+// step ahead of their products (the asm statements keep their order, so
+// the source sets the schedule); the eight 16-byte pieces of slot row k
+// sit at piece ^ (k & 7).
+template <int KD>
+__device__ __forceinline__ void mma_panel(float (&acc)[4][4],
+                                          const ARows<__nv_bfloat16>& ar,
+                                          int k0, const __nv_bfloat16* S,
+                                          int n0, int nw) {
+  if (n0 >= nw) return;
+  const int lane = threadIdx.x & 31, k = lane & 15, sw = lane & 7;
+  const __nv_bfloat16* pa =
+      ar.a + (ar.m0 + k) * ar.lda + k0 + (lane >> 4) * 8;
+  const int piece = n0 / 8 + (lane >> 4);
+  const __nv_bfloat16* pb[2] = {S + k * NP + ((piece ^ sw) << 3),
+                                S + k * NP + (((piece + 2) ^ sw) << 3)};
+  const bool two = n0 + 16 < nw;  // both column pairs (else the first)
+  uint32_t a[2][4], b[2][2][4];
+  auto load = [&](int st, int kk) {
+    ldsm_x4(a[st], pa + kk);
+    tc::ldsm_x4_trans(b[st][0], pb[0] + kk * NP);
+    if (two) tc::ldsm_x4_trans(b[st][1], pb[1] + kk * NP);
+  };
+  load(0, 0);
+#pragma unroll
+  for (int ks = 0; ks < KD / 16; ++ks) {
+    const int st = ks & 1;
+    if (ks + 1 < KD / 16) load(st ^ 1, (ks + 1) * 16);
+#pragma unroll
+    for (int jp = 0; jp < 2; ++jp) {
+      if (jp == 1 && !two) continue;
+      const uint32_t b0[2] = {b[st][jp][0], b[st][jp][1]},
+                     b1[2] = {b[st][jp][2], b[st][jp][3]};
+      tc::mma_bf16(acc[2 * jp], a[st], b0);
+      tc::mma_bf16(acc[2 * jp + 1], a[st], b1);
+    }
+  }
+}
+
+// element (k, n) of an f32 ring slot, whose sixteen 16-byte pieces of row
+// k sit at piece ^ ((k & 7) << 1)
+struct SlotF32 {
+  const float* p;
+  __device__ __forceinline__ float operator()(int k, int n) const {
+    return p[k * NP + (((n >> 2) ^ ((k & 7) << 1)) << 2) + (n & 3)];
+  }
+};
+
+// f32: the 3xTF32 products of mma.cuh, fragments read element by element
+template <int KD>
+__device__ __forceinline__ void mma_panel(float (&acc)[4][4],
+                                          const ARows<float>& ar, int k0,
+                                          const float* S, int n0, int nw) {
+  using P = tc::Mma<float>;
+  const tc::RowMajor<float> fa{ar.a + k0, ar.lda};
+  const SlotF32 fb{S};
+#pragma unroll
+  for (int kk = 0; kk < KD; kk += P::KS) {
+    const P::A a = P::load_a(fa, ar.m0, kk);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (n0 + 8 * j < nw) P::mma(acc[j], a, P::load_b(fb, kk, n0 + 8 * j));
+  }
+}
+
+// the warp's sums to out(row, col, v, v') for columns col, col + 1
+template <class Out>
+__device__ __forceinline__ void emit(const float (&acc)[4][4], int m0,
+                                     int n0, int nw, int c0, Out out) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (n0 + 8 * j >= nw) continue;
+    const int n = c0 + n0 + 8 * j + 2 * t;
+    out(m0 + g, n, acc[j][0], acc[j][1]);
+    out(m0 + g + 8, n, acc[j][2], acc[j][3]);
+  }
+}
+
+// out(r, n, v, v') with (v, v') = (A @ W)[r, n:n+2] for the rows of the
+// tile's mt 16-row tiles and even n < N, W the weight of product PK of
+// block blk: A [*, K] T in shared memory (lda apart). Ends with a barrier:
+// the outputs are then visible.
+template <typename T, int PK, class Out>
+__device__ void product(Ring<T>& ring, int blk, int mt, const T* A, int lda,
+                        Out out) {
+  constexpr int KP = Tile<T>::KP, K = prod_k(PK), N = prod_n(PK);
+  constexpr int NK = (K + KP - 1) / KP, NN = (N + NP - 1) / NP;
+  const int warp = threadIdx.x >> 5;
+  const int m0 = (warp >> 1) * 16, n0 = (warp & 1) * 32;
+  const bool active = m0 < 16 * mt;
+  int i = blk * Ring<T>::PER_BLOCK + prod_first(PK, KP);
+  const ARows<T> ar{A, lda, m0};
+  float acc[4][4];
+  for (int nb = 0; nb < NN; ++nb) {
+    const int nw = min(NP, N - nb * NP);
+#pragma unroll
+    for (int kb = 0; kb < NK; ++kb) {
+      const T* s = ring.acquire(i++);
+      if (!active) continue;
+      if (kb == 0) zero(acc);
+      if (K - kb * KP >= KP)
+        mma_panel<KP>(acc, ar, kb * KP, s, n0, nw);
+      else
+        mma_panel<16>(acc, ar, kb * KP, s, n0, nw);
+      if (kb == NK - 1) emit(acc, m0, n0, nw, nb * NP, out);
+    }
+  }
+  __syncthreads();
+}
+
+// A sample's rows of a T buffer (ld apart) as an mma B operand: element
+// (k, n) is row k, column n; rows past `last` repeat it (their weights in
+// the A operand are zero, and the repeated rows are finite).
+template <typename T>
+struct SampleRows {
+  static constexpr tc::Layout kLayout =
+      sizeof(T) == 2 ? tc::kRowMajor : tc::kNone;
+  const T* p;
+  int ld, last;
+  __device__ __forceinline__ const T* ptr(int i, int j) const {
+    return p + min(i, last) * ld + j;
+  }
+  __device__ __forceinline__ float operator()(int i, int j) const {
+    return Num<T>::to_float(*ptr(i, j));
+  }
+};
+
+// The per-sample J x J mix on the tensor cores: out(r, c, v, v') with
+// (v, v') = (A @ S_g)[n, c:c+2] for each of the tile's ns samples g, joint
+// n < J (r = g * J + n) and even column c < N, where A is a [J, J] table
+// zero-padded to [32, 32] in `tab` (LJ apart) and S_g the sample's J rows
+// of src (ld apart). A warp takes one (sample, 16-row tile, 32 columns) at
+// a time; the depth runs over the first J of 32 (A is zero past J).
+template <typename T, class Out>
+__device__ __forceinline__ void mix(const T* tab, const T* src, int ld,
+                                    int N, int ns, int J, Out out) {
+  using P = tc::Mma<T>;
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int ncg = (N + 31) / 32;
+  const tc::RowMajor<T> fa{tab, Tile<T>::LJ};
+  for (int it = warp; it < ns * 2 * ncg; it += Tile<T>::NT / 32) {
+    const int smp = it / (2 * ncg), m0 = (it / ncg) % 2 * 16;
+    const int n0 = it % ncg * 32;
+    if (m0 >= J) continue;
+    const SampleRows<T> fb{src + smp * J * ld, ld, J - 1};
+    float acc[4][4];
+    zero(acc);
+    for (int k0 = 0; k0 < J; k0 += P::KS) {
+      const typename P::A a = P::load_a(fa, m0, k0);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (n0 + 8 * j < N) P::mma(acc[j], a, P::load_b(fb, k0, n0 + 8 * j));
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (n0 + 8 * j >= N) continue;
+      const int c = n0 + 8 * j + 2 * t;
+      if (m0 + g < J) out(smp * J + m0 + g, c, acc[j][0], acc[j][1]);
+      if (m0 + g + 8 < J) out(smp * J + m0 + g + 8, c, acc[j][2], acc[j][3]);
+    }
+  }
+}
+
+// sixteen consecutive values of T (16-byte aligned) as f32
+__device__ __forceinline__ void load16(const float* p, float (&v)[16]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 u = reinterpret_cast<const float4*>(p)[i];
+    v[4 * i] = u.x;
+    v[4 * i + 1] = u.y;
+    v[4 * i + 2] = u.z;
+    v[4 * i + 3] = u.w;
+  }
+}
+
+__device__ __forceinline__ void load16(const __nv_bfloat16* p,
+                                       float (&v)[16]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const uint4 u = reinterpret_cast<const uint4*>(p)[i];
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      __nv_bfloat162 b;
+      memcpy(&b, &w[k], sizeof(b));
+      const float2 f = __bfloat1622float2(b);
+      v[8 * i + 2 * k] = f.x;
+      v[8 * i + 2 * k + 1] = f.y;
+    }
+  }
+}
+
+// Per-sample attention with the hop/path bias (f32), one thread per (head,
+// row) of the tile's `rows` (zeros past the R real ones): the J scores of
+// the row are formed once and kept in registers, then o = prob @ v.
+template <typename T>
+__device__ __forceinline__ void attention(const T* P, T* O,
+                                          const float* bias, int R, int rows,
+                                          int J) {
+  using L = Tile<T>;
+  for (int task = threadIdx.x; task < H * rows; task += L::NT) {
+    const int h = task / rows, r = task % rows;
+    float o[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) o[d] = 0.0f;
+    if (r < R) {
+      const int g = r / J, n = r % J;
+      float q[D];
+      load16(P + r * L::LP + h * D, q);
+      const T* kb = P + g * J * L::LP + C + h * D;
+      const T* vb = kb + C;
+      const float* brow = bias + (h * J + n) * J;
+      float s[JMAX];
+      float mx = -CUDART_INF_F;
+#pragma unroll
+      for (int m = 0; m < JMAX; ++m) {
+        if (m < J) {
+          float k[D];
+          load16(kb + m * L::LP, k);
+          float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+          for (int d = 0; d < D; ++d) a[d & 3] = fmaf(q[d], k[d], a[d & 3]);
+          s[m] = ((a[0] + a[1]) + (a[2] + a[3])) * 0.25f + brow[m];
+          mx = fmaxf(mx, s[m]);
+        }
+      }
+      float sum = 0.0f;
+#pragma unroll
+      for (int m = 0; m < JMAX; ++m) {
+        if (m < J) {
+          s[m] = expf(s[m] - mx);
+          sum += s[m];
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < JMAX; ++m) {
+        if (m < J) {
+          const float pr = rnd<T>(s[m] / sum);
+          float v[D];
+          load16(vb + m * L::LP, v);
+#pragma unroll
+          for (int d = 0; d < D; ++d) o[d] = fmaf(pr, v[d], o[d]);
+        }
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < D; d += 2)
+      st2(O + r * L::LO + h * D + d, o[d], o[d + 1]);
+  }
+}
+
+// bf16: the same on the tensor cores, one warp per (sample, head, 16-row
+// tile): S = q k^T for 32 keys (those past J masked), the row softmax
+// across each quad of lanes, the probabilities rounded to bf16 straight
+// into the A fragments of o = prob @ v. bias: the [H, J, J] hop/path bias
+// in shared memory. Rows and keys past J read the
+// sample's last row (finite; their probabilities are 0 or never stored).
+__device__ __forceinline__ void attention_tc(const __nv_bfloat16* P,
+                                             __nv_bfloat16* O,
+                                             const float* bias, int ns,
+                                             int J) {
+  using L = Tile<__nv_bfloat16>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  for (int it = warp; it < ns * H * 2; it += L::NT / 32) {
+    const int smp = it / (2 * H), h = it / 2 % H, m0 = it % 2 * 16;
+    if (m0 >= J) continue;
+    const __nv_bfloat16* base = P + smp * J * L::LP + h * D;
+    uint32_t qa[4];
+    ldsm_x4(qa, base + min(m0 + (lane & 15), J - 1) * L::LP + (lane >> 4) * 8);
+    float sc[4][4];
+    zero(sc);
+#pragma unroll
+    for (int jp = 0; jp < 2; ++jp) {
+      uint32_t kb[4];
+      const int key = jp * 16 + (lane >> 4) * 8 + (lane & 7);
+      ldsm_x4(kb, base + min(key, J - 1) * L::LP + C + ((lane >> 3) & 1) * 8);
+      const uint32_t b0[2] = {kb[0], kb[1]}, b1[2] = {kb[2], kb[3]};
+      tc::mma_bf16(sc[2 * jp], qa, b0);
+      tc::mma_bf16(sc[2 * jp + 1], qa, b1);
+    }
+    // rows m0 + g (u = 0) and m0 + g + 8 (u = 1): scale, bias, softmax
+    float inv[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const float* brow = bias + (h * J + min(m0 + g + 8 * u, J - 1)) * J;
+      float mx = -CUDART_INF_F;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = 8 * j + 2 * t + e;
+          float& v = sc[j][2 * u + e];
+          v = key < J ? v * 0.25f + brow[key] : -CUDART_INF_F;
+          mx = fmaxf(mx, v);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& v = sc[j][2 * u + e];
+          v = expf(v - mx);
+          sum += v;
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      inv[u] = 1.0f / sum;
+    }
+    float o[2][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const float* lo = sc[2 * kk];
+      const float* hi = sc[2 * kk + 1];
+      const uint32_t pa[4] = {
+          tc::pack_bf16(lo[0] * inv[0], lo[1] * inv[0]),
+          tc::pack_bf16(lo[2] * inv[1], lo[3] * inv[1]),
+          tc::pack_bf16(hi[0] * inv[0], hi[1] * inv[0]),
+          tc::pack_bf16(hi[2] * inv[1], hi[3] * inv[1])};
+      uint32_t vb[4];
+      tc::ldsm_x4_trans(vb, base + min(kk * 16 + (lane & 15), J - 1) * L::LP +
+                                2 * C + (lane >> 4) * 8);
+      const uint32_t b0[2] = {vb[0], vb[1]}, b1[2] = {vb[2], vb[3]};
+      tc::mma_bf16(o[0], pa, b0);
+      tc::mma_bf16(o[1], pa, b1);
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int n = m0 + g + 8 * u;
+      if (n >= J) continue;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        st2(O + (smp * J + n) * L::LO + h * D + 8 * j + 2 * t, o[j][2 * u],
+            o[j][2 * u + 1]);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(Tile<T>::NT, 1)
     gat_trunk_kernel(const T* __restrict__ x, const float* __restrict__ bias,
                      const float* __restrict__ masks,
                      const T* __restrict__ weights,
                      const int* __restrict__ offs, long long wstride,
-                     int nblk, T* __restrict__ out, int B, int J, int G) {
-  extern __shared__ __align__(16) float smem[];
-  const int rp = round_up(G * J, RM);
-  float* X = smem;           // [rp, C]   residual stream
-  float* Y = X + rp * C;     // [rp, CF]  LN outputs, XFeat ring sums
-  float* Q = Y + rp * CF;    // [rp, C3]  qkv | attn,h0,h1 | f0,f1 | hidden
-  float* A = Q + rp * C3;    // [rp, C]   attention output, then z
-  float* sb = A + rp * C;    // [H, J, J] hop/path bias
-  float* sm = sb + H * J * J;  // [2, J, J] XFeat ring masks
+                     const T* __restrict__ panels, int nblk,
+                     T* __restrict__ out, int B, int J, int G) {
+  using L = Tile<T>;
+  using N = Num<T>;
+  extern __shared__ __align__(16) unsigned char sm[];
+  float* X = at<float>(sm, L::XS);
+  T* Y = at<T>(sm, L::YS);
+  T* P = at<T>(sm, L::PS);
+  float* ZF = at<float>(sm, L::PS + L::ZC * (int)sizeof(T));
+  T* O = at<T>(sm, L::OS);
+  T* TAB = at<T>(sm, L::TAB);  // hop-ring masks 0 and 1, MGCN adj_off
+  T* OFFT = TAB + 2 * 32 * L::LJ;
+  float* KV = at<float>(sm, L::KV);
+  float* HB = at<float>(sm, L::HB);
+  Ring<T> ring{at<T>(sm, L::RING), panels, nblk * Ring<T>::PER_BLOCK, 0};
+  ring.start();
 
   const int s0 = blockIdx.x * G;
   const int R = min(G, B - s0) * J;  // real token rows of this CTA
+  const int mt = (R + 15) / 16, rows = 16 * mt;
   const int tid = threadIdx.x;
-  const float scale = rsqrtf((float)D);
+  const int warp = tid >> 5, m0 = (warp >> 1) * 16, n0 = (warp & 1) * 32;
+  const bool active = m0 < rows;
 
-  for (int i = tid; i < H * J * J; i += NT) sb[i] = bias[i];
-  for (int i = tid; i < 2 * J * J; i += NT) sm[i] = masks[i];
   const T* xin = x + (size_t)s0 * J * C;
-  for (int i = tid; i < R * C; i += NT) X[i] = Num<T>::to_float(xin[i]);
-  __syncthreads();
+  for (int i = tid; i < rows * C / 2; i += L::NT) {
+    const int r = i / (C / 2), c = i % (C / 2) * 2;
+    const float2 v = r < R ? ld2(xin + r * C + c) : make_float2(0.0f, 0.0f);
+    X[r * L::LX + c] = v.x;
+    X[r * L::LX + c + 1] = v.y;
+  }
+  for (int i = tid; i < H * J * J; i += L::NT) HB[i] = bias[i];
+  // the padding rows of O stay zero (the attention and the ring sums
+  // write the real rows only)
+  for (int i = R * L::LO + tid; i < rows * L::LO; i += L::NT)
+    O[i] = N::from_float(0.0f);
+  for (int i = tid; i < 3 * 32 * L::LJ; i += L::NT) {
+    const int tb = i / (32 * L::LJ), n = i / L::LJ % 32, m = i % L::LJ;
+    TAB[i] = N::from_float(tb < 2 && n < J && m < J
+                               ? masks[(tb * J + n) * J + m]
+                               : 0.0f);
+  }
 
   for (int blk = 0; blk < nblk; ++blk) {
+    // the block's constants into KV (f32) and its adj_off into OFFT, field
+    // by field, each thread's loads all independent
     const T* p = weights + blk * wstride;
-    const T* ln1_w = p + offs[LN1_W];
-    const T* ln1_b = p + offs[LN1_B];
-    const T* qkv_b = p + offs[QKV_B];
-    const T* proj_b = p + offs[PROJ_B];
-    const T* gcn_m = p + offs[GCN_M];
-    const T* gcn_mdiag = p + offs[GCN_MDIAG];
-    const T* gcn_off = p + offs[GCN_OFF];
-    const T* gcn_b = p + offs[GCN_B];
-    const T* x0_b = p + offs[X0_B];
-    const T* x1_b = p + offs[X1_B];
-    const T* back_b = p + offs[BACK_B];
-    const T* fc1_b = p + offs[FC1_B];
-    const T* fc2_b = p + offs[FC2_B];
+    {
+      constexpr int NF = 15;
+      constexpr int src[NF] = {LN1_W, LN1_B, QKV_B, PROJ_B, GCN_B, X0_B,
+                               X1_B, BACK_B, LN2_W, LN2_B, FC1_B, FC2_B,
+                               GCN_M, GCN_MDIAG, GCN_OFF};
+      constexpr int dst[NF] = {K_LN1W, K_LN1B, K_QKVB, K_PROJB, K_GCNB,
+                               K_X0B, K_X1B, K_BACKB, K_LN2W, K_LN2B,
+                               K_FC1B, K_FC2B, K_M, K_MDIAG, 0};
+      constexpr int most[NF] = {C, C, C3, C, C, C, C2, C, C, C, HID, C,
+                                JMAX * C, JMAX * C, JMAX * JMAX};
+#pragma unroll
+      for (int f = 0; f < NF; ++f) {
+        const int n = f < 12 ? most[f] : f < 14 ? J * C : J * J;
+        const T* from = p + offs[src[f]];
+#pragma unroll
+        for (int k = 0; k < (most[f] + L::NT - 1) / L::NT; ++k) {
+          const int i = tid + k * L::NT;
+          if (i >= n) continue;
+          const float v = ld(from + i);
+          if (f < NF - 1)
+            KV[dst[f] + i] = v;
+          else
+            OFFT[i / J * L::LJ + i % J] = N::from_float(v);
+        }
+      }
+    }
+    __syncthreads();
+    auto kv2 = [&](int at) {
+      return *reinterpret_cast<const float2*>(KV + at);
+    };
 
     // y = LN1(x)
-    layer_norm_rows<C>(X, C, R, ln1_w, ln1_b, 1e-5f, false,
-                       [&](int r, int c, float v) { Y[r * CF + c] = rnd<T>(v); });
-    __syncthreads();
+    layer_norm_rows<C>(X, L::LX, rows, KV + K_LN1W, KV + K_LN1B, 1e-5f,
+                       false, [&](int r, int c, float v) {
+                         Y[r * L::LT + c] = N::from_float(v);
+                       });
 
-    // qkv = y @ Wqkv + b
-    gemm<T>(Y, CF, R, C, p + offs[QKV_W], C3, C3, [&](int r, int c, float v) {
-      Q[r * C3 + c] = rnd<T>(v + ld(qkv_b + c));
-    });
-    __syncthreads();
+    // qkv = y @ Wqkv + b, rounded
+    product<T, P_QKV>(ring, blk, mt, Y, L::LT,
+               [&](int r, int n, float v0, float v1) {
+                 const float2 b = kv2(K_QKVB + n);
+                 st2(P + r * L::LP + n, v0 + b.x, v1 + b.y);
+               });
 
-    // per-sample attention with the hop/path bias; one thread per
-    // (head, query row); two passes over the J keys (max/sum, then the
-    // rounded probabilities times v)
-    for (int task = tid; task < H * R; task += NT) {
-      const int h = task / R;
-      const int r = task % R;
-      const int g = r / J;
-      const int n = r % J;
-      float q[D];
+    // o = softmax(q k^T / 4 + bias) v, per sample and head
+    if constexpr (std::is_same_v<T, __nv_bfloat16>)
+      attention_tc(P, O, HB, R / J, J);
+    else
+      attention<T>(P, O, HB, R, rows, J);
+
+    // MGCN: M * g1 with g1 = y @ W1 (rounded) over the dead q
+    product<T, P_W1>(ring, blk, mt, Y, L::LT,
+               [&](int r, int c, float v0, float v1) {
+                 const float2 m = kv2(K_M + (r % J) * C + c);
+                 st2(P + r * L::LP + c, v0 * m.x, v1 * m.y);
+               });
+    // ZF = attn = rounded o @ Wproj + b (over the dead k, v)
+    product<T, P_PROJ>(ring, blk, mt, O, L::LO,
+               [&](int r, int c, float v0, float v1) {
+                 const float2 b = kv2(K_PROJB + c);
+                 ZF[r * L::LZ + c] = rnd<T>(v0 + b.x);
+                 ZF[r * L::LZ + c + 1] = rnd<T>(v1 + b.y);
+               });
+    // ZF += mdiag * g0 with g0 = y @ W0 (f32)
+    product<T, P_W0>(ring, blk, mt, Y, L::LT,
+               [&](int r, int c, float v0, float v1) {
+                 const float2 m = kv2(K_MDIAG + (r % J) * C + c);
+                 ZF[r * L::LZ + c] += m.x * v0;
+                 ZF[r * L::LZ + c + 1] += m.y * v1;
+               });
+    // z = ZF + adj_off @ (M * g1) + b, rounded, per sample (over the dead
+    // y)
+    mix<T>(OFFT, P, L::LP, C, R / J, J,
+           [&](int r, int c, float v0, float v1) {
+             const float2 b = kv2(K_GCNB + c);
+             st2(Y + r * L::LT + c, ZF[r * L::LZ + c] + v0 + b.x,
+                 ZF[r * L::LZ + c + 1] + v1 + b.y);
+           });
+
+    // XFeat ring projections: f0p -> P[:, 0:C], f1p -> P[:, ZC:ZC+C2]
+    product<T, P_X0>(ring, blk, mt, Y, L::LT,
+               [&](int r, int c, float v0, float v1) {
+                 const float2 b = kv2(K_X0B + c);
+                 st2(P + r * L::LP + c, v0 + b.x, v1 + b.y);
+               });
+    product<T, P_X1>(ring, blk, mt, Y, L::LT,
+               [&](int r, int c, float v0, float v1) {
+                 const float2 b = kv2(K_X1B + c);
+                 st2(P + r * L::LP + L::ZC + c, v0 + b.x, v1 + b.y);
+               });
+    // ring sums over each sample's hop masks -> O[:, 0:CF] (o is dead)
+    mix<T>(TAB, P, L::LP, C, R / J, J,
+           [&](int r, int c, float v0, float v1) {
+             st2(O + r * L::LO + c, v0, v1);
+           });
+    mix<T>(TAB + 32 * L::LJ, P + L::ZC, L::LP, C2, R / J, J,
+           [&](int r, int c, float v0, float v1) {
+             st2(O + r * L::LO + C + c, v0, v1);
+           });
+
+    // x += [f0, f1] @ Wback + b
+    product<T, P_BACK>(ring, blk, mt, O, L::LO,
+               [&](int r, int c, float v0, float v1) {
+                 const float2 b = kv2(K_BACKB + c);
+                 X[r * L::LX + c] += v0 + b.x;
+                 X[r * L::LX + c + 1] += v1 + b.y;
+               });
+
+    // x += fc2(gelu(fc1(LN2(x)))): per chunk of HC hidden units, fc1's
+    // panels (depth C) into the chunk (over the dead f0p), then fc2's
+    // (depth HC) for both column halves into acc2a / acc2b
+    layer_norm_rows<C>(X, L::LX, rows, KV + K_LN2W, KV + K_LN2B, 1e-5f,
+                       false, [&](int r, int c, float v) {
+                         Y[r * L::LT + c] = N::from_float(v);
+                       });
+    constexpr int P1 = Ring<T>::P1, P2 = Ring<T>::P2;
+    int i = blk * Ring<T>::PER_BLOCK + Ring<T>::MLP_PANEL;
+    const ARows<T> ay{Y, L::LT, m0}, ah{P, L::LP, m0};  // y2, the chunk
+    float acc1[4][4], acc2a[4][4], acc2b[4][4];
+    zero(acc2a);
+    zero(acc2b);
+    for (int hc = 0; hc < HID / HC; ++hc) {
 #pragma unroll
-      for (int d = 0; d < D; ++d) q[d] = Q[r * C3 + h * D + d];
-      const float* kb = Q + g * J * C3 + C + h * D;
-      const float* vb = Q + g * J * C3 + 2 * C + h * D;
-      const float* brow = sb + (h * J + n) * J;
-      float mx = -CUDART_INF_F;
-      for (int m = 0; m < J; ++m) {
-        float s = 0.0f;
-#pragma unroll
-        for (int d = 0; d < D; ++d) s = fmaf(q[d], kb[m * C3 + d], s);
-        mx = fmaxf(mx, s * scale + brow[m]);
+      for (int q = 0; q < P1; ++q) {
+        const T* s = ring.acquire(i++);
+        if (!active) continue;
+        if (q == 0) zero(acc1);
+        mma_panel<L::KP>(acc1, ay, q * L::KP, s, n0, NP);
+        if (q == P1 - 1)
+          emit(acc1, m0, n0, NP, 0, [&](int r, int c, float v0, float v1) {
+            const float2 b = kv2(K_FC1B + hc * HC + c);
+            st2(P + r * L::LP + c, gelu_exact(v0 + b.x),
+                gelu_exact(v1 + b.y));
+          });
       }
-      float sum = 0.0f;
-      for (int m = 0; m < J; ++m) {
-        float s = 0.0f;
 #pragma unroll
-        for (int d = 0; d < D; ++d) s = fmaf(q[d], kb[m * C3 + d], s);
-        sum += expf(s * scale + brow[m] - mx);
-      }
-      const float inv = 1.0f / sum;
-      float o[D];
+      for (int half = 0; half < 2; ++half)
 #pragma unroll
-      for (int d = 0; d < D; ++d) o[d] = 0.0f;
-      for (int m = 0; m < J; ++m) {
-        float s = 0.0f;
-#pragma unroll
-        for (int d = 0; d < D; ++d) s = fmaf(q[d], kb[m * C3 + d], s);
-        const float pr = rnd<T>(expf(s * scale + brow[m] - mx) * inv);
-#pragma unroll
-        for (int d = 0; d < D; ++d) o[d] = fmaf(pr, vb[m * C3 + d], o[d]);
-      }
-#pragma unroll
-      for (int d = 0; d < D; ++d) A[r * C + h * D + d] = rnd<T>(o[d]);
+        for (int kq = 0; kq < P2; ++kq) {
+          const T* s = ring.acquire(i++);
+          if (!active) continue;
+          mma_panel<L::KP>(half == 0 ? acc2a : acc2b, ah, kq * L::KP, s, n0,
+                           NP);
+        }
+    }
+    if (active) {
+      auto add = [&](int r, int c, float v0, float v1) {
+        const float2 b = kv2(K_FC2B + c);
+        X[r * L::LX + c] += v0 + b.x;
+        X[r * L::LX + c + 1] += v1 + b.y;
+      };
+      emit(acc2a, m0, n0, NP, 0, add);
+      emit(acc2b, m0, n0, NP, NP, add);
     }
     __syncthreads();
-
-    // attn = o @ Wproj + b -> Q[:, 0:C]; MGCN branches h0 -> Q[:, C:2C],
-    // M * h1 -> Q[:, 2C:3C] (three products with disjoint outputs)
-    gemm<T>(A, C, R, C, p + offs[PROJ_W], C, C, [&](int r, int c, float v) {
-      Q[r * C3 + c] = rnd<T>(v + ld(proj_b + c));
-    });
-    gemm<T>(Y, CF, R, C, p + offs[GCN_W0], C, C,
-            [&](int r, int c, float v) { Q[r * C3 + C + c] = v; });
-    gemm<T>(Y, CF, R, C, p + offs[GCN_W1], C, C, [&](int r, int c, float v) {
-      Q[r * C3 + 2 * C + c] = rnd<T>(v * ld(gcn_m + (r % J) * C + c));
-    });
-    __syncthreads();
-
-    // z = attn + mdiag * h0 + adj_off @ (M * h1) + b   (per sample)
-    for (int i = tid; i < R * C; i += NT) {
-      const int r = i / C;
-      const int c = i % C;
-      const int g = r / J;
-      const int n = r % J;
-      float acc = Q[r * C3 + C + c] * ld(gcn_mdiag + n * C + c);
-      const float* h1 = Q + g * J * C3 + 2 * C + c;
-      const T* off = gcn_off + n * J;
-      for (int m = 0; m < J; ++m) acc = fmaf(ld(off + m), h1[m * C3], acc);
-      A[i] = rnd<T>(Q[r * C3 + c] + acc + ld(gcn_b + c));
-    }
-    __syncthreads();
-
-    // XFeat ring projections: f0 -> Q[:, 0:C], f1 -> Q[:, C:CF]
-    gemm<T>(A, C, R, C, p + offs[X0_W], C, C, [&](int r, int c, float v) {
-      Q[r * C3 + c] = rnd<T>(v + ld(x0_b + c));
-    });
-    gemm<T>(A, C, R, C, p + offs[X1_W], C2, C2, [&](int r, int c, float v) {
-      Q[r * C3 + C + c] = rnd<T>(v + ld(x1_b + c));
-    });
-    __syncthreads();
-
-    // ring sums over each sample's hop masks -> Y[:, 0:CF]
-    for (int i = tid; i < R * CF; i += NT) {
-      const int r = i / CF;
-      const int c = i % CF;
-      const int g = r / J;
-      const int n = r % J;
-      const float* mrow = sm + ((c < C ? 0 : 1) * J + n) * J;
-      const float* f = Q + g * J * C3 + c;
-      float acc = 0.0f;
-      for (int m = 0; m < J; ++m) acc = fmaf(mrow[m], f[m * C3], acc);
-      Y[r * CF + c] = rnd<T>(acc);
-    }
-    __syncthreads();
-
-    // x += [ring0, ring1] @ Wback + b
-    gemm<T>(Y, CF, R, CF, p + offs[BACK_W], C, C, [&](int r, int c, float v) {
-      X[r * C + c] += v + ld(back_b + c);
-    });
-    __syncthreads();
-
-    // x += fc2(gelu(fc1(LN2(x)))), the hidden layer in chunks of HC
-    layer_norm_rows<C>(X, C, R, p + offs[LN2_W], p + offs[LN2_B], 1e-5f, false,
-                       [&](int r, int c, float v) { Y[r * CF + c] = rnd<T>(v); });
-    __syncthreads();
-    for (int hc = 0; hc < HID; hc += HC) {
-      gemm<T>(Y, CF, R, C, p + offs[FC1_W] + hc, HID, HC,
-              [&](int r, int c, float v) {
-                Q[r * C3 + c] = rnd<T>(gelu_exact(v + ld(fc1_b + hc + c)));
-              });
-      __syncthreads();
-      gemm<T>(Q, C3, R, HC, p + offs[FC2_W] + hc * C, C, C,
-              [&](int r, int c, float v) {
-                X[r * C + c] += v + (hc == 0 ? ld(fc2_b + c) : 0.0f);
-              });
-      __syncthreads();
-    }
   }
 
   T* xo = out + (size_t)s0 * J * C;
-  for (int i = tid; i < R * C; i += NT) xo[i] = Num<T>::from_float(X[i]);
+  for (int i = tid; i < R * C / 2; i += L::NT) {
+    const int r = i / (C / 2), c = i % (C / 2) * 2;
+    st2(xo + r * C + c, X[r * L::LX + c], X[r * L::LX + c + 1]);
+  }
 }
 
 template <typename T>
 int launch(const void* x, const void* bias, const void* masks,
-           const void* weights, const void* offs, long long wstride, int nblk,
-           void* out, int B, int J, int G, int smem_bytes,
+           const void* weights, const void* offs, long long wstride,
+           const void* panels, int nblk, void* out, int B, int J, int G,
            cudaStream_t stream) {
   auto kern = gat_trunk_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<T>::BYTES);
   if (err != cudaSuccess) return (int)err;
   const int grid = (B + G - 1) / G;
-  kern<<<grid, NT, smem_bytes, stream>>>(
+  kern<<<grid, Tile<T>::NT, Tile<T>::BYTES, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(bias),
       static_cast<const float*>(masks), static_cast<const T*>(weights),
-      static_cast<const int*>(offs), wstride, nblk, static_cast<T*>(out), B,
-      J, G);
+      static_cast<const int*>(offs), wstride, static_cast<const T*>(panels),
+      nblk, static_cast<T*>(out), B, J, G);
   return (int)cudaGetLastError();
+}
+
+// what: 0 registers a thread, 1 CTAs resident per SM, 2 shared-memory
+// bytes, 3 token rows a tile, 4 threads a CTA, 5 weight panels a block,
+// 6 panel depth
+template <typename T>
+int info(int what) {
+  using L = Tile<T>;
+  if (what == 2) return L::BYTES;
+  if (what == 3) return L::RT;
+  if (what == 4) return L::NT;
+  if (what == 5) return Ring<T>::PER_BLOCK;
+  if (what == 6) return L::KP;
+  auto kern = gat_trunk_kernel<T>;
+  cudaFuncAttributes attr;
+  int per = 0;
+  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           L::BYTES) != cudaSuccess ||
+      cudaFuncGetAttributes(&attr, kern) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kern, L::NT,
+                                                    L::BYTES) != cudaSuccess)
+    return -1;
+  return what == 0 ? attr.numRegs : per;
 }
 
 }  // namespace trunk
 }  // namespace gator
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
+// dtype: 0 = float32, 1 = bfloat16. weights: the packed fields [nblk,
+// wstride] with their offsets `offs`; panels: the weight panels of every
+// block in the kernel's order (`gat_trunk_info(dtype, 5)` a block). G
+// samples per CTA (G * J at most the tile's rows, `gat_trunk_info(dtype,
+// 3)`). Returns the cudaError_t of the launch.
 extern "C" int gat_trunk_launch(int dtype, const void* x, const void* bias,
                                 const void* masks, const void* weights,
-                                const void* offs, long long wstride, int nblk,
-                                void* out, int B, int J, int G, int smem_bytes,
-                                void* stream) {
+                                const void* offs, long long wstride,
+                                const void* panels, int nblk, void* out,
+                                int B, int J, int G, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return gator::trunk::launch<float>(x, bias, masks, weights, offs, wstride,
-                                       nblk, out, B, J, G, smem_bytes, s);
+                                       panels, nblk, out, B, J, G, s);
   return gator::trunk::launch<__nv_bfloat16>(x, bias, masks, weights, offs,
-                                             wstride, nblk, out, B, J, G,
-                                             smem_bytes, s);
+                                             wstride, panels, nblk, out, B,
+                                             J, G, s);
+}
+
+// Registers a thread (what = 0), CTAs resident per SM (1), shared-memory
+// bytes (2), token rows a tile (3), threads a CTA (4), weight panels a
+// block (5) or panel depth (6) of the kernel for dtype (0 = float32, 1 =
+// bfloat16); -1 if the query fails.
+extern "C" int gat_trunk_info(int dtype, int what) {
+  if (dtype == 0) return gator::trunk::info<float>(what);
+  return gator::trunk::info<__nv_bfloat16>(what);
 }

@@ -7,11 +7,14 @@ block is gator_tpu/nn/pallas_gat.py:325 `gat_block_xla` (reference:
 lib/models/GAT.py:16-43).
 
 The trunk's weights are folded once per serving function by
-`fold_trunk_weights` into one packed tensor in the working dtype.
+`fold_trunk_weights` into one packed tensor in the working dtype, and the
+matrices also into the kernel's weight panels (`pack_panels`).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,24 +31,89 @@ TRUNK_FIELDS = (
     "x0_w", "x0_b", "x1_w", "x1_b", "back_w", "back_b",
     "ln2_w", "ln2_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b",
 )
+# The kernel's products in the order it runs them ([in, out] sizes; `enum
+# Prod`), then the MLP's fc1 / fc2 in chunks of MLP_CHUNK hidden units.
+PRODUCTS = (("qkv_w", 128, 384), ("gcn_w1", 128, 128), ("proj_w", 128, 128),
+            ("gcn_w0", 128, 128), ("x0_w", 128, 128), ("x1_w", 128, 16),
+            ("back_w", 144, 128))
+PANEL_COLS, MLP_CHUNK, HIDDEN = 64, 64, 512
 
 EMBED, HEADS, RING2 = 128, 8, 16
-# shared-memory floats per token row (X, Y, Q, A buffers of the kernel)
-_ROW_FLOATS = EMBED + (EMBED + RING2) + 3 * EMBED + EMBED
-_ROWS_MAX = 64
-_SMEM_MAX = 232448           # bytes of shared memory a CTA can use
+JOINTS_MAX = 19              # `JMAX` of the kernel
+# token rows of a CTA's tile (`Tile<T>::RT`): 5 and 3 tiles of 16 rows
+TILE_ROWS = {torch.bfloat16: 80, torch.float32: 48}
+SMEM_MAX = 232448            # bytes of shared memory a CTA can use
 
-_SIGNATURE = {"gat_trunk_launch": [ctypes.c_int] + [ctypes.c_void_p] * 5 + [
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4
-    + [ctypes.c_void_p]}
+_SIGNATURE = {
+    "gat_trunk_launch": [ctypes.c_int] + [ctypes.c_void_p] * 5 + [
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "gat_trunk_info": [ctypes.c_int, ctypes.c_int],
+}
 
 
-def fold_trunk_weights(blocks, dtype: torch.dtype, device) -> cuda_lib.Packed:
+@dataclasses.dataclass
+class TrunkWeights(cuda_lib.Packed):
+    """The trunk's packed fields (`gat_trunk_ref` reads them) and the same
+    matrices as the kernel's weight panels (`pack_panels`)."""
+
+    panels: torch.Tensor
+
+
+def panel_depth(dtype: torch.dtype) -> int:
+    """Rows of a weight panel (`Tile<T>::KP`): 64 in bf16, 32 in f32."""
+    return 64 if dtype == torch.bfloat16 else 32
+
+
+def panel_order(kp: int) -> List[Tuple[str, int, int]]:
+    """(matrix, first row, first column) of each [kp, 64] panel of a block
+    in the order the kernel takes them: each product's column panels, each
+    over its depth panels; then per chunk of MLP_CHUNK hidden units fc1's
+    depth panels and fc2's, column half by column half."""
+    order = []
+    for name, k, n in PRODUCTS:
+        for c0 in range(0, n, PANEL_COLS):
+            order += [(name, r0, c0) for r0 in range(0, k, kp)]
+    for h0 in range(0, HIDDEN, MLP_CHUNK):
+        order += [("fc1_w", r0, h0) for r0 in range(0, EMBED, kp)]
+        for c0 in range(0, EMBED, PANEL_COLS):
+            order += [("fc2_w", h0 + r0, c0)
+                      for r0 in range(0, MLP_CHUNK, kp)]
+    return order
+
+
+def pack_panels(layers, dtype: torch.dtype) -> torch.Tensor:
+    """Every block's matrices as the kernel's weight panels, in its order
+    (`panel_order`): each [kp, 64] block zero past its matrix's edge, with
+    the 16-byte pieces of row k permuted, piece j at j ^ (k & 7) in bf16 and
+    at j ^ ((k & 7) << 1) in f32, so that the kernel's fragment loads fall
+    in distinct banks. -> [blocks * panels * kp * 64] in `dtype`."""
+    kp = panel_depth(dtype)
+    per = 16 // torch.empty((), dtype=dtype).element_size()
+    pieces = PANEL_COLS // per
+    device = layers[0]["qkv_w"].device
+    k = torch.arange(kp, device=device)
+    swz = (k & 7) if dtype == torch.bfloat16 else (k & 7) << 1
+    where = torch.arange(pieces, device=device)[None, :] ^ swz[:, None]
+    out = []
+    for layer in layers:
+        for name, r0, c0 in panel_order(kp):
+            w = layer[name]
+            blk = w.new_zeros(kp, PANEL_COLS)
+            part = w[r0:r0 + kp, c0:c0 + PANEL_COLS]
+            blk[:part.shape[0], :part.shape[1]] = part
+            blk = blk.view(kp, pieces, per)
+            out.append(blk[k[:, None], where].reshape(-1))
+    return torch.cat(out)
+
+
+def fold_trunk_weights(blocks, dtype: torch.dtype, device) -> TrunkWeights:
     """Pack each `GATBlock`'s weights for the kernel: linear weights
     transposed to [in, out]; the MGCN adjacency symmetrised and split into
     its diagonal, folded into the modulation (mdiag = diag(adj) * M), and
     its off-diagonal part (as gator_tpu/nn/pallas_gat.py:59
-    `extract_block_params` and :112 `fold_trunk_params`)."""
+    `extract_block_params` and :112 `fold_trunk_params`); the matrices
+    also as the kernel's weight panels."""
     layers = []
     with torch.no_grad():
         for blk in blocks:
@@ -69,7 +137,9 @@ def fold_trunk_weights(blocks, dtype: torch.dtype, device) -> cuda_lib.Packed:
                 "fc1_w": blk.mlp.fc1.weight.T, "fc1_b": blk.mlp.fc1.bias,
                 "fc2_w": blk.mlp.fc2.weight.T, "fc2_b": blk.mlp.fc2.bias,
             })
-    return cuda_lib.pack(layers, TRUNK_FIELDS, dtype, device)
+    packed = cuda_lib.pack(layers, TRUNK_FIELDS, dtype, device)
+    return TrunkWeights(packed.flat, packed.offsets, packed.layers,
+                        pack_panels(packed.layers, dtype))
 
 
 def gat_trunk_ref(x: torch.Tensor, bias: torch.Tensor, masks: torch.Tensor,
@@ -111,22 +181,78 @@ def gat_trunk_ref(x: torch.Tensor, bias: torch.Tensor, masks: torch.Tensor,
     return x.to(dt)
 
 
-def samples_per_cta(j: int) -> int:
-    """Samples per CTA: as many as fit in 64 token rows and in shared
-    memory."""
-    g = max(1, _ROWS_MAX // j)
-    while g > 1 and smem_bytes(j, g) > _SMEM_MAX:
-        g -= 1
-    return g
+def smem_bytes(dtype: torch.dtype) -> int:
+    """Shared memory of one CTA (`Tile<T>::BYTES`): per token row the f32
+    residual stream X (C + 4 floats) and, in the working dtype T padded by
+    16 bytes, Y (C), P (3C) and O (C + 16); then the ring's slots (4 in
+    bf16, 3 in f32) of a [KP, 64] weight panel (`panel_depth`); three
+    [32, 32] tables in T, rows padded by 16 bytes (the hop-ring masks and
+    the MGCN off-diagonal adjacency, zero past J); and, in f32, a block's
+    constants (`enum Konst`: the biases and LayerNorm weights, M and
+    mdiag) and the [HEADS, JOINTS_MAX, JOINTS_MAX] hop/path bias."""
+    t = torch.empty((), dtype=dtype).element_size()
+    e = 16 // t
+    rows = TILE_ROWS[dtype]
+    kp, slots = panel_depth(dtype), (4 if t == 2 else 3)
+    per_row = (EMBED + 4) * 4 + t * (
+        (EMBED + e) + (3 * EMBED + e) + (EMBED + RING2 + e))
+    tables = 3 * 32 * (32 + e) * t
+    consts = 12 * EMBED + RING2 + HIDDEN + 2 * JOINTS_MAX * EMBED
+    bias = HEADS * JOINTS_MAX * JOINTS_MAX
+    return (rows * per_row + slots * kp * PANEL_COLS * t + tables
+            + 4 * (consts + bias))
 
 
-def smem_bytes(j: int, g: int) -> int:
-    rows = -(-g * j // 8) * 8
-    return 4 * (rows * _ROW_FLOATS + (HEADS + 2) * j * j)
+def samples_per_cta(j: int, dtype: torch.dtype) -> int:
+    """The most whole samples of j joints a CTA's tile holds."""
+    if not 1 <= j <= JOINTS_MAX:
+        raise ValueError(f"gat_trunk kernel takes 1..{JOINTS_MAX} joints, "
+                         f"got {j}")
+    return TILE_ROWS[dtype] // j
+
+
+def launch_plan(b: int, j: int, dtype: torch.dtype,
+                sms: int) -> Dict[str, int]:
+    """K1's grid for b samples of j joints on a card of `sms` SMs (one CTA
+    fits an SM): the fewest waves of CTAs the tile allows, then the fewest
+    samples per CTA (`g`) that keep that many waves, so that a small batch
+    spreads over the SMs (B = 256 at J = 17: 128 CTAs of 2 samples) and a
+    large one fills its last wave as far as it can."""
+    if b < 1:
+        raise ValueError(f"gat_trunk kernel needs a batch, got {b}")
+
+    def cdiv(n, d):
+        return -(-n // d)
+
+    waves = cdiv(cdiv(b, samples_per_cta(j, dtype)), sms)
+    g = cdiv(b, waves * sms)
+    return {"g": g, "ctas": cdiv(b, g), "waves": waves, "rows": g * j}
+
+
+_SMS: Dict[int, int] = {}
+
+
+def _sms(device: torch.device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def kernel_info(dtype: torch.dtype) -> Dict[str, int]:
+    """Registers a thread, CTAs resident per SM, shared-memory bytes, token
+    rows a tile, threads a CTA, weight panels a block and panel depth of
+    the K1 kernel for `dtype`, from the current card."""
+    lib = cuda_lib.load("gat_trunk", _SIGNATURE)
+    code = cuda_lib.kernel_dtype(dtype)
+    return {what: lib.gat_trunk_info(code, w) for w, what in enumerate(
+        ("registers", "ctas_per_sm", "smem_bytes", "rows", "threads",
+         "panels", "panel_depth"))}
 
 
 def gat_trunk_cuda(x: torch.Tensor, bias: torch.Tensor, masks: torch.Tensor,
-                   weights: cuda_lib.Packed) -> torch.Tensor:
+                   weights: TrunkWeights) -> torch.Tensor:
     """Launch csrc/gat_trunk.cu on CUDA tensors."""
     b, j, c = x.shape
     if c != EMBED or bias.shape != (HEADS, j, j) or masks.shape != (2, j, j):
@@ -135,14 +261,9 @@ def gat_trunk_cuda(x: torch.Tensor, bias: torch.Tensor, masks: torch.Tensor,
                          f"masks {tuple(masks.shape)}")
     if x.dtype != weights.dtype:
         raise TypeError(f"x is {x.dtype}, weights are {weights.dtype}")
-    for t in (bias, masks, weights.flat, weights.offsets):
+    for t in (bias, masks, weights.flat, weights.offsets, weights.panels):
         if t.device != x.device:
             raise ValueError("gat_trunk: all tensors must be on x's device")
-    g = samples_per_cta(j)
-    smem = smem_bytes(j, g)
-    if smem > _SMEM_MAX:
-        raise ValueError(f"gat_trunk: J={j} needs {smem} bytes of shared "
-                         "memory")
     lib = cuda_lib.load("gat_trunk", _SIGNATURE)
     x = x.contiguous()
     bias = bias.float().contiguous()
@@ -150,11 +271,13 @@ def gat_trunk_cuda(x: torch.Tensor, bias: torch.Tensor, masks: torch.Tensor,
     out = torch.empty_like(x)
     if b == 0:
         return out
+    plan = launch_plan(b, j, x.dtype, _sms(x.device))
     err = lib.gat_trunk_launch(
         cuda_lib.kernel_dtype(x.dtype), x.data_ptr(), bias.data_ptr(),
         masks.data_ptr(), weights.flat.data_ptr(), weights.offsets.data_ptr(),
-        weights.flat.shape[1], weights.flat.shape[0], out.data_ptr(), b, j,
-        g, smem, cuda_lib.stream_ptr(x))
+        weights.flat.shape[1], weights.panels.data_ptr(),
+        weights.flat.shape[0], out.data_ptr(), b, j, plan["g"],
+        cuda_lib.stream_ptr(x))
     cuda_lib.check(err, "gat_trunk_launch")
     gat_trunk.launches += 1
     return out

@@ -7,6 +7,7 @@ synthetic human36 model (6890/431 vertices, embed 128, depth 6, alpha
 False, seeded random weights) and times, in bf16 at batch PROF_BATCH
 (default 2048), on seeded random inputs:
   gat total      `gat_serving_forward` (embeds, K1 trunk, lifter head);
+  gat trunk      K1 (`nn.gat_trunk`) alone on a [B, J, 128] input;
   mdr total      `mdr_serving_forward` from a [B, J, 133] input (K2);
   lbf layers     three K2-layer calls (`nn.lbf_layer`), one per layer;
   lbf v3 stack   K2 (`nn.lbf_stack`) on the same verts and joints;
@@ -55,6 +56,7 @@ def make_stages(model, dtype: torch.dtype, batch: int, seed: int = 0
     x = normal(batch, j, 5 + spec.gat.embed_dim)     # [2d, 3d, features]
     verts = normal(batch, spec.mdr.coarse_num, spec.mdr.embed_dim)
     joints = normal(batch, j, spec.mdr.embed_dim)
+    tokens = normal(batch, j, spec.gat.embed_dim)   # K1's input, drawn last
 
     def lbf_layers(v, jt, layers):
         for lw in layers:
@@ -64,6 +66,9 @@ def make_stages(model, dtype: torch.dtype, batch: int, seed: int = 0
     return {
         "gat total": (lambda p: serving.gat_serving_forward(
             model, w, consts, p, dtype), (pose,)),
+        "gat trunk": (lambda t: consts["trunk_fn"](
+            t, consts["hop_bias"], consts["masks"], consts["trunk"],
+            spec.gat.num_heads), (tokens,)),
         "mdr total": (lambda xx: serving.mdr_serving_forward(
             model, w, consts, xx, dtype), (x,)),
         "lbf layers": (lbf_layers, (verts, joints, layers)),
@@ -95,6 +100,7 @@ def main(argv=None):
     ms["head+embeds"] = ms["mdr total"] - ms["lbf layers"]
     print(f"batch {b}, bf16, on {card}")
     print(f"  gat total      {ms['gat total']:8.3f} ms")
+    print(f"    gat trunk    {ms['gat trunk']:8.3f} ms")
     print(f"  mdr total      {ms['mdr total']:8.3f} ms")
     print(f"    lbf layers   {ms['lbf layers']:8.3f} ms")
     print(f"    lbf v3 stack {ms['lbf v3 stack']:8.3f} ms")

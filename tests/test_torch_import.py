@@ -84,6 +84,8 @@ import gator_tpu_torch.tools.profile_serving
 import gator_tpu_torch.tools.exp_mdr_ablate
 import gator_tpu_torch.tools.profile_lbf
 import gator_tpu_torch.tools.profile_attention
+import gator_tpu_torch.tools.profile_trunk
+import gator_tpu_torch.tools.trunk_phases
 import gator_tpu_torch.nn.lbf_layer, gator_tpu_torch.nn.lbf_ablate
 from gator_tpu_torch.nn import cuda_lib
 bad = [m for m in sys.modules
@@ -93,8 +95,8 @@ print(bad, sorted(cuda_lib._LOADED))
 
 
 def test_layer_tools_import_no_jax_and_build_nothing():
-    """The serving-profile, LBF-profile, attention-profile and LBF-ablation
-    tools and the K2-layer and T1 modules import neither JAX nor the JAX
+    """The serving-profile, LBF-profile, attention-profile, trunk-profile,
+    trunk-phase and LBF-ablation tools and the K2-layer and T1 modules import neither JAX nor the JAX
     package (nor the JAX tools they replace), and load no kernel library."""
     out = subprocess.run([sys.executable, "-c", TOOLS_SCRIPT], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,

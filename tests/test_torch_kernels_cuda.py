@@ -5,9 +5,10 @@ This file imports no JAX, so it runs on a machine with only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider \
         tests/test_torch_kernels_cuda.py
 Bars: f32 atol 1e-4; bf16 atol 5e-2 (sums taken in another order can flip
-a bf16 rounding of an intermediate). K2 also at the serving batch B=2048,
-past the grid's 65535 samples, its launch count and its plan (CTAs per
-SM).
+a bf16 rounding of an intermediate). K1 at its tile edges (B=1, a ragged
+last tile, several tiles, the serving batch B=2048) and its geometry as
+the card reports it; K2 also at the serving batch B=2048, past the grid's
+65535 samples, its launch count and its plan (CTAs per SM).
 """
 import numpy as np
 import pytest
@@ -18,6 +19,9 @@ from gator_tpu_torch.models import GatorSpec, build_gator
 from gator_tpu_torch.nn import (fold_stack_weights, fold_trunk_weights,
                                 gat_trunk, gat_trunk_ref, lbf_stack,
                                 lbf_stack_ref)
+from gator_tpu_torch.nn.gat_trunk import (TILE_ROWS, kernel_info,
+                                          launch_plan, panel_depth,
+                                          panel_order, smem_bytes)
 from gator_tpu_torch.nn.lbf_stack import stack_plan
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
@@ -41,10 +45,16 @@ def _randn(rng, *shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("batch", [1, 7])
+@pytest.mark.parametrize("batch", [1, 7, 300, 1001, 2048])
 def test_gat_trunk_kernel_matches_ref(model, dtype, batch):
+    """B=1; 7 and 300, several tiles; 1001, whose last tile is ragged
+    (asserted); the serving batch 2048."""
     gat = model.pose_lifter
     j = gat.spec.num_joint
+    plan = launch_plan(batch, j, dtype, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    if batch == 1001:
+        assert batch % plan["g"] != 0, plan
     rng = np.random.default_rng(batch)
     x = _randn(rng, batch, j, 128).to(dtype)
     bias = _randn(rng, 8, j, j)
@@ -87,6 +97,20 @@ def test_wrappers_reject_what_the_kernels_do_not_take(model):
     with pytest.raises(TypeError):
         gat_trunk(x, torch.zeros(8, j, j, device="cuda"),
                   gat.blocks[0].x_feat.masks, weights, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gat_trunk_kernel_geometry_matches_the_wrapper(model, dtype):
+    """The kernel's tile rows and shared memory are the wrapper's, and one
+    CTA of it fits an SM."""
+    info = kernel_info(dtype)
+    assert info["rows"] == TILE_ROWS[dtype]
+    assert info["smem_bytes"] == smem_bytes(dtype)
+    assert info["ctas_per_sm"] >= 1 and info["registers"] > 0
+    assert info["threads"] == 4 * TILE_ROWS[dtype] + 32
+    assert info["panel_depth"] == panel_depth(dtype)
+    assert info["panels"] == len(panel_order(panel_depth(dtype)))
 
 
 def _lbf_case(model, dtype, batch, nv, seed):
