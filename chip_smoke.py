@@ -78,15 +78,21 @@ built in phase 2):
  19. (l) K2-layer against its plain version at B=16 and the tool's B=2048,
      431 vertices, J=17 and 19 (f32 within 1e-4, bf16 reported), and in f32
      against K2 run on the same one-layer weights (within 1e-4);
- 20. (m) every T1 mode against its plain version, B=16, 431 vertices, 3
-     layers, J=17 and 19 (f32 within 1e-4, bf16 reported); `group` 1 and 8
-     give bit-equal outputs; the tool's default modes also at its B=2048
-     (J=17, f32 within 1e-4);
+ 20. (m) every T1 mode against its plain version, B=16 and the tool's
+     B=2048, 431 vertices, 3 layers, J=17 and 19 (f32 within 1e-4, bf16
+     reported); at B=16 `group` 1 and 8 give bit-equal outputs;
  21. (n) the two tool paths, each with the counters reset just before and
      read just after: `python -m gator_tpu_torch.tools.profile_serving`
      (K1, K2 and K2-layer launched) and `... exp_mdr_ablate` with its
-     default modes (T1 launched); then times at B=2048 bf16: K2-layer per
-     layer and T1 `full` over 3 layers, each beside its plain version.
+     default modes (T1 launched), then every T1 mode's time; then times at
+     B=2048 bf16: K2-layer per layer and T1 `full` over 3 layers, each
+     beside its plain version; their two launches apart (`rows_kernel`,
+     `attn_kernel`) in device ms from torch.profiler, each beside its
+     bound; the attention kernel's registers, CTAs per SM, shared bytes
+     and K/V chunk keys for K2-layer and each T1 variant; and, for scale
+     only, scaled_dot_product_attention on the same q2/k2/v2 (the
+     attention alone, without the probability rounding, L3 or the
+     residual; the port never calls it).
 Then a JSON line with each kernel's numbers, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without a CUDA device the
@@ -94,6 +100,7 @@ script fails at once; there is no CPU fallback.
 """
 import concurrent.futures
 import copy
+import importlib
 import json
 import os
 import sys
@@ -961,9 +968,13 @@ def layer_phases(torch, dev, card, randn, models):
     from gator_tpu_torch.nn import (MODES, extract_layer_params, gat_trunk,
                                     lbf_layer, lbf_layer_ref, lbf_stack,
                                     run_layers, run_layers_ref)
-    from gator_tpu_torch.nn.lbf_ablate import ROW_MODES
+    from gator_tpu_torch.nn.lbf_ablate import ATTN_KERNELS, ROW_MODES
     from gator_tpu_torch.tools import exp_mdr_ablate, profile_serving
     from gator_tpu_torch.tools.timing import time_ms
+
+    # the modules (the package exports functions of the same names)
+    k2_layer_mod = importlib.import_module("gator_tpu_torch.nn.lbf_layer")
+    t1_mod = importlib.import_module("gator_tpu_torch.nn.lbf_ablate")
 
     f32, bf16 = torch.float32, torch.bfloat16
     out = {"errs": {"lbf_layer": 0.0, "lbf_ablate": 0.0}}
@@ -998,41 +1009,33 @@ def layer_phases(torch, dev, card, randn, models):
                 say(19, msg)
                 del got
 
-    # 20 (m): every T1 mode against its plain version; group independence
+    # 20 (m): every T1 mode against its plain version at B=16 (with group
+    # independence) and at the tool's B=2048
     for js, model in models.items():
         mdr = model.pose2mesh
         j, nv = mdr.spec.num_joint, mdr.spec.coarse_num
-        verts, joints = randn(16, nv, 64), randn(16, j, 64)
         layers = {dt: [extract_layer_params(mdr, i, dt, dev)
                        for i in range(3)] for dt in (f32, bf16)}
-        for mode in MODES:
-            errs, same = {}, True
-            for dt in (f32, bf16):
-                v, jt = verts.to(dt), joints.to(dt)
-                got = run_layers(v, jt, layers[dt], 2, 8, mode)
-                ref = run_layers_ref(v, jt, layers[dt], 2, 8, mode)
-                errs[dt] = hold(20, f"T1 {mode} {js}", got, ref, dt,
-                                "lbf_ablate")
-                same &= torch.equal(
-                    got, run_layers(v, jt, layers[dt], 2, 1, mode))
-            check(same, f"T1 {mode} {js}: group 1 and 8 bit-equal")
-            say(20, f"T1 {mode} {js} J={j} B=16 Nv={nv} 3 layers: max abs "
-                    f"err vs plain f32 {errs[f32]:.3e} (bar 1e-4), bf16 "
-                    f"{errs[bf16]:.3e} (reported); group 1 and 8 bit-equal")
-    # the tool's default modes at its shape, B=2048
-    mdr = models["human36"].pose2mesh
-    nv = mdr.spec.coarse_num
-    v, jt = randn(2048, nv, 64), randn(2048, 17, 64)
-    layers = [extract_layer_params(mdr, i, f32, dev) for i in range(3)]
-    for mode in exp_mdr_ablate.DEFAULT_MODES:
-        got = run_layers(v, jt, layers, 2, 8, mode)
-        err = hold(20, f"T1 {mode} B=2048", got,
-                   run_layers_ref(v, jt, layers, 2, 8, mode), f32,
-                   "lbf_ablate")
-        del got
-        say(20, f"T1 {mode} human36 J=17 B=2048 Nv={nv} 3 layers f32: max abs "
-                f"err vs plain {err:.3e} (bar 1e-4)")
-    del v, jt, layers
+        for b in (16, 2048):
+            verts, joints = randn(b, nv, 64), randn(b, j, 64)
+            for mode in MODES:
+                errs, same = {}, True
+                for dt in (f32, bf16):
+                    v, jt = verts.to(dt), joints.to(dt)
+                    got = run_layers(v, jt, layers[dt], 2, 8, mode)
+                    ref = run_layers_ref(v, jt, layers[dt], 2, 8, mode)
+                    errs[dt] = hold(20, f"T1 {mode} {js} B={b}", got, ref,
+                                    dt, "lbf_ablate")
+                    if b == 16:
+                        same &= torch.equal(
+                            got, run_layers(v, jt, layers[dt], 2, 1, mode))
+                    del got, ref
+                check(same, f"T1 {mode} {js}: group 1 and 8 bit-equal")
+                say(20, f"T1 {mode} {js} J={j} B={b} Nv={nv} 3 layers: max "
+                        f"abs err vs plain f32 {errs[f32]:.3e} (bar 1e-4), "
+                        f"bf16 {errs[bf16]:.3e} (reported)"
+                        + ("; group 1 and 8 bit-equal" if b == 16 else ""))
+            del verts, joints
 
     # 21 (n): the tool paths; the counters reset just before, read after
     gat_trunk.launches = lbf_stack.launches = lbf_layer.launches = 0
@@ -1080,6 +1083,63 @@ def layer_phases(torch, dev, card, randn, models):
             f" {ms['lbf_ablate']:.3f} ms, plain {ms['lbf_ablate_plain']:.3f}"
             f" ms; row-local modes {', '.join(ROW_MODES)} run no attention")
     out["ms"] = ms
+
+    # the two launches of K2-layer (one layer) and of T1 `full` (3 layers)
+    # apart: device ms per call from torch.profiler (each kernel's mean per
+    # launch times its launches per call: the profiler can miss a window's
+    # first launches), each beside its bound.
+    # Per row and layer the row launch reads x (bf16) and writes y3 (f32)
+    # and q2/k2/v2 (bf16); the attention reads those four and writes out
+    # (bf16): 768 bytes each. Operations: the row launch's products, and
+    # QK, PV and L3 once each (pass 1's scores again are not the function's
+    # work).
+    from gator_tpu_torch.tools.profile_train import _device_us, _is_kernel
+    calls = {"K2-layer": (1, lambda: lbf_layer(v, jt, layers[0], 2)),
+             "T1 full": (3, lambda: run_layers(v, jt, layers, 2, 8, "full"))}
+    rows_io = b * nv * 64 * (2 + 4 + 6) + b * 17 * 64 * 2
+    attn_io = b * nv * 64 * (6 + 4 + 2)
+    for name, (n_layers, fn) in calls.items():
+        dev_ms = dict.fromkeys(("rows_kernel", "attn_kernel"), 0.0)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        for evt in prof.key_averages():
+            for key in dev_ms:
+                if _is_kernel(evt) and key in evt.key:
+                    dev_ms[key] = _device_us(evt) / evt.count / 1e3 * n_layers
+        check(all(t > 0 for t in dev_ms.values()),
+              f"the profiler saw {name}'s two launches: {dev_ms}")
+        lb = {"rows_kernel": bound(n_layers * b * fma_lbf_rows_fwd(nv, 17),
+                                   n_layers * rows_io),
+              "attn_kernel": bound(n_layers * b * (2 * nv * nv * 64
+                                                   + nv * 64 * 64),
+                                   n_layers * attn_io)}
+        say(21, f"{name} launches per call ({n_layers} layer"
+                f"{'s' if n_layers > 1 else ''}, B={b} bf16) on {card}: "
+                + "; ".join(
+                    f"{k} {dev_ms[k]:.3f} ms device (bound {lb[k][0]:.3f} "
+                    f"ms, {lb[k][1]}; {dev_ms[k] / lb[k][0]:.1f}x)"
+                    for k in dev_ms))
+    infos = {"K2-layer": k2_layer_mod.attn_info(bf16, nv)}
+    infos.update({f"T1 {m}": t1_mod.attn_info(bf16, m, nv)
+                  for m in ATTN_KERNELS})
+    say(21, f"attn_kernel bf16 Nv={nv} on {card}: " + "; ".join(
+        f"{k} registers {i['registers']}, CTAs per SM {i['ctas_per_sm']}, "
+        f"shared bytes {i['smem_bytes']}, K/V chunk keys {i['chunk_keys']}"
+        for k, i in infos.items()))
+    # for scale only: the library's attention on the same q2/k2/v2
+    _, q2, k2, v2 = k2_layer_mod.lbf_layer_rows(v, jt, layers[0])
+    qkv = [t.view(b, nv, 2, 32).transpose(1, 2) for t in (q2, k2, v2)]
+    sdpa = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        *qkv))
+    say(21, f"scaled_dot_product_attention on K2-layer's q2/k2/v2 "
+            f"[{b}, 2, {nv}, 32] bf16 on {card}: {sdpa:.3f} ms; for scale "
+            f"only: the attention alone, without the probability rounding, "
+            f"L3 or the residual, used nowhere in the port")
+    del q2, k2, v2, qkv
     # one layer reads verts and joints and writes verts, in bf16
     nbytes = (2 * b * nv * 64 + b * 17 * 64) * 2 + LBF_LAYER_WEIGHTS * 2
     out["bounds"] = {

@@ -38,24 +38,25 @@ constexpr float LOG2E = 1.4426950408889634f;
 // of it reserved per CTA)
 constexpr int SMEM_PER_CTA = 113 * 1024;
 
-// padded lengths, in elements, of staged K and V rows of W elements (one
-// head's D in K3, both heads' 64 in K2): conflict-free fragment loads
+// padded lengths, in elements, of staged K rows of W elements and V rows
+// of WV (one head's D in K3, both heads' 64 in K2; V wider than K in one
+// ablation of the LBF layer, lbf_layer.cuh): conflict-free fragment loads
 // (f32) and ldmatrix rows (bf16)
-template <typename T, int W>
+template <typename T, int W, int WV = W>
 struct Pad {
   static constexpr bool F32 = sizeof(T) == 4;
   static constexpr int LK = W + (F32 ? 4 : 8);
-  static constexpr int LV = W + 8;
+  static constexpr int LV = WV + 8;
   static constexpr int KEY_BYTES = (LK + LV) * (int)sizeof(T);
   static_assert(SMEM_PER_CTA / KEY_BYTES >= KT, "one key tile must fit");
 };
 
 // keys per staged K/V chunk: every key (rounded up to KT) when they fit in
 // SMEM_PER_CTA, else the largest multiple of KT that does
-template <typename T, int W>
+template <typename T, int W, int WV = W>
 int chunk_keys(int nk) {
   const int whole = (nk + KT - 1) / KT * KT;
-  const int fit = SMEM_PER_CTA / Pad<T, W>::KEY_BYTES / KT * KT;
+  const int fit = SMEM_PER_CTA / Pad<T, W, WV>::KEY_BYTES / KT * KT;
   return whole < fit ? whole : fit;
 }
 
@@ -69,24 +70,31 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Stage keys [key0, key0 + n) of K (and V), rows of W elements k_n (v_n)
-// apart in global memory, into shared memory with cp.async (uncommitted);
-// rows n .. the next multiple of KT are zeroed, and so are K's pad columns
-// where a bf16 mma step (16) is deeper than W.
-template <typename T, int W>
+// Stage keys [key0, key0 + n) of K (and V), rows of W (V: WV) elements
+// k_n (v_n) apart in global memory, into shared memory with cp.async
+// (uncommitted); rows n .. the next multiple of KT are zeroed, and so are
+// K's pad columns where a bf16 mma step (16) is deeper than W.
+template <typename T, int W, int WV = W>
 __device__ __forceinline__ void stage_kv(T* Ks, T* Vs, const T* kb,
                                          const T* vb, long long k_n,
                                          long long v_n, int key0, int n,
                                          bool with_v) {
-  using L = Pad<T, W>;
+  static_assert(WV >= W, "V rows are at least as wide as K rows");
+  using L = Pad<T, W, WV>;
   tc::stage(Ks, L::LK, kb + key0 * k_n, (int)k_n, n, W);
-  if (with_v) tc::stage(Vs, L::LV, vb + key0 * v_n, (int)v_n, n, W);
+  if (with_v) tc::stage(Vs, L::LV, vb + key0 * v_n, (int)v_n, n, WV);
   const int end = round_up(n, KT);
   const T zero = Num<T>::from_float(0.0f);
   for (int i = threadIdx.x; i < (end - n) * W; i += blockDim.x) {
     const int r = n + i / W, c = i % W;
     Ks[r * L::LK + c] = zero;
     if (with_v) Vs[r * L::LV + c] = zero;
+  }
+  if constexpr (WV > W) {  // the rest of the wider V rows
+    constexpr int X = WV - W;
+    if (with_v)
+      for (int i = threadIdx.x; i < (end - n) * X; i += blockDim.x)
+        Vs[(n + i / X) * L::LV + W + i % X] = zero;
   }
   if (!L::F32 && W < 16)
     for (int i = threadIdx.x; i < end * (16 - W); i += blockDim.x)
@@ -196,9 +204,11 @@ struct NoHook {
 };
 
 // o = T(softmax(q k^T)) v for this warp's 16 rows and one head of width D,
-// over nk keys staged W wide (`Ks`, `Vs`: the staged buffers at the head's
-// first column). Called by every thread of the CTA (it syncs the block);
-// `active` is false for a warp with no rows (it still stages).
+// over nk keys whose K rows are staged W wide and V rows WV wide (`Ks`,
+// `Vs`: the staged buffers at the head's first column), o DV columns wide
+// (DV = D and WV = W but in the wide ablations of lbf_layer.cuh). Called
+// by every thread of the CTA (it syncs the block); `active` is false for
+// a warp with no rows (it still stages).
 //   stage(key0, n, with_v)  starts the cp.async copies of keys [key0,
 //                           key0 + n) into the buffers (`stage_kv`);
 //   finish(s, key0)         turns a tile's raw scores into base-2 logits,
@@ -212,16 +222,16 @@ struct NoHook {
 // The default hooks do nothing, and K3's and K2's calls compile to the
 // code they compiled to before the hooks.
 // o[jn][i] is column 8 jn + 2t + (i & 1) of row g + 8 (i >> 1), f32.
-template <typename T, int D, int W, class Stage, class Finish,
-          class Stats = NoHook, class Keep = NoHook>
-__device__ __forceinline__ void two_pass(float (&o)[D / 8][4],
+template <typename T, int D, int W, int DV = D, int WV = W, class Stage,
+          class Finish, class Stats = NoHook, class Keep = NoHook>
+__device__ __forceinline__ void two_pass(float (&o)[DV / 8][4],
                                          const QFrags<T, D>& qf, const T* Ks,
                                          const T* Vs, int nk, int kc,
                                          bool active, Stage stage,
                                          Finish finish, Stats stats = {},
                                          Keep keep = {}) {
-  using L = Pad<T, W>;
-  constexpr int NO = D / 8;  // output column tiles
+  using L = Pad<T, W, WV>;
+  constexpr int NO = DV / 8;  // output column tiles
   const int nchunks = (nk + kc - 1) / kc;
   float mx[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.0f, 0.0f};
   // pass 1: row max and sum, online

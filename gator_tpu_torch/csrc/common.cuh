@@ -4,10 +4,8 @@
 // Where the JAX kernels cast an intermediate to the working dtype T before
 // the next matmul, these kernels round to what T would hold (`rnd<T>`, or
 // by storing in T), so a bf16 run rounds at the same places while every
-// sum still accumulates in f32. `gemm<T>` below is the FMA product of the
-// first ports; its one caller left is `attn_kernel`'s output projection
-// (csrc/lbf_layer.cuh, run by K2-layer and T1): every other product runs
-// on the tensor cores (csrc/mma.cuh).
+// sum still accumulates in f32. The products themselves run on the tensor
+// cores (csrc/mma.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -47,28 +45,6 @@ __device__ __forceinline__ float ld(const T* p) {
   return Num<T>::to_float(*p);
 }
 
-// four consecutive values starting at a 4-element-aligned address
-__device__ __forceinline__ void load4(const float* p, float (&w)[4]) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-  w[0] = v.x;
-  w[1] = v.y;
-  w[2] = v.z;
-  w[3] = v.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&w)[4]) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  __nv_bfloat162 lo, hi;
-  memcpy(&lo, &u.x, sizeof(lo));
-  memcpy(&hi, &u.y, sizeof(hi));
-  const float2 a = __bfloat1622float2(lo);
-  const float2 b = __bfloat1622float2(hi);
-  w[0] = a.x;
-  w[1] = a.y;
-  w[2] = b.x;
-  w[3] = b.y;
-}
-
 // two adjacent values of T at an even index, as f32; and stored from f32
 // (each rounded as `Num<T>::from_float` rounds)
 __device__ __forceinline__ float2 ld2(const float* p) {
@@ -97,9 +73,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Rows of micro-tile per thread in `gemm`.
-constexpr int RM = 8;
-
 __host__ __device__ constexpr int round_up(int n, int m) {
   return (n + m - 1) / m * m;
 }
@@ -110,59 +83,6 @@ __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 template <typename E>
 __device__ __forceinline__ E* at(unsigned char* s, int off) {
   return reinterpret_cast<E*>(s + off);
-}
-
-// out(r, c, sum_k A[r * lda + k] * W[k * ldw + c]) for r < rows, c < N.
-// A: f32 in shared memory, 16-byte aligned, lda % 4 == 0, K % 4 == 0.
-// W: [K, ldw] row-major in global memory (read through L1/L2; one block's
-// weights stay resident in L2), N % 4 == 0, ldw % 4 == 0.
-// Each thread owns an RM x 4 output tile; neighbouring threads own
-// neighbouring column quads, so a warp's weight loads are contiguous and
-// its A loads are broadcasts.
-template <typename T, typename Out>
-__device__ __forceinline__ void gemm(const float* A, int lda, int rows, int K,
-                                     const T* __restrict__ W, int ldw, int N,
-                                     Out out) {
-  const int nq = N >> 2;
-  const int items = (rows + RM - 1) / RM * nq;
-  for (int item = threadIdx.x; item < items; item += blockDim.x) {
-    const int r0 = item / nq * RM;
-    const int c0 = item % nq * 4;
-    const float* arow[RM];
-#pragma unroll
-    for (int i = 0; i < RM; ++i) arow[i] = A + min(r0 + i, rows - 1) * lda;
-    float acc[RM][4];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-    const T* wp = W + c0;
-    for (int k = 0; k < K; k += 4) {
-      float w[4][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) load4(wp + (size_t)(k + kk) * ldw, w[kk]);
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const float4 a = *reinterpret_cast<const float4*>(arow[i] + k);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float s = acc[i][j];
-          s = fmaf(a.x, w[0][j], s);
-          s = fmaf(a.y, w[1][j], s);
-          s = fmaf(a.z, w[2][j], s);
-          s = fmaf(a.w, w[3][j], s);
-          acc[i][j] = s;
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      if (r0 + i < rows) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) out(r0 + i, c0 + j, acc[i][j]);
-      }
-    }
-  }
 }
 
 // LayerNorm of `rows` rows of width C (one warp per row), f32 statistics.

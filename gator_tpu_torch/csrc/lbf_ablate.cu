@@ -7,7 +7,9 @@
 // a product, y3 f32 for the residual), with the mode a template parameter:
 // each mode is its own pair of kernels, so no inner loop branches on it.
 // The modes that change only the row-local part share the self-attention
-// kernel of `full`; lnonly, mlponly and noself have none. What bounds the
+// kernel of `full`; lnonly, mlponly and noself have none. Every product
+// runs on the tensor cores: the softmax modes' self-attention in two
+// passes, bf16smax's in three sweeps, nosoftmax's in one. What bounds the
 // kernels on the H100 is written in lbf_layer.cuh.
 #include "lbf_layer.cuh"
 
@@ -41,26 +43,24 @@ int rows_of_mode(int mode, const void* x, const void* joints,
 #undef GATOR_ROWS
 }
 
-template <typename T>
-int attn_of_mode(int mode, const void* q2, const void* k2, const void* v,
-                 const void* y3, const void* weights, const void* offs,
-                 void* out, int B, int Nv, cudaStream_t s) {
-#define GATOR_ATTN(M) \
-  return launch_attn<T, false, M>(q2, k2, v, y3, weights, offs, out, B, Nv, s)
+// f(std::integral_constant<int, M>{}) for M the self-attention kernel of
+// `mode` (the modes that change only the row-local part run full's), or
+// `none` for a row-local mode
+template <class F>
+int with_attn_kernel(int mode, int none, F f) {
   switch (mode) {
     case FULL:
     case NOCROSS:
     case NOMLP:
     case NOGELU:
     case TANHGELU:
-    case BF16GELU: GATOR_ATTN(FULL);
-    case PREPROJ: GATOR_ATTN(PREPROJ);
-    case FOLD1DOT: GATOR_ATTN(FOLD1DOT);
-    case BF16SMAX: GATOR_ATTN(BF16SMAX);
-    case NOSOFTMAX: GATOR_ATTN(NOSOFTMAX);
-    default: return (int)cudaErrorInvalidValue;  // a row-local mode
+    case BF16GELU: return f(std::integral_constant<int, FULL>{});
+    case PREPROJ: return f(std::integral_constant<int, PREPROJ>{});
+    case FOLD1DOT: return f(std::integral_constant<int, FOLD1DOT>{});
+    case BF16SMAX: return f(std::integral_constant<int, BF16SMAX>{});
+    case NOSOFTMAX: return f(std::integral_constant<int, NOSOFTMAX>{});
+    default: return none;
   }
-#undef GATOR_ATTN
 }
 
 }  // namespace lbf_layer
@@ -91,9 +91,25 @@ extern "C" int lbf_ablate_attn_launch(int dtype, int mode, const void* q2,
                                       const void* offs, void* out, int B,
                                       int Nv, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return gator::lbf_layer::attn_of_mode<float>(mode, q2, k2, v, y3, weights,
-                                                 offs, out, B, Nv, s);
-  return gator::lbf_layer::attn_of_mode<__nv_bfloat16>(
-      mode, q2, k2, v, y3, weights, offs, out, B, Nv, s);
+  using namespace gator::lbf_layer;
+  return with_attn_kernel(mode, (int)cudaErrorInvalidValue, [&](auto m) {
+    constexpr int M = decltype(m)::value;
+    if (dtype == 0)
+      return launch_attn<float, false, M>(q2, k2, v, y3, weights, offs, out,
+                                          B, Nv, s);
+    return launch_attn<__nv_bfloat16, false, M>(q2, k2, v, y3, weights, offs,
+                                                out, B, Nv, s);
+  });
+}
+
+// The attention launch's plan of `mode` at Nv keys (`attn_info`'s `what`:
+// 0 keys per K/V chunk, 1 CTAs per SM, 2 shared bytes, 3 registers); -1 on
+// an error or for a row-local mode.
+extern "C" int lbf_ablate_attn_info(int dtype, int mode, int Nv, int what) {
+  using namespace gator::lbf_layer;
+  return with_attn_kernel(mode, -1, [&](auto m) {
+    constexpr int M = decltype(m)::value;
+    if (dtype == 0) return attn_info<float, false, M>(Nv, what);
+    return attn_info<__nv_bfloat16, false, M>(Nv, what);
+  });
 }

@@ -29,45 +29,55 @@
 //                projections (T1's preproj and fold1dot project v2 through
 //                L3 here). Row-local modes write the layer's output here.
 //                K2 runs it too.
-//   attn_kernel: per (64-query tile, sample), both heads: the softmax over
-//                all Nv keys in two passes over 64-key tiles staged in
-//                shared memory: the first takes each row's max and sum
-//                online, the second recomputes the scores and adds
-//                T(exp(s - max) / sum) * V, so the normalised probability
-//                is rounded where the TPU kernels round it and no score
-//                tile is stored (1.5x K2's QK work). Then L3 and the
-//                residual. K2 has its own, on the tensor cores.
-// rows_kernel runs every product on the tensor cores (mma.cuh: bf16
-// m16n8k16 on the operands the FMA chain rounded to T anyway, so each
-// product is exact and only the f32 sums reorder; f32 as 3xTF32), the
-// cross-attention's J-wide scores and P @ V included (J padded to 32; on
-// the FMA pipes they took ~4 % of the row work, on the tensor cores they
-// cost less than the softmax between them, one warp per (row, head)).
-// Activations that only enter a product rounded live in shared memory in
-// T, the residual and the scores in f32. The weights pass through two
-// [64, 64] slots: cp.async fills one while the products read the other
-// (13 blocks a tile in `full`). A persistent grid (the CTAs the device
-// holds) walks the B * ceil(Nv / TR) (sample, tile) items in contiguous
-// runs, so a sample's joints get their LN1, K and V once per CTA that
-// meets it (the FMA design redid them for every tile), and no grid
-// dimension limits the batch. 69.5 KB of shared memory a CTA in bf16:
-// three fit on an SM.
-// attn_kernel is still the FMA design: one thread per (query row, head),
-// past the grid's 65535 samples the host launches again. The ragged Nv edge
-// is masked by row counts; the TPU kernels' 431->432 padding, their
-// block-diagonal cross mask and the A&S erf polynomial are gone (exact
-// erff; the two differ by 1.5e-7).
+//   attn_kernel: per (64-query tile, sample), both heads, one CTA of eight
+//                warps (four per head, 16 query rows each, q fragments in
+//                registers): the self-attention over all Nv keys on
+//                attn_tc.cuh's `scores` and `pv`, then L3 and the residual.
+//                K2 has its own launch of the same shape (lbf_stack.cu),
+//                which writes an f32 x' where this one writes T.
+// Every product of both launches runs on the tensor cores (mma.cuh: bf16
+// m16n8k16 on operands rounded to T, so each product is exact and only the
+// f32 sums reorder; f32 as 3xTF32, never single TF32).
+// rows_kernel: the cross-attention's J-wide scores and P @ V included (J
+// padded to 32; on the FMA pipes they took ~4 % of the row work, on the
+// tensor cores they cost less than the softmax between them, one warp per
+// (row, head)). Activations that only enter a product rounded live in
+// shared memory in T, the residual and the scores in f32. The weights pass
+// through two [64, 64] slots: cp.async fills one while the products read
+// the other (13 blocks a tile in `full`). A persistent grid (the CTAs the
+// device holds) walks the B * ceil(Nv / TR) (sample, tile) items in
+// contiguous runs, so a sample's joints get their LN1, K and V once per CTA
+// that meets it, and no grid dimension limits the batch. 69.5 KB of shared
+// memory a CTA in bf16: three fit on an SM.
+// attn_kernel: K and V are staged in their own dtype with cp.async, in
+// chunks of whole 64-key tiles that let two CTAs share an SM (bf16 at
+// Nv = 431: 384 + 47 keys; fold1dot's 128-wide V rows: 256 + 175). The
+// softmax modes run `two_pass` (pass 1 each row's max and sum online, pass
+// 2 the scores again and T(exp(s - max) / sum) @ V, so the normalised
+// probability is rounded where the TPU kernels round it and no score tile
+// is stored; exp2 of log2(e)-scaled logits, times the reciprocal sum);
+// bf16smax takes three sweeps (max, sum, PV) and nosoftmax one. Then T(o)
+// and L3's [64, 64] panel go into the staging space and o @ L3 runs on
+// `tc::gemm`, with the residual under the policy; preproj and fold1dot
+// (each head's PV a whole 64-wide row, already through L3) add head 0's
+// sums to head 1's through shared memory in one order, so repeat runs are
+// bit-identical. Past the grid's 65535 samples the host launches again.
+// The ragged Nv edge is masked by row counts; the TPU kernels' 431->432
+// padding, their block-diagonal cross mask and the A&S erf polynomial are
+// gone (exact erff; the two differ by 1.5e-7).
 //
 // What bounds it on the H100. rows_kernel: ~25 MFMA per sample at Nv=431
 // (51 GFMA a layer at B = 2048: 0.10 ms on bf16 tensor cores) against
 // ~0.79 GB of x in and y3, q2, k2, v2 out in K2 (f32 x and y3: 0.24 ms);
 // below both, the element-wise work between the products (LayerNorms,
 // erf, the cross softmax), the block's syncs and the weight staging.
-// attn_kernel: ~36 MFMA per sample at Nv=431 on the f32 pipes (its QK
-// products done twice).
+// attn_kernel: ~25.5 MFMA per sample at Nv=431 (QK, PV and L3 once; 52
+// GFMA a layer at B = 2048, 0.11 ms) against 0.68 GB of q2/k2/v2 (T), y3
+// (f32) in and out (T) in bf16: 0.20 ms, so the bytes bound it; pass 1's
+// scores again and 760 M exponentials twice come on top.
 #pragma once
 
-#include "mma.cuh"
+#include "attn_tc.cuh"
 
 namespace gator {
 namespace lbf_layer {
@@ -79,8 +89,7 @@ constexpr int HID = 256;  // MLP hidden
 constexpr int JMAX = 32;  // most joint tokens
 constexpr int NT_ROWS = 256;
 constexpr int TQ = 64;    // query rows per attn_kernel CTA
-constexpr int TK = 64;    // keys per staged tile
-constexpr int NT_ATTN = TQ * H;
+constexpr int NT_ATTN = 256;  // eight warps: four per head
 constexpr int MAX_GRID_B = 65535;  // samples per launch (the grid's y limit)
 // D ** -0.5 and T1's nosoftmax factor D ** -0.5 / 431, each rounded once
 // to f32 from the double, as the JAX kernels' Python scalars are
@@ -580,187 +589,286 @@ __global__ void __launch_bounds__(NT_ROWS, RowsSmem<T>::MIN_CTAS)
                                        (int)(t % a.nrt), jb, w);
 }
 
-// q . k for one head from a staged f32 key row (the same FMA chain in
-// every pass, so a recomputed score equals the first)
-__device__ __forceinline__ float dot_head(const float (&q)[D],
-                                          const float* k) {
-  const float4* kr = reinterpret_cast<const float4*>(k);
-  float s = 0.0f;
-#pragma unroll
-  for (int d4 = 0; d4 < D / 4; ++d4) {
-    const float4 kv = kr[d4];
-    s = fmaf(q[4 * d4], kv.x, s);
-    s = fmaf(q[4 * d4 + 1], kv.y, s);
-    s = fmaf(q[4 * d4 + 2], kv.z, s);
-    s = fmaf(q[4 * d4 + 3], kv.w, s);
-  }
-  return s;
-}
-
-// acc += pr * v[0:AW] (v: a staged f32 V row, 16-byte aligned)
-template <int AW>
-__device__ __forceinline__ void add_row(float (&acc)[AW], const float* v,
-                                        float pr) {
-  const float4* vr = reinterpret_cast<const float4*>(v);
-#pragma unroll
-  for (int d4 = 0; d4 < AW / 4; ++d4) {
-    const float4 vv = vr[d4];
-    acc[4 * d4] = fmaf(pr, vv.x, acc[4 * d4]);
-    acc[4 * d4 + 1] = fmaf(pr, vv.y, acc[4 * d4 + 1]);
-    acc[4 * d4 + 2] = fmaf(pr, vv.z, acc[4 * d4 + 2]);
-    acc[4 * d4 + 3] = fmaf(pr, vv.w, acc[4 * d4 + 3]);
-  }
-}
-
-// stage keys [k0, k0 + nk) of one sample as f32 into Ks [TK, C] and, with
-// kWithV, their V rows into Vs [TK, VW]
-template <typename T, int VW, bool kWithV>
-__device__ __forceinline__ void stage(const T* __restrict__ k2,
-                                      const T* __restrict__ vin, size_t base,
-                                      int k0, int nk, float* Ks, float* Vs) {
-  __syncthreads();  // the previous tile is read no more
-  for (int i = threadIdx.x; i < nk * C; i += NT_ATTN)
-    Ks[i] = Num<T>::to_float(k2[(base + k0) * C + i]);
-  if constexpr (kWithV) {
-    for (int i = threadIdx.x; i < nk * VW; i += NT_ATTN)
-      Vs[i] = Num<T>::to_float(vin[(base + k0) * VW + i]);
-  }
-  __syncthreads();
-}
-
+// What the self-attention launch of a mode computes.
 template <int kMode>
-constexpr int attn_smem_floats() {
-  return TK * C + TK * v_width(kMode) > TQ * C ? TK * C + TK * v_width(kMode)
-                                               : TQ * C;
+struct AttnOf {
+  // preproj and fold1dot: each head's PV is a whole C-wide row of V that
+  // the row launch already took through L3, and the heads are summed in f32
+  static constexpr bool kWide = kMode == PREPROJ || kMode == FOLD1DOT;
+  static constexpr int WV = v_width(kMode);  // staged V row
+  static constexpr int DV = kWide ? C : D;   // PV columns per head
+  // bf16smax and nosoftmax are not the two-pass softmax
+  static constexpr bool kTwoPass = kMode != BF16SMAX && kMode != NOSOFTMAX;
+};
+
+// Shared memory of attn_kernel: the staged K/V chunk (kc keys, K rows C
+// wide and V rows WV wide, padded as attn_tc.cuh pads them), which the
+// epilogue reuses: T(o) [TQ, C] and L3 [C, C] in T, or (wide modes) head
+// 0's f32 sums [TQ, C + 8] (conflict-free 8-byte stores).
+template <typename T, int kMode>
+struct AttnSmem {
+  using Pad = attn::Pad<T, C, AttnOf<kMode>::WV>;
+  static constexpr int LO = attn::Pad<T, C>::LK, LW = attn::Pad<T, C>::LV;
+  static constexpr int LS = C + 8;
+  static constexpr int EPILOGUE =
+      AttnOf<kMode>::kWide ? TQ * LS * 4 : (TQ * LO + C * LW) * (int)sizeof(T);
+  static int bytes(int kc) { return cmax(kc * Pad::KEY_BYTES, EPILOGUE); }
+};
+
+// a and b as T holds them, rounded as a pair (one conversion in bf16)
+template <typename T>
+__device__ __forceinline__ void rnd2(float& a, float& b) {
+  if constexpr (sizeof(T) == 2) {
+    const float2 f = __bfloat1622float2(__floats2bfloat162_rn(a, b));
+    a = f.x;
+    b = f.y;
+  }
+}
+
+// One sweep of this warp's rows over the keys: each chunk of kc keys is
+// staged (with V when `with_v`, or when the keys are one chunk) unless the
+// keys are one chunk that an earlier sweep staged (`first` false); then
+// body(s, key0, kt) gets the raw scores of every 64-key tile (kt: its
+// first key in the chunk). A body that runs `pv` hands it p unrounded: pv
+// rounds p to T as it forms the bf16 fragments (in f32 T holds p as it
+// is). Called by every thread of the CTA.
+template <typename T, int LK, class Stage, class Body>
+__device__ __forceinline__ void sweep(const attn::QFrags<T, D>& qf,
+                                      const T* Ks, int nk, int kc,
+                                      bool active, bool first, bool with_v,
+                                      Stage stage, Body body) {
+  const int nchunks = (nk + kc - 1) / kc;
+  for (int c = 0; c < nchunks; ++c) {
+    const int key0 = c * kc, n = min(kc, nk - key0);
+    if (first || nchunks > 1) {
+      __syncthreads();
+      stage(key0, n, with_v || nchunks == 1);
+      tc::cp_async_commit();
+      tc::cp_async_wait<0>();
+      __syncthreads();
+    }
+    if (!active) continue;
+    for (int kt = 0; kt < n; kt += attn::KT) {
+      float s[8][4];
+      attn::scores<T, D, LK>(s, qf, Ks + kt * LK);
+      body(s, key0 + kt, kt);
+    }
+  }
 }
 
 // q2, k2: T [B, Nv, C]; vin: T [B, Nv, v_width(kMode)]; y3: f32. Writes
-// out (T [B, Nv, C]).
+// out (T [B, Nv, C]). One CTA per (64-query tile, sample), eight warps,
+// four per head with 16 query rows each; kc keys per staged K/V chunk.
+// Two CTAs per SM: at most 128 registers a thread.
 template <typename T, bool kRoundAll, int kMode>
-__global__ void __launch_bounds__(NT_ATTN)
+__global__ void __launch_bounds__(NT_ATTN, 2)
     attn_kernel(const T* __restrict__ q2, const T* __restrict__ k2,
                 const T* __restrict__ vin, const float* __restrict__ y3,
                 const T* __restrict__ p, const int* __restrict__ offs,
-                T* __restrict__ out, int b0, int Nv) {
-  constexpr int VW = v_width(kMode);
-  // preproj and fold1dot add a full C-wide row per key and head
-  constexpr bool kWide = kMode == PREPROJ || kMode == FOLD1DOT;
-  constexpr int AW = kWide ? C : D;
-  extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;          // [TK, C]
-  float* Vs = Ks + TK * C;   // [TK, VW]
-  float* O = smem;           // [TQ, C] after the key loop
-
-  const int tid = threadIdx.x;
-  const int h = tid / TQ;   // warps 0-1: head 0, warps 2-3: head 1
-  const int r = tid % TQ;
+                T* __restrict__ out, int b0, int Nv, int kc) {
+  using P = tc::Mma<T>;
+  using M = AttnOf<kMode>;
+  using S = AttnSmem<T, kMode>;
+  using L = typename S::Pad;
+  constexpr int KSTEPS = attn::ksteps<T, D>();
+  constexpr int NO = M::DV / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Ks = reinterpret_cast<T*>(smem);
+  T* Vs = Ks + kc * L::LK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = warp / 4;
   const int r0 = blockIdx.x * TQ;
-  const int nq = min(TQ, Nv - r0);
-  const int row = min(r0 + r, Nv - 1);
+  const int wr = (warp % 4) * 16;  // the warp's first row in the tile
+  const int m0 = r0 + wr;
+  const bool active = m0 < Nv;
+  const size_t base = (size_t)(b0 + blockIdx.y) * Nv;
+  // the head's V columns: its D of v2, the one pre-projected row both
+  // heads share (preproj), or its own C-wide projected row (fold1dot)
   const int vcol = kMode == PREPROJ ? 0 : (kMode == FOLD1DOT ? h * C : h * D);
-  const T* l3_b = p + offs[L3_B];
 
-  const int b = b0 + blockIdx.y;
-  const size_t base = (size_t)b * Nv;
-  float q[D], acc[AW];
+  typename P::A qf[KSTEPS];
+  {
+    const T* qb = q2 + (base + m0) * C + h * D;
+    const int nr = Nv - m0;
+    auto qa = [&](int m, int d) {
+      return m < nr ? ld(qb + m * C + d) : 0.0f;
+    };
 #pragma unroll
-  for (int d = 0; d < D; ++d)
-    q[d] = Num<T>::to_float(q2[(base + row) * C + h * D + d]);
+    for (int ks = 0; ks < KSTEPS; ++ks) qf[ks] = P::load_a(qa, 0, ks * P::KS);
+  }
+  auto stage = [&](int key0, int n, bool with_v) {
+    attn::stage_kv<T, C, M::WV>(Ks, Vs, k2 + base * C, vin + base * M::WV,
+                                C, M::WV, key0, n, with_v);
+  };
+  // -inf past the last key
+  auto mask = [&](float (&s)[8][4], int key0) {
+    if (key0 + attn::KT > Nv) {
 #pragma unroll
-  for (int d = 0; d < AW; ++d) acc[d] = 0.0f;
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (key0 + 8 * j + 2 * t + (i & 1) >= Nv) s[j][i] = -CUDART_INF_F;
+    }
+  };
 
-  if constexpr (kMode == NOSOFTMAX) {
-    // prob = T(s * scale / 431), no softmax: one pass
-    for (int k0 = 0; k0 < Nv; k0 += TK) {
-      const int nk = min(TK, Nv - k0);
-      stage<T, VW, true>(k2, vin, base, k0, nk, Ks, Vs);
-      for (int j = 0; j < nk; ++j)
-        add_row(acc, Vs + j * VW + vcol,
-                rnd<T>(dot_head(q, Ks + j * C + h * D) * kScaleNoSoftmax));
-    }
-  } else if constexpr (kMode == BF16SMAX) {
-    // the softmax of T(s * scale) in T: max, then the sum of the rounded
-    // exponentials, then the rounded quotients (three passes)
-    float mx = -CUDART_INF_F;
-    for (int k0 = 0; k0 < Nv; k0 += TK) {
-      const int nk = min(TK, Nv - k0);
-      stage<T, VW, false>(k2, vin, base, k0, nk, Ks, Vs);
-      for (int j = 0; j < nk; ++j)
-        mx = fmaxf(mx, rnd<T>(dot_head(q, Ks + j * C + h * D) * kScale));
-    }
-    float l = 0.0f;
-    for (int k0 = 0; k0 < Nv; k0 += TK) {
-      const int nk = min(TK, Nv - k0);
-      stage<T, VW, false>(k2, vin, base, k0, nk, Ks, Vs);
-      for (int j = 0; j < nk; ++j) {
-        const float st = rnd<T>(dot_head(q, Ks + j * C + h * D) * kScale);
-        l += rnd<T>(expf(rnd<T>(st - mx)));
-      }
-    }
-    l = rnd<T>(l);
-    for (int k0 = 0; k0 < Nv; k0 += TK) {
-      const int nk = min(TK, Nv - k0);
-      stage<T, VW, true>(k2, vin, base, k0, nk, Ks, Vs);
-      for (int j = 0; j < nk; ++j) {
-        const float st = rnd<T>(dot_head(q, Ks + j * C + h * D) * kScale);
-        add_row(acc, Vs + j * VW + vcol,
-                rnd<T>(rnd<T>(expf(rnd<T>(st - mx))) / l));
-      }
-    }
+  float o[NO][4];
+  if constexpr (M::kTwoPass) {
+    // T(exp(s * scale - max) / sum) v: base-2 logits s * scale * log2(e),
+    // the division a product with the row's reciprocal sum
+    constexpr float sl = kScale * attn::LOG2E;
+    auto finish = [&](float (&s)[8][4], int key0) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[j][i] *= sl;
+      mask(s, key0);
+    };
+    attn::two_pass<T, D, C, M::DV, M::WV>(o, qf, Ks + h * D, Vs + vcol, Nv,
+                                          kc, active, stage, finish);
   } else {
-    // pass 1: the row's max and sum, online; pass 2: T(exp(s - max) /
-    // sum) times V
-    float mx = -CUDART_INF_F;
-    float l = 0.0f;
-    for (int k0 = 0; k0 < Nv; k0 += TK) {
-      const int nk = min(TK, Nv - k0);
-      stage<T, VW, false>(k2, vin, base, k0, nk, Ks, Vs);
-      for (int j = 0; j < nk; ++j) {
-        const float s = dot_head(q, Ks + j * C + h * D) * kScale;
-        if (s > mx) {
-          l *= expf(mx - s);
-          mx = s;
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[j][i] = 0.0f;
+    const T* kh = Ks + h * D;
+    if constexpr (kMode == NOSOFTMAX) {
+      // p = T(s * scale / 431), no softmax: one sweep (the zeroed pad keys
+      // and V rows past the last key add nothing)
+      sweep<T, L::LK>(qf, kh, Nv, kc, active, true, true, stage,
+                      [&](float (&s)[8][4], int, int kt) {
+#pragma unroll
+                        for (int j = 0; j < 8; ++j)
+#pragma unroll
+                          for (int i = 0; i < 4; ++i)
+                            s[j][i] *= kScaleNoSoftmax;
+                        attn::pv<T, NO, L::LV>(o, s, Vs + kt * L::LV + vcol);
+                      });
+    } else {
+      // bf16smax, the softmax of st = T(s * scale) in T, in three sweeps:
+      // the max of st, which is T(max(s) * scale) (rounding keeps the
+      // order); the sum of e = T(exp(T(st - max))), rounded to T; then
+      // T(e / sum) v. The exponent is rounded on the natural scale and
+      // only then taken to base 2. Pairs of a row are rounded together.
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.0f, 0.0f};
+      auto e = [&](float (&s)[8][4], int key0) {  // s -> e, in place
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; i += 2) {
+            float a = s[j][i] * kScale, b = s[j][i + 1] * kScale;
+            rnd2<T>(a, b);
+            a -= mx[i >> 1];
+            b -= mx[i >> 1];
+            rnd2<T>(a, b);
+            a = exp2f(a * attn::LOG2E);
+            b = exp2f(b * attn::LOG2E);
+            rnd2<T>(a, b);
+            s[j][i] = a;
+            s[j][i + 1] = b;
+          }
+        // past the last key e = 0 (-inf whatever the rounding)
+        if (key0 + attn::KT > Nv) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              if (key0 + 8 * j + 2 * t + (i & 1) >= Nv) s[j][i] = 0.0f;
         }
-        l += expf(s - mx);
-      }
-    }
-    for (int k0 = 0; k0 < Nv; k0 += TK) {
-      const int nk = min(TK, Nv - k0);
-      stage<T, VW, true>(k2, vin, base, k0, nk, Ks, Vs);
-      for (int j = 0; j < nk; ++j) {
-        const float s = dot_head(q, Ks + j * C + h * D) * kScale;
-        add_row(acc, Vs + j * VW + vcol, rnd<T>(expf(s - mx) / l));
-      }
+      };
+      sweep<T, L::LK>(qf, kh, Nv, kc, active, true, false, stage,
+                      [&](float (&s)[8][4], int key0, int) {
+                        mask(s, key0);
+#pragma unroll
+                        for (int j = 0; j < 8; ++j)
+#pragma unroll
+                          for (int i = 0; i < 4; ++i)
+                            mx[i >> 1] = fmaxf(mx[i >> 1], s[j][i]);
+                      });
+      mx[0] = rnd<T>(attn::quad_max(mx[0]) * kScale);
+      mx[1] = rnd<T>(attn::quad_max(mx[1]) * kScale);
+      sweep<T, L::LK>(qf, kh, Nv, kc, active, false, false, stage,
+                      [&](float (&s)[8][4], int key0, int) {
+                        e(s, key0);
+#pragma unroll
+                        for (int j = 0; j < 8; ++j)
+#pragma unroll
+                          for (int i = 0; i < 4; ++i) l[i >> 1] += s[j][i];
+                      });
+      l[0] = rnd<T>(attn::quad_sum(l[0]));
+      l[1] = rnd<T>(attn::quad_sum(l[1]));
+      sweep<T, L::LK>(qf, kh, Nv, kc, active, false, true, stage,
+                      [&](float (&s)[8][4], int key0, int kt) {
+                        e(s, key0);
+#pragma unroll
+                        for (int j = 0; j < 8; ++j)
+#pragma unroll
+                          for (int i = 0; i < 4; ++i) s[j][i] /= l[i >> 1];
+                        attn::pv<T, NO, L::LV>(o, s, Vs + kt * L::LV + vcol);
+                      });
     }
   }
-  __syncthreads();  // the staged tiles are read no more: O reuses them
 
-  if constexpr (kWide) {
-    // out = T((y3 + (acc_0 + acc_1)) + l3_b)
+  __syncthreads();  // K and V are read no more: the epilogue reuses them
+  const int nq = min(TQ, Nv - r0);
+  const T* l3_b = p + offs[L3_B];
+  if constexpr (M::kWide) {
+    // out = T((y3 + (o_0 + o_1)) + l3_b): head 0's sums through shared
+    // memory, added by head 1's warps, in one order
+    float* O = reinterpret_cast<float*>(smem);
     if (h == 0) {
 #pragma unroll
-      for (int c = 0; c < C; ++c) O[r * C + c] = acc[c];
+      for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+        for (int jn = 0; jn < NO; ++jn)
+          st2(O + (wr + g + 8 * rr) * S::LS + 8 * jn + 2 * t, o[jn][2 * rr],
+              o[jn][2 * rr + 1]);
     }
     __syncthreads();
-    if (h == 1 && r < nq) {
+    if (h == 1) {
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const size_t i = (base + r0 + r) * C + c;
-        out[i] = Num<T>::from_float((y3[i] + (O[r * C + c] + acc[c])) +
-                                    ld(l3_b + c));
+      for (int rr = 0; rr < 2; ++rr) {
+        const int m = wr + g + 8 * rr;
+        if (m >= nq) continue;
+#pragma unroll
+        for (int jn = 0; jn < NO; ++jn) {
+          const int c = 8 * jn + 2 * t;
+          const size_t i = (base + r0 + m) * C + c;
+          const float2 y = ld2(y3 + i), o0 = ld2(O + m * S::LS + c),
+                       b = ld2(l3_b + c);
+          st2(out + i, (y.x + (o0.x + o[jn][2 * rr])) + b.x,
+              (y.y + (o0.y + o[jn][2 * rr + 1])) + b.y);
+        }
       }
     }
   } else {
-    // o = T(concat_h o_h); x' = y3 + (o @ L3 + b), rounded per the policy
+    // out = y3 + (T(o) @ L3 + b) under the policy: T(o) and L3 into the
+    // staging space, then the product on the tensor cores
+    T* O = Ks;
+    T* W3 = O + TQ * S::LO;
+    tc::stage(W3, S::LW, p + offs[L3_W], C, C, C);
+    tc::cp_async_commit();
 #pragma unroll
-    for (int d = 0; d < D; ++d) O[r * C + h * D + d] = rnd<T>(acc[d]);
+    for (int rr = 0; rr < 2; ++rr) {
+      T* orow = O + (wr + g + 8 * rr) * S::LO + h * D + 2 * t;
+#pragma unroll
+      for (int jn = 0; jn < NO; ++jn)
+        st2(orow + 8 * jn, o[jn][2 * rr], o[jn][2 * rr + 1]);
+    }
+    tc::cp_async_wait<0>();
     __syncthreads();
-    gemm<T>(O, C, nq, C, p + offs[L3_W], C, C, [&](int rr, int c, float v) {
-      const size_t i = (base + r0 + rr) * C + c;
-      out[i] = Num<T>::from_float(
-          kRoundAll ? y3[i] + rnd<T>(rnd<T>(v) + ld(l3_b + c))
-                    : (y3[i] + v) + ld(l3_b + c));
-    });
+    tc::gemm<T, 2>(TQ / 16, C / 8, C, tc::RowMajor<T>{O, S::LO},
+                   tc::RowMajor<T>{W3, S::LW},
+                   [&](int m, int c, float v, float w) {
+                     if (m >= nq) return;
+                     const size_t i = (base + r0 + m) * C + c;
+                     const float2 y = ld2(y3 + i), b = ld2(l3_b + c);
+                     if constexpr (kRoundAll)
+                       st2(out + i, y.x + rnd<T>(rnd<T>(v) + b.x),
+                           y.y + rnd<T>(rnd<T>(w) + b.y));
+                     else
+                       st2(out + i, (y.x + v) + b.x, (y.y + w) + b.y);
+                   });
   }
 }
 
@@ -806,7 +914,8 @@ int launch_attn(const void* q2, const void* k2, const void* v,
                 const void* y3, const void* weights, const void* offs,
                 void* out, int B, int Nv, cudaStream_t stream) {
   auto kern = attn_kernel<T, kRoundAll, kMode>;
-  const int smem = attn_smem_floats<kMode>() * (int)sizeof(float);
+  const int kc = attn::chunk_keys<T, C, AttnOf<kMode>::WV>(Nv);
+  const int smem = AttnSmem<T, kMode>::bytes(kc);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -816,10 +925,31 @@ int launch_attn(const void* q2, const void* k2, const void* v,
         static_cast<const T*>(q2), static_cast<const T*>(k2),
         static_cast<const T*>(v), static_cast<const float*>(y3),
         static_cast<const T*>(weights), static_cast<const int*>(offs),
-        static_cast<T*>(out), b0, Nv);
+        static_cast<T*>(out), b0, Nv, kc);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+// The attention launch's plan at Nv keys. what: 0 keys per staged K/V
+// chunk, 1 CTAs resident per SM, 2 shared-memory bytes, 3 registers a
+// thread; -1 on a CUDA error.
+template <typename T, bool kRoundAll, int kMode>
+int attn_info(int Nv, int what) {
+  auto kern = attn_kernel<T, kRoundAll, kMode>;
+  const int kc = attn::chunk_keys<T, C, AttnOf<kMode>::WV>(Nv);
+  const int smem = AttnSmem<T, kMode>::bytes(kc);
+  if (what == 0) return kc;
+  if (what == 2) return smem;
+  cudaFuncAttributes attr;
+  int per = 0;
+  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess ||
+      cudaFuncGetAttributes(&attr, kern) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kern, NT_ATTN,
+                                                    smem) != cudaSuccess)
+    return -1;
+  return what == 3 ? attr.numRegs : per;
 }
 
 }  // namespace lbf_layer

@@ -32,14 +32,14 @@ against `full` (`_kernel:173-196`):
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import Dict, Sequence
 
 import torch
 import torch.nn.functional as F
 
 from . import cuda_lib
 from .layers import layer_norm32, std_layer_norm
-from .lbf_layer import EMBED, HEADS, check_layer_args
+from .lbf_layer import ATTN_INFO, EMBED, HEADS, check_layer_args
 
 MODES = ("full", "lnonly", "mlponly", "nocross", "nomlp", "nogelu",
          "tanhgelu", "bf16gelu", "noself", "preproj", "fold1dot", "bf16smax",
@@ -52,7 +52,11 @@ _SIGNATURE = {
     + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     "lbf_ablate_attn_launch": [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
     + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+    "lbf_ablate_attn_info": [ctypes.c_int] * 4,
 }
+# the self-attention kernels: the modes that change only the row-local
+# part run `full`'s
+ATTN_KERNELS = ("full", "preproj", "fold1dot", "bf16smax", "nosoftmax")
 
 
 def _check(b: int, group: int, mode: str) -> None:
@@ -154,6 +158,20 @@ def run_layers_ref(verts: torch.Tensor, joints: torch.Tensor,
         x = _layer_ref(x.float(), joints.float(), p, num_heads, w.dtype,
                        mode)
     return x
+
+
+def attn_info(dtype: torch.dtype, mode: str, nv: int) -> Dict[str, int]:
+    """The self-attention launch's plan of `mode` at `nv` vertices on the
+    current card, as `lbf_layer.attn_info` gives it for K2-layer."""
+    if mode not in MODES or mode in ROW_MODES:
+        raise ValueError(f"attn_info: {mode!r} has no self-attention launch")
+    lib = cuda_lib.load("lbf_ablate", _SIGNATURE)
+    code = cuda_lib.kernel_dtype(dtype)
+    info = {k: lib.lbf_ablate_attn_info(code, MODES.index(mode), nv, i)
+            for i, k in enumerate(ATTN_INFO)}
+    if min(info.values()) < 0:
+        raise RuntimeError(f"lbf_ablate_attn_info: CUDA error ({info})")
+    return info
 
 
 def run_layers_cuda(verts: torch.Tensor, joints: torch.Tensor,

@@ -45,7 +45,10 @@ _SIGNATURE = {
     + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     "lbf_layer_attn_launch": [ctypes.c_int] + [ctypes.c_void_p] * 7
     + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+    "lbf_layer_attn_info": [ctypes.c_int] * 3,
 }
+# what the attention launch's plan reports, by its index in `attn_info`
+ATTN_INFO = ("chunk_keys", "ctas_per_sm", "smem_bytes", "registers")
 
 
 def pack_layer(params: Dict[str, torch.Tensor], dtype: torch.dtype,
@@ -122,6 +125,39 @@ def check_layer_args(what: str, verts: torch.Tensor, joints: torch.Tensor,
             raise ValueError(f"{what}: all tensors must be on verts' device")
 
 
+def attn_info(dtype: torch.dtype, nv: int) -> Dict[str, int]:
+    """The self-attention launch's plan at `nv` vertices on the current
+    card: keys per staged K/V chunk, CTAs resident per SM, shared-memory
+    bytes and registers a thread (`ATTN_INFO`)."""
+    lib = cuda_lib.load("lbf_layer", _SIGNATURE)
+    code = cuda_lib.kernel_dtype(dtype)
+    info = {k: lib.lbf_layer_attn_info(code, nv, i)
+            for i, k in enumerate(ATTN_INFO)}
+    if min(info.values()) < 0:
+        raise RuntimeError(f"lbf_layer_attn_info: CUDA error ({info})")
+    return info
+
+
+def lbf_layer_rows(verts: torch.Tensor, joints: torch.Tensor,
+                   weights: cuda_lib.Packed):
+    """The row-local launch of csrc/lbf_layer.cu alone, on contiguous CUDA
+    tensors -> (y3 f32, q2, k2, v2) [B, Nv, C], the self-attention's
+    inputs."""
+    b, nv, _ = verts.shape
+    lib = cuda_lib.load("lbf_layer", _SIGNATURE)
+    y3 = torch.empty(verts.shape, dtype=torch.float32, device=verts.device)
+    q2, k2, v2 = (torch.empty_like(verts) for _ in range(3))
+    err = lib.lbf_layer_rows_launch(
+        cuda_lib.kernel_dtype(verts.dtype), verts.data_ptr(),
+        joints.data_ptr(), weights.flat.data_ptr(),
+        weights.offsets.data_ptr(), y3.data_ptr(), q2.data_ptr(),
+        k2.data_ptr(), v2.data_ptr(), b, nv, joints.shape[1],
+        cuda_lib.stream_ptr(verts))
+    cuda_lib.check(err, "lbf_layer_rows_launch")
+    lbf_layer.launches += 1
+    return y3, q2, k2, v2
+
+
 def lbf_layer_cuda(verts: torch.Tensor, joints: torch.Tensor,
                    weights: cuda_lib.Packed) -> torch.Tensor:
     """Launch csrc/lbf_layer.cu (a row-local kernel, then the
@@ -132,21 +168,13 @@ def lbf_layer_cuda(verts: torch.Tensor, joints: torch.Tensor,
     if b == 0 or nv == 0:
         return out
     lib = cuda_lib.load("lbf_layer", _SIGNATURE)
-    code = cuda_lib.kernel_dtype(verts.dtype)
-    stream = cuda_lib.stream_ptr(verts)
-    verts, joints = verts.contiguous(), joints.contiguous()
-    y3 = torch.empty(verts.shape, dtype=torch.float32, device=verts.device)
-    q2, k2, v2 = (torch.empty_like(verts) for _ in range(3))
-    layer, offs = weights.flat.data_ptr(), weights.offsets.data_ptr()
-    err = lib.lbf_layer_rows_launch(
-        code, verts.data_ptr(), joints.data_ptr(), layer, offs, y3.data_ptr(),
-        q2.data_ptr(), k2.data_ptr(), v2.data_ptr(), b, nv, joints.shape[1],
-        stream)
-    cuda_lib.check(err, "lbf_layer_rows_launch")
-    lbf_layer.launches += 1
+    y3, q2, k2, v2 = lbf_layer_rows(verts.contiguous(), joints.contiguous(),
+                                    weights)
     err = lib.lbf_layer_attn_launch(
-        code, q2.data_ptr(), k2.data_ptr(), v2.data_ptr(), y3.data_ptr(),
-        layer, offs, out.data_ptr(), b, nv, stream)
+        cuda_lib.kernel_dtype(verts.dtype), q2.data_ptr(), k2.data_ptr(),
+        v2.data_ptr(), y3.data_ptr(), weights.flat.data_ptr(),
+        weights.offsets.data_ptr(), out.data_ptr(), b, nv,
+        cuda_lib.stream_ptr(verts))
     cuda_lib.check(err, "lbf_layer_attn_launch")
     lbf_layer.launches += 1
     return out

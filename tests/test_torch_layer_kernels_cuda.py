@@ -8,8 +8,13 @@ This file imports no JAX, so it runs on a machine with only PyTorch:
 Bars as in test_torch_kernels_cuda.py: f32 atol 1e-4; bf16 atol 5e-2 (sums
 taken in another order can flip a bf16 rounding of an intermediate).
 Past 65535 samples (the grid's y limit) the host launches the kernels
-again for the rest of the batch: B=65537 at Nv=50 checks that seam.
+again for the rest of the batch: B=65537 at Nv=50 checks that seam. The
+self-attention kernel of each variant (K2-layer's; T1's full, preproj,
+fold1dot, bf16smax, nosoftmax) gives the same bits on a second run, and
+in bf16 those with 64-wide V rows hold two CTAs per SM.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +24,11 @@ from gator_tpu_torch.models import GatorSpec, build_gator
 from gator_tpu_torch.nn import (MODES, cuda_lib, extract_layer_params,
                                 lbf_layer, lbf_layer_ref, run_layers,
                                 run_layers_ref)
+from gator_tpu_torch.nn.lbf_ablate import ATTN_KERNELS
+
+# the modules (the package exports functions of the same names)
+k2_layer = importlib.import_module("gator_tpu_torch.nn.lbf_layer")
+t1 = importlib.import_module("gator_tpu_torch.nn.lbf_ablate")
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 
@@ -90,6 +100,38 @@ def test_run_layers_kernel_does_not_depend_on_group(mdr, mode):
     assert torch.equal(outs[0], outs[1])
     err = _err(outs[0], run_layers_ref(verts, joints, layers, 2, 1, mode))
     assert err <= TOL[torch.float32], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ("lbf_layer",) + ATTN_KERNELS)
+def test_attention_variants_repeat_bit_identical(mdr, dtype, variant):
+    """Each self-attention kernel (K2-layer's, and T1's five) gives the same
+    bits on a second run: the heads' sums meet in a fixed order."""
+    rng = np.random.default_rng(3)
+    verts = _randn(rng, 16, 431, 64).to(dtype)
+    joints = _randn(rng, 16, mdr.spec.num_joint, 64).to(dtype)
+    w = extract_layer_params(mdr, 0, dtype, "cuda")
+    if variant == "lbf_layer":
+        outs = [lbf_layer(verts, joints, w, 2) for _ in range(2)]
+    else:
+        outs = [run_layers(verts, joints, [w], 2, 1, variant)
+                for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+def test_bf16_64_wide_attention_fits_two_ctas_per_sm(mdr):
+    """The bf16 self-attention kernels whose V rows are 64 wide (all but
+    fold1dot's 128) hold two CTAs per SM at Nv=431 and at a ragged 50."""
+    for nv in (431, 50):
+        infos = {"lbf_layer": k2_layer.attn_info(torch.bfloat16, nv)}
+        infos.update({m: t1.attn_info(torch.bfloat16, m, nv)
+                      for m in ATTN_KERNELS if m != "fold1dot"})
+        for name, info in infos.items():
+            assert info["ctas_per_sm"] >= 2, (name, nv, info)
+            assert info["chunk_keys"] % 64 == 0, (name, nv, info)
 
 
 @pytest.mark.cuda
