@@ -54,8 +54,9 @@ The training path (K4 csrc/lbf_stack_train.cu, K5 csrc/gat_trunk_train.cu):
 The evaluation path (K3 csrc/fused_attention.cu, the MDR vertex
 self-attention of the module form):
  15. (h) K3 is built with the others in phase 2;
- 16. (i) K3 against its plain version: B=16 and the eval batch B=512 at
-     Nq=Nk=431, 2 heads of 32, no bias; with a bias at 431x431, at the
+ 16. (i) K3 against its plain version: B=16, the real-dataset test
+     configs' batch B=64 and the eval batch B=512 at Nq=Nk=431, 2 heads of
+     32, no bias; with a bias at 431x431, at the
      GAT shape 17x17, 8 heads of 16, and at 1000x1000, 2 heads of 64 (K/V
      staged in chunks); f32 (3xTF32) within 1e-4, bf16 reported; the
      autograd Function's dq, dk, dv, dbias against autograd through the
@@ -93,6 +94,32 @@ built in phase 2):
      only, scaled_dot_product_attention on the same q2/k2/v2 (the
      attention alone, without the probability rounding, L3 or the
      residual; the port never calls it).
+The real-dataset path (no new kernel; K1-K5 through the entry points), on
+fabricated annotation trees in the readers' real schemas
+(`write_fixtures`), each phase with every counter reset just before and
+read just after:
+ 22. (o) the trees: Human36M train (subjects 1/5/6/7/8, 1280 rows) and
+     test (9/11, 2048 frames at camera 4, two without an SMPL fit, with
+     absnet_output_on_testset.json), 3DPW test (512 rows, both genders),
+     COCO and MuCo train (1024 each), read through GATOR_DATA_DIR;
+ 23. (p) `cli.test.run_test` at full width with a saved seeded checkpoint
+     on configs/gator_human36J_test_human36_det.yml (detector input, the
+     H36M protocol-2 suite per action) and
+     configs/gator_cocoJ_test_human36_coco_muco_gt.yml (the 3DPW suite): K3
+     3 times per batch and nothing else, the suite's four metrics finite,
+     the card's suite within rel 1e-5 of the same suite on the CPU, the GT
+     mesh as prediction reading MPVPE 0;
+ 24. (q) 5 stage-2 steps of configs/gator_synthetic_flagship.yml's mix
+     (Human36M + COCO + MuCo readers, COCO joints, detector noise,
+     augmentation on) at B=512 bf16 on the kernels, batches from
+     `data.BatchPipeline` (the host path): losses finite, K4 and K5 launched
+     and nothing else; then the host ms per batch of the pipeline alone
+     with `synthesize_pose_batch` split out, the step's ms on batches
+     already made, and the ms per step fed by the pipeline, each on its own
+     line, with the card's name and power limit;
+ 25. (r) the serve CLI with --obj_dir, --obj_every 100 and --f32 on 300
+     poses: K1 and K2 launched, three .obj files, the meshes within 1e-4 m
+     of make_serving_fn in f32.
 Then a JSON line with each kernel's numbers, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without a CUDA device the
@@ -331,6 +358,144 @@ def masks_equal(got, want):
         return bool((got == 1).all()), 1.0
     return (bool(got.shape == want.shape and (got == want).all()),
             (want > 0).float().mean().item())
+
+
+# -- fabricated dataset trees in the real annotation schemas ---------------
+
+H36M_SUBJECTS = {"train": (1, 5, 6, 7, 8), "test": (9, 11)}
+
+
+def _h36m_name(s, act, cam, frame):
+    stem = f"s_{s:02d}_act_{act:02d}_subact_01_ca_{cam:02d}"
+    return f"{stem}/{stem}_{frame:06d}.jpg"
+
+
+def _rot_y(yaw):
+    cs, sn = np.cos(yaw), np.sin(yaw)
+    return np.array([[cs, 0, sn], [0, 1, 0], [-sn, 0, cs]])
+
+
+def _smpl_param(rng, trans=None):
+    """An SMPL fit: pose, shape and, where the schema has one, trans."""
+    param = {"pose": (0.2 * rng.standard_normal(72)).round(5).tolist(),
+             "shape": rng.uniform(-1, 1, 10).round(5).tolist()}
+    if trans is not None:
+        param["trans"] = list(trans)
+    return param
+
+
+def write_fixtures(root, h36m_test=2048, h36m_train=1280, pw3d=512,
+                   coco=1024, muco=1024, seed=0):
+    """Write Human36M (train subjects 1/5/6/7/8 at every 5th frame, cameras
+    1-4; test subjects 9/11 at every 50th frame, camera 4, with
+    absnet_output_on_testset.json), 3DPW test (both genders, DarkPose
+    detections), COCO and MuCo train trees under `root`, in the schemas the
+    readers parse (gator_tpu_torch/data/{h36m,pw3d,coco_ds,muco}.py). Rows
+    are random, from `seed`: plausible SMPL fits, cameras ~5 m away, joints
+    and keypoints of body scale. The last frame of each test subject has no
+    SMPL fit (the readers skip it, and its detection)."""
+    rng = np.random.default_rng(seed)
+
+    def dump(obj, *parts):
+        path = os.path.join(root, *parts)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(obj, f)
+
+    dets, next_id = {}, 0
+    for split, n_total in (("train", h36m_train), ("test", h36m_test)):
+        subjects = H36M_SUBJECTS[split]
+        step, cams = (5, (1, 2, 3, 4)) if split == "train" else (50, (4,))
+        per = -(-n_total // (len(subjects) * len(cams)))
+        for s in subjects:
+            cameras = {str(c): {
+                "R": _rot_y(0.5 * c - 1.2).round(6).tolist(),
+                "t": [0.0, 0.0, 5000.0], "f": [1145.0, 1144.0],
+                "c": [512.0, 515.0]} for c in cams}
+            images, anns, joints, smpls = [], [], {}, {}
+            for k in range(per):
+                act = 2 + k % 15
+                frame = step * (k // 15)
+                joints.setdefault(str(act), {"1": {}})
+                smpls.setdefault(str(act), {"1": {}})
+                world = rng.normal(0, 250, (17, 3))
+                joints[str(act)]["1"][str(frame)] = world.round(3).tolist()
+                if not (split == "test" and k == per - 1):
+                    smpls[str(act)]["1"][str(frame)] = _smpl_param(
+                        rng, [0.0, 0.0, 0.0])
+                for c in cams:
+                    img_id, next_id = next_id, next_id + 1
+                    name = _h36m_name(s, act, c, frame)
+                    images.append({
+                        "id": img_id, "file_name": name, "frame_idx": frame,
+                        "subject": s, "action_idx": act, "subaction_idx": 1,
+                        "cam_idx": c, "height": 1002, "width": 1000})
+                    anns.append({"id": img_id, "image_id": img_id,
+                                 "bbox": [300.0, 150.0, 420.0, 700.0]})
+                    if split == "test":
+                        cam = np.array(cameras[str(c)]["R"])
+                        jc = world @ cam.T + [0, 0, 5000.0]
+                        xy = jc[:, :2] / jc[:, 2:] * 1145.0 + 512.0
+                        xy = xy + rng.normal(0, 4.0, xy.shape)
+                        dets[name.split("/")[-1]] = np.concatenate(
+                            [xy, np.ones((17, 1))], 1).round(3).tolist()
+            base = ("Human36M", "annotations", f"Human36M_subject{s}")
+            dump({"images": images, "annotations": anns},
+                 *base[:-1], base[-1] + "_data.json")
+            dump(cameras, *base[:-1], base[-1] + "_camera.json")
+            dump(joints, *base[:-1], base[-1] + "_joint_3d.json")
+            dump(smpls, *base[:-1], base[-1] + "_smpl_param.json")
+    dump(dets, "Human36M", "absnet_output_on_testset.json")
+
+    images, anns, dark = [], [], []
+    for i in range(pw3d):
+        images.append({"id": i, "width": 1080, "height": 1920,
+                       "sequence": f"courtyard_{i // 64:02d}",
+                       "file_name": f"image_{i % 64:05d}.jpg",
+                       "cam_param": {"focal": [1961.0, 1969.0],
+                                     "princpt": [540.0, 960.0]}})
+        param = _smpl_param(rng, [0.0, 0.2, 4.0])
+        param["gender"] = "female" if i % 2 else "male"
+        anns.append({"id": i, "image_id": i, "person_id": i % 2,
+                     "bbox": [300.0, 500.0, 420.0, 900.0],
+                     "smpl_param": param})
+        kp = np.concatenate([rng.uniform(350, 700, (17, 1)),
+                             rng.uniform(550, 1350, (17, 1)),
+                             rng.uniform(0.3, 1.0, (17, 1))], 1)
+        dark.append({"annotation_id": i, "keypoints": kp.round(3).tolist()})
+    dump({"images": images, "annotations": anns},
+         "PW3D", "data", "3DPW_latest_test.json")
+    dump(dark, "PW3D", "data", "darkpose_3dpw_testset_output.json")
+
+    anns, fits = [], {}
+    for i in range(coco):
+        kp = np.concatenate([rng.uniform(100, 400, (17, 2)),
+                             np.full((17, 1), 2.0)], 1)
+        anns.append({"id": i, "iscrowd": 0, "num_keypoints": 17,
+                     "keypoints": kp.round(3).flatten().tolist(),
+                     "bbox": [90.0, 80.0, 320.0, 380.0]})
+        fits[str(i)] = {"smpl_param": _smpl_param(rng),
+                        "cam_param": {"s": [float(rng.uniform(150, 250))],
+                                      "t": rng.uniform(150, 250,
+                                                       2).tolist()}}
+    dump({"annotations": anns},
+         "COCO", "annotations", "person_keypoints_train2017.json")
+    dump(fits, "COCO", "annotations", "coco_smplify_train.json")
+
+    images, anns, params = [], [], {}
+    for i in range(muco):
+        images.append({"id": i, "f": [1500.0, 1500.0], "c": [1000.0, 1000.0]})
+        for p in range(1 + i % 2):          # every other image: two people
+            aid = 2 * i + p
+            kc = rng.uniform(-400, 400, (21, 3))
+            kc[:, 2] += 3000.0 + 1000.0 * p
+            anns.append({"id": aid, "image_id": i,
+                         "bbox": [60.0 + 40 * p, 60.0, 300.0, 400.0],
+                         "keypoints_cam": kc.round(3).tolist()})
+            params[str(aid)] = _smpl_param(rng, [0.0, 0.0, 3.0 + p])
+    dump({"images": images, "annotations": anns},
+         "MuCo", "data", "MuCo-3DHP.json")
+    dump(params, "MuCo", "data", "smpl_param.json")
 
 
 def train_phases(torch, dev, card, randn):
@@ -776,6 +941,34 @@ def train_phases(torch, dev, card, randn):
     return out
 
 
+def launch_counters(torch):
+    """-> (reset, read) over the launch counts of the main paths' kernels
+    (K1, K2, K5, K4, K3): `reset()` sets every count to 0, `read()`
+    synchronizes and returns {kernel: launches since the reset}."""
+    from gator_tpu_torch.nn import gat_trunk, lbf_stack
+    from gator_tpu_torch.nn.fused_attention import fused_attention
+    from gator_tpu_torch.nn.gat_trunk_train import gat_trunk_train as k5
+    from gator_tpu_torch.nn.lbf_stack_train import lbf_stack_train as k4
+
+    counters = {"gat_trunk": (gat_trunk, ("launches",)),
+                "lbf_stack": (lbf_stack, ("launches",)),
+                "gat_trunk_train": (k5, ("launches_fwd", "launches_bwd")),
+                "lbf_stack_train": (k4, ("launches_fwd", "launches_bwd")),
+                "fused_attention": (fused_attention, ("launches",))}
+
+    def reset():
+        for fn, attrs in counters.values():
+            for a in attrs:
+                setattr(fn, a, 0)
+
+    def read():
+        torch.cuda.synchronize()
+        return {n: sum(getattr(fn, a) for a in attrs)
+                for n, (fn, attrs) in counters.items()}
+
+    return reset, read
+
+
 def eval_phases(torch, dev, card, randn):
     """Phases 16-18 (i-k): K3 against its plain version, the eval path on
     the card, and its times."""
@@ -784,11 +977,8 @@ def eval_phases(torch, dev, card, randn):
     from gator_tpu_torch.cli import test as test_cli
     from gator_tpu_torch.cli.common import Session
     from gator_tpu_torch.config import load_config
-    from gator_tpu_torch.nn import gat_trunk, lbf_stack
     from gator_tpu_torch.nn.fused_attention import (fused_attention,
                                                     fused_attention_ref)
-    from gator_tpu_torch.nn.gat_trunk_train import gat_trunk_train as k5
-    from gator_tpu_torch.nn.lbf_stack_train import lbf_stack_train as k4
     from gator_tpu_torch.tools.timing import time_ms
     from gator_tpu_torch.train import run_eval
 
@@ -802,6 +992,7 @@ def eval_phases(torch, dev, card, randn):
 
     err3 = 0.0
     for b, nq, h, d, with_bias in ((16, 431, 2, 32, False),
+                                   (64, 431, 2, 32, False),
                                    (512, 431, 2, 32, False),
                                    (16, 431, 2, 32, True),
                                    (64, 17, 8, 16, True),
@@ -844,19 +1035,8 @@ def eval_phases(torch, dev, card, randn):
     # 17 (j): the main eval path; every counter reset just before
     e2e = os.path.join(ROOT, "configs", "gator_synthetic_e2e.yml")
     gat_cfg = os.path.join(ROOT, "configs", "gat_synthetic_e2e.yml")
-    counters = {"gat_trunk": (gat_trunk, ("launches",)),
-                "lbf_stack": (lbf_stack, ("launches",)),
-                "gat_trunk_train": (k5, ("launches_fwd", "launches_bwd")),
-                "lbf_stack_train": (k4, ("launches_fwd", "launches_bwd")),
-                "fused_attention": (fused_attention, ("launches",))}
-
-    def read_counts():
-        return {n: sum(getattr(fn, a) for a in attrs)
-                for n, (fn, attrs) in counters.items()}
-
-    for fn, attrs in counters.values():
-        for a in attrs:
-            setattr(fn, a, 0)
+    reset_counts, read_counts = launch_counters(torch)
+    reset_counts()
     gator_batches = 0
     with tempfile.TemporaryDirectory() as tmp:
         res = test_cli.main(["--cfg", e2e, "--synthetic",
@@ -1147,6 +1327,228 @@ def layer_phases(torch, dev, card, randn, models):
         "lbf_ablate": bound(b * 3 * fma_lbf_layer(nv, 17),
                             nbytes + 2 * LBF_LAYER_WEIGHTS * 2),
     }
+    return out
+
+
+def dataset_phases(torch, dev, card, tmp):
+    """Phases 22-25 (o-r): the real-dataset path on fabricated trees in the
+    real schemas: the eval CLI with the Human36M and 3DPW metric suites,
+    stage-2 steps on the flagship mix of the readers with detector noise,
+    and the serve CLI's .obj and f32 flags. -> {phase: launch counts} and
+    the flagship mix's host and step times."""
+    from gator_tpu_torch import losses
+    from gator_tpu_torch.assets import build_assets
+    from gator_tpu_torch.cli import serve as serve_cli
+    from gator_tpu_torch.cli import test as test_cli
+    from gator_tpu_torch.cli.common import build_datasets
+    from gator_tpu_torch.config import load_config
+    from gator_tpu_torch.data import BatchPipeline, GtSynthesizer, noise
+    from gator_tpu_torch.data import processing
+    from gator_tpu_torch.models import GatorSpec, build_gator
+    from gator_tpu_torch.serving import make_serving_fn
+    from gator_tpu_torch.train import (Adam, TrainState,
+                                       make_gator_train_step,
+                                       save_checkpoint)
+
+    reset, read = launch_counters(torch)
+    out = {"launches": {}}
+
+    # 22 (o): the fabricated trees, read through GATOR_DATA_DIR
+    data = os.path.join(tmp, "data")
+    t0 = time.perf_counter()
+    write_fixtures(data)
+    os.environ["GATOR_DATA_DIR"] = data
+    say(22, f"fixtures (Human36M train 1280 / test 2048 rows with "
+            f"detections, 3DPW 512, COCO 1024, MuCo 1024) written in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    # 23 (p): the eval CLI with the datasets' metric suites, on the card
+    assets = {js: build_assets(js, data_dirs=[], synthetic_vertex_num=6890,
+                               seed=0) for js in ("human36", "coco")}
+    for name in ("gator_human36J_test_human36_det.yml",
+                 "gator_cocoJ_test_human36_coco_muco_gt.yml"):
+        cfg = load_config(os.path.join(ROOT, "configs", name))
+        js = cfg.DATASET.input_joint_set
+        model = build_gator(GatorSpec.from_assets(
+            assets[js], embed_dim=cfg.MODEL.embed_dim, depth=cfg.MODEL.depth,
+            alpha=cfg.MODEL.alpha), seed=21, device="cpu")
+        weights = save_checkpoint(os.path.join(tmp, "w_" + js), model, 1)
+        reset()
+        t0 = time.perf_counter()
+        suite, res = test_cli.run_test(cfg, weights,
+                                       vis_dir=os.path.join(tmp, "vis"),
+                                       assets=assets[js])
+        eval_s = time.perf_counter() - t0
+        counts = read()
+        (ds,) = build_datasets(cfg, assets[js], cfg.DATASET.test_list, False)
+        n = len(ds)
+        batches = -(-n // cfg.TEST.batch_size)
+        check(res["count"] == n, f"{name}: every row evaluated")
+        check(counts["fused_attention"] == 3 * batches and all(
+            v == 0 for k, v in counts.items() if k != "fused_attention"),
+            f"{name}: K3 3 times per batch ({batches}), nothing else: "
+            f"{counts}")
+        keys = {"mpjpe", "pa_mpjpe", "smpl_mpjpe", "mpvpe"}
+        check(set(suite) == keys and all(np.isfinite(list(suite.values()))),
+              f"{name}: the metric suite's keys, finite: {suite}")
+        pred = torch.as_tensor(res["pred_mesh_mm"][:n], device=dev)
+        gt = torch.as_tensor(res["mesh"][:n], device=dev) * 1000.0
+        host = ds.evaluate(pred.cpu(), gt.cpu(), verbose=False)
+        worst = max(abs(host[k] - suite[k]) / abs(host[k]) for k in keys)
+        check(worst <= 1e-5, f"{name}: the card's suite against the same "
+                             f"suite on the CPU, rel {worst} <= 1e-5")
+        zero = ds.evaluate(gt, gt, verbose=False)
+        check(zero["mpvpe"] == 0.0 and zero["smpl_mpjpe"] == 0.0,
+              f"{name}: the GT mesh as prediction reads 0: {zero}")
+        out["launches"][f"eval {ds.name}"] = counts
+        say(23, f"{name}: {type(ds).__name__} {n} rows, {batches} batches "
+                f"of {cfg.TEST.batch_size} in {eval_s:.1f} s (host clock, "
+                f"set-up included); "
+                + ", ".join(f"{k} {suite[k]:.3f}" for k in sorted(keys))
+                + f" mm; the CPU's suite within rel {worst:.1e} (bar 1e-5);"
+                f" GT as prediction: MPVPE {zero['mpvpe']}; launches "
+                f"{counts}")
+
+    # 24 (q): stage-2 steps on the flagship mix (Human36M + COCO + MuCo
+    # readers, COCO joints, detector noise, augmentation on), batches from
+    # the host pipeline
+    cfg = load_config(os.path.join(ROOT, "configs",
+                                   "gator_synthetic_flagship.yml"))
+    coco = assets["coco"]
+    synth = GtSynthesizer(coco, dev)
+    datasets = build_datasets(cfg, coco, cfg.DATASET.train_list, True,
+                              synthesizer=synth)
+    check([type(d).__name__ for d in datasets]
+          == ["Human36M", "CocoDataset", "MucoDataset"]
+          and not datasets[0].opts.use_gt_input,
+          "the flagship mix reads its three readers, detector input")
+    b = cfg.TRAIN.batch_size
+    pipe = BatchPipeline(datasets, synth, b, shuffle=cfg.TRAIN.shuffle,
+                         seed=cfg.seed)
+    synth_s = [0.0]
+    plain_synth = noise.synthesize_pose_batch
+
+    def timed_synth(*args, **kw):
+        t = time.perf_counter()
+        try:
+            return plain_synth(*args, **kw)
+        finally:
+            synth_s[0] += time.perf_counter() - t
+
+    noise.synthesize_pose_batch = timed_synth
+    try:
+        it = iter(pipe)
+        kept = [next(it)]                  # the first batch warms up
+        torch.cuda.synchronize()
+        synth_s[0] = 0.0
+        t0 = time.perf_counter()
+        for _ in range(5):
+            kept.append(next(it))
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / 5
+        synth_ms = synth_s[0] * 1e3 / 5
+        del it
+    finally:
+        noise.synthesize_pose_batch = plain_synth
+    spec_v = coco.mean_vertices.shape[0]
+    check(all(np.isfinite(k["pose2d"]).all() for k in kept)
+          and kept[1]["pose2d"].shape == (b, 19, 2)
+          and kept[1]["mesh"].shape == (b, spec_v, 3),
+          "flagship batches of the configured shape, finite inputs")
+
+    spec = GatorSpec.from_assets(coco, embed_dim=cfg.MODEL.embed_dim,
+                                 depth=cfg.MODEL.depth,
+                                 alpha=cfg.MODEL.alpha)
+    model = build_gator(spec, seed=23, device=dev)
+    state = TrainState(model, Adam(model.parameters(), lr=cfg.TRAIN.lr))
+    step = make_gator_train_step(
+        spec, coco.faces, coco.j_regressor_h36m,
+        losses.LossWeights(normal=cfg.MODEL.normal_loss_weight,
+                           edge=cfg.MODEL.edge_loss_weight,
+                           joint=cfg.MODEL.joint_loss_weight),
+        dtype=torch.bfloat16)
+    edge = 1.0 if cfg.TRAIN.begin_epoch >= cfg.TRAIN.edge_loss_start \
+        else 0.0
+    # the main path: 5 steps fed by the pipeline (its prefetch thread
+    # overlapping the steps), every counter reset just before
+    pipe.set_epoch(1)
+    reset()
+    curve, e2e = [], []
+    it = iter(pipe)
+    with torch.enable_grad():
+        for _ in range(5):
+            t0 = time.perf_counter()
+            batch = next(it)
+            curve.append(float(step(state, batch, cfg.seed, edge)["loss"]))
+            e2e.append((time.perf_counter() - t0) * 1e3)
+    del it
+    counts = read()
+    check(all(np.isfinite(curve)), f"flagship losses finite: {curve}")
+    check(counts["gat_trunk_train"] > 0 and counts["lbf_stack_train"] > 0
+          and counts["fused_attention"] == counts["gat_trunk"]
+          == counts["lbf_stack"] == 0,
+          f"K4 and K5 (only) launched on the flagship steps: {counts}")
+    out["launches"]["flagship stage 2"] = counts
+    # the step alone, on batches already made
+    step_ms = []
+    with torch.enable_grad():
+        for batch in kept[1:]:
+            t0 = time.perf_counter()
+            float(step(state, batch, cfg.seed, edge)["loss"])
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    out["flagship"] = {"host_ms": host_ms, "synth_ms": synth_ms,
+                       "step_ms": float(np.median(step_ms)),
+                       "e2e_ms": float(np.median(e2e[1:]))}
+    say(24, f"flagship stage 2, B={b} bf16, kernels on: losses "
+            + " ".join(f"{c:.4f}" for c in curve)
+            + f"; launches {counts}")
+    print(f"flagship host pipeline: {host_ms:.1f} ms per batch of {b} "
+          f"(synthesize_pose_batch {synth_ms:.1f} ms of it), host clock, "
+          f"mean of 5 after one warm-up", flush=True)
+    print(f"flagship stage-2 step: {out['flagship']['step_ms']:.1f} ms "
+          f"(median of 5, host clock, synchronised); fed by the pipeline "
+          f"{out['flagship']['e2e_ms']:.1f} ms per step (median of steps "
+          f"2-5)", flush=True)
+    print(f"flagship times on {card}", flush=True)
+
+    # 25 (r): the serve CLI's .obj dump and --f32, on the card
+    rng = np.random.default_rng(25)
+    poses = np.concatenate([rng.uniform(50, 450, size=(300, 17, 2)),
+                            rng.uniform(0.3, 1.0, size=(300, 17, 1))],
+                           axis=2).astype(np.float32)
+    src, dst = os.path.join(tmp, "poses.npy"), os.path.join(tmp, "m.npy")
+    objs = os.path.join(tmp, "objs")
+    np.save(src, poses)
+    reset()
+    served = serve_cli.main(["--input_poses", src, "--joint_set", "coco",
+                             "--output", dst, "--obj_dir", objs,
+                             "--obj_every", "100", "--f32"])
+    counts = read()
+    check(counts["gat_trunk"] > 0 and counts["lbf_stack"] > 0,
+          f"K1 and K2 launched by the serve CLI: {counts}")
+    names = sorted(os.listdir(objs))
+    check(names == [f"mesh_{i:06d}.obj" for i in (0, 100, 200)],
+          f"one .obj per 100 poses: {names}")
+    cli_assets = build_assets("coco")
+    cli_model = build_gator(GatorSpec.from_assets(cli_assets), seed=0,
+                            device=dev)
+    pose2d = processing.batch_crop_and_normalize(
+        processing.add_pelvis_neck_scores(
+            poses, list(cli_assets.joint_set.joints_name))[..., :2],
+        cli_assets.joint_set,
+        processing.ProcessOptions(is_train=False, input_joint_name="coco"),
+        np.zeros(300, np.int64), np.zeros(300, np.float32))
+    fn = make_serving_fn(cli_model, torch.float32)
+    ref = np.concatenate([
+        fn(torch.from_numpy(pose2d[lo:lo + 256]).to(dev))[0].cpu().numpy()
+        for lo in (0, 256)])
+    e_f32 = float(np.abs(served["meshes"] - ref).max())
+    check(e_f32 <= 1e-4, f"--f32 meshes against make_serving_fn in f32: "
+                         f"{e_f32} <= 1e-4 m")
+    out["launches"]["serve --f32"] = counts
+    say(25, f"serve CLI --f32 --obj_dir --obj_every 100: 300 poses, "
+            f"{len(names)} .obj files, meshes within {e_f32:.2e} m of "
+            f"make_serving_fn in f32 (bar 1e-4); launches {counts}")
     return out
 
 
@@ -1458,6 +1860,12 @@ def main():
     bounds.update(lay["bounds"])
     library_ms = {name: None for name in KERNELS}
     library_ms.update(ev["library_ms"])
+
+    # 22-25: the real-dataset path
+    with tempfile.TemporaryDirectory() as tmp:
+        real = dataset_phases(torch, dev, card, tmp)
+    say(25, "launches by phase: " + "; ".join(
+        f"{phase} {counts}" for phase, counts in real["launches"].items()))
 
     check("jax" not in sys.modules and "gator_tpu" not in sys.modules,
           "no JAX imported")

@@ -1,4 +1,5 @@
-"""Batch serving CLI: 2D poses (.npy) -> SMPL meshes (.npy), on one device.
+"""Batch serving CLI: 2D poses (.npy) -> SMPL meshes (.npy [, .obj]), on one
+device.
 
 Loads [N, 17, 2-or-3] raw pixel keypoints, preprocesses them with the
 datasets' crop/normalize, and runs the serving path
@@ -10,12 +11,17 @@ datasets' crop/normalize, and runs the serving path
 --weights takes a state dict saved with torch.save (a bare dict, or the
 reference's {"model_state_dict": ...} layout, with any DataParallel
 "module." prefix; `train.checkpoint.load_weights`), or a directory of
-checkpoints; without it the weights are random (seed 0).
-The default device is cuda; there is no fallback to the CPU.
+checkpoints; a `gator_tpu` orbax checkpoint goes through
+`tools/jax_checkpoint_to_torch.py` first. Without it the weights are random
+(seed 0). --obj_dir also writes every --obj_every-th mesh as .obj; --f32 is
+--dtype float32. The default device is cuda; there is no fallback to the
+CPU.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import os.path as osp
 import time
 
 import numpy as np
@@ -26,6 +32,7 @@ from ..data import processing
 from ..models import GatorSpec, build_gator
 from ..serving import make_serving_fn
 from ..train.checkpoint import load_weights
+from ..vis import save_obj
 
 
 def parse_args(argv=None):
@@ -38,9 +45,14 @@ def parse_args(argv=None):
     p.add_argument("--output", type=str, default="meshes.npy")
     p.add_argument("--joints_output", type=str, default=None,
                    help="optional .npy for the lifted 3D joints")
+    p.add_argument("--obj_dir", type=str, default=None,
+                   help="also dump every --obj_every-th mesh as .obj")
+    p.add_argument("--obj_every", type=int, default=100)
     p.add_argument("--batch_size", type=int, default=256)
     p.add_argument("--dtype", type=str, default="bfloat16",
                    choices=("bfloat16", "float32"))
+    p.add_argument("--f32", action="store_true",
+                   help="alias for --dtype float32")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
 
@@ -48,6 +60,7 @@ def parse_args(argv=None):
 def run_serve(pose_path: str, joint_set: str = "coco",
               weights: str | None = None, output: str = "meshes.npy",
               joints_output: str | None = None,
+              obj_dir: str | None = None, obj_every: int = 100,
               batch_size: int = 256, dtype: str = "bfloat16",
               device: str = "cuda", assets=None):
     device = torch.device(device)
@@ -95,13 +108,20 @@ def run_serve(pose_path: str, joint_set: str = "coco",
     if joints_output:
         np.save(joints_output, joints3d)
         print(f"3D joints -> {joints_output} (mm)")
+    if obj_dir:
+        os.makedirs(obj_dir, exist_ok=True)
+        for i in range(0, n, max(1, obj_every)):
+            save_obj(meshes[i], assets.faces,
+                     osp.join(obj_dir, f"mesh_{i:06d}.obj"))
+        print(f"objs -> {obj_dir}")
     return {"meshes": meshes, "joints3d": joints3d}
 
 
 def main(argv=None):
     a = parse_args(argv)
     return run_serve(a.input_poses, a.joint_set, a.weights, a.output,
-                     a.joints_output, a.batch_size, a.dtype, a.device)
+                     a.joints_output, a.obj_dir, a.obj_every, a.batch_size,
+                     "float32" if a.f32 else a.dtype, a.device)
 
 
 if __name__ == "__main__":

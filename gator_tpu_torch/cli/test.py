@@ -6,17 +6,19 @@ reference: main/test.py:1-33):
 
 Builds the config's model (GATOR or the GAT lifter alone), loads --weights
 (a `.pth.tar` in the reference's layout, a bare state dict, or a directory
-of checkpoints: `train.checkpoint.load_weights`), runs the eval loop with
-exact per-sample aggregation and prints MPVPE and MPJPE in mm. The GATOR
-eval runs the module form, whose MDR vertex self-attention is the K3
-kernel on the card. The default device is cuda; there is no fallback to
-the CPU.
-
-`cfg.TEST.vis` dumps every 10th predicted GATOR mesh as .obj. The JAX CLI
-dumps only inside the real datasets' metric suite, which the port does not
-have yet; the port dumps whenever its predictions are in dataset row order.
---debug subsamples the real Human36M test split in the JAX package and has
-no effect on the synthetic data, the only data the port reads yet.
+of checkpoints: `train.checkpoint.load_weights`; a `gator_tpu` orbax
+checkpoint goes through `tools/jax_checkpoint_to_torch.py` first; without
+--weights, the config's TEST.weight_path, which must exist; random weights
+from the config's seed only where both are empty), runs the
+eval loop with exact per-sample aggregation and prints MPVPE and MPJPE in
+mm. Then, for a single unshuffled test dataset with a metric suite
+(Human36M, PW3D), its `evaluate` (`evaluate_joint` for the GAT lifter) on
+the session's device, and the `cfg.TEST.vis` dump of every 10th predicted
+mesh as .obj (reference: data/PW3D/dataset.py:377-381). The datasets are
+read from $GATOR_DATA_DIR (or ./data), or are synthetic with --synthetic;
+--debug keeps the first Human36M subject. The GATOR eval runs the module
+form, whose MDR vertex self-attention is the K3 kernel on the card. The
+default device is cuda; there is no fallback to the CPU.
 """
 from __future__ import annotations
 
@@ -24,6 +26,8 @@ import argparse
 import os
 import os.path as osp
 from typing import Any, Dict, Tuple
+
+import torch
 
 from ..config import Config, load_config
 from ..train import load_weights, run_eval
@@ -47,13 +51,14 @@ def parse_args(argv=None):
 
 def run_test(cfg: Config, weights: str | None = None,
              synthetic: bool = False, vis_dir: str = "./vis_out",
-             device: str = "cuda", assets=None, synthetic_n: int = 256
-             ) -> Tuple[Dict, Dict[str, Any]]:
-    """-> (what the CLI returns, run_eval's result: exact mean errors,
-    count and the gathered predictions and targets). `assets` and
-    `synthetic_n` are as in `Session`."""
+             device: str = "cuda", assets=None, synthetic_n: int = 256,
+             debug: bool = False) -> Tuple[Dict, Dict[str, Any]]:
+    """-> (what the CLI returns: the dataset's metric suite, or the mean
+    MPJPE where there is none; run_eval's result: exact mean errors, count
+    and the gathered predictions and targets). `assets` and `synthetic_n`
+    are as in `Session`."""
     sess = Session(cfg, synthetic=synthetic, assets=assets,
-                   synthetic_n=synthetic_n, device=device)
+                   synthetic_n=synthetic_n, device=device, debug=debug)
     model = sess.build_model()
     weight_path = weights or cfg.TEST.weight_path
     if weight_path:
@@ -75,26 +80,40 @@ def run_test(cfg: Config, weights: str | None = None,
                        collect_batch=("joint_cam",))
         print(f"MPJPE: {res['joint_err']:.2f}")
 
+    # the dataset's metric suite indexes its table by row, so it needs the
+    # predictions in row order: one unshuffled test dataset (the reference
+    # tester always iterates in order)
     out = {"mpjpe": float(res["joint_err"])}
+    ds = sess.datasets[0]
     if cfg.TEST.shuffle or len(sess.datasets) > 1:
         print("skipping the dataset metric suite: predictions are not in "
               "dataset row order (TEST.shuffle or a multi-dataset test "
               "list); the aggregate errors above are exact")
         return out, res
-    if sess.is_gator and cfg.TEST.vis:
-        pred = res["pred_mesh_mm"][:len(sess.datasets[0])]
-        os.makedirs(vis_dir, exist_ok=True)
-        for n in range(0, len(pred), 10):
-            save_obj(pred[n] / 1000.0, sess.assets.faces,
-                     osp.join(vis_dir, f"eval_{n:06d}.obj"))
-        print(f"dumped {len(range(0, len(pred), 10))} meshes to {vis_dir}")
+
+    def on_device(x):
+        return torch.as_tensor(x[:len(ds)], device=sess.device)
+
+    if sess.is_gator and hasattr(ds, "evaluate"):
+        pred = res["pred_mesh_mm"][:len(ds)]
+        if cfg.TEST.vis:
+            os.makedirs(vis_dir, exist_ok=True)
+            for n in range(0, len(pred), 10):
+                save_obj(pred[n] / 1000.0, sess.assets.faces,
+                         osp.join(vis_dir, f"eval_{n:06d}.obj"))
+            print(f"dumped {len(range(0, len(pred), 10))} meshes "
+                  f"to {vis_dir}")
+        out = ds.evaluate(on_device(pred), on_device(res["mesh"]) * 1000.0)
+    elif not sess.is_gator and hasattr(ds, "evaluate_joint"):
+        out = ds.evaluate_joint(on_device(res["pred_pose_mm"]),
+                                on_device(res["joint_cam"]))
     return out, res
 
 
 def main(argv=None):
     a = parse_args(argv)
     return run_test(load_config(a.cfg), a.weights, a.synthetic, a.vis_dir,
-                    a.device)[0]
+                    a.device, debug=a.debug)[0]
 
 
 if __name__ == "__main__":

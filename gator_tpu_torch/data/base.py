@@ -5,9 +5,10 @@ meshes of all its rows in one device program per gender (`gt_synth`), and
 does the cheap per-sample 2D work on the host.
 
 Ported: `SmplTable`, `SmplPoseDataset.make_batch` (the gender-grouped
-synthesis) and `_assemble`, `input_pose2d`, `assemble_batch`,
-`mixed_epoch_indices`. The raw, index and packed batch forms of the JAX
-package's TPU input paths are not.
+synthesis) and `_assemble`, `input_pose2d` (GT input, test-time
+detections, and the two detector-noise simulators of training),
+`assemble_batch`, `mixed_epoch_indices`. The raw, index and packed batch
+forms of the JAX package's device input paths are not: they raise.
 """
 from __future__ import annotations
 
@@ -19,10 +20,10 @@ import torch
 
 from ..assets.bundle import GatorAssets
 from ..assets.skeletons import JointSet
+from . import noise as noise_mod
 from . import processing
 from .augment import augm_params_batch
 from .gt_synth import GtSynthesizer
-from .noise import h36m_error_stats
 
 GENDERS = ("neutral", "female", "male")
 
@@ -54,14 +55,14 @@ class SmplPoseDataset:
     name = "base"
 
     def __init__(self, assets: GatorAssets, opts: processing.ProcessOptions,
-                 table: SmplTable):
+                 table: SmplTable,
+                 detected_pose: Optional[np.ndarray] = None):
         self.assets = assets
         self.opts = opts
         self.table = table
         self.joint_set: JointSet = assets.joint_set
-        # read by the detector-noise training inputs (the data-pipeline
-        # slice)
-        self._h36m_stats = h36m_error_stats(
+        self.detected_pose = detected_pose  # [N, J, 2+] test-time detections
+        self._h36m_stats = noise_mod.h36m_error_stats(
             ("Pelvis", "R_Hip", "R_Knee", "R_Ankle", "L_Hip", "L_Knee",
              "L_Ankle", "Torso", "Neck", "Nose", "Head", "L_Shoulder",
              "L_Elbow", "L_Wrist", "R_Shoulder", "R_Elbow", "R_Wrist"))
@@ -144,6 +145,9 @@ class SmplPoseDataset:
             self.opts, self.joint_set, rng, stage,
             mesh_rel_m=mesh_rel_m, joint_img_b=joint_img_b,
             joint_cam_b=joint_cam_b, reg_pose=jh, fit_err=fit_err,
+            detected_pose=(self.detected_pose[idx]
+                           if self.detected_pose is not None else None),
+            h36m_stats=self._h36m_stats,
             bad_zero_gator=("mesh", "lift") if is_coco else ("mesh",),
             bad_zero_gat=is_coco, mesh_valid_dev=mesh_valid_dev)
 
@@ -151,21 +155,41 @@ class SmplPoseDataset:
 def input_pose2d(
     opts: processing.ProcessOptions,
     jset: JointSet,
+    rng: np.random.Generator,
     joint_img_b: np.ndarray,                      # [B, J, 2]
     flips: np.ndarray, rots: np.ndarray,          # [B]
+    detected_pose: Optional[np.ndarray] = None,   # [B, J, 2+] test dets
+    h36m_stats: Optional[np.ndarray] = None,
 ) -> np.ndarray:
-    """The 2D-input half of `assemble_batch`: the keypoints through the
-    batched crop/flip/normalise (reference: Human36M/dataset.py:364-389,
-    421-453). At test time without detections (every dataset the port
-    reads yet) the input is the GT keypoints, as in the JAX package.
-    Training on detector-noise inputs needs the noise simulators, which the
-    data-pipeline slice ports; it raises here."""
-    if not opts.use_gt_input and opts.is_train:
-        raise NotImplementedError(
-            "detector-noise training inputs are not ported yet; "
-            "set DATASET.use_gt_input or evaluate")
+    """The 2D-input half of `assemble_batch`: detector replacement (test),
+    Human3.6M Gaussian detector noise or the COCO keypoint-noise simulator
+    (detector-input training), then the batched crop/flip/normalise
+    (reference per-sample forms: Human36M/dataset.py:364-389,421-453).
+    The h36m noise is drawn once per sample, in order, before the crop, as
+    the JAX package draws it, so one generator gives both the same input."""
+    noise = None
+    coco_noise = None
+    dets = None
+    b = len(joint_img_b)
+    if not opts.use_gt_input and not opts.is_train \
+            and detected_pose is not None:
+        dets = detected_pose
+    if not opts.use_gt_input and opts.is_train \
+            and opts.input_joint_name == "human36" \
+            and h36m_stats is not None:
+        noise = np.stack([
+            noise_mod.generate_h36m_syn_error(h36m_stats, rng)
+            for _ in range(b)])
+        noise = noise / 256.0 * np.array(
+            [opts.input_shape[1], opts.input_shape[0]], np.float32)
+    if not opts.use_gt_input and opts.is_train \
+            and opts.input_joint_name == "coco":
+        coco_noise = {
+            "areas": processing.crop_area_batch(joint_img_b, opts),
+            "rng": rng}
     return processing.batch_crop_and_normalize(
-        joint_img_b.astype(np.float32), jset, opts, flips, rots)
+        joint_img_b.astype(np.float32), jset, opts, flips, rots,
+        h36m_noise=noise, coco_noise=coco_noise, detected_pose=dets)
 
 
 def assemble_batch(
@@ -180,6 +204,8 @@ def assemble_batch(
     joint_cam_b: np.ndarray,     # [B, J, 3] root-relative lift target, mm
     reg_pose: np.ndarray,        # [B, 17, 3] root-relative h36m target, mm
     fit_err: Optional[np.ndarray] = None,     # [B] or None (all good)
+    detected_pose: Optional[np.ndarray] = None,   # [B, J, 2+] test dets
+    h36m_stats: Optional[np.ndarray] = None,
     bad_zero_gator=("mesh",),    # masks zeroed on a bad fit (gator stage)
     bad_zero_gat: bool = False,  # zero joint_valid on a bad fit (gat stage)
     mesh_valid_dev=None,         # [B, 1, 1] device fit mask replacing the
@@ -192,7 +218,9 @@ def assemble_batch(
     b = len(joint_img_b)
     flips, rots = augm_params_batch(
         opts.is_train, opts.flip_enabled, opts.rotate_factor, b, rng)
-    pose2d = input_pose2d(opts, jset, joint_img_b, flips, rots)
+    pose2d = input_pose2d(opts, jset, rng, joint_img_b, flips, rots,
+                          detected_pose=detected_pose,
+                          h36m_stats=h36m_stats)
 
     def batch_j3d(s):
         """In-plane rotation and flip of 3D joints (augment.j3d_processing

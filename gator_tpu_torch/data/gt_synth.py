@@ -31,12 +31,14 @@ def rotate_root_pose(pose: torch.Tensor, cam_r: torch.Tensor) -> torch.Tensor:
     return torch.cat([new_root, pose[:, 3:]], dim=1)
 
 
-def prep_shape_fn(shape: torch.Tensor, mean_b: torch.Tensor) -> torch.Tensor:
-    """Zero beta rows with any |b| > 3 (fit failures, reference:
-    Human36M/dataset.py:265), then an all-zero row takes the model's mean
-    betas (smpl_layer.py:87-95)."""
-    bad = (shape.abs() > 3).any(dim=1, keepdim=True)
-    shape = torch.where(bad, torch.zeros_like(shape), shape)
+def prep_shape_fn(shape: torch.Tensor, mean_b: torch.Tensor,
+                  clean: bool = True) -> torch.Tensor:
+    """With `clean`, zero beta rows with any |b| > 3 (fit failures,
+    reference: Human36M/dataset.py:265); then an all-zero row takes the
+    model's mean betas (smpl_layer.py:87-95)."""
+    if clean:
+        bad = (shape.abs() > 3).any(dim=1, keepdim=True)
+        shape = torch.where(bad, torch.zeros_like(shape), shape)
     zero = (shape == 0).all(dim=1, keepdim=True)
     return torch.where(zero, mean_b[None], shape)
 
@@ -56,6 +58,34 @@ def mesh_cam_fn(params: SmplParams, mean_b, pose, shape, trans, cam_r,
     smpl_trans = (smpl_trans[:, None] - root
                   + (cam_r[:, None] * root[:, :, None, :]).sum(-1))
     return (verts + smpl_trans) * 1000.0, (joints + smpl_trans) * 1000.0
+
+
+def mesh_direct_fn(params: SmplParams, mean_b, pose, shape, trans,
+                   clean: bool):
+    """SMPL with the translation applied inside the layer and no camera
+    rotation: the MuCo and 3DPW path (reference: MuCo/dataset.py:196-216
+    with |beta| > 3 cleaning, PW3D/dataset.py:84-102 without)."""
+    verts, joints = smpl_forward(params, pose,
+                                 prep_shape_fn(shape, mean_b, clean), trans)
+    return verts * 1000.0, joints * 1000.0
+
+
+def mesh_plain_fn(params: SmplParams, mean_b, pose, shape, clean: bool):
+    """SMPL with neither translation nor camera rotation: the COCO
+    SMPLify-fit path (reference: COCO/dataset.py:147-166)."""
+    verts, joints = smpl_forward(params, pose,
+                                 prep_shape_fn(shape, mean_b, clean))
+    return verts * 1000.0, joints * 1000.0
+
+
+def mesh_rotated_fn(params: SmplParams, mean_b, pose, shape, cam_r,
+                    cam_t_m, clean: bool):
+    """Camera-rotated root pose plus an additive translation in metres: the
+    AMASS virtual-camera path (reference: AMASS/dataset.py:186-213)."""
+    verts, joints = smpl_forward(params, rotate_root_pose(pose, cam_r),
+                                 prep_shape_fn(shape, mean_b, clean))
+    return ((verts + cam_t_m[:, None]) * 1000.0,
+            (joints + cam_t_m[:, None]) * 1000.0)
 
 
 _LHIP, _RHIP = 11, 12       # coco joint indices
@@ -136,6 +166,29 @@ class GtSynthesizer:
         no_tf32()
         return mesh_cam_fn(self.params[gender], self.mean_betas[gender],
                            *map(self._t, (pose, shape, trans, cam_r, cam_t)))
+
+    def smpl_mesh_direct(self, pose, shape, trans, gender: str = "neutral",
+                         clean: bool = True):
+        no_tf32()
+        return mesh_direct_fn(self.params[gender], self.mean_betas[gender],
+                              *map(self._t, (pose, shape, trans)), clean)
+
+    def smpl_mesh_plain(self, pose, shape, gender: str = "neutral",
+                        clean: bool = True):
+        no_tf32()
+        return mesh_plain_fn(self.params[gender], self.mean_betas[gender],
+                             *map(self._t, (pose, shape)), clean)
+
+    def smpl_mesh_rotated(self, pose, shape, cam_r, cam_t_m,
+                          gender: str = "neutral", clean: bool = False):
+        no_tf32()
+        return mesh_rotated_fn(self.params[gender], self.mean_betas[gender],
+                               *map(self._t, (pose, shape, cam_r, cam_t_m)),
+                               clean)
+
+    def coco_weak_perspective(self, mesh_mm, s, t):
+        return coco_weak_perspective_fn(self.j_reg_coco, mesh_mm,
+                                        self._t(s), self._t(t))
 
     def coco_from_mesh(self, mesh_mm, focal, princpt):
         return coco_from_mesh_fn(self.j_reg_coco, mesh_mm, self._t(focal),

@@ -85,11 +85,16 @@ class BatchPipeline:
         if len(parts) == 1:
             return parts[0]      # one dataset: `order` is the identity
 
-        # restore the interleaved order; device leaves merge on the device
+        # restore the interleaved order; a leaf that is on the device in
+        # any part (the mesh; the fit mask of a sync-free reader beside a
+        # host mask of another) merges there
         def merge(vals):
-            if isinstance(vals[0], torch.Tensor):
-                return torch.cat(vals)[torch.as_tensor(
-                    order, device=vals[0].device)]
+            dev = next((v.device for v in vals
+                        if isinstance(v, torch.Tensor)), None)
+            if dev is not None:
+                return torch.cat([torch.as_tensor(v, device=dev)
+                                  for v in vals])[torch.as_tensor(
+                                      order, device=dev)]
             return np.concatenate(vals)[order]
 
         return {k: merge([p[k] for p in parts]) for k in parts[0]}
@@ -99,7 +104,9 @@ class BatchPipeline:
         plan = self._plan(rng)
         # background prefetch: a worker failure re-raises in the consumer
         # (a swallowed error would silently truncate the epoch); leaving
-        # the iterator mid-epoch unblocks and stops the worker
+        # the iterator mid-epoch unblocks and stops the worker, and waits
+        # for it (at most the batch it is making), so that no batch is
+        # still being made on the host after the iterator is closed
         q: Queue = Queue(maxsize=2)
         stop = object()
         abort = threading.Event()
@@ -132,3 +139,4 @@ class BatchPipeline:
                     q.get_nowait()
             except Empty:
                 pass
+            th.join()

@@ -40,7 +40,7 @@ def make_gator_train_step(spec, faces: np.ndarray,
     batch (gator_tpu/train/loop.py:37-41): pose2d [B,J,2], mesh [B,V,3]
     (m), lift_pose3d [B,J,3] (mm), reg_pose3d [B,17,3] (mm), and validity
     masks mesh_valid / lift_valid / reg_valid broadcasting against their
-    targets. edge_enabled: 0 or 1, the epoch-gated edge term. dtype=bf16
+    targets; host arrays are copied to the model's device. edge_enabled: 0 or 1, the epoch-gated edge term. dtype=bf16
     computes the model in bf16 from f32 master weights; the face losses
     then run in bf16 with f32 reductions, the rest of the loss in f32. The
     BatchNorm running stats (alpha=False) are updated in place."""
@@ -59,6 +59,7 @@ def make_gator_train_step(spec, faces: np.ndarray,
              edge_enabled: float = 1.0) -> Dict[str, torch.Tensor]:
         no_tf32()
         model = state.model
+        batch = _batch_on(batch, model)
         state.optimizer.zero_grad(set_to_none=True)
         mesh, lift_pose, new_stats = fwd(model, batch["pose2d"],
                                          step_seed(seed, state.step))
@@ -93,13 +94,14 @@ def make_gat_train_step(spec, dtype: torch.dtype = torch.float32,
     """Stage-1 (lifter pretrain) step on K5 -> step(state, batch, seed) ->
     {"loss"}: CoordLoss on the lifted joints (reference:
     lib/core/base.py:279-315). batch: pose2d [B,J,2], joint_cam [B,J,3],
-    joint_valid [B,J,1]. GatMlp's dropout is fixed at `mlp_rate` = 0.1
+    joint_valid [B,J,1], host arrays copied to the model's device. GatMlp's dropout is fixed at `mlp_rate` = 0.1
     (the reference's quirk, kept by the JAX step)."""
     j = spec.num_joint
 
     def step(state: TrainState, batch: Batch, seed: int
              ) -> Dict[str, torch.Tensor]:
         no_tf32()
+        batch = _batch_on(batch, state.model)
         state.optimizer.zero_grad(set_to_none=True)
         trunk = gat_trunk_fn(spec, step_seed(seed, state.step), use_kernels,
                              mlp_rate)
@@ -175,3 +177,11 @@ def make_gat_eval_step(eval_joints) -> Callable:
 def _on(x, device) -> torch.Tensor:
     """A batch leaf (host array or tensor) as f32 on `device`."""
     return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def _batch_on(batch: Batch, model: torch.nn.Module) -> Batch:
+    """Every leaf of a batch (host arrays from `data.BatchPipeline`, or
+    tensors) as f32 on the model's device; a leaf already there is not
+    copied."""
+    dev = next(model.parameters()).device
+    return {k: _on(v, dev) for k, v in batch.items()}

@@ -1,6 +1,8 @@
 """The port's serving preprocessing against the JAX package's, and its serve
-CLI end to end on the CPU (random weights from a seed, and weights loaded
-from a reference-layout checkpoint)."""
+CLI end to end on the CPU (random weights from a seed, weights loaded from
+a reference-layout checkpoint, the .obj dump and the --f32 alias)."""
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -12,6 +14,7 @@ from gator_tpu_torch.cli import serve as serve_cli
 from gator_tpu_torch.data import processing
 from gator_tpu_torch.models import GatorSpec, build_gator
 from gator_tpu_torch.serving import make_serving_fn
+from test_torch_readers import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _poses(n, rng):
@@ -101,3 +104,36 @@ def test_serve_cli_loads_reference_layout_weights(tmp_path, coco_assets):
     out = _served(tmp_path, coco_assets, poses, weights=str(ckpt))
     mesh, _ = _expected(model, coco_assets, poses)
     np.testing.assert_allclose(out["meshes"], mesh, atol=1e-5)
+
+
+def test_serve_cli_obj_dump_and_f32_flag(tmp_path, coco_assets, monkeypatch):
+    """`main` with --obj_dir / --obj_every / --f32 on the CPU: every
+    --obj_every-th mesh as .obj, and --f32 serves exactly what
+    --dtype float32 serves (the bf16 default does not)."""
+    monkeypatch.setattr(serve_cli, "build_assets", lambda *a: coco_assets)
+    poses = _poses(10, np.random.default_rng(4))
+    src = tmp_path / "poses.npy"
+    np.save(src, poses)
+    objs = tmp_path / "objs"
+
+    def serve(*flags):
+        return serve_cli.main(["--input_poses", str(src), "--output",
+                               str(tmp_path / "m.npy"), "--batch_size", "4",
+                               "--device", "cpu", *flags])
+
+    f32 = serve("--f32", "--obj_dir", str(objs), "--obj_every", "3")
+    names = sorted(os.listdir(objs))
+    assert names == [f"mesh_{i:06d}.obj" for i in (0, 3, 6, 9)]
+    lines = (objs / "mesh_000006.obj").read_text().splitlines()
+    verts = np.array([[float(x) for x in ln.split()[1:]]
+                      for ln in lines if ln.startswith("v ")])
+    assert verts.shape == (890, 3)
+    np.testing.assert_allclose(verts, f32["meshes"][6], atol=1e-6)
+    assert sum(ln.startswith("f ") for ln in lines) == len(coco_assets.faces)
+    np.testing.assert_array_equal(
+        f32["meshes"], serve("--dtype", "float32")["meshes"])
+    assert not np.array_equal(f32["meshes"], serve()["meshes"])
+    model = build_gator(GatorSpec.from_assets(coco_assets), seed=0,
+                        device="cpu")
+    mesh, _ = _expected(model, coco_assets, poses)
+    np.testing.assert_allclose(f32["meshes"], mesh, atol=1e-5)

@@ -58,6 +58,12 @@ import gator_tpu_torch.config, gator_tpu_torch.metrics, gator_tpu_torch.vis
 import gator_tpu_torch.bodymodel.smpl, gator_tpu_torch.bodymodel.rotations
 import gator_tpu_torch.data.base, gator_tpu_torch.data.pipeline
 import gator_tpu_torch.data.gt_synth, gator_tpu_torch.data.synthetic
+import gator_tpu_torch.data.h36m, gator_tpu_torch.data.pw3d
+import gator_tpu_torch.data.coco_ds, gator_tpu_torch.data.muco
+import gator_tpu_torch.data.amass, gator_tpu_torch.data.noise
+import gator_tpu_torch.data.coords, gator_tpu_torch.data.augment
+import gator_tpu_torch.data.processing, gator_tpu_torch.cli.serve
+from gator_tpu_torch.cli.common import build_datasets
 import gator_tpu_torch.train.evaluate, gator_tpu_torch.train.checkpoint
 import gator_tpu_torch.nn.fused_attention
 from gator_tpu_torch.nn import cuda_lib
@@ -69,9 +75,11 @@ print(bad, sorted(cuda_lib._LOADED))
 
 
 def test_eval_modules_import_no_jax_and_build_nothing():
-    """The eval path (CLI, session, config, body model, GT synthesis,
-    datasets, pipeline, metrics, eval loop, checkpoints, K3's module)
-    imports neither JAX nor the JAX package, and loads no kernel library."""
+    """The eval path (CLI, session and `build_datasets`, config, body
+    model, GT synthesis, the five dataset readers, the coordinate,
+    augmentation, noise and preprocessing modules, pipeline, metrics, eval
+    loop, checkpoints, K3's module) and the serve CLI import neither JAX
+    nor the JAX package, and load no kernel library."""
     out = subprocess.run([sys.executable, "-c", EVAL_SCRIPT], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split("\n")[-2]
