@@ -120,6 +120,31 @@ read just after:
  25. (r) the serve CLI with --obj_dir, --obj_every 100 and --f32 on 300
      poses: K1 and K2 launched, three .obj files, the meshes within 1e-4 m
      of make_serving_fn in f32.
+The in-step input paths (TRAIN.gt_in_step; no new kernel, K4 and K5 on
+every step):
+ 26. (s) detector noise on the card (data/device_noise.py): fed uniforms
+     drawn on the CPU, `synthesize_pose_device` at B=512 gives the CPU
+     form's output within 1e-3 px on every (row, joint) but at most 0.2 %
+     boundary cases, each shown (`noise_same_draws`), and
+     `h36m_syn_error_device` within 1e-6; with the card's own generator,
+     4096 poses over the recipe's three OKS areas against the host
+     `synthesize_pose_batch`: every state frequency within 0.01, the KS
+     distance of the error radii within max(0.01, 3 sqrt(2 / (17 N)))
+     (tools/check_noise_distribution.py's gate); the sampler's device ms
+     and launches at B=512 (torch.profiler);
+ 27. (t) `Session(cfg, is_train=True)`, each run with every counter reset
+     just before and read just after: configs/gator_synthetic_flagship.yml
+     on the phase-22 trees, where "auto" resolves to "device": 5 stage-2
+     steps at B=512 bf16 from index batches, losses finite, K4 and K5
+     launched and nothing else, no device-to-host sync in the step's input
+     assembly (`torch.cuda.set_sync_debug_mode("error")`); then, each on
+     its own line with the card, the host ms per index batch, the ms per
+     step fed by the pipeline with the mesh cache on and off, and phase
+     24's host-path figures; then configs/gator_synthetic_e2e.yml and
+     configs/gat_synthetic_e2e.yml ("full", stages 2 and 1) and one "on"
+     run, augmentation on: the wrapped step's batch against the host
+     path's at the same rows, flips and rotations (pose2d 1e-5, mesh 2e-6
+     m, joints 2e-3 mm, masks equal), 3 steps each, losses finite.
 Then a JSON line with each kernel's numbers, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without a CUDA device the
@@ -1552,6 +1577,410 @@ def dataset_phases(torch, dev, card, tmp):
     return out
 
 
+# -- detector noise on the device: the checks phase 26 and the CPU tests
+#    share (host numpy in, no card needed) ------------------------------
+
+# crop-space OKS areas of the training recipe
+# (tools/check_noise_distribution.py:49)
+RECIPE_AREAS = (8000.0, 30000.0, 80000.0)
+# the h36m joints in the readers' order (data/base.py)
+H36M_JOINTS = ("Pelvis", "R_Hip", "R_Knee", "R_Ankle", "L_Hip", "L_Knee",
+               "L_Ankle", "Torso", "Neck", "Nose", "Head", "L_Shoulder",
+               "L_Elbow", "L_Wrist", "R_Shoulder", "R_Elbow", "R_Wrist")
+
+
+def gate_poses(n, seed=0):
+    """n plausible 17-keypoint COCO poses in crop space and their OKS
+    areas, cycling RECIPE_AREAS (tools/check_noise_distribution.py's
+    `make_pose`, the same draws in the same order)."""
+    base = np.array([
+        [144, 60], [134, 50], [154, 50], [120, 55], [168, 55],
+        [100, 120], [188, 120], [90, 190], [198, 190], [85, 250],
+        [203, 250], [115, 210], [173, 210], [110, 290], [178, 290],
+        [105, 360], [183, 360]], np.float32)
+    rng = np.random.default_rng(seed)
+    poses = base + rng.normal(0, 4.0, (n, 17, 2)).astype(np.float32)
+    return poses, np.resize(np.asarray(RECIPE_AREAS, np.float32), n)
+
+
+def noise_states(xy, gt, areas):
+    """[N, 17] error states of simulated keypoints xy [N, 17, 2] (a zeroed
+    row is dropped) against the GT gt: 0 good, 1 jitter, 2 miss, 3
+    inversion, 4 dropped, classified as tools/check_noise_distribution.py
+    `classify` does, from the distances to the GT and to the symmetric
+    pair."""
+    from gator_tpu_torch.data import noise
+
+    var = (noise.KPS_SIGMAS * 2) ** 2
+    ks85 = np.sqrt(-2 * areas[:, None] * var * np.log(0.85))
+    ks50 = np.sqrt(-2 * areas[:, None] * var * np.log(0.50))
+    d_gt = np.linalg.norm(xy - gt, axis=-1)
+    pair = noise._PAIR
+    d_pair = np.where(pair >= 0, np.linalg.norm(
+        xy - gt[:, np.maximum(pair, 0)], axis=-1), np.inf)
+    state = np.where(d_gt <= ks85, 0, np.where(d_gt <= ks50, 1, 2))
+    state = np.where((d_pair <= ks50) & (d_pair < d_gt), 3, state)
+    return np.where(np.abs(xy).sum(-1) <= 0, 4, state)
+
+
+def noise_gate(dev_xy, host_xy, gt, areas):
+    """tools/check_noise_distribution.py's gate over all rows: every
+    state frequency within 0.01 and the KS distance of the kept joints'
+    error radii within max(0.01, 3 sqrt(2 / (17 N))). -> (freq diff, KS,
+    KS bound)."""
+    n = len(gt)
+    sd, sh = noise_states(dev_xy, gt, areas), noise_states(host_xy, gt,
+                                                           areas)
+    diff = float(np.abs(np.bincount(sd.ravel(), minlength=5)
+                        - np.bincount(sh.ravel(), minlength=5)).max()
+                 / sd.size)
+
+    def radii(xy, states):
+        return np.sort(np.linalg.norm(xy - gt, axis=-1)[states != 4])
+
+    ra, rb = radii(dev_xy, sd), radii(host_xy, sh)
+    grid = np.unique(np.concatenate([ra, rb]))
+    ks = float(np.abs(np.searchsorted(ra, grid, side="right") / len(ra)
+                      - np.searchsorted(rb, grid, side="right") / len(rb))
+               .max())
+    return diff, ks, max(0.01, 3.0 * np.sqrt(2.0 / (17 * n)))
+
+
+def noise_boundary_cases(joints, areas, draws, out):
+    """[B, 17] True where a (row, joint) of `synthesize_pose_device` on
+    all-visible joints, fed the draws `draws` ({path: array}), is a
+    boundary case of the run that gave `out`: a candidate of one of its
+    five annuli within 1e-3 px of its acceptance radius, or its state
+    uniform within 1e-6 of a cumulative-probability edge (a float64
+    recomputation from the same draws). An ulp of cos, sin or a sum moves
+    such a case across its edge."""
+    from gator_tpu_torch.data import device_noise as dn
+    from gator_tpu_torch.data import noise
+
+    b = len(joints)
+    var = (noise.KPS_SIGMAS * 2) ** 2
+    a = areas.astype(np.float64)[:, None]
+    ks10, ks50, ks85 = (np.sqrt(-2.0 * a * var * np.log(q))
+                        for q in (0.10, 0.50, 0.85))
+    near = np.zeros((b, 17), bool)
+    for w, wave in enumerate((dn._WAVE1, dn._WAVE2)):
+        pair = noise._PAIR[wave]
+        gt = joints[:, wave].astype(np.float64)
+        # wave 2's pairs were synthesised in wave 1
+        src = out if w == 1 else joints
+        pp = np.where((pair >= 0)[None, :, None],
+                      src[:, np.maximum(pair, 0)], 0.0).astype(np.float64)
+        has = np.broadcast_to(pair >= 0, (b, len(wave)))
+        every = np.ones_like(has)
+        k85, k50, k10 = ks85[:, wave], ks50[:, wave], ks10[:, wave]
+        zero = np.zeros_like(k85)
+        ann = {1: (gt, k85, k50, pp, has, None),
+               3: (gt, zero, k85, pp, has, None),
+               5: (pp, zero, k50, gt, every, None),
+               6: (gt, k50, k10, pp, has, k50),
+               7: (pp, k50, k10, gt, every, k50)}
+        ok = {}
+        for i, (c, lo, hi, other, ovalid, rr) in ann.items():
+            ang = np.asarray(draws[(w, i, 0)], np.float64) \
+                * float(np.float32(2 * np.pi))
+            r = (np.asarray(draws[(w, i, 1)], np.float64)
+                 * (hi - lo)[..., None] + lo[..., None])
+            d = np.hypot(c[..., 0, None] + r * np.cos(ang)
+                         - other[..., 0, None],
+                         c[..., 1, None] + r * np.sin(ang)
+                         - other[..., 1, None])
+            radius = r if rr is None else rr[..., None]
+            near[:, wave] |= ((np.abs(d - radius) < 1e-3)
+                              & ovalid[..., None]).any(-1)
+            ok[i] = np.where(ovalid[..., None], d > radius, True)
+        w_p = np.floor((ok[7] & has[..., None]).sum(-1) / 4.0)
+        jit, miss, inv = (noise._JIT_HIGH[wave], noise._MISS_HIGH[wave],
+                          noise._INV_P[wave])
+        probs = np.stack([jit * ok[1].any(-1),
+                          miss * (ok[6].sum(-1) + w_p > 0),
+                          inv * (ok[5].any(-1) & has),
+                          (1 - jit - miss - inv) * ok[3].any(-1)], -1)
+        u = np.asarray(draws[(w, 11)], np.float64) \
+            * np.maximum(probs.sum(-1), 1e-12)
+        near[:, wave] |= (np.abs(u[..., None] - np.cumsum(probs, -1))
+                          < 1e-6).any(-1)
+    return near
+
+
+def noise_same_draws(joints, areas, draws, got, want):
+    """The shared-draws rule: `got` and `want` ([B, 17, 2], one
+    simulator's output each from the same draws) agree within 1e-3 px on
+    every (row, joint) but at most 0.2 % boundary cases, each one a
+    boundary case of its own (`noise_boundary_cases`) or downstream of its
+    wave-1 pair's. -> (cases beyond 1e-3 px, of them explained, max error
+    of the rest); raises if the rule fails."""
+    from gator_tpu_torch.data import device_noise as dn
+    from gator_tpu_torch.data import noise
+
+    err = np.abs(got - want).max(-1)
+    off = err > 1e-3
+    near = noise_boundary_cases(joints, areas, draws, want)
+    upstream = np.zeros_like(off)
+    for j in dn._WAVE2:
+        p = noise._PAIR[j]
+        upstream[:, j] = off[:, p] & near[:, p]
+    explained = off & (near | upstream)
+    rest = float(err[~off].max()) if (~off).any() else 0.0
+    check(off.mean() <= 0.002 and not (off & ~explained).any(),
+          f"shared draws: {int(off.sum())} of {off.size} beyond 1e-3 px "
+          f"(bar 0.2 %), unexplained at {np.argwhere(off & ~explained)}")
+    return int(off.sum()), int(explained.sum()), rest
+
+
+def input_phases(torch, dev, card, host_path):
+    """Phases 26-27 (s-t): detector noise on the card, and the in-step
+    input paths through `Session(cfg, is_train=True)`: the flagship mix on
+    the phase-22 trees in "device" mode, the e2e configs in "full" mode
+    (both stages) and one "on" run. -> {phase: launch counts} and the
+    flagship's times. `host_path`: phase 24's times."""
+    from gator_tpu_torch.cli.common import Session
+    from gator_tpu_torch.config import load_config
+    from gator_tpu_torch.data import device_noise as dn
+    from gator_tpu_torch.data import noise
+    from gator_tpu_torch.data.packed import with_packed_input_pipeline
+    from gator_tpu_torch.tools.profile_packed_step import profile
+    from gator_tpu_torch.train import Adam
+
+    reset, read = launch_counters(torch)
+    out = {"launches": {}}
+
+    # 26 (s): the sampler on the card against its CPU form, on CPU draws
+    class Recorded(dn.Draws):
+        def __init__(self, gen):
+            self.gen, self.table = gen, {}
+
+        def uniform(self, path, shape):
+            self.table[path] = torch.rand(tuple(shape), generator=self.gen)
+            return self.table[path]
+
+        def normal(self, path, shape):
+            self.table[path] = torch.randn(tuple(shape), generator=self.gen)
+            return self.table[path]
+
+    class Replay(dn.Draws):
+        def __init__(self, table):
+            self.table = {k: v.to(dev) for k, v in table.items()}
+
+        def uniform(self, path, shape):
+            return self.table[path]
+
+        normal = uniform
+
+    b = 512
+    poses, areas = gate_poses(b, seed=26)
+    rec = Recorded(torch.Generator().manual_seed(26))
+    want = dn.synthesize_pose_device(rec, torch.from_numpy(poses),
+                                     torch.from_numpy(areas)).numpy()
+    got = dn.synthesize_pose_device(
+        Replay(rec.table), torch.from_numpy(poses).to(dev),
+        torch.from_numpy(areas).to(dev)).cpu().numpy()
+    off, explained, rest = noise_same_draws(
+        poses, areas, {k: v.numpy() for k, v in rec.table.items()}, got,
+        want)
+    stats = torch.from_numpy(noise.h36m_error_stats(H36M_JOINTS))
+    rec = Recorded(torch.Generator().manual_seed(27))
+    h_want = dn.h36m_syn_error_device(rec, stats, b, (384, 288)).numpy()
+    h_got = dn.h36m_syn_error_device(Replay(rec.table), stats.to(dev), b,
+                                     (384, 288)).cpu().numpy()
+    h_err = float(np.abs(h_got - h_want).max())
+    check(h_err <= 1e-6, f"h36m noise, same draws: {h_err} <= 1e-6")
+    say(26, f"synthesize_pose_device B={b} on the card, fed the CPU's "
+            f"draws: {off} of {b * 17} (row, joint) beyond 1e-3 px "
+            f"({explained} boundary cases), the rest within {rest:.2e} px;"
+            f" h36m_syn_error_device within {h_err:.1e}")
+
+    n = 4096
+    poses, areas = gate_poses(n, seed=0)
+    host = noise.synthesize_pose_batch(
+        np.concatenate([poses, np.ones((n, 17, 1), np.float32)], -1),
+        areas, np.random.default_rng((0, 2)))
+    host_xy = np.where(host[..., 2:] > 0, host[..., :2], 0.0)
+    card_xy = dn.synthesize_pose_device(
+        torch.Generator(device=dev).manual_seed(0),
+        torch.from_numpy(poses).to(dev),
+        torch.from_numpy(areas).to(dev)).cpu().numpy()
+    diff, ks, ks_bar = noise_gate(card_xy, host_xy, poses, areas)
+    check(diff <= 0.01 and ks <= ks_bar,
+          f"the card's sampler against the host's: state frequencies "
+          f"{diff} <= 0.01, KS {ks} <= {ks_bar}")
+    joints = torch.from_numpy(poses[:b]).to(dev)
+    area_t = torch.from_numpy(areas[:b]).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    sampler = profile(lambda: dn.synthesize_pose_device(gen, joints, area_t))
+    out["sampler"] = sampler
+    say(26, f"its own generator, N={n} poses over the areas "
+            f"{RECIPE_AREAS}, against the host synthesize_pose_batch: "
+            f"state frequencies within {diff:.4f} (bar 0.01), KS {ks:.4f} "
+            f"(bar {ks_bar:.4f})")
+    print(f"synthesize_pose_device B={b}: {sampler['device_ms']:.3f} ms "
+          f"device, {sampler['launches']:.0f} launches, "
+          f"{sampler['host_ms']:.3f} ms host (device ms and launches per "
+          f"call from torch.profiler over 5 calls, host ms the median of 5 "
+          f"synchronised calls) on {card}", flush=True)
+
+    # 27 (t) 1: the flagship mix on the phase-22 trees, "device" mode
+    cfg = load_config(os.path.join(ROOT, "configs",
+                                   "gator_synthetic_flagship.yml"))
+    sess = Session(cfg, device=dev, is_train=True)
+    check(sess.gt_in_step == "device"
+          and [type(d).__name__ for d in sess.datasets]
+          == ["Human36M", "CocoDataset", "MucoDataset"],
+          f"the flagship's readers resolve auto to device: "
+          f"{sess.gt_in_step}")
+    state, step = sess.make_train_step(lambda p: Adam(p, lr=cfg.TRAIN.lr))
+    edge = 1.0 if cfg.TRAIN.begin_epoch >= cfg.TRAIN.edge_loss_start \
+        else 0.0
+    seed, b = cfg.seed, cfg.TRAIN.batch_size
+    table = sess.packed_table()
+    uncached = with_packed_input_pipeline(
+        step.inner, table, sess.synth, sess.assets.joint_set,
+        opts=sess.datasets[0].opts, device_input=True, mesh_cache=False)
+
+    def fed(step_fn, epoch):
+        """5 steps fed by the pipeline -> (losses, host ms per step)."""
+        sess.pipeline.set_epoch(epoch)
+        curve, ms = [], []
+        it = iter(sess.pipeline)
+        with torch.enable_grad():
+            for _ in range(5):
+                t0 = time.perf_counter()
+                curve.append(float(step_fn(state, next(it), seed,
+                                           edge)["loss"]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+        it.close()
+        return curve, ms
+
+    it = iter(sess.pipeline)
+    first = next(it)
+    it.close()
+    check(set(first) == {"row", "flips", "rots"}
+          and all(v.device.type == "cuda" for v in first.values()),
+          "index batches on the card")
+    with torch.enable_grad():
+        step(state, first, seed, edge)             # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        inner = step.assemble(state, first, seed, edge)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(inner["pose2d"].shape == (b, 19, 2)
+          and bool(torch.isfinite(inner["pose2d"]).all()),
+          "the in-step input: shape, finite")
+    reset()
+    curve, _ = fed(step, 1)
+    counts = read()
+    check(all(np.isfinite(curve)), f"flagship device-mode losses finite: "
+                                   f"{curve}")
+    check(counts["gat_trunk_train"] > 0 and counts["lbf_stack_train"] > 0
+          and counts["fused_attention"] == counts["gat_trunk"]
+          == counts["lbf_stack"] == 0,
+          f"K4 and K5 (only) launched on the device-mode steps: {counts}")
+    out["launches"]["flagship device mode"] = counts
+    it = iter(sess.pipeline)
+    next(it)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        next(it)
+    host_ms = (time.perf_counter() - t0) * 1e3 / 5
+    it.close()
+    # the mesh cache on and off in turns (on, off, off, on), steps 2-5 of
+    # each round
+    fed_ms = {"on": [], "off": []}
+    for epoch, cache in enumerate(("on", "off", "off", "on"), start=2):
+        fed_ms[cache] += fed(step if cache == "on" else uncached, epoch)[1][1:]
+    out["flagship"] = {"host_ms": host_ms,
+                       "fed_cache_on_ms": float(np.median(fed_ms["on"])),
+                       "fed_cache_off_ms": float(np.median(fed_ms["off"]))}
+    say(27, f"flagship on the phase-22 trees, gt_in_step auto -> device, "
+            f"B={b} bf16, kernels on: losses "
+            + " ".join(f"{c:.4f}" for c in curve)
+            + f"; no host sync in the input assembly; launches {counts}")
+    print(f"flagship device mode: {host_ms:.2f} ms per index batch on the "
+          f"host (mean of 5 after one); {card}", flush=True)
+    print(f"flagship device mode: {out['flagship']['fed_cache_on_ms']:.1f} "
+          f"ms per step fed by the pipeline, mesh cache on "
+          f"({len(table)} rows; host clock, median of steps 2-5 of two "
+          f"rounds taken in turns with the cache off); {card}", flush=True)
+    print(f"flagship device mode: {out['flagship']['fed_cache_off_ms']:.1f}"
+          f" ms per step fed by the pipeline, mesh cache off; {card}",
+          flush=True)
+    print(f"flagship host path (phase 24): {host_path['host_ms']:.1f} ms "
+          f"per batch, {host_path['e2e_ms']:.1f} ms per step fed; {card}",
+          flush=True)
+    del sess, state, step, uncached, table, inner, first
+
+    # 27 (t) 2: the e2e configs in "full" mode (both stages) and one "on"
+    # run; the wrapped step's batch against the host path's at the same
+    # rows, flips and rotations
+    bars = {"pose2d": 1e-5, "mesh": 2e-6, "lift_pose3d": 2e-3,
+            "reg_pose3d": 2e-3, "joint_cam": 2e-3}
+    aug = {"AUG": {"flip": True, "rotate_factor": 30}}
+    runs = (("gator_synthetic_e2e.yml", "full", aug),
+            ("gat_synthetic_e2e.yml", "full", aug),
+            ("gator_synthetic_e2e.yml", "on",
+             {**aug, "TRAIN": {"gt_in_step": "on"}}))
+    for name, mode, over in runs:
+        cfg = load_config(os.path.join(ROOT, "configs", name), over)
+        sess = Session(cfg, synthetic=True,
+                       synthetic_n=4 * cfg.TRAIN.batch_size, device=dev,
+                       is_train=True)
+        check(sess.gt_in_step == mode, f"{name}: {sess.gt_in_step}")
+        state, step = sess.make_train_step(
+            lambda p: Adam(p, lr=cfg.TRAIN.lr))
+        extra = (cfg.seed, 1.0) if sess.is_gator else (cfg.seed,)
+        stage = "gator" if sess.is_gator else "gat"
+        ds = sess.datasets[0]
+        idx = np.arange(cfg.TRAIN.batch_size)[::-1].copy()
+        form = ds.make_raw_batch if mode == "on" else ds.make_index_batch
+        batch = form(idx, np.random.default_rng(27), stage=stage)
+        if mode != "on":
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in batch.items()}
+        got = step.assemble(state, batch, *extra)
+        host = ds.make_batch(idx, sess.synth, np.random.default_rng(27),
+                             stage=stage)
+        check(set(got) == set(host), f"{name} {mode}: the host's keys")
+        worst = {}
+        for k, v in host.items():
+            g = got[k].float().cpu().numpy()
+            h = torch.as_tensor(v).float().cpu().numpy()
+            worst[k] = float(np.abs(g - h).max())
+            check(g.shape == h.shape and (
+                worst[k] == 0 if k.endswith("valid")
+                else worst[k] <= bars[k]),
+                f"{name} {mode} {k}: {worst[k]} (bar "
+                f"{0 if k.endswith('valid') else bars[k]})")
+        reset()
+        curve = []
+        it = iter(sess.pipeline)
+        with torch.enable_grad():
+            for _ in range(3):
+                curve.append(float(step(state, next(it), *extra)["loss"]))
+        it.close()
+        counts = read()
+        check(all(np.isfinite(curve)), f"{name} {mode}: losses {curve}")
+        launched = {"gat_trunk_train"} | (
+            {"lbf_stack_train"} if sess.is_gator else set())
+        check(all((counts[k] > 0) == (k in launched) for k in counts),
+              f"{name} {mode}: launched {sorted(launched)} only: {counts}")
+        out["launches"][f"{name} {mode}"] = counts
+        say(27, f"{name} gt_in_step={mode}, B={cfg.TRAIN.batch_size} "
+                f"{cfg.TRAIN.precision}: the wrapped step's batch against "
+                f"the host path's: "
+                + ", ".join(f"{k} {v:.1e}" for k, v in sorted(worst.items()))
+                + "; losses " + " ".join(f"{c:.4f}" for c in curve)
+                + f"; launches {counts}")
+        del sess, state, step
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1861,11 +2290,16 @@ def main():
     library_ms = {name: None for name in KERNELS}
     library_ms.update(ev["library_ms"])
 
-    # 22-25: the real-dataset path
+    # 22-25: the real-dataset path; 26-27: the in-step input paths (27
+    # reads phase 22's trees)
     with tempfile.TemporaryDirectory() as tmp:
         real = dataset_phases(torch, dev, card, tmp)
-    say(25, "launches by phase: " + "; ".join(
-        f"{phase} {counts}" for phase, counts in real["launches"].items()))
+        say(25, "launches by phase: " + "; ".join(
+            f"{phase} {counts}" for phase, counts in real["launches"].items()))
+        in_step = input_phases(torch, dev, card, real["flagship"])
+    say(27, "launches by phase: " + "; ".join(
+        f"{phase} {counts}" for phase, counts
+        in in_step["launches"].items()))
 
     check("jax" not in sys.modules and "gator_tpu" not in sys.modules,
           "no JAX imported")

@@ -4,10 +4,11 @@ the JAX package).
 
 Every key of every `configs/*.yml` loads, with the same defaults and the
 same strict checking: an unknown section or key raises ValueError
-(reference: lib/core/config.py:94-116). Some keys steer only the JAX
-package's TPU paths (`TRAIN.steps_per_dispatch`, `gt_in_step`,
-`gt_mesh_cache`, `fused_kernels`); they load here and the port does not act
-on them.
+(reference: lib/core/config.py:94-116). `TRAIN.gt_in_step` and
+`gt_mesh_cache` pick a training session's input path
+(`cli.common.Session`). `TRAIN.steps_per_dispatch` (the JAX package's
+multi-step dispatch) and `fused_kernels` load here and the port does not
+act on them: its train steps always run on the kernels K4 and K5.
 """
 from __future__ import annotations
 

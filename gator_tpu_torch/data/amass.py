@@ -100,6 +100,16 @@ class AmassDataset:
     def __len__(self):
         return len(self.table)
 
+    def packed_rows(self, synth: GtSynthesizer, indices):
+        """The rows of the packed table (data/packed.py)."""
+        from .packed import amass_packed_rows
+        return amass_packed_rows(self, synth, indices)
+
+    def make_packed_batch(self, indices, rng):
+        """Host batch of the packed pipeline (data/packed.py)."""
+        from .packed import make_packed_batch
+        return make_packed_batch(self, indices, rng)
+
     def make_batch(self, indices, synth: GtSynthesizer,
                    rng: np.random.Generator,
                    stage: str = "gator") -> Dict[str, object]:

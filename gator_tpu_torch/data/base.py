@@ -5,10 +5,11 @@ meshes of all its rows in one device program per gender (`gt_synth`), and
 does the cheap per-sample 2D work on the host.
 
 Ported: `SmplTable`, `SmplPoseDataset.make_batch` (the gender-grouped
-synthesis) and `_assemble`, `input_pose2d` (GT input, test-time
-detections, and the two detector-noise simulators of training),
-`assemble_batch`, `mixed_epoch_indices`. The raw, index and packed batch
-forms of the JAX package's device input paths are not: they raise.
+synthesis) and `_assemble`, the batch forms of the in-step input paths
+(`make_raw_batch`, `make_index_batch`, `packed_rows`,
+`make_packed_batch`), `input_pose2d` (GT input, test-time detections, and
+the two detector-noise simulators of training), `assemble_batch`,
+`mixed_epoch_indices`.
 """
 from __future__ import annotations
 
@@ -129,6 +130,82 @@ class SmplPoseDataset:
         return self._assemble(idx, mesh_rel_m, coco_cam, coco_img,
                               fit_err if want_coco else None, rng, stage,
                               mesh_valid_dev=valid_dev)
+
+    @property
+    def supports_raw_batches(self) -> bool:
+        """True when this dataset uses the shared make_batch path, so a raw
+        (pre-synthesis) or index batch can feed the in-step paths. Readers
+        with make_batch flows of their own (COCO, MuCo, AMASS, PW3D) have
+        no such property at all."""
+        return type(self).make_batch is SmplPoseDataset.make_batch
+
+    def make_raw_batch(self, indices: np.ndarray, rng: np.random.Generator,
+                       stage: str = "gator") -> Dict[str, np.ndarray]:
+        """Host-only batch for in-step GT synthesis
+        (`train.loop.with_gt_synthesis`): the raw SMPL and camera
+        parameters (~100 floats a sample) in place of the [B, V, 3] mesh,
+        which the step synthesises with its fit mask. The rng draws are
+        make_batch's, in its order. Needs non-COCO input (COCO derives its
+        2D input from the fitted mesh) and neutral-gender rows (one SMPL
+        parameter set per step)."""
+        t = self.table
+        idx = np.asarray(indices)
+        if self.opts.input_joint_name == "coco":
+            raise ValueError("make_raw_batch: COCO-input batches derive "
+                             "their 2D input from the fitted mesh and "
+                             "cannot defer synthesis")
+        if stage != "gator":
+            # GAT batches need no mesh: make_batch already skips synthesis
+            return self.make_batch(idx, None, rng, stage=stage)
+        if (t.gender[idx] != 0).any():       # GENDERS[0] == "neutral"
+            raise ValueError("make_raw_batch requires neutral-gender rows")
+        batch = self._assemble(
+            idx, np.zeros((len(idx), 0, 3), np.float32), None, None, None,
+            rng, stage)
+        # made in the step: mesh and mesh_valid by the synthesis; lift and
+        # reg masks are ones on this path (bad_zero_gator=("mesh",)); the
+        # fit-gate target is reg_pose3d (the root-relative h36m joints)
+        del batch["mesh"], batch["mesh_valid"]
+        del batch["lift_valid"], batch["reg_valid"]
+        root = t.joint_cam_h36m[idx][:, :1]
+        batch.update({
+            "smpl_pose": t.pose[idx].astype(np.float32),
+            "smpl_shape": t.shape[idx].astype(np.float32),
+            "smpl_trans": t.trans[idx].astype(np.float32),
+            "cam_r": t.cam_r[idx].astype(np.float32),
+            "cam_t": t.cam_t[idx].astype(np.float32),
+            "mesh_root_mm": root.astype(np.float32),
+        })
+        return batch
+
+    def packed_rows(self, synth: GtSynthesizer, indices: np.ndarray):
+        """The rows of the packed table (data/packed.py): the
+        camera-rotated SMPL path grouped by gender."""
+        from .packed import smpl_pose_packed_rows
+        return smpl_pose_packed_rows(self, synth, indices)
+
+    def make_packed_batch(self, indices: np.ndarray,
+                          rng: np.random.Generator) -> Dict[str, np.ndarray]:
+        """Host batch of the packed pipeline: (row, flips, rots) and the
+        assembled 2D input. Needs `build_packed_tables` to have attached
+        this dataset's PackedView."""
+        from .packed import make_packed_batch
+        return make_packed_batch(self, indices, rng)
+
+    def make_index_batch(self, indices: np.ndarray,
+                         rng: np.random.Generator,
+                         stage: str = "gator") -> Dict[str, np.ndarray]:
+        """Index-only batch of the device input pipeline
+        (`data.device_pipeline`): (row indices, flip flags, rotation
+        angles), from the same `augm_params_batch` draws as the host path.
+        Stage-independent."""
+        idx = np.asarray(indices)
+        flips, rots = augm_params_batch(
+            self.opts.is_train, self.opts.flip_enabled,
+            self.opts.rotate_factor, len(idx), rng)
+        return {"idx": idx.astype(np.int32),
+                "flips": flips.astype(np.float32),
+                "rots": rots.astype(np.float32)}
 
     def _assemble(self, idx, mesh_rel_m, coco_cam, coco_img, fit_err, rng,
                   stage, mesh_valid_dev=None) -> Dict[str, object]:

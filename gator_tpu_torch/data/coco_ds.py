@@ -129,6 +129,16 @@ class CocoDataset:
         return np.where(ok & (cnt > 0), scale * mean_d,
                         np.inf).astype(np.float32)
 
+    def packed_rows(self, synth: GtSynthesizer, indices):
+        """The rows of the packed table (data/packed.py)."""
+        from .packed import coco_packed_rows
+        return coco_packed_rows(self, synth, indices)
+
+    def make_packed_batch(self, indices, rng):
+        """Host batch of the packed pipeline (data/packed.py)."""
+        from .packed import make_packed_batch
+        return make_packed_batch(self, indices, rng)
+
     def make_batch(self, indices, synth: GtSynthesizer,
                    rng: np.random.Generator,
                    stage: str = "gator") -> Dict[str, object]:

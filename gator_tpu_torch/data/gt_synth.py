@@ -43,11 +43,12 @@ def prep_shape_fn(shape: torch.Tensor, mean_b: torch.Tensor,
     return torch.where(zero, mean_b[None], shape)
 
 
-def mesh_cam_fn(params: SmplParams, mean_b, pose, shape, trans, cam_r,
-                cam_t):
-    """Batched get_smpl_coord: (mesh_mm [B, V, 3], smpl_joints_mm
-    [B, 24, 3]) in camera space, millimetres (reference:
-    Human36M/dataset.py:254-300)."""
+def mesh_cam_parts_fn(params: SmplParams, mean_b, pose, shape, trans,
+                      cam_r, cam_t):
+    """Shared core of `mesh_cam_fn` and `cam_decompose_fn`: the
+    camera-rotated effective inputs and the translation-compensation
+    offset (reference: Human36M/dataset.py:254-300). -> (pose_eff,
+    shape_eff, smpl_trans [B, 1, 3] m, verts, joints)."""
     pose_eff = rotate_root_pose(pose, cam_r)
     shape_eff = prep_shape_fn(shape, mean_b)
     verts, joints = smpl_forward(params, pose_eff, shape_eff)
@@ -57,7 +58,32 @@ def mesh_cam_fn(params: SmplParams, mean_b, pose, shape, trans, cam_r,
     root = joints[:, :1]                                 # [B, 1, 3]
     smpl_trans = (smpl_trans[:, None] - root
                   + (cam_r[:, None] * root[:, :, None, :]).sum(-1))
+    return pose_eff, shape_eff, smpl_trans, verts, joints
+
+
+def mesh_cam_fn(params: SmplParams, mean_b, pose, shape, trans, cam_r,
+                cam_t):
+    """Batched get_smpl_coord: (mesh_mm [B, V, 3], smpl_joints_mm
+    [B, 24, 3]) in camera space, millimetres (reference:
+    Human36M/dataset.py:254-300)."""
+    _, _, smpl_trans, verts, joints = mesh_cam_parts_fn(
+        params, mean_b, pose, shape, trans, cam_r, cam_t)
     return (verts + smpl_trans) * 1000.0, (joints + smpl_trans) * 1000.0
+
+
+def cam_decompose_fn(params: SmplParams, mean_b, pose, shape, trans,
+                     cam_r, cam_t):
+    """`mesh_cam_fn` split into per-row effective inputs for the packed
+    device pipeline (data/packed.py): (pose_eff [B, 72], shape_eff
+    [B, 10], trans_off_m [B, 3], mesh_mm [B, V, 3]) with
+    (smpl_forward(params, pose_eff, shape_eff)[0] + trans_off_m[:, None])
+    * 1000 == mesh_mm: the camera rotation, beta cleaning, mean-beta
+    substitution and translation compensation fold into epoch-invariant
+    per-row constants."""
+    pose_eff, shape_eff, smpl_trans, verts, _ = mesh_cam_parts_fn(
+        params, mean_b, pose, shape, trans, cam_r, cam_t)
+    return (pose_eff, shape_eff, smpl_trans[:, 0],
+            (verts + smpl_trans) * 1000.0)
 
 
 def mesh_direct_fn(params: SmplParams, mean_b, pose, shape, trans,
@@ -166,6 +192,13 @@ class GtSynthesizer:
         no_tf32()
         return mesh_cam_fn(self.params[gender], self.mean_betas[gender],
                            *map(self._t, (pose, shape, trans, cam_r, cam_t)))
+
+    def smpl_cam_decompose(self, pose, shape, trans, cam_r, cam_t,
+                           gender: str = "neutral"):
+        no_tf32()
+        return cam_decompose_fn(
+            self.params[gender], self.mean_betas[gender],
+            *map(self._t, (pose, shape, trans, cam_r, cam_t)))
 
     def smpl_mesh_direct(self, pose, shape, trans, gender: str = "neutral",
                          clean: bool = True):

@@ -148,6 +148,16 @@ class MucoDataset:
         reg = reg - reg.mean(1, keepdim=True) + gt.mean(1, keepdim=True)
         return torch.sqrt(((gt - reg) ** 2).sum(-1)).mean(-1).cpu().numpy()
 
+    def packed_rows(self, synth: GtSynthesizer, indices):
+        """The rows of the packed table (data/packed.py)."""
+        from .packed import muco_packed_rows
+        return muco_packed_rows(self, synth, indices)
+
+    def make_packed_batch(self, indices, rng):
+        """Host batch of the packed pipeline (data/packed.py)."""
+        from .packed import make_packed_batch
+        return make_packed_batch(self, indices, rng)
+
     def make_batch(self, indices, synth: GtSynthesizer,
                    rng: np.random.Generator,
                    stage: str = "gator") -> Dict[str, object]:

@@ -1,8 +1,20 @@
 """Batch pipeline: shuffling, mixed-dataset sampling and batch iteration
 with a background prefetch thread (counterpart of
-gator_tpu/data/pipeline.py, in its "full" mode: ready batches from
-`make_batch`; reference: lib/core/base.py:20-43,
-data/multiple_datasets.py).
+gator_tpu/data/pipeline.py; reference: lib/core/base.py:20-43,
+data/multiple_datasets.py). The JAX pipeline's `transfer`, `chunk` and
+`epoch_transfer` hooks (multi-step dispatch and the DCN mesh) are not
+ported.
+
+Modes, one per TRAIN.gt_in_step path: "full" (ready batches,
+`make_batch`), "raw" (SMPL and camera parameters in place of the mesh,
+`make_raw_batch`, for in-step GT synthesis), "index" (row indices and
+augmentation parameters, `make_index_batch`: the step gathers the rest
+from a table on the device), "packed" (the host-assembled 2D input and
+row ids, `make_packed_batch`: targets on the device, data/packed.py) and
+"device" (row ids and augmentation parameters, `packed.make_device_batch`:
+the 2D input, detector noise included, is built in the step). The
+prefetch thread copies an index or device batch (~12 B a sample) to the
+synthesizer's device, so the step's input assembly makes no host copy.
 
 Streams. The prefetch thread synthesises each batch's GT meshes on the card
 while the consumer runs the previous batch's step. Both threads launch on
@@ -24,6 +36,7 @@ import torch
 
 from .base import SmplPoseDataset, mixed_epoch_indices
 from .gt_synth import GtSynthesizer
+from .packed import make_device_batch
 
 
 class BatchPipeline:
@@ -35,9 +48,15 @@ class BatchPipeline:
     def __init__(self, datasets: Sequence[SmplPoseDataset],
                  synthesizer: GtSynthesizer, batch_size: int,
                  shuffle: bool = True, seed: int = 0,
-                 stage: str = "gator"):
-        """An epoch ends with a ragged last batch (eval keeps every
-        sample); two batches are prepared ahead."""
+                 stage: str = "gator", drop_last: bool = False,
+                 mode: str = "full"):
+        """drop_last=False ends an epoch with a ragged last batch (eval
+        keeps every sample; training sessions drop it); two batches are
+        prepared ahead."""
+        if mode not in ("full", "raw", "index", "packed", "device"):
+            raise ValueError(f"unknown BatchPipeline mode {mode!r}")
+        self.mode = mode
+        self.drop_last = drop_last
         self.datasets = list(datasets)
         self.synth = synthesizer
         self.batch_size = batch_size
@@ -54,7 +73,8 @@ class BatchPipeline:
             n = len(self.datasets[0])
         else:
             n = max(len(d) for d in self.datasets) * len(self.datasets)
-        return -(-n // self.batch_size)
+        return n // self.batch_size if self.drop_last \
+            else -(-n // self.batch_size)
 
     def _plan(self, rng) -> List[np.ndarray]:
         """List of [B, 2] (dataset_id, index) arrays, one per batch."""
@@ -71,6 +91,24 @@ class BatchPipeline:
                 for i in range(len(self))]
 
     def _make(self, pairs: np.ndarray, rng) -> Dict[str, object]:
+        out = self._merge(pairs, rng)
+        if self.mode in ("index", "device"):
+            out = {k: torch.as_tensor(v, device=self.synth.device)
+                   for k, v in out.items()}
+        return out
+
+    def _part(self, ds, idx: np.ndarray, rng) -> Dict[str, object]:
+        if self.mode == "raw":
+            return ds.make_raw_batch(idx, rng, stage=self.stage)
+        if self.mode == "index":
+            return ds.make_index_batch(idx, rng, stage=self.stage)
+        if self.mode == "packed":
+            return ds.make_packed_batch(idx, rng)
+        if self.mode == "device":
+            return make_device_batch(ds, idx, rng)
+        return ds.make_batch(idx, self.synth, rng, stage=self.stage)
+
+    def _merge(self, pairs: np.ndarray, rng) -> Dict[str, object]:
         parts = []
         order = np.empty(len(pairs), np.int64)
         pos = 0
@@ -78,8 +116,7 @@ class BatchPipeline:
             sel = np.nonzero(pairs[:, 0] == d_id)[0]
             if len(sel) == 0:
                 continue
-            parts.append(ds.make_batch(pairs[sel, 1], self.synth, rng,
-                                       stage=self.stage))
+            parts.append(self._part(ds, pairs[sel, 1], rng))
             order[sel] = np.arange(pos, pos + len(sel))
             pos += len(sel)
         if len(parts) == 1:

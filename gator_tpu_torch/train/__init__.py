@@ -8,7 +8,8 @@ from .evaluate import run_eval
 from .fused_forward import (gat_train_forward, make_fused_forward,
                             mdr_train_forward, rates_from_spec)
 from .loop import (make_gat_eval_step, make_gat_train_step,
-                   make_gator_eval_step, make_gator_train_step)
+                   make_gator_eval_step, make_gator_train_step,
+                   with_gt_synthesis)
 from .schedule import (Adam, ReduceLROnPlateau, RMSprop, make_optimizer,
                        multistep_lr)
 from .state import TrainState
@@ -18,4 +19,5 @@ __all__ = ["Adam", "RMSprop", "ReduceLROnPlateau", "TrainState",
            "make_fused_forward", "make_gat_eval_step", "make_gat_train_step",
            "make_gator_eval_step", "make_gator_train_step", "make_optimizer",
            "mdr_train_forward", "multistep_lr", "pick_checkpoint",
-           "rates_from_spec", "run_eval", "save_checkpoint"]
+           "rates_from_spec", "run_eval", "save_checkpoint",
+           "with_gt_synthesis"]

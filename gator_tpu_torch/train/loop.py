@@ -1,9 +1,9 @@
 """Train and eval steps of both stages (counterpart of
 gator_tpu/train/loop.py:25 `make_gator_train_step`, :162
 `make_gat_train_step`, :120 `make_gator_eval_step` and :227
-`make_gat_eval_step`). The train steps run on the training kernels K4 and
-K5; the eval steps run the module form, whose MDR vertex self-attention is
-K3.
+`make_gat_eval_step`, :253 `with_gt_synthesis`). The train steps run on
+the training kernels K4 and K5; the eval steps run the module form, whose
+MDR vertex self-attention is K3.
 
 A step runs the forward in the compute dtype from the module's f32 master
 weights, the losses in f32, backward, and one optimizer step. The kernels'
@@ -172,6 +172,46 @@ def make_gat_eval_step(eval_joints) -> Callable:
         return {"joint_err": err, "pred_pose_mm": pose3d}
 
     return step
+
+
+_RAW_BATCH_KEYS = ("smpl_pose", "smpl_shape", "smpl_trans", "cam_r",
+                   "cam_t", "mesh_root_mm")
+
+
+def with_gt_synthesis(step_fn: Callable, synth, fitting_thr: float,
+                      gender: str = "neutral") -> Callable:
+    """Fuse GT mesh synthesis into a stage-2 train step
+    (TRAIN.gt_in_step="on"; counterpart of gator_tpu/train/loop.py:253).
+
+    The step takes raw batches (`SmplPoseDataset.make_raw_batch`): the
+    SMPL and camera parameters in place of the [B, V, 3] mesh target, which
+    the step synthesises with its fit-validity mask on the synthesizer's
+    device, with the host path's math (GtSynthesizer.smpl_mesh_cam and
+    fitting_error; reference: Human36M/dataset.py:254-309). The batch is
+    ~100 host floats a sample and no device tensor waits in the prefetch
+    queue. The assembly is `step.assemble(state, batch, seed, ...)`."""
+    from ..data.device_pipeline import with_assembly
+    from ..data.gt_synth import (fit_valid_mask_fn, fitting_error_fn,
+                                 mesh_cam_fn)
+
+    def assemble(state, batch: Batch, *extra) -> Batch:
+        no_tf32()
+        b = {k: _on(v, synth.device) for k, v in batch.items()}
+        mesh_mm, _ = mesh_cam_fn(
+            synth.params[gender], synth.mean_betas[gender], b["smpl_pose"],
+            b["smpl_shape"], b["smpl_trans"], b["cam_r"], b["cam_t"])
+        inner = {k: v for k, v in b.items() if k not in _RAW_BATCH_KEYS}
+        inner["mesh"] = ((mesh_mm - b["mesh_root_mm"]) / 1000.0).float()
+        # the fit-gate target is reg_pose3d (the root-relative h36m
+        # joints, not augmented on this path)
+        fit = fitting_error_fn(synth.j_reg_h36m, inner["reg_pose3d"],
+                               mesh_mm)
+        inner["mesh_valid"] = fit_valid_mask_fn(fit, fitting_thr)
+        inner["lift_valid"] = torch.ones_like(inner["mesh_valid"])
+        inner["reg_valid"] = torch.ones_like(inner["mesh_valid"])
+        return inner
+
+    return with_assembly(step_fn, assemble)
 
 
 def _on(x, device) -> torch.Tensor:
