@@ -145,6 +145,24 @@ every step):
      run, augmentation on: the wrapped step's batch against the host
      path's at the same rows, flips and rotations (pose2d 1e-5, mesh 2e-6
      m, joints 2e-3 mm, masks equal), 3 steps each, losses finite.
+The train CLI (cli/train.py through the port's convergence tool,
+gator_tpu_torch/tools/run_convergence_cli.py; no new kernel), each run
+with every counter reset just before and read just after:
+ 28. (u) (a) configs/gator_synthetic_convergence.yml at the tool's
+     defaults (12 epochs, n=2048, B=256 bf16, gt_in_step full, plateau,
+     edge gate at epoch 4): every epoch evaluated, finite, the best below
+     the first, best.pth.tar written; the tool's `passed` and failures,
+     the per-epoch eval MPJPE, samples/s and train/eval/save seconds, and
+     K5, K4 and K3 launched the same number of times every epoch; (b) the
+     flagship-shaped two-stage recipe (stage 1
+     configs/gat_cocoJ_synthetic_convergence.yml, 8 epochs; stage 2
+     configs/gator_synthetic_flagship.yml, 12 epochs, B=512) against the
+     port's own scratch run of the same stage-2 config: passed,
+     beats_scratch and the curves are printed, not checked; (c)
+     configs/gator_synthetic_smoke.yml at full width, a SIGTERM in epoch 2,
+     then --resume_training: the epoch-2 loss and eval errors within rel
+     1e-4 of an uninterrupted run's; the artifacts go to
+     build/convergence/, and the phase's wall time is printed.
 Then a JSON line with each kernel's numbers, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without a CUDA device the
@@ -1981,6 +1999,172 @@ def input_phases(torch, dev, card, host_path):
     return out
 
 
+CONVERGENCE_DIR = os.path.join("build", "convergence")
+
+
+def _per_epoch(counts, epochs):
+    return {k: v / epochs for k, v in counts.items() if v}
+
+
+def train_cli_phases(torch, card):
+    """Phase 28 (u): the train CLI on the card through the port's
+    convergence tool, each run with every counter reset just before and
+    read just after: (a) configs/gator_synthetic_convergence.yml at the
+    tool's defaults; (b) the flagship-shaped two-stage recipe against the
+    port's own scratch run of the same stage-2 config (the tool's passed
+    and beats_scratch are findings, not checks, in both); (c) a SIGTERM in
+    epoch 2 of a full-width smoke run and --resume_training, against an
+    uninterrupted run. Runs from the repo root with relative paths (the
+    artifacts name what ran); the artifacts go to build/convergence/.
+    -> {"launches": {run: launch counts}}."""
+    import shutil
+    import signal
+
+    from gator_tpu_torch.cli.train import run_train
+    from gator_tpu_torch.config import load_config
+    from gator_tpu_torch.data.pipeline import BatchPipeline
+    from gator_tpu_torch.tools import run_convergence_cli as conv
+    from gator_tpu_torch.train import load_checkpoint
+
+    reset, read = launch_counters(torch)
+    out = {"launches": {}}
+    t_phase = time.perf_counter()
+    prev_cwd = os.getcwd()
+    os.chdir(ROOT)
+    os.makedirs(CONVERGENCE_DIR, exist_ok=True)
+
+    def tool(name, argv):
+        """The convergence tool -> (artifact, launch counts); its
+        checkpoints are removed after it."""
+        exp = os.path.join(CONVERGENCE_DIR, name)
+        art = os.path.join(CONVERGENCE_DIR, f"{name}.json")
+        reset()
+        with torch.enable_grad():
+            conv.main(argv + ["--exp_dir", exp, "--out", art])
+        counts = read()
+        shutil.rmtree(exp, ignore_errors=True)
+        with open(art) as f:
+            return json.load(f), counts
+
+    def curves(res):
+        return ("eval MPJPE " + " ".join(
+            f"{x:.1f}" for x in res["eval_mpjpe_per_epoch"])
+            + "; samples/s " + " ".join(
+                f"{x:,.0f}" for x in res["samples_per_s_per_epoch"])
+            + "; epoch s (train/eval/save) " + " ".join(
+                f"{e['train_s']:.2f}/{e['eval_s']:.2f}/{e['save_s']:.2f}"
+                for e in res["epoch_seconds"]))
+
+    try:
+        # (a) the GT-input recipe at the tool's defaults
+        t0 = time.perf_counter()
+        res, counts = tool("convergence_torch",
+                           ["--cfg", "configs/gator_synthetic_convergence.yml",
+                            "--epochs", "12", "--n", "2048"])
+        out["launches"]["gator_synthetic_convergence.yml"] = counts
+        per = _per_epoch(counts, 12)
+        check(set(per) == {"gat_trunk_train", "lbf_stack_train",
+                           "fused_attention"}
+              and all(v == int(v) for v in per.values()),
+              f"K5, K4 and K3 launched the same every epoch: {counts}")
+        say(28, f"(a) gator_synthetic_convergence.yml, 12 epochs, n=2048, "
+                f"B=256 bf16, gt_in_step full, on {card}: {curves(res)}; "
+                f"launches per epoch {per}; best "
+                f"{res['best_joint_err_mm']:.2f} mm; passed "
+                f"{res['passed']} {res['failures']} "
+                f"({time.perf_counter() - t0:.1f} s)")
+        j = res["eval_mpjpe_per_epoch"]
+        check(len(j) == 12 and all(np.isfinite(j)) and min(j) < j[0]
+              and res["best_dir_exists"],
+              f"(a) 12 finite evals that improve, best.pth.tar: {j}")
+
+        # (b) the flagship-shaped two-stage run against the port's own
+        # scratch run of the same stage-2 config, same n and seed
+        t0 = time.perf_counter()
+        flagship = ["--cfg", "configs/gator_synthetic_flagship.yml",
+                    "--epochs", "12", "--n", "2048"]
+        scratch, counts = tool("convergence_scratch_torch", flagship)
+        out["launches"]["flagship scratch"] = counts
+        say(28, f"(b) scratch gator_synthetic_flagship.yml, 12 epochs, "
+                f"n=2048, B=512 bf16, gt_in_step auto -> device, on "
+                f"{card}: {curves(scratch)}; launches per epoch "
+                f"{_per_epoch(counts, 12)}; best "
+                f"{scratch['best_joint_err_mm']:.2f} mm; passed "
+                f"{scratch['passed']} {scratch['failures']}")
+        two, counts = tool("convergence_two_stage_torch", [
+            "--two_stage", "--stage1_cfg",
+            "configs/gat_cocoJ_synthetic_convergence.yml",
+            "--stage1_epochs", "8", "--baseline",
+            os.path.join(CONVERGENCE_DIR,
+                         "convergence_scratch_torch.json")] + flagship)
+        out["launches"]["flagship two-stage"] = counts
+        check(all(np.isfinite(two["eval_mpjpe_per_epoch"]))
+              and len(two["eval_mpjpe_per_epoch"]) == 12
+              and len(two["stage1"]["eval_mpjpe_per_epoch"]) == 8,
+              "(b) both stages ran every epoch, finite")
+        say(28, f"(b) stage 1 gat_cocoJ_synthetic_convergence.yml, 8 "
+                f"epochs, B=256 bf16, on {card}: {curves(two['stage1'])}")
+        say(28, f"(b) stage 2 from the stage-1 best, on {card}: "
+                f"{curves(two)}; launches of both stages {counts}; best "
+                f"{two['best_joint_err_mm']:.2f} mm against scratch "
+                f"{two['scratch_best_joint_err_mm']:.2f}: passed "
+                f"{two['passed']}, beats_scratch {two['beats_scratch']} "
+                f"{two['failures']} ({time.perf_counter() - t0:.1f} s)")
+
+        # (c) SIGTERM in epoch 2 and --resume_training against an
+        # uninterrupted run: the smoke config at full width
+        t0 = time.perf_counter()
+        cfg = load_config("configs/gator_synthetic_smoke.yml")
+        dirs = {k: os.path.join(CONVERGENCE_DIR, f"resume_{k}")
+                for k in ("straight", "run")}
+        set_epoch = BatchPipeline.set_epoch
+
+        def term_in_epoch_2(self, epoch):
+            set_epoch(self, epoch)
+            if epoch == 2 and self.drop_last:
+                signal.raise_signal(signal.SIGTERM)
+
+        with torch.enable_grad():
+            run_train(cfg, exp_dir=dirs["straight"], synthetic=True)
+            BatchPipeline.set_epoch = term_in_epoch_2
+            try:
+                run_train(cfg, exp_dir=dirs["run"], synthetic=True)
+            finally:
+                BatchPipeline.set_epoch = set_epoch
+            ckpts = sorted(os.listdir(os.path.join(dirs["run"],
+                                                   "checkpoint")))
+            check(ckpts == ["best.pth.tar", "checkpoint1.pth.tar"],
+                  f"(c) SIGTERM wrote checkpoint1 only: {ckpts}")
+            run_train(cfg, exp_dir=dirs["run"], synthetic=True, resume=True)
+        got, want = (load_checkpoint(os.path.join(
+            dirs[k], "checkpoint", "final.pth.tar")) for k in ("run",
+                                                                 "straight"))
+        pairs = [(got["train_log"][1], want["train_log"][1])] + [
+            (got["test_log"][k][1], want["test_log"][k][1])
+            for k in ("joint", "surface")]
+        rel = max(abs(a - b) / abs(b) for a, b in pairs)
+        w_err = max(float((got["model_state_dict"][k].float()
+                           - v.float()).abs().max())
+                    for k, v in want["model_state_dict"].items())
+        for d in dirs.values():
+            shutil.rmtree(d, ignore_errors=True)
+        say(28, f"(c) gator_synthetic_smoke.yml at full width, B=16 f32, "
+                f"SIGTERM in epoch 2 then --resume_training, on {card}: "
+                f"epoch-2 loss, MPJPE, MPVPE against an uninterrupted run: "
+                f"max relative difference {rel:.3e} (bar 1e-4); final "
+                f"weights "
+                + ("bit-equal" if w_err == 0 else
+                   f"differ by up to {w_err:.3e} (K4's or K5's sums are "
+                   f"not bit-deterministic here)")
+                + f" ({time.perf_counter() - t0:.1f} s)")
+        check(rel <= 1e-4, f"(c) resume against uninterrupted {rel} <= 1e-4")
+    finally:
+        os.chdir(prev_cwd)
+    say(28, f"phase 28 wall time {time.perf_counter() - t_phase:.1f} s; "
+            f"artifacts in {CONVERGENCE_DIR}/")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2300,6 +2484,11 @@ def main():
     say(27, "launches by phase: " + "; ".join(
         f"{phase} {counts}" for phase, counts
         in in_step["launches"].items()))
+
+    # 28: the train CLI
+    cli_runs = train_cli_phases(torch, card)
+    say(28, "launches by run: " + "; ".join(
+        f"{run} {counts}" for run, counts in cli_runs["launches"].items()))
 
     check("jax" not in sys.modules and "gator_tpu" not in sys.modules,
           "no JAX imported")

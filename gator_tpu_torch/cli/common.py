@@ -15,8 +15,13 @@ non-COCO, single shared-path dataset, else "device" when every dataset has
 a `packed_rows` hook, else "off"; an explicit mode the recipe cannot run
 raises. The pipeline then makes that mode's batches, and
 `make_train_step` wraps the stage's step on K4/K5 so that it assembles
-its inputs and targets on the device. Not ported yet: the optimizer and
-scheduler choice from the config, TRAIN.fused_kernels and the train CLI.
+its inputs and targets on the device. `make_optimizer` picks the optimizer
+and the LR schedule from TRAIN.optimizer and TRAIN.scheduler, as the JAX
+session does. TRAIN.fused_kernels: "auto" (the kernels on the card, their
+plain versions on the CPU) and "on" (the card only) both train on K4/K5;
+"off" is the JAX package's module form with flax dropout, which the port
+does not have (its modules carry no dropout), so it raises, as does an
+unknown value. The train CLI is `cli/train.py`.
 """
 from __future__ import annotations
 
@@ -33,8 +38,10 @@ from ..data import (DATASETS, BatchPipeline, GtSynthesizer, ProcessOptions,
 from ..data.synthetic import synthetic_coco_dataset, synthetic_muco_dataset
 from .. import losses
 from ..models import GatorSpec, GatSpec, build_gat, build_gator
-from ..train import (TrainState, make_gat_eval_step, make_gat_train_step,
-                     make_gator_eval_step, make_gator_train_step)
+from ..train import (OptimizerFactory, ReduceLROnPlateau, TrainState,
+                     make_gat_eval_step, make_gat_train_step,
+                     make_gator_eval_step, make_gator_train_step,
+                     multistep_lr)
 
 # h36m-target eval joints of a COCO-input GATOR (gator_tpu/cli/common.py:
 # 316-319): the h36m eval subset
@@ -143,6 +150,7 @@ class Session:
             seed=cfg.seed, stage="gator" if self.is_gator else "gat",
             drop_last=is_train, mode=mode)
         self._packed_table = None
+        self.plateau = None        # set by make_optimizer
         if self.gt_in_step in ("packed", "device"):
             # now: packed and device batches read each dataset's PackedView
             self.packed_table()
@@ -236,7 +244,51 @@ class Session:
         v = self.spec.mdr.full_num if self.is_gator else 0
         return bool(v) and n_rows * v * 3 * 4 <= 2 << 30
 
-    # -- model and steps ---------------------------------------------------
+    # -- model, optimizer and steps ----------------------------------------
+
+    def make_optimizer(self) -> OptimizerFactory:
+        """cfg.TRAIN.optimizer at cfg.TRAIN.lr, with cfg.TRAIN.scheduler
+        (gator_tpu/cli/common.py:233-252): 'step' -> MultiStepLR over
+        len(self.pipeline) steps an epoch, applied on every update;
+        'platue' [sic, the reference's spelling] or 'plateau' -> a constant
+        lr that the host-side ReduceLROnPlateau, `self.plateau`, resets once
+        an epoch (reference: lib/funcs_utils.py:100-107)."""
+        cfg = self.cfg
+        self.plateau = None
+        if cfg.TRAIN.scheduler in ("platue", "plateau"):
+            self.plateau = ReduceLROnPlateau(cfg.TRAIN.lr,
+                                             cfg.TRAIN.lr_factor)
+            return OptimizerFactory(cfg.TRAIN.optimizer, cfg.TRAIN.lr)
+        if cfg.TRAIN.scheduler != "step":
+            raise ValueError(
+                f"unknown cfg.TRAIN.scheduler {cfg.TRAIN.scheduler!r} "
+                "(expected 'step' or 'platue')")
+        steps_per_epoch = max(1, len(self.pipeline))
+        return OptimizerFactory(
+            cfg.TRAIN.optimizer, cfg.TRAIN.lr,
+            multistep_lr(cfg.TRAIN.lr, cfg.TRAIN.lr_step,
+                         cfg.TRAIN.lr_factor, steps_per_epoch))
+
+    def _check_fused_kernels(self) -> None:
+        """cfg.TRAIN.fused_kernels: 'auto' and 'on' train on K4/K5 ('on'
+        only where the session is on the card); 'off' and anything else
+        raise."""
+        req = self.cfg.TRAIN.fused_kernels
+        if req == "auto":
+            return
+        if req == "on":
+            if self.device.type != "cuda":
+                raise ValueError(
+                    "TRAIN.fused_kernels=on needs the card (a CUDA "
+                    f"device); this session is on {self.device}")
+            return
+        if req == "off":
+            raise ValueError(
+                "TRAIN.fused_kernels=off (the module form with flax "
+                "dropout) is not ported: the port always trains on its "
+                "kernels K4/K5; use 'auto' or 'on'")
+        raise ValueError(f"TRAIN.fused_kernels must be 'auto', 'on' or "
+                         f"'off'; got {req!r}")
 
     def build_model(self) -> torch.nn.Module:
         """The config's model (GATOR or the GAT lifter alone) on the
@@ -248,8 +300,10 @@ class Session:
         """-> (TrainState, step): the stage's train step on K4/K5 in
         cfg.TRAIN.precision, wrapped for the session's input mode
         (gator_tpu/cli/common.py:269-341 `make_steps`), and a state over
-        `build_model()` with the optimizer `optimizer(parameters)`. The
-        stage-2 step is
+        `build_model()` with the optimizer `optimizer(parameters)`:
+        `make_optimizer()`'s factory, whose step schedule the state then
+        applies on every update, or any callable. cfg.TRAIN.fused_kernels
+        is checked first (`_check_fused_kernels`). The stage-2 step is
         `step(state, batch, seed, edge_enabled)`, the stage-1 step
         `step(state, batch, seed)`; either takes the pipeline's batches,
         and a wrapped step carries its input assembly as `step.assemble`.
@@ -259,6 +313,7 @@ class Session:
         from ..data.packed import with_packed_input_pipeline
         from ..train.loop import with_gt_synthesis
 
+        self._check_fused_kernels()
         cfg = self.cfg
         dtype = (torch.bfloat16 if cfg.TRAIN.precision == "bfloat16"
                  else torch.float32)
@@ -297,7 +352,9 @@ class Session:
                     self.assets.joint_set, stage="gat", opts=ds.opts,
                     device_input=mode == "device")
         model = self.build_model()
-        return TrainState(model, optimizer(model.parameters())), step
+        return TrainState(model, optimizer(model.parameters()),
+                          lr_schedule=getattr(optimizer, "schedule",
+                                              None)), step
 
     def make_eval_step(self, use_kernels: bool = True):
         """The eval step of the config's model; it always runs in f32

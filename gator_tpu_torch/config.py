@@ -6,9 +6,11 @@ Every key of every `configs/*.yml` loads, with the same defaults and the
 same strict checking: an unknown section or key raises ValueError
 (reference: lib/core/config.py:94-116). `TRAIN.gt_in_step` and
 `gt_mesh_cache` pick a training session's input path
-(`cli.common.Session`). `TRAIN.steps_per_dispatch` (the JAX package's
-multi-step dispatch) and `fused_kernels` load here and the port does not
-act on them: its train steps always run on the kernels K4 and K5.
+(`cli.common.Session`), `fused_kernels` is checked there ("auto" and "on"
+train on the kernels K4 and K5, "off" raises: the port has no module-form
+dropout path). `TRAIN.steps_per_dispatch` (the JAX package's multi-step
+dispatch) loads here and the port does not act on it: the train CLI runs
+one step per dispatch and says so once.
 """
 from __future__ import annotations
 

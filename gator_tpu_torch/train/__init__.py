@@ -10,14 +10,14 @@ from .fused_forward import (gat_train_forward, make_fused_forward,
 from .loop import (make_gat_eval_step, make_gat_train_step,
                    make_gator_eval_step, make_gator_train_step,
                    with_gt_synthesis)
-from .schedule import (Adam, ReduceLROnPlateau, RMSprop, make_optimizer,
-                       multistep_lr)
+from .schedule import (Adam, OptimizerFactory, ReduceLROnPlateau, RMSprop,
+                       make_optimizer, multistep_lr, set_learning_rate)
 from .state import TrainState
 
-__all__ = ["Adam", "RMSprop", "ReduceLROnPlateau", "TrainState",
-           "gat_train_forward", "load_checkpoint", "load_weights",
-           "make_fused_forward", "make_gat_eval_step", "make_gat_train_step",
-           "make_gator_eval_step", "make_gator_train_step", "make_optimizer",
-           "mdr_train_forward", "multistep_lr", "pick_checkpoint",
-           "rates_from_spec", "run_eval", "save_checkpoint",
-           "with_gt_synthesis"]
+__all__ = ["Adam", "OptimizerFactory", "RMSprop", "ReduceLROnPlateau",
+           "TrainState", "gat_train_forward", "load_checkpoint",
+           "load_weights", "make_fused_forward", "make_gat_eval_step",
+           "make_gat_train_step", "make_gator_eval_step",
+           "make_gator_train_step", "make_optimizer", "mdr_train_forward",
+           "multistep_lr", "pick_checkpoint", "rates_from_spec", "run_eval",
+           "save_checkpoint", "set_learning_rate", "with_gt_synthesis"]

@@ -1,12 +1,19 @@
 """Optimizers and LR schedules (counterpart of gator_tpu/train/schedule.py;
 reference: lib/funcs_utils.py:76-107): Adam, SGD and RMSprop built with the
 reference's hyperparameters in optax's arithmetic, the step-indexed
-`multistep_lr` (MultiStepLR), and the host-side `ReduceLROnPlateau`
-controller.
+`multistep_lr` (MultiStepLR), the host-side `ReduceLROnPlateau`
+controller, and `set_learning_rate`, which both schedules act through.
+
+A step schedule reaches the optimizer through the train state
+(`TrainState.lr_schedule`): update number s runs at lr(s), as
+optax.piecewise_constant_schedule inside optax.adam gives it. The plateau
+controller's lr is set once an epoch by the caller (cli/train.py), as the
+JAX package rewrites its injected hyperparameter.
 """
 from __future__ import annotations
 
-from typing import Callable, Iterable, Sequence
+import dataclasses
+from typing import Callable, Iterable, Optional, Sequence
 
 import torch
 
@@ -127,6 +134,30 @@ def make_optimizer(name: str, params: Iterable[torch.nn.Parameter],
     if name == "rmsprop":
         return RMSprop(params, lr=lr)
     raise ValueError(f"unknown optimizer {name!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerFactory:
+    """What `cli.common.Session.make_optimizer` returns, and what
+    `Session.make_train_step` takes: `factory(params)` builds the named
+    optimizer at `lr`, and `schedule` (lr(step), or None) becomes the
+    train state's `lr_schedule`."""
+    name: str
+    lr: float
+    schedule: Optional[Callable[[int], float]] = None
+
+    def __call__(self, params: Iterable[torch.nn.Parameter]
+                 ) -> torch.optim.Optimizer:
+        return make_optimizer(self.name, params, self.lr)
+
+
+def set_learning_rate(state, lr: float):
+    """Set the lr of every param group of `state.optimizer` (counterpart
+    of gator_tpu/train/schedule.py:199 `set_learning_rate`, which rewrites
+    the injected learning_rate leaf); -> the state."""
+    for group in state.optimizer.param_groups:
+        group["lr"] = float(lr)
+    return state
 
 
 class ReduceLROnPlateau:

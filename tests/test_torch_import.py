@@ -110,3 +110,29 @@ def test_layer_tools_import_no_jax_and_build_nothing():
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split("\n")[-2]
     assert out == "[] []"
+
+
+TRAIN_CLI_SCRIPT = """
+import sys
+import gator_tpu_torch.cli.train, gator_tpu_torch.cli.common
+import gator_tpu_torch.tools.run_convergence_cli
+import gator_tpu_torch.train.state, gator_tpu_torch.train.checkpoint
+import gator_tpu_torch.train.schedule, gator_tpu_torch.config
+import gator_tpu_torch.vis
+from gator_tpu_torch.nn import cuda_lib
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                              "triton", "gator_tpu", "matplotlib")]
+print(bad, sorted(cuda_lib._LOADED))
+"""
+
+
+def test_train_cli_and_convergence_tool_import_no_jax():
+    """The train CLI, the port's convergence tool and the modules they
+    added to (state, checkpoints, schedules, session, config, vis) import
+    neither JAX nor the JAX package (nor matplotlib, which the loss plot
+    imports when it draws), and load no kernel library."""
+    out = subprocess.run([sys.executable, "-c", TRAIN_CLI_SCRIPT], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout.split("\n")[-2]
+    assert out == "[] []"
