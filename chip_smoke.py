@@ -163,6 +163,29 @@ with every counter reset just before and read just after:
      then --resume_training: the epoch-2 loss and eval errors within rel
      1e-4 of an uninterrupted run's; the artifacts go to
      build/convergence/, and the phase's wall time is printed.
+The demo and the rest of the JAX package's surface (no new kernel; K3 at a
+batch of one), at full width, f32, TF32 off:
+ 29. (v) `gator_tpu_torch.cli.demo.main` with seeded weights (--weights)
+     on the fabricated COCO pose of tests/test_coverage_extras.py: coco
+     closed-form, coco --adam_fit and human36, every counter reset just
+     before and read just after each run, cv2 hidden: K3 launched 3 times
+     and nothing else, demo_mesh.obj with 6890 finite vertices, the two
+     PNGs skipped and named in the printed line; each mesh within 1e-4 m of
+     the same model's plain path on the same input, the closed-form
+     cameras within rel 1e-4 of the fit on the CPU, the fitted (s, tx, ty)
+     and L1 of both fits printed; the software renderer's time on the coco
+     mesh (at least one pixel covered) and each run's wall time (host
+     clock); K3 at B=1, 431x431, 2 heads of 32 against its plain version
+     (f32 within 1e-4, bf16 reported), with its time, the plain version's
+     and scaled_dot_product_attention's beside its bound; the native
+     library built with the host's C++ compiler and held equal to the
+     numpy forms (the human36 and coco graph tables, build_coarse_graphs on
+     the 6890-vertex mesh); MeshResampler down and up, GraphResBlock,
+     mano_forward on synthetic_mano(0), rot6d_to_rotmat and
+     one_euro_smooth_torch on the card within 1e-5 of the CPU;
+     profiling.trace around one demo forward and device_memory_stats; the
+     phase's wall time. The demo's K3 launches join the eval path's in the
+     kernels line.
 Then a JSON line with each kernel's numbers, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without a CUDA device the
@@ -2165,6 +2188,333 @@ def train_cli_phases(torch, card):
     return out
 
 
+# the fabricated COCO pose of tests/test_coverage_extras.py:61-66, pixels
+DEMO_POSE = np.array(
+    [[500, 180], [520, 160], [480, 160], [545, 170], [455, 170],
+     [580, 260], [420, 260], [610, 380], [390, 380], [630, 490],
+     [370, 490], [560, 520], [440, 520], [565, 700], [435, 700],
+     [570, 880], [430, 880]], np.float32)
+
+
+def demo_phases(torch, dev, card):
+    """Phase 29 (v): the demo CLI and the rest of the JAX package's
+    surface on the card, at full width (synthetic 6890-vertex assets,
+    embed 128, depth 6, f32, TF32 off). -> {"launches": {"fused_attention":
+    the demo's K3 launches}}."""
+    import contextlib
+    import io
+    from unittest import mock
+
+    import scipy.sparse as sp
+
+    from gator_tpu_torch import ops, profiling
+    from gator_tpu_torch.assets import (build_assets, coarsening, graphs,
+                                        native, skeletons)
+    from gator_tpu_torch.bodymodel import mano, rotations6d
+    from gator_tpu_torch.cli import demo
+    from gator_tpu_torch.data import coords
+    from gator_tpu_torch.models import GatorSpec, build_gator
+    from gator_tpu_torch.models.camera import crop_cam_to_orig_img
+    from gator_tpu_torch.nn.fused_attention import (fused_attention,
+                                                    fused_attention_ref)
+    from gator_tpu_torch.smoothing import one_euro_smooth_torch
+    from gator_tpu_torch.tools.timing import time_ms
+    from gator_tpu_torch.vis import render_mesh_overlay
+
+    import torch.nn.functional as F
+
+    t_phase = time.perf_counter()
+    f32, bf16 = torch.float32, torch.bfloat16
+    reset, read = launch_counters(torch)
+    gen = torch.Generator().manual_seed(29)
+    assets = {js: build_assets(js) for js in ("coco", "human36")}
+    out = {"launches": {"fused_attention": 0}}
+
+    # (a) the demo whole, through `main` and its flags: coco and human36,
+    # the closed-form fit, then --adam_fit; seeded weights, the same file
+    # for every run. cv2 is hidden, as on a machine without it: the demo
+    # then skips its two PNGs and says so, and (c) times the renderer once.
+    # (Only that key is swapped: restoring a copy of sys.modules would drop
+    # the modules the runs imported, and torch's would register twice.)
+    cv2_module = sys.modules.get("cv2")
+    sys.modules["cv2"] = None
+    with tempfile.TemporaryDirectory() as tmp:
+        pose_path = os.path.join(tmp, "pose.npy")
+        np.save(pose_path, np.concatenate(
+            [DEMO_POSE + np.random.default_rng(1234).normal(
+                0, 5, (17, 2)).astype(np.float32),
+             np.ones((17, 1), np.float32)], 1))
+        runs = {}
+        for joint_set, flags in (("coco", []), ("coco", ["--adam_fit"]),
+                                 ("human36", [])):
+            tag = f"{joint_set}{' --adam_fit' if flags else ''}"
+            weights = os.path.join(tmp, f"{joint_set}.pth.tar")
+            if not os.path.exists(weights):
+                torch.save({"epoch": 0, "model_state_dict": build_gator(
+                    GatorSpec.from_assets(assets[joint_set]), seed=1,
+                    device="cpu").state_dict()}, weights)
+            out_dir = os.path.join(tmp, tag.replace(" ", ""))
+            kept = {}
+            real_build = demo.build_gator
+            real_fit = demo.fit_camera_closed_form
+
+            def keep_input(module, args):
+                kept.setdefault("pose2d", args[0])
+
+            def keep_model(*a, **k):
+                kept["model"] = real_build(*a, **k)
+                kept["model"].register_forward_pre_hook(keep_input)
+                return kept["model"]
+
+            def keep_fit(pose3d, target, crop):
+                kept["fit_args"] = (pose3d, target, crop)
+                return real_fit(pose3d, target, crop)
+
+            printed = io.StringIO()
+            torch.cuda.synchronize()
+            reset()
+            t0 = time.perf_counter()
+            with mock.patch.object(demo, "build_gator", keep_model), \
+                    mock.patch.object(demo, "fit_camera_closed_form",
+                                      keep_fit), \
+                    contextlib.redirect_stdout(printed):
+                res = demo.main(["--input_pose", pose_path, "--joint_set",
+                                 joint_set, "--weights", weights,
+                                 "--output_dir", out_dir] + flags)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read()
+            lines = printed.getvalue().splitlines()
+            for line in lines:
+                say(29, f"demo {tag} printed: {line}")
+            check(counts["fused_attention"] == 3 and all(
+                n == 0 for k, n in counts.items() if k != "fused_attention"),
+                f"demo {tag}: K3 launched 3 times and nothing else: "
+                f"{counts}")
+            out["launches"]["fused_attention"] += counts["fused_attention"]
+            with open(res["obj_path"]) as f:
+                obj_v = np.array([ln.split()[1:] for ln in f
+                                  if ln.startswith("v ")], np.float64)
+            check(obj_v.shape == (6890, 3) and np.isfinite(obj_v).all(),
+                  f"demo {tag}: demo_mesh.obj has 6890 finite vertices")
+            check(res["mesh"].shape == (6890, 3)
+                  and np.isfinite(res["mesh"]).all(),
+                  f"demo {tag}: mesh finite, 6890 vertices")
+            check(not any(os.path.exists(os.path.join(out_dir, name))
+                          for name in demo.IMAGES) and any(
+                line.startswith("skipped demo_mesh.png and "
+                                "demo_pose2d.png: cv2 is not installed")
+                for line in lines),
+                f"demo {tag}: the skipped PNGs named: {lines}")
+            l1 = float(lines[0].split("L1=")[1][:-2])
+            cam = np.concatenate([res["cam"].s.cpu().numpy()[0],
+                                  res["cam"].t.cpu().numpy()[0]])
+            check(np.isfinite(cam).all() and np.isfinite(l1),
+                  f"demo {tag}: camera and L1 finite")
+            runs[tag] = dict(res=res, kept=kept, wall=wall, cam=cam, l1=l1)
+            say(29, f"demo {tag} on {card}: wall {wall:.3f} s (host clock, "
+                    f"model build and weights included); K3 launches "
+                    f"{counts['fused_attention']}; fitted (s, tx, ty) "
+                    f"{cam.tolist()}, L1 {l1:.2f} px; .obj 6890 vertices, "
+                    f"finite; PNGs skipped (cv2 hidden)")
+    if cv2_module is None:
+        del sys.modules["cv2"]
+    else:
+        sys.modules["cv2"] = cv2_module
+
+    # (b) each run's mesh against the plain path (the same model and input,
+    # use_kernels=False), and each closed-form camera against the same fit
+    # on the CPU
+    for tag, run in runs.items():
+        model, pose2d = run["kept"]["model"], run["kept"]["pose2d"]
+        with torch.no_grad():
+            plain, _ = model(pose2d, use_kernels=False)
+        e_mesh = float(np.abs(run["res"]["mesh"]
+                              - plain[0].cpu().numpy()).max())
+        check(e_mesh <= 1e-4, f"demo {tag} mesh vs plain {e_mesh} <= 1e-4 m")
+        msg = f"demo {tag}: mesh vs plain path {e_mesh:.3e} m (bar 1e-4)"
+        if "--adam_fit" not in tag:
+            pose3d, target, crop = run["kept"]["fit_args"]
+            cpu = demo.fit_camera_closed_form(pose3d.cpu(), target.cpu(),
+                                              crop)
+            cpu_cam = np.concatenate([cpu.s.numpy()[0], cpu.t.numpy()[0]])
+            rel = float(np.abs(run["cam"] - cpu_cam).max()
+                        / np.abs(cpu_cam).max())
+            check(rel <= 1e-4, f"demo {tag} closed form card vs CPU {rel}")
+            msg += f"; closed-form camera vs the CPU's rel {rel:.2e} " \
+                   f"(bar 1e-4)"
+        say(29, msg)
+
+    # (c) the software renderer on the coco demo's mesh and camera, on the
+    # image the demo would draw (host numpy)
+    run = runs["coco"]
+    joints = demo.add_pelvis_neck_3(
+        np.concatenate([DEMO_POSE + np.random.default_rng(1234).normal(
+            0, 5, (17, 2)).astype(np.float32), np.ones((17, 1), np.float32)],
+            1), list(assets["coco"].joint_set.joints_name))[:, :2]
+    bbox1 = coords.process_bbox(coords.get_bbox(joints), 1.0, scale=1.25)
+    ow, oh = int(joints[:, 0].max() * 1.5), int(joints[:, 1].max() * 1.5)
+    orig_cam = crop_cam_to_orig_img(
+        run["res"]["cam"], torch.from_numpy(bbox1[None]).to(dev), ow,
+        oh)[0].cpu().numpy()
+    faces = assets["coco"].faces
+    img = np.zeros((oh, ow, 3), np.uint8)
+    t0 = time.perf_counter()
+    drawn = render_mesh_overlay(img, run["res"]["mesh"], faces, orig_cam,
+                                backend="software")
+    render_s = time.perf_counter() - t0
+    covered = int((drawn != 0).any(-1).sum())
+    check(covered >= 1, "the software render covers a pixel")
+    say(29, f"software render (numpy z-buffer) of the coco demo mesh, "
+            f"{len(faces)} faces, {ow}x{oh} image: {render_s:.3f} s on the "
+            f"host of {card}, {covered} pixels covered; demo wall times "
+            f"without the renders "
+            + ", ".join(f"{t} {r['wall']:.3f} s" for t, r in runs.items()))
+
+    # (d) K3 at the demo's batch of one, against its plain version
+    b, n, h, d = 1, 431, 2, 32
+    errs = {}
+    for dt in (f32, bf16):
+        q, k, v = (torch.randn(b, n, h, d, generator=gen).to(dev, dt)
+                   for _ in range(3))
+        got = fused_attention(q, k, v, None, d ** -0.5)
+        ref = fused_attention_ref(q, k, v, None, d ** -0.5)
+        torch.cuda.synchronize()
+        errs[dt] = max_err(got, ref)
+        check(np.isfinite(errs[dt]), f"K3 B=1 {dt} finite")
+    check(errs[f32] <= 1e-4, f"K3 B=1 f32 err {errs[f32]} <= 1e-4")
+    q, k, v = (torch.randn(b, n, h, d, generator=gen).to(dev)
+               for _ in range(3))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    k3_ms = time_ms(lambda: fused_attention(q, k, v, None, d ** -0.5))
+    plain_ms = time_ms(lambda: fused_attention_ref(q, k, v, None,
+                                                   d ** -0.5))
+    sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, scale=d ** -0.5))
+    k3_bound = bound(3 * 2 * b * h * n * n * d, 4 * b * n * h * d * 4,
+                     TF32_FLOP_PER_S)
+    say(29, f"K3 B=1 {n}x{n} H={h} D={d} on {card}: f32 max abs err "
+            f"{errs[f32]:.3e} vs plain (bar 1e-4), bf16 {errs[bf16]:.3e} "
+            f"(reported); f32 kernel {k3_ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, scaled_dot_product_attention {sdpa_ms:.4f} ms (CUDA "
+            f"events, median of 5); bound {k3_bound[0]:.5f} ms "
+            f"({k3_bound[1]})")
+    out["k3_b1"] = dict(ms=k3_ms, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
+                        bound_ms=k3_bound[0], err=errs[f32])
+
+    # (e) the native library, built with the host's C++ compiler, against
+    # the numpy forms: the joint graphs' tables and the full mesh's
+    # coarsening
+    t0 = time.perf_counter()
+    lib = native.build()
+    say(29, f"native library {os.path.relpath(lib, ROOT)} built in "
+            f"{time.perf_counter() - t0:.2f} s")
+    for name, jset in (("human36", skeletons.H36M), ("coco", skeletons.COCO)):
+        adj = skeletons.gat_adjacency(jset)
+        tj = assets[name].template_joints
+        a = graphs.build_graph_tables(adj, tj, use_native=True)
+        b_ = graphs.build_graph_tables(adj, tj, use_native=False)
+        for field in b_.__dataclass_fields__:
+            x, y = getattr(a, field), getattr(b_, field)
+            check(x.dtype == y.dtype and np.array_equal(x, y),
+                  f"{name} graph table {field}: native equals numpy")
+    mesh_faces = assets["human36"].faces
+    t_np = time.perf_counter()
+    want = coarsening.build_coarse_graphs(
+        mesh_faces, skeletons.gat_adjacency(skeletons.H36M),
+        use_native=False)
+    t_np = time.perf_counter() - t_np
+    t_nat = time.perf_counter()
+    got = coarsening.build_coarse_graphs(
+        mesh_faces, skeletons.gat_adjacency(skeletons.H36M),
+        use_native=True)
+    t_nat = time.perf_counter() - t_nat
+    for x, y in zip(got[0] + got[1], want[0] + want[1]):
+        check(x.shape == y.shape and x.dtype == y.dtype
+              and (sp.csr_matrix(x) != sp.csr_matrix(y)).nnz == 0,
+              "coarse graphs and Laplacians: native equals numpy")
+    check(all(np.array_equal(x, y) for x, y in zip(got[2:], want[2:])),
+          "coarsening permutations: native equals numpy")
+    say(29, f"native graph tables (human36, coco) equal to numpy; "
+            f"build_coarse_graphs on the {mesh_faces.max() + 1}-vertex mesh "
+            f"(9 levels, {[g.shape[0] for g in got[0]]} vertices) equal: "
+            f"{t_nat:.3f} s native, {t_np:.3f} s numpy (host)")
+
+    # (f) the device-side surface on the card against the CPU, TF32 off
+    def both(fn, *args):
+        """fn on the card and on the CPU -> max abs difference."""
+        on_card = fn(*(a.to(dev) if torch.is_tensor(a) else a
+                       for a in args))
+        on_cpu = fn(*args)
+        on_card = on_card if isinstance(on_card, tuple) else (on_card,)
+        on_cpu = on_cpu if isinstance(on_cpu, tuple) else (on_cpu,)
+        return max(max_err(x.cpu(), y) for x, y in zip(on_card, on_cpu))
+
+    sampling = assets["human36"].sampling
+    res_cpu = ops.MeshResampler(sampling)
+    res_card = ops.MeshResampler(sampling).to(dev)
+    xv = torch.randn(8, sampling.down1.shape[1], 3, generator=gen)
+    xc = torch.randn(8, sampling.down2.shape[0], 3, generator=gen)
+    surface = {
+        "MeshResampler down": max_err(
+            res_card.downsample(xv.to(dev), 0, 2).cpu(),
+            res_cpu.downsample(xv, 0, 2)),
+        "MeshResampler up": max_err(
+            res_card.upsample(xc.to(dev), 2, 0).cpu(),
+            res_cpu.upsample(xc, 2, 0)),
+    }
+    adj = ops.row_normalized_adjacency(skeletons.gat_adjacency(
+        skeletons.COCO), 2)
+    for cin, cout in ((64, 128), (128, 128)):
+        block = ops.GraphResBlock(cin, cout, adj)
+        xb = torch.randn(64, 19, cin, generator=gen)
+        with torch.no_grad():
+            surface[f"GraphResBlock {cin}->{cout}"] = max_err(
+                block.to(dev)(xb.to(dev)).cpu(), block.cpu()(xb))
+    hand = mano.synthetic_mano(0)
+    params = {str(p): mano.ManoParams.from_model(hand, device=p)
+              for p in ("cpu", dev)}
+    pose = torch.randn(64, 48, generator=gen) * 0.5
+    betas = torch.randn(64, 10, generator=gen)
+    surface["mano_forward"] = max(
+        max_err(a.cpu(), c) for a, c in zip(
+            mano.mano_forward(params[str(dev)], pose.to(dev), betas.to(dev)),
+            mano.mano_forward(params["cpu"], pose, betas)))
+    surface["rot6d_to_rotmat"] = both(rotations6d.rot6d_to_rotmat,
+                                      torch.randn(4096, 6, generator=gen))
+    surface["one_euro_smooth_torch"] = both(
+        one_euro_smooth_torch,
+        torch.randn(64, 17, 3, generator=gen).cumsum(0))
+    bad = {k: e for k, e in surface.items() if not e <= 1e-5}
+    check(not bad, f"the surface on the card within 1e-5 of the CPU: {bad}")
+    say(29, "on the card vs the CPU, f32, TF32 off (bar 1e-5): "
+            + ", ".join(f"{k} {e:.2e}" for k, e in surface.items()))
+
+    # (g) profiling: a trace around one demo forward, the cards' memory
+    model, pose2d = runs["coco"]["kept"]["model"], runs["coco"]["kept"][
+        "pose2d"]
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp), torch.no_grad():
+            model(pose2d)
+        trace_file = os.path.join(tmp, "trace.json")
+        size = os.path.getsize(trace_file)
+        with open(trace_file) as f:
+            saw_k3 = "attention_kernel" in f.read()
+    check(size > 0, "profiling.trace wrote a trace")
+    stats = profiling.device_memory_stats()
+    check(len(stats) == 1 and torch.cuda.get_device_name(0)
+          in next(iter(stats)), f"device_memory_stats names the card: "
+                                f"{list(stats)}")
+    say(29, f"profiling.trace around one demo forward: {size} bytes, K3 "
+            f"{'in' if saw_k3 else 'not in'} the trace; "
+            f"device_memory_stats: {list(stats)}, peak allocated "
+            f"{next(iter(stats.values()))['allocated_bytes.all.peak']} "
+            f"bytes")
+    say(29, f"phase 29 wall time {time.perf_counter() - t_phase:.1f} s on "
+            f"{card}")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2489,6 +2839,11 @@ def main():
     cli_runs = train_cli_phases(torch, card)
     say(28, "launches by run: " + "; ".join(
         f"{run} {counts}" for run, counts in cli_runs["launches"].items()))
+
+    # 29: the demo CLI and the rest of the surface; its K3 launches join
+    # the eval path's in the kernels line
+    demo_run = demo_phases(torch, dev, card)
+    launches["fused_attention"] += demo_run["launches"]["fused_attention"]
 
     check("jax" not in sys.modules and "gator_tpu" not in sys.modules,
           "no JAX imported")

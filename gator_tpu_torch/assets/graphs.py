@@ -22,6 +22,8 @@ import dataclasses
 
 import numpy as np
 
+from . import native
+
 PATH_SENTINEL = 510
 
 
@@ -110,18 +112,30 @@ def bone_length_matrix(adjacency: np.ndarray,
 
 
 def build_graph_tables(adjacency: np.ndarray,
-                       template_joints: np.ndarray) -> GraphTables:
+                       template_joints: np.ndarray,
+                       use_native: bool | None = None) -> GraphTables:
     """All static GAT graph tables from a pruned adjacency + template
-    joints (numpy; the tables are a few hundred entries)."""
+    joints. `use_native` runs Floyd-Warshall and the edge-input expansion
+    in the C++ library (`native`, built on first use); None uses it where
+    it is built. The tables are identical either way."""
     adjacency = np.asarray(adjacency, dtype=np.float32)
-    dist, path = floyd_warshall(adjacency)
+    if use_native is None:
+        use_native = native.available()
+    if use_native:
+        dist, path = native.floyd_warshall(adjacency, PATH_SENTINEL)
+    else:
+        dist, path = floyd_warshall(adjacency)
     max_dist = int(dist.max())
     if max_dist >= 10:
         # spatial_pos feeds a 10-entry embedding table
         # (reference: lib/models/GAT.py:112, num_spatial=10)
         raise ValueError(f"graph diameter {max_dist} >= 10 unsupported")
     edge_feat = bone_length_matrix(adjacency, template_joints)
-    edge_input = gen_edge_input(max_dist, path, edge_feat)
+    if use_native:
+        edge_input = native.gen_edge_input(max_dist, path, edge_feat,
+                                           PATH_SENTINEL)
+    else:
+        edge_input = gen_edge_input(max_dist, path, edge_feat)
     hops_m1 = np.maximum(dist - 1, 1).astype(np.float32)
     hop_recip = 1.0 / hops_m1
     masks = np.stack([

@@ -1,6 +1,7 @@
 """Importing gator_tpu_torch and each of its modules pulls in neither JAX,
-nor Triton, nor the JAX package, and builds no kernel (checked in a fresh
-interpreter, since this test process has JAX loaded)."""
+nor Triton, nor the JAX package, and builds no kernel and no native
+library (checked in a fresh interpreter, since this test process has JAX
+loaded)."""
 import os
 import subprocess
 import sys
@@ -8,26 +9,41 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = """
-import pkgutil, sys
+import os, pkgutil, sys
+lib = os.path.join("build", "native", "libgator_precompute.so")
+def stamp():
+    return os.path.getmtime(lib) if os.path.exists(lib) else None
+before = stamp()
 import gator_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(gator_tpu_torch.__path__,
                                                "gator_tpu_torch.")]
 for name in names:
     __import__(name)
 bad = [m for m in sys.modules
-       if m.split(".")[0] in ("jax", "jaxlib", "flax", "triton", "gator_tpu")]
+       if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "triton",
+                              "gator_tpu", "cv2", "matplotlib")]
 from gator_tpu_torch.nn import cuda_lib
-print(len(names), bad, sorted(cuda_lib._LOADED))
+from gator_tpu_torch.assets import native
+assert native.BUILD_DIR == os.path.abspath(os.path.dirname(lib))
+print(len(names), bad, sorted(cuda_lib._LOADED), native._LOADED,
+      stamp() == before)
 """
 
 
 def test_import_pulls_in_no_jax_and_no_triton():
+    """Every module of the port (the demo's and the surface's too) imports;
+    none pulls in JAX, optax, Triton, the JAX package, or the optional
+    cv2 and matplotlib, which the drawing functions import when they
+    draw; no CUDA kernel is built and `assets.native` neither builds nor
+    loads its library."""
     out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split("\n")[-2]
     count, rest = out.split(" ", 1)
-    assert int(count) >= 35
-    assert rest == "[] []"
+    # 84 since the demo, camera, vis, smoothing, profiling, ops,
+    # coarsening, native, MANO and 6D-rotation modules
+    assert int(count) >= 84
+    assert rest == "[] [] {} True"
 
 
 TRAIN_SCRIPT = """
