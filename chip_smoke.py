@@ -186,16 +186,48 @@ batch of one), at full width, f32, TF32 off:
      profiling.trace around one demo forward and device_memory_stats; the
      phase's wall time. The demo's K3 launches join the eval path's in the
      kernels line.
+Data parallelism (gator_tpu_torch.parallel; K4 and K5 with their sample
+base, K1-K3 unchanged), at full width, human36, the BatchNorm head with
+seeded running stats:
+ 30. (w) (a) world 1 over NCCL on cuda:0 in this process, every counter
+     reset just before and read just after: the stage-2 step at B=512 bf16
+     with the default rates, `run_eval` over 377 samples (300 and a ragged
+     77) and the sharded serving call at B=256 bf16 bit-equal to the
+     one-device path (loss, every gradient, every parameter and running
+     stat after the step, the eval means, count and collected rows, the
+     served meshes), K1-K5 launched; then the step with the SIGTERM flag
+     after it, as the train CLI runs it, timed on the host clock on both
+     paths, alternating (median of 10), and the flag alone; K4's and K5's
+     masks exported at
+     sample0 = 64 equal rows [64, 128) of a 128 batch's and their plain
+     versions', bit for bit; (b) world 2 over gloo, both ranks on cuda:0
+     (`parallel.spawn`, its own time limit), against one process on the
+     global batch: the step's loss rtol 1e-4, every gradient scaled by its
+     max within 1e-3 (in bf16 those outside K4/K5 within 2^-7), the
+     running stats within 1e-4, K4/K5 launched on every rank, the eval
+     means rel 1e-6 with the count, the collected rows in order and, as
+     the served f32 meshes, bit-equal to the one-device path on each
+     rank's rows (their distance from the whole batch's printed; serving
+     within 1e-6 m of it); each step's host ms (median of 5) for one
+     process and world 2; a planted fault in the bf16 step (masks keyed
+     from sample 0 on both ranks; the BatchNorm statistics not
+     all-reduced) must break a bar, and its readings are printed; (c) the
+     same over NCCL with one rank per card where the host has two or more
+     cards, with the step's rate and card count at B=512 and at 512 a
+     card, else a line that says it did not run. Its world-1 launches
+     join the kernels line.
 Then a JSON line with each kernel's numbers, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without a CUDA device the
 script fails at once; there is no CPU fallback.
 """
 import concurrent.futures
+import contextlib
 import copy
 import importlib
 import json
 import os
+import statistics
 import sys
 import tempfile
 import time
@@ -2515,6 +2547,413 @@ def demo_phases(torch, dev, card):
     return out
 
 
+def planted_cases(world, cases):
+    """`run_cases` for phase 30's negative control: a case with a "fault"
+    runs with that fault planted in this process. "sample0": every rank
+    keys its dropout masks from sample 0, as if the step gave K4 and K5 no
+    sample base; "bn": the BatchNorm statistics over this rank's rows
+    alone, as if they were not all-reduced."""
+    from unittest import mock
+
+    from gator_tpu_torch.parallel.checks import run_cases
+    from gator_tpu_torch.train import fused_forward, loop
+
+    stats = fused_forward.batch_stats
+    faults = {
+        "sample0": lambda: mock.patch.object(loop, "_sample0",
+                                             lambda batch, world: 0),
+        "bn": lambda: mock.patch.object(fused_forward, "batch_stats",
+                                        lambda m32, world=None: stats(m32)),
+    }
+    out = []
+    for case in cases:
+        fault = case.get("fault")
+        with (faults[fault]() if fault else contextlib.nullcontext()):
+            out += run_cases(world, [case])
+    return out
+
+
+def parallel_phases(torch, card):
+    """Phase 30 (w): data parallelism, one process per rank, at full width
+    (human36, BatchNorm head with seeded running stats): (a) world 1 over
+    NCCL on cuda:0 in this process, bit-equal to the one-device path; (b)
+    world 2 over gloo with both ranks on cuda:0 against one process on the
+    global batch, and K4's and K5's sample base; (c) NCCL across cards
+    where the host has two or more. -> {"launches": part (a)'s}."""
+    from gator_tpu_torch import losses
+    from gator_tpu_torch.assets import build_assets
+    from gator_tpu_torch.models import GatorSpec, build_gator
+    from gator_tpu_torch.nn.gat_trunk_train import (extract_block_params,
+                                                    gat_trunk_train,
+                                                    gat_trunk_train_ref)
+    from gator_tpu_torch.nn.lbf_stack_train import (extract_layer_params,
+                                                    lbf_stack_train,
+                                                    lbf_stack_train_ref)
+    from gator_tpu_torch.parallel import (any_rank, close_world, join_world,
+                                          pad_to_multiple, spawn)
+    from gator_tpu_torch.parallel.checks import run_cases
+    from gator_tpu_torch.serving import (make_serving_fn,
+                                         make_sharded_serving_fn)
+    from gator_tpu_torch.train import (Adam, TrainState,
+                                       make_gator_eval_step,
+                                       make_gator_train_step, run_eval)
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    bf16, f32 = torch.bfloat16, torch.float32
+    assets = build_assets("human36", data_dirs=[], synthetic_vertex_num=6890,
+                          seed=0)
+    spec = GatorSpec.from_assets(assets)
+    model = build_gator(spec, seed=21, device=dev)
+    gen = torch.Generator().manual_seed(30)
+    bn = model.pose2mesh.bias_norm
+    bn.running_mean.copy_(torch.randn(bn.running_mean.shape,
+                                      generator=gen).to(dev) * 0.5)
+    bn.running_var.copy_(torch.rand(bn.running_var.shape,
+                                    generator=gen).to(dev) * 1.5 + 0.5)
+    sd = {k: v.cpu().numpy() for k, v in model.state_dict().items()}
+    v = spec.mdr.full_num
+    b = 512
+    rng = np.random.default_rng(30)
+    batch = {
+        "pose2d": rng.normal(size=(b, 17, 2)),
+        "mesh": rng.normal(size=(b, v, 3)) * 0.1,
+        "lift_pose3d": rng.normal(size=(b, 17, 3)) * 100,
+        "reg_pose3d": rng.normal(size=(b, 17, 3)) * 100,
+        "mesh_valid": (rng.uniform(size=(b, 1, 1)) < 0.8),
+        "lift_valid": np.ones((b, 17, 1)),
+        "reg_valid": np.ones((b, 17, 1)),
+    }
+    batch = {k: a.astype(np.float32) for k, a in batch.items()}
+    evals = [{"pose2d": rng.normal(size=(n, 17, 2)).astype(np.float32),
+              "mesh": (rng.normal(size=(n, v, 3)) * 0.1).astype(np.float32),
+              "reg_pose3d": (rng.normal(size=(n, 17, 3)) * 100).astype(
+                  np.float32)} for n in (300, 77)]
+    poses = rng.normal(size=(256, 17, 2)).astype(np.float32)
+
+    # (a) world 1 over NCCL, in this process: the step at the training
+    # shapes (B=512 bf16, default rates), run_eval and the serving call
+    # bit-equal to the one-device path
+    reset, read = launch_counters(torch)
+    tb = {k: torch.from_numpy(a).to(dev) for k, a in batch.items()}
+    tp = torch.from_numpy(poses).to(dev)
+    estep = make_gator_eval_step(assets.j_regressor_h36m,
+                                 assets.joint_set.eval_joints)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        world = join_world(0, 1, dev, "nccl", f"file://{tmp}/rendezvous",
+                           timeout_s=120)
+        try:
+            for name, w in (("one device", None), ("world 1", world)):
+                if w is not None:
+                    reset()
+                m = copy.deepcopy(model)
+                st = TrainState(m, Adam(m.parameters(), lr=1e-4))
+                step = make_gator_train_step(
+                    spec, assets.faces, assets.j_regressor_h36m,
+                    losses.LossWeights(), dtype=bf16, world=w)
+                with torch.enable_grad():
+                    met = step(st, tb, 7, 1.0)
+                ev = run_eval(estep, model, evals,
+                              collect_out=("pred_mesh_mm",),
+                              collect_batch=("mesh",), world=w)
+                fn = (make_serving_fn(model, bf16) if w is None
+                      else make_sharded_serving_fn(model, w, bf16))
+                runs[name] = {"loss": float(met["loss"]),
+                              "grads": grads_of(m),
+                              "state": {k: t.clone() for k, t in
+                                        m.state_dict().items()},
+                              "eval": ev, "serve": fn(tp),
+                              "train": (step, st, w)}
+                if w is not None:
+                    launches = read()
+            # after the checked runs and the launch count: the step as the
+            # train CLI runs it (then the SIGTERM flag, `any_rank`, on the
+            # host group) on the one-device path and on world 1 over NCCL,
+            # alternating, on the host clock to a synchronize
+            step_ms = {name: [] for name in runs}
+            for i in range(11):
+                for name, r in runs.items():
+                    step, st, w = r["train"]
+                    t0 = time.perf_counter()
+                    with torch.enable_grad():
+                        step(st, tb, 7, 1.0)
+                    any_rank(False, w)
+                    torch.cuda.synchronize()
+                    if i:       # the first is a warm-up
+                        step_ms[name].append(
+                            (time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            for _ in range(50):
+                any_rank(False, world)
+            flag_ms = (time.perf_counter() - t0) * 1e3 / 50
+        finally:
+            close_world(world)
+    one, w1 = runs["one device"], runs["world 1"]
+    check(one["loss"] == w1["loss"], f"(a) loss {w1['loss']} == "
+                                     f"{one['loss']}")
+    check(all(torch.equal(one["grads"][n], g)
+              for n, g in w1["grads"].items())
+          and set(one["grads"]) == set(w1["grads"]),
+          "(a) every gradient bit-equal")
+    check(all(torch.equal(one["state"][k], t)
+              for k, t in w1["state"].items()),
+          "(a) every parameter and running stat after the step bit-equal")
+    check(all(one["eval"][k] == w1["eval"][k] for k in
+              ("count", "joint_err", "surface_err"))
+          and all(np.array_equal(one["eval"][k], w1["eval"][k])
+                  for k in ("pred_mesh_mm", "mesh")),
+          "(a) run_eval bit-equal")
+    check(all(torch.equal(x, y) for x, y in zip(one["serve"], w1["serve"])),
+          "(a) serving bit-equal")
+    check(all(n > 0 for n in launches.values()),
+          f"(a) K1-K5 launched on the world-1 paths: {launches}")
+    say(30, f"(a) world 1 over NCCL on cuda:0: the stage-2 step (B=512 "
+            f"bf16, default rates; loss {w1['loss']:.6f}, "
+            f"{len(w1['grads'])} gradients, {len(w1['state'])} state "
+            f"tensors), run_eval ({w1['eval']['count']} samples) and the "
+            f"serving call (B=256 bf16) bit-equal to the one-device path; "
+            f"launches {launches}")
+    one_ms, nccl_ms = (statistics.median(step_ms[k])
+                       for k in ("one device", "world 1"))
+    say(30, f"(a) step + SIGTERM flag, host ms (median of 10, alternating, "
+            f"to a synchronize) on {card}: one device {one_ms:.2f} "
+            f"({b / one_ms * 1e3:,.0f} poses/s), world 1 over NCCL "
+            f"{nccl_ms:.2f} ({b / nccl_ms * 1e3:,.0f} poses/s); the flag "
+            f"alone {flag_ms:.3f} ms; all: " + "; ".join(
+                f"{k} " + ", ".join(f"{t:.2f}" for t in v)
+                for k, v in step_ms.items()))
+
+    # K4's and K5's sample base: masks exported at sample0 = 64 are rows
+    # [64, 128) of a 128 batch's, bit for bit, beside the plain versions
+    gat, mdr = model.pose_lifter, model.pose2mesh
+    half = 64
+    gbias = gat.get_hop_path_encoding().float()
+    bp = [extract_block_params(blk) for blk in gat.blocks]
+    lp = [extract_layer_params(mdr, i) for i in range(3)]
+    x5 = torch.randn(2 * half, 17, spec.gat.embed_dim,
+                     generator=gen).to(dev).to(bf16)
+    x4 = torch.randn(2 * half, spec.mdr.coarse_num, 64,
+                     generator=gen).to(dev).to(bf16)
+    j4 = torch.randn(2 * half, 17, 64, generator=gen).to(dev).to(bf16)
+    def same_mask(a, b):
+        """Bit-equal masks, None (rate 0, no draw) being all ones."""
+        if a is None or b is None:
+            other = b if a is None else a
+            return other is None or bool((other == 1).all())
+        return bool(a.shape == b.shape and (a == b).all())
+
+    def k5(fn, rows, **kw):
+        return fn(x5[rows], gbias, bp, gat.spec.masks_xfeat,
+                  spec.gat.num_heads, 99, **kw)
+
+    def k4(fn, rows, **kw):
+        return fn(x4[rows], j4[rows], lp, 2, 99, **kw)
+
+    base = {}
+    for name, fn, ref, call in (
+            ("K5", gat_trunk_train, gat_trunk_train_ref, k5),
+            ("K4", lbf_stack_train, lbf_stack_train_ref, k4)):
+        whole, part, plain = [], [], []
+        y_whole = call(fn, slice(None), export=whole)
+        y_part = call(fn, slice(half, None), export=part, sample0=half)
+        call(ref, slice(half, None), export=plain, sample0=half)
+        torch.cuda.synchronize()
+        n_masks = 0
+        for wu, pu, qu in zip(whole, part, plain):
+            for k, got in pu.items():
+                rows = None if wu[k] is None else wu[k][half:]
+                check(same_mask(got, rows),
+                      f"{name} sample base: mask {k} equals rows "
+                      f"[{half}, {2 * half}) of the {2 * half} batch")
+                check(same_mask(got, qu[k]),
+                      f"{name} sample base: mask {k} equals the plain "
+                      "version's")
+                n_masks += 1
+        base[name] = (n_masks, max_err(y_part, y_whole[half:]))
+    say(30, "(b) sample base, sample0 = 64 of a 128 batch, bf16, default "
+            "rates: " + "; ".join(
+                f"{n}: {c} exported masks equal rows [64, 128) of the "
+                f"128 batch's and the plain version's, bit for bit; "
+                f"outputs {e:.1e} apart" for n, (c, e) in base.items()))
+
+    # (b) world 2 over gloo, both ranks on cuda:0, against one process on
+    # the global batch; (c) one rank per card over NCCL. The step in bf16
+    # (the training shapes) and in f32. In bf16 the parameters outside K4
+    # and K5 get their gradient from a bf16 product in plain torch, which
+    # each rank rounds to bf16 before the all-reduce (as each device's
+    # partial in the JAX package's GSPMD step): one bf16 ulp, 2^-7 of the
+    # largest element; K4's and K5's parameter gradients are f32.
+    step_case = {"kind": "step", "assets": assets, "spec": {},
+                 "state_dict": sd, "batch": batch, "seed": 7, "lr": 1e-4}
+    cases = [dict(step_case, dtype="bfloat16", time_steps=5),
+             dict(step_case, dtype="float32"),
+             {"kind": "eval", "assets": assets, "spec": {},
+              "state_dict": sd, "batches": evals,
+              "collect_out": ("pred_mesh_mm",), "collect_batch": ("mesh",)},
+             {"kind": "serve", "assets": assets, "spec": {},
+              "state_dict": sd, "poses": poses, "dtype": "float32"}]
+    want = run_cases(None, [dict(c, device="cuda:0") for c in cases])
+    w_ms = statistics.median(want[0]["step_ms"])
+    ms = {"(a) one device": one_ms, "(a) world 1 nccl": nccl_ms,
+          "(b) one process": w_ms}
+    kernel_params = ("pose_lifter.blocks.", "pose2mesh.encoder",
+                     "pose2mesh.norm", "pose2mesh.selfatt")
+
+    def grads(st, kernel):
+        return {n: torch.from_numpy(g) for n, g in st["grads"].items()
+                if n.startswith(kernel_params) == kernel}
+
+    def bars(dt):
+        return {"loss rel": 1e-4, "K4/K5 parameter gradients": 1e-3,
+                "the others": 1e-3 if dt == "f32" else 2**-7,
+                "running stats": 1e-4}
+
+    def readings(tag, st, ref):
+        """Each bar's reading, the worst gradients' names and the key
+        biases' abs value; the gradients scaled by their largest element,
+        the running stats by the largest stat."""
+        rel = abs(st["metrics"]["loss"] - ref["metrics"]["loss"]) \
+            / abs(ref["metrics"]["loss"])
+        worst = {kernel: compare_grads(tag, grads(st, kernel),
+                                       grads(ref, kernel), None, zero_bias)
+                 for kernel in (True, False)}
+        e_bn = max(scaled_err(torch.from_numpy(st["buffers"][k]),
+                              torch.from_numpy(ref["buffers"][k]))
+                   for k in ("pose2mesh.bias_norm.running_mean",
+                             "pose2mesh.bias_norm.running_var"))
+        return ({"loss rel": rel,
+                 "K4/K5 parameter gradients": worst[True][0],
+                 "the others": worst[False][0], "running stats": e_bn},
+                {"K4/K5 parameter gradients": worst[True][2],
+                 "the others": worst[False][2]}, worst[True][1])
+
+    def against(got, bar):
+        return ", ".join(f"{k} {v:.1e} (bar {bar[k]:.1e})"
+                         for k, v in got.items())
+
+    def per_rank(n):
+        """The one-device path on the rows each of n ranks takes: the eval
+        batches padded as `run_eval` pads them and cut into n (the collected
+        rows without the pad), and the served poses cut into n."""
+        chunks, keep, at = [], [], 0
+        for e in evals:
+            padded, real = pad_to_multiple(e, n)
+            size = len(padded["pose2d"]) // n
+            chunks += [{k: a[i * size:(i + 1) * size]
+                        for k, a in padded.items()} for i in range(n)]
+            keep.append(at + np.arange(real))
+            at += n * size
+        ev = run_eval(estep, model, chunks, collect_out=("pred_mesh_mm",))
+        serve = make_serving_fn(model, f32)
+        mesh = torch.cat([serve(p)[0] for p in tp.split(len(tp) // n)])
+        return (ev["pred_mesh_mm"][np.concatenate(keep)],
+                mesh.float().cpu().numpy())
+
+    def hold(tag, ranks):
+        """Every rank's step, eval and serving against one process's; the
+        eval rows and served meshes also bit for bit against the one-device
+        path on each rank's rows (f32 rounding moves with the batch's
+        partition, so the whole batch's are a reading)."""
+        rows, meshes = per_rank(len(ranks))
+        for r, (s16, s32, ev, sv) in enumerate(ranks):
+            msg, checks = [], []
+            for st, ref, dt in ((s16, want[0], "bf16"),
+                                (s32, want[1], "f32")):
+                got, names, key_bias = readings(f"{tag} rank {r} {dt}",
+                                                st, ref)
+                bar = bars(dt)
+                checks += [(v <= bar[k], f"{dt}: {k} {v} <= {bar[k]} "
+                                         f"({names.get(k, '')})")
+                           for k, v in got.items()]
+                checks.append((all(n > 0 for n in st["launches"].values()),
+                               f"K4/K5 launched {st['launches']}"))
+                msg.append(f"{dt}: {against(got, bar)}; worst "
+                           f"{names}; key biases {key_bias:.1e} abs; "
+                           f"launches {st['launches']}")
+            e_ev = max(abs(ev[k] - want[2][k]) / abs(want[2][k])
+                       for k in ("joint_err", "surface_err"))
+            e_rows = float(np.abs(ev["pred_mesh_mm"]
+                                  - want[2]["pred_mesh_mm"]).max())
+            e_sv = float(np.abs(sv["mesh"] - want[3]["mesh"]).max())
+            same_rows = np.array_equal(ev["pred_mesh_mm"], rows)
+            same_mesh = np.array_equal(sv["mesh"], meshes)
+            say(30, f"{tag} rank {r}: stage-2 step B=512 global, default "
+                    f"rates, " + "; ".join(msg) + f"; eval of "
+                    f"{ev['count']} samples means rel {e_ev:.1e} (bar "
+                    f"1e-6), rows bit-equal to the one-device path on each "
+                    f"rank's rows {same_rows}, {e_rows:.1e} mm from the "
+                    f"whole batch's; serving f32 B=256 bit-equal on each "
+                    f"rank's rows {same_mesh}, {e_sv:.1e} m from the whole "
+                    f"batch's (bar 1e-6)")
+            checks += [
+                (ev["count"] == want[2]["count"] == 377,
+                 f"eval count {ev['count']}"),
+                (e_ev <= 1e-6, f"eval means rel {e_ev} <= 1e-6"),
+                (same_rows and np.array_equal(ev["mesh"], want[2]["mesh"]),
+                 "collected rows in order"),
+                (same_mesh, "served meshes equal the one-device path's on "
+                            "each rank's rows"),
+                (e_sv <= 1e-6, f"serving {e_sv} <= 1e-6 m")]
+            for ok, what in checks:
+                check(ok, f"{tag} rank {r}: {what}")
+        return statistics.median(ranks[0][0]["step_ms"])
+
+    # and a negative control: the bf16 step with a planted fault, which one
+    # of the bars above must catch
+    planted = [dict(step_case, dtype="bfloat16", fault=f)
+               for f in ("sample0", "bn")]
+    t0 = time.perf_counter()
+    ranks = spawn(planted_cases, 2, backend="gloo", devices="cuda:0",
+                  args=(cases + planted,), timeout=300)
+    ms["world 2 gloo, one card"] = hold("(b) world 2 over gloo on cuda:0",
+                                        [r[:4] for r in ranks])
+    for r, rank in enumerate(ranks):
+        for case, st in zip(planted, rank[4:]):
+            got, _, _ = readings(f"(b) planted {case['fault']}", st, want[0])
+            bar = bars("bf16")
+            caught = [k for k, v in got.items() if v > bar[k]]
+            check(caught, f"(b) rank {r}: the planted fault "
+                          f"{case['fault']} passes every bar: {got}")
+            say(30, f"(b) rank {r}, planted fault {case['fault']} (bf16): "
+                    f"{against(got, bar)}; caught by {caught}")
+    say(30, f"(b) world 2 over gloo on cuda:0 in "
+            f"{time.perf_counter() - t0:.1f} s; step host ms (median of 5, "
+            f"to a synchronize) on {card}: one process, one device "
+            f"{w_ms:.2f} "
+            f"({b / w_ms * 1e3:,.0f} poses/s), world 2 on one card "
+            f"{ms['world 2 gloo, one card']:.2f}")
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        n = max(k for k in (2, 4, 8) if k <= cards)
+        # and a global batch of 512 a rank (the four-card cell's 2048),
+        # timed only
+        rows = np.arange(n * b) % b
+        big = dict(step_case, dtype="bfloat16", time_steps=5,
+                   batch={k: a[rows] for k, a in batch.items()})
+        t0 = time.perf_counter()
+        ranks = spawn(run_cases, n, backend="nccl",
+                      devices=[f"cuda:{r}" for r in range(n)],
+                      args=(cases + [big],), timeout=300)
+        ms[f"world {n} nccl"] = hold(f"(c) world {n} over NCCL",
+                                     [r[:4] for r in ranks])
+        ms[f"world {n} nccl, B={n * b}"] = big_ms = statistics.median(
+            ranks[0][4]["step_ms"])
+        say(30, f"(c) world {n} over NCCL, one rank per card, in "
+                f"{time.perf_counter() - t0:.1f} s: step at B={b} "
+                f"{ms[f'world {n} nccl']:.2f} ms host "
+                f"({b / ms[f'world {n} nccl'] * 1e3:,.0f} poses/s on {n} "
+                f"cards), at B={n * b} ({b} a card) {big_ms:.2f} ms "
+                f"({n * b / big_ms * 1e3:,.0f} poses/s on {n} cards), "
+                f"against one process's {w_ms:.2f} ms at B={b} on one "
+                f"({card})")
+    else:
+        say(30, f"(c) not run: NCCL across cards needs 2 or more, this host "
+                f"has {cards}")
+    say(30, f"phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "ms": ms}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2844,6 +3283,11 @@ def main():
     # the eval path's in the kernels line
     demo_run = demo_phases(torch, dev, card)
     launches["fused_attention"] += demo_run["launches"]["fused_attention"]
+
+    # 30: data parallelism; its world-1 launches join the kernels line
+    par = parallel_phases(torch, card)
+    for name, n in par["launches"].items():
+        launches[name] += n
 
     check("jax" not in sys.modules and "gator_tpu" not in sys.modules,
           "no JAX imported")

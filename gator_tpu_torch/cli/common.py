@@ -1,7 +1,7 @@
 """Shared CLI wiring (counterpart of gator_tpu/cli/common.py): config ->
 assets, datasets, model spec, batch pipeline, target regressor, model,
 eval step and, in a training session, the input mode and the train step,
-on one device.
+on one device or on this process's card of a data-parallel world.
 
 `build_datasets` builds the datasets of a config by the reference's names
 (`data.DATASETS`), from the first existing data directory
@@ -22,6 +22,13 @@ plain versions on the CPU) and "on" (the card only) both train on K4/K5;
 "off" is the JAX package's module form with flax dropout, which the port
 does not have (its modules carry no dropout), so it raises, as does an
 unknown value. The train CLI is `cli/train.py`.
+
+Data parallelism (`world=`, a `parallel.World`): the session's device is
+the rank's (`world.device`); a training session's pipeline makes each
+rank's rows of the global batch of TRAIN.batch_size, and its train step
+takes them (`train.loop`); the model is built from cfg.seed on every rank
+and broadcast from rank 0 once. An eval session's pipeline makes whole
+batches, which `run_eval(world=)` shards.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ from ..data import (DATASETS, BatchPipeline, GtSynthesizer, ProcessOptions,
 from ..data.synthetic import synthetic_coco_dataset, synthetic_muco_dataset
 from .. import losses
 from ..models import GatorSpec, GatSpec, build_gat, build_gator
+from ..parallel import broadcast_module
 from ..train import (OptimizerFactory, ReduceLROnPlateau, TrainState,
                      make_gat_eval_step, make_gat_train_step,
                      make_gator_eval_step, make_gator_train_step,
@@ -114,15 +122,18 @@ def build_datasets(cfg: Config, assets, names, is_train: bool,
 
 class Session:
     """What one training or eval run needs, built once from a Config, on
-    one device (the card unless the caller asks for the CPU). An eval
-    session (the default) reads TEST's datasets; a training session
-    (`is_train=True`) reads TRAIN's and resolves the input mode."""
+    one device (the card unless the caller asks for the CPU), or with a
+    `world` on the rank's device (module docstring). An eval session (the
+    default) reads TEST's datasets; a training session (`is_train=True`)
+    reads TRAIN's and resolves the input mode."""
 
     def __init__(self, cfg: Config, synthetic: bool = False, assets=None,
                  synthetic_n: int = 256, device="cuda", debug: bool = False,
-                 is_train: bool = False):
+                 is_train: bool = False, world=None):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.world = world
+        self.device = world.device if world is not None \
+            else torch.device(device)
         self.assets = assets if assets is not None else build_assets(
             cfg.DATASET.input_joint_set, data_dirs=resolve_data_dirs(cfg))
         self.synth = GtSynthesizer(self.assets, self.device)
@@ -148,7 +159,8 @@ class Session:
             cfg.TRAIN.batch_size if is_train else cfg.TEST.batch_size,
             shuffle=cfg.TRAIN.shuffle if is_train else cfg.TEST.shuffle,
             seed=cfg.seed, stage="gator" if self.is_gator else "gat",
-            drop_last=is_train, mode=mode)
+            drop_last=is_train, mode=mode,
+            world=world if is_train else None)
         self._packed_table = None
         self.plateau = None        # set by make_optimizer
         if self.gt_in_step in ("packed", "device"):
@@ -307,6 +319,7 @@ class Session:
         `step(state, batch, seed, edge_enabled)`, the stage-1 step
         `step(state, batch, seed)`; either takes the pipeline's batches,
         and a wrapped step carries its input assembly as `step.assemble`.
+        With a world, the model is broadcast from rank 0.
         """
         from ..data.device_pipeline import (with_device_input_pipeline,
                                             with_device_input_pipeline_gat)
@@ -325,7 +338,7 @@ class Session:
                 losses.LossWeights(normal=cfg.MODEL.normal_loss_weight,
                                    edge=cfg.MODEL.edge_loss_weight,
                                    joint=cfg.MODEL.joint_loss_weight),
-                dtype=dtype)
+                dtype=dtype, world=self.world)
             if mode == "on":
                 step = with_gt_synthesis(step, self.synth,
                                          ds.opts.fitting_thr)
@@ -340,9 +353,11 @@ class Session:
                     step, table, self.synth, self.assets.joint_set,
                     stage="gator", opts=ds.opts,
                     device_input=mode == "device",
-                    mesh_cache=self._mesh_cache_on(len(table)))
+                    mesh_cache=self._mesh_cache_on(len(table)),
+                    world=self.world)
         else:
-            step = make_gat_train_step(self.spec, dtype=dtype)
+            step = make_gat_train_step(self.spec, dtype=dtype,
+                                       world=self.world)
             if mode == "full":
                 step = with_device_input_pipeline_gat(
                     step, ds.table, ds.joint_set, ds.opts, self.device)
@@ -350,8 +365,8 @@ class Session:
                 step = with_packed_input_pipeline(
                     step, self.packed_table(), self.synth,
                     self.assets.joint_set, stage="gat", opts=ds.opts,
-                    device_input=mode == "device")
-        model = self.build_model()
+                    device_input=mode == "device", world=self.world)
+        model = broadcast_module(self.build_model(), self.world)
         return TrainState(model, optimizer(model.parameters()),
                           lr_schedule=getattr(optimizer, "schedule",
                                               None)), step

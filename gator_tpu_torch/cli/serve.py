@@ -1,5 +1,5 @@
 """Batch serving CLI: 2D poses (.npy) -> SMPL meshes (.npy [, .obj]), on one
-device.
+card or sharded over several (counterpart of gator_tpu/cli/serve.py).
 
 Loads [N, 17, 2-or-3] raw pixel keypoints, preprocesses them with the
 datasets' crop/normalize, and runs the serving path
@@ -16,6 +16,16 @@ checkpoints; a `gator_tpu` orbax checkpoint goes through
 (seed 0). --obj_dir also writes every --obj_every-th mesh as .obj; --f32 is
 --dtype float32. The default device is cuda; there is no fallback to the
 CPU.
+
+On N cards, one process each:
+
+    torchrun --standalone --nproc_per_node=N -m gator_tpu_torch.cli.serve \
+        --input_poses poses.npy --joint_set coco --output meshes.npy
+
+--batch_size is rounded up to a multiple of N (and says so), the last chunk
+is padded to a multiple of N, each rank serves its rows of every chunk on
+K1 and K2 (`serving.make_sharded_serving_fn`), and rank 0 alone writes the
+.npy and .obj files and prints the rate with the number of ranks.
 """
 from __future__ import annotations
 
@@ -30,7 +40,8 @@ import torch
 from ..assets import build_assets
 from ..data import processing
 from ..models import GatorSpec, build_gator
-from ..serving import make_serving_fn
+from ..parallel import launched, main_print, pad_to_multiple
+from ..serving import make_serving_fn, make_sharded_serving_fn
 from ..train.checkpoint import load_weights
 from ..vis import save_obj
 
@@ -62,17 +73,31 @@ def run_serve(pose_path: str, joint_set: str = "coco",
               joints_output: str | None = None,
               obj_dir: str | None = None, obj_every: int = 100,
               batch_size: int = 256, dtype: str = "bfloat16",
-              device: str = "cuda", assets=None):
-    device = torch.device(device)
+              device: str = "cuda", assets=None, world=None):
+    """Serve the poses as `main` does -> {"meshes", "joints3d"} (every
+    rank returns the whole arrays). `world`: the data-parallel ranks to
+    shard each chunk over (module docstring); None is one device."""
+    say = main_print(world)
+    device = world.device if world is not None else torch.device(device)
     assets = assets or build_assets(joint_set)
     spec = GatorSpec.from_assets(assets)
     model = build_gator(spec, seed=0, device="cpu")
     if weights:
         load_weights(model, weights)
     else:
-        print("WARNING: serving randomly initialized weights")
+        say("WARNING: serving randomly initialized weights")
     model = model.to(device)
-    fn = make_serving_fn(model, dtype=getattr(torch, dtype))
+    ranks = 1
+    if world is not None and world.grouped:
+        ranks = world.size
+        fn = make_sharded_serving_fn(model, world,
+                                     dtype=getattr(torch, dtype))
+        if batch_size % ranks:
+            batch_size = -(-batch_size // ranks) * ranks
+            say(f"batch_size rounded up to {batch_size} (multiple of "
+                f"{ranks} ranks)")
+    else:
+        fn = make_serving_fn(model, dtype=getattr(torch, dtype))
 
     poses = np.load(pose_path).astype(np.float32)
     poses = poses.reshape(len(poses), 17, -1)
@@ -92,36 +117,41 @@ def run_serve(pose_path: str, joint_set: str = "coco",
     joints3d = np.empty((n, spec.gat.num_joint, 3), np.float32)
     t0 = time.perf_counter()
     for lo in range(0, n, batch_size):
-        chunk = torch.from_numpy(pose2d[lo:lo + batch_size]).to(device)
-        mesh, pose3d = fn(chunk)
-        meshes[lo:lo + len(chunk)] = mesh.float().cpu().numpy()
-        joints3d[lo:lo + len(chunk)] = pose3d.float().cpu().numpy()
+        chunk, real = pad_to_multiple(pose2d[lo:lo + batch_size], ranks)
+        mesh, pose3d = fn(torch.from_numpy(chunk).to(device))
+        meshes[lo:lo + real] = mesh[:real].float().cpu().numpy()
+        joints3d[lo:lo + real] = pose3d[:real].float().cpu().numpy()
     dt = time.perf_counter() - t0
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
-    print(f"served {n} poses in {dt:.2f}s ({n / max(dt, 1e-9):,.0f} "
-          f"poses/s on {name}, {dtype}, batch {batch_size}, "
-          "host clock incl. transfers)")
+    say(f"served {n} poses in {dt:.2f}s ({n / max(dt, 1e-9):,.0f} "
+        f"poses/s on {name}"
+        + (f" x {ranks} ranks" if ranks > 1 else "")
+        + f", {dtype}, batch {batch_size}, host clock incl. transfers)")
 
-    np.save(output, meshes)
-    print(f"meshes -> {output}  [{n}, {spec.mdr.full_num}, 3] (meters)")
-    if joints_output:
-        np.save(joints_output, joints3d)
-        print(f"3D joints -> {joints_output} (mm)")
-    if obj_dir:
-        os.makedirs(obj_dir, exist_ok=True)
-        for i in range(0, n, max(1, obj_every)):
-            save_obj(meshes[i], assets.faces,
-                     osp.join(obj_dir, f"mesh_{i:06d}.obj"))
-        print(f"objs -> {obj_dir}")
+    if world is None or world.is_main:
+        np.save(output, meshes)
+        print(f"meshes -> {output}  [{n}, {spec.mdr.full_num}, 3] (meters)")
+        if joints_output:
+            np.save(joints_output, joints3d)
+            print(f"3D joints -> {joints_output} (mm)")
+        if obj_dir:
+            os.makedirs(obj_dir, exist_ok=True)
+            for i in range(0, n, max(1, obj_every)):
+                save_obj(meshes[i], assets.faces,
+                         osp.join(obj_dir, f"mesh_{i:06d}.obj"))
+            print(f"objs -> {obj_dir}")
     return {"meshes": meshes, "joints3d": joints3d}
 
 
 def main(argv=None):
+    """The CLI; under torchrun, one rank of a data-parallel run."""
     a = parse_args(argv)
-    return run_serve(a.input_poses, a.joint_set, a.weights, a.output,
-                     a.joints_output, a.obj_dir, a.obj_every, a.batch_size,
-                     "float32" if a.f32 else a.dtype, a.device)
+    with launched(a.device) as world:
+        return run_serve(a.input_poses, a.joint_set, a.weights, a.output,
+                         a.joints_output, a.obj_dir, a.obj_every,
+                         a.batch_size, "float32" if a.f32 else a.dtype,
+                         a.device, world=world)
 
 
 if __name__ == "__main__":

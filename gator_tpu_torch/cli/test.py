@@ -1,5 +1,5 @@
-"""Evaluation CLI on one device (counterpart of gator_tpu/cli/test.py;
-reference: main/test.py:1-33):
+"""Evaluation CLI on one card or sharded over several (counterpart of
+gator_tpu/cli/test.py; reference: main/test.py:1-33):
 
     python -m gator_tpu_torch.cli.test --cfg configs/gator_synthetic_e2e.yml \
         --synthetic [--weights ckpt.pth.tar] [--device cpu]
@@ -19,6 +19,12 @@ read from $GATOR_DATA_DIR (or ./data), or are synthetic with --synthetic;
 --debug keeps the first Human36M subject. The GATOR eval runs the module
 form, whose MDR vertex self-attention is the K3 kernel on the card. The
 default device is cuda; there is no fallback to the CPU.
+
+On N cards, one process each: `torchrun --standalone --nproc_per_node=N
+-m gator_tpu_torch.cli.test ...`. The eval loop is sharded
+(`run_eval(world=)`: exact means on any world size), and rank 0 alone runs
+the dataset's metric suite on the gathered, row-ordered predictions and
+prints it.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from ..config import Config, load_config
+from ..parallel import launched, main_print
 from ..train import load_weights, run_eval
 from ..vis import save_obj
 from .common import Session
@@ -52,39 +59,45 @@ def parse_args(argv=None):
 def run_test(cfg: Config, weights: str | None = None,
              synthetic: bool = False, vis_dir: str = "./vis_out",
              device: str = "cuda", assets=None, synthetic_n: int = 256,
-             debug: bool = False) -> Tuple[Dict, Dict[str, Any]]:
+             debug: bool = False, world=None) -> Tuple[Dict, Dict[str, Any]]:
     """-> (what the CLI returns: the dataset's metric suite, or the mean
     MPJPE where there is none; run_eval's result: exact mean errors, count
     and the gathered predictions and targets). `assets` and `synthetic_n`
-    are as in `Session`."""
+    are as in `Session`. `world`: the data-parallel ranks the eval loop is
+    sharded over; ranks other than 0 return the mean MPJPE in place of the
+    suite."""
+    say = main_print(world)
     sess = Session(cfg, synthetic=synthetic, assets=assets,
-                   synthetic_n=synthetic_n, device=device, debug=debug)
+                   synthetic_n=synthetic_n, device=device, debug=debug,
+                   world=world)
     model = sess.build_model()
     weight_path = weights or cfg.TEST.weight_path
     if weight_path:
         load_weights(model, weight_path)
-        print(f"loaded weights from {weight_path}")
+        say(f"loaded weights from {weight_path}")
     else:
-        print("WARNING: evaluating randomly initialized weights")
+        say("WARNING: evaluating randomly initialized weights")
 
     eval_step = sess.make_eval_step()
     if sess.is_gator:
         res = run_eval(eval_step, model, sess.pipeline,
                        collect_out=("pred_mesh_mm",),
-                       collect_batch=("mesh",))
-        print(f"MPVPE: {res['surface_err']:.2f}, "
-              f"MPJPE: {res['joint_err']:.2f}")
+                       collect_batch=("mesh",), world=world)
+        say(f"MPVPE: {res['surface_err']:.2f}, "
+            f"MPJPE: {res['joint_err']:.2f}")
     else:
         res = run_eval(eval_step, model, sess.pipeline,
                        collect_out=("pred_pose_mm",),
-                       collect_batch=("joint_cam",))
-        print(f"MPJPE: {res['joint_err']:.2f}")
+                       collect_batch=("joint_cam",), world=world)
+        say(f"MPJPE: {res['joint_err']:.2f}")
 
     # the dataset's metric suite indexes its table by row, so it needs the
     # predictions in row order: one unshuffled test dataset (the reference
     # tester always iterates in order)
     out = {"mpjpe": float(res["joint_err"])}
     ds = sess.datasets[0]
+    if world is not None and not world.is_main:
+        return out, res
     if cfg.TEST.shuffle or len(sess.datasets) > 1:
         print("skipping the dataset metric suite: predictions are not in "
               "dataset row order (TEST.shuffle or a multi-dataset test "
@@ -111,9 +124,11 @@ def run_test(cfg: Config, weights: str | None = None,
 
 
 def main(argv=None):
+    """The CLI; under torchrun, one rank of a data-parallel run."""
     a = parse_args(argv)
-    return run_test(load_config(a.cfg), a.weights, a.synthetic, a.vis_dir,
-                    a.device, debug=a.debug)[0]
+    with launched(a.device) as world:
+        return run_test(load_config(a.cfg), a.weights, a.synthetic,
+                        a.vis_dir, a.device, debug=a.debug, world=world)[0]
 
 
 if __name__ == "__main__":

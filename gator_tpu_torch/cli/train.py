@@ -1,5 +1,5 @@
-"""Training CLI on one device (counterpart of gator_tpu/cli/train.py;
-reference: main/train.py:1-62):
+"""Training CLI on one card or data-parallel over several (counterpart of
+gator_tpu/cli/train.py; reference: main/train.py:1-62):
 
     python -m gator_tpu_torch.cli.train \
         --cfg configs/gator_synthetic_smoke.yml --synthetic [--epochs N] \
@@ -20,6 +20,19 @@ histories. On SIGTERM the step in flight finishes, the state the epoch
 began with is written as checkpoint{epoch-1} and the run returns, so that
 --resume_training repeats that epoch as an uninterrupted run takes it.
 The default device is cuda; there is no fallback to the CPU.
+
+On N cards, one process each:
+
+    torchrun --standalone --nproc_per_node=N -m gator_tpu_torch.cli.train \
+        --cfg configs/gator_synthetic_smoke.yml --synthetic
+
+TRAIN.batch_size is the global batch; each rank trains on its rows of it
+and the step computes what one device computes on the whole batch
+(`train.loop`). Rank 0 alone writes the checkpoints, the loss plot and
+wandb, and prints; every rank resumes from the same checkpoint. The eval
+loop is sharded, so every rank (and its plateau controller) sees the same
+exact error. The SIGTERM flag is all-reduced (max) after every step, so
+every rank stops after the same step and rank 0 writes one checkpoint.
 """
 from __future__ import annotations
 
@@ -35,6 +48,7 @@ import numpy as np
 import torch
 
 from ..config import Config, load_config
+from ..parallel import any_rank, broadcast_object, launched, main_print
 from ..train import (load_checkpoint, load_weights, pick_checkpoint,
                      run_eval, save_checkpoint, set_learning_rate)
 from ..vis import save_loss_plot
@@ -68,27 +82,31 @@ def run_train(cfg: Config, exp_dir: Optional[str] = None,
               synthetic: bool = False, synthetic_n: int = 256,
               epochs: Optional[int] = None, resume: bool = False,
               debug: bool = False, device: str = "cuda", assets=None,
-              epoch_log: Optional[List[dict]] = None) -> float:
+              epoch_log: Optional[List[dict]] = None, world=None) -> float:
     """Train as `main` does -> the best eval joint error (mm). `assets`
     is as in `Session`; `epoch_log`, where given, gets one dict per epoch
     (loss, errors, steps, samples/s, and the train, eval and save wall
-    seconds)."""
-    exp_dir = exp_dir or osp.join(
-        "experiment", f"exp_{time.strftime('%m-%d_%H%M%S')}")
+    seconds). `world`: the data-parallel ranks (module docstring); None
+    is one device."""
+    main_rank = world is None or world.is_main
+    say = main_print(world)
+    # rank 0's default name on every rank (the clocks may differ)
+    exp_dir = broadcast_object(exp_dir or osp.join(
+        "experiment", f"exp_{time.strftime('%m-%d_%H%M%S')}"), world)
     ckpt_dir = osp.join(exp_dir, "checkpoint")
     os.makedirs(ckpt_dir, exist_ok=True)
-    print(f"experiment dir: {exp_dir}")
+    say(f"experiment dir: {exp_dir}")
 
     sess = Session(cfg, synthetic=synthetic, assets=assets,
                    synthetic_n=synthetic_n, device=device, debug=debug,
-                   is_train=True)
+                   is_train=True, world=world)
     eval_sess = Session(cfg, synthetic=synthetic, assets=sess.assets,
-                        device=device, debug=debug)
+                        device=device, debug=debug, world=world)
 
     # optional experiment tracking (reference: lib/core/base.py:114-120;
-    # gated by cfg.TRAIN.wandb and an import that succeeds)
+    # gated by cfg.TRAIN.wandb and an import that succeeds), on rank 0
     wandb_run = None
-    if cfg.TRAIN.wandb:
+    if cfg.TRAIN.wandb and main_rank:
         try:
             import wandb
             wandb_run = wandb.init(project=cfg.MODEL.name,
@@ -106,7 +124,7 @@ def run_train(cfg: Config, exp_dir: Optional[str] = None,
     if sess.is_gator and cfg.MODEL.posenet_pretrained \
             and cfg.MODEL.posenet_path:
         load_weights(state.model.pose_lifter, cfg.MODEL.posenet_path)
-        print(f"loaded pretrained lifter from {cfg.MODEL.posenet_path}")
+        say(f"loaded pretrained lifter from {cfg.MODEL.posenet_path}")
 
     begin_epoch = cfg.TRAIN.begin_epoch
     loss_history: List[float] = []
@@ -121,19 +139,24 @@ def run_train(cfg: Config, exp_dir: Optional[str] = None,
                          for k in ("surface", "joint")}
         if sess.plateau is not None and restored.get("scheduler_state_dict"):
             sess.plateau.load_state_dict(restored["scheduler_state_dict"])
-        print(f"resumed from epoch {begin_epoch - 1} (step {state.step})")
-    print(f"device: {sess.device}; input mode {sess.gt_in_step}")
+        say(f"resumed from epoch {begin_epoch - 1} (step {state.step})")
+    say(f"device: {sess.device}; input mode {sess.gt_in_step}"
+        + (f"; {world.size} ranks" if world is not None and world.size > 1
+           else ""))
     if cfg.TRAIN.steps_per_dispatch > 1:
-        print(f"TRAIN.steps_per_dispatch={cfg.TRAIN.steps_per_dispatch} "
+        say(f"TRAIN.steps_per_dispatch={cfg.TRAIN.steps_per_dispatch} "
               "ignored: the port takes one step per dispatch")
 
     # preemption: finish the step in flight, write a resumable checkpoint,
-    # return (the handler is the caller's again when this returns)
+    # return (the handler is the caller's again when this returns); a
+    # data-parallel run stops when any rank has the flag
     preempted = {"flag": False}
 
     def _on_sigterm(signum, frame):
         preempted["flag"] = True
-        print("SIGTERM received: checkpointing at the end of this step")
+        print("SIGTERM received: checkpointing at the end of this step"
+              + (f" (rank {world.rank})" if world is not None
+                 and world.size > 1 else ""))
 
     def plateau_state():
         return sess.plateau.state_dict() if sess.plateau is not None \
@@ -164,7 +187,7 @@ def run_train(cfg: Config, exp_dir: Optional[str] = None,
                 m = step(state, batch, *extra)
                 loss_sum = loss_sum + m["loss"]
                 steps += 1
-                if preempted["flag"]:
+                if any_rank(preempted["flag"], world):
                     state.model.load_state_dict(begun[0])
                     state.optimizer.load_state_dict(begun[1])
                     state.step = begun[2]
@@ -172,15 +195,18 @@ def run_train(cfg: Config, exp_dir: Optional[str] = None,
                                     state.optimizer, loss_history,
                                     error_history,
                                     scheduler_state=plateau_state(),
-                                    step=state.step)
-                    print(f"preempted at epoch {epoch} step {steps}; "
-                          f"checkpoint{epoch - 1} written, resume with "
-                          f"--resume_training")
+                                    step=state.step, world=world)
+                    say(f"preempted at epoch {epoch} step {steps}; "
+                        f"checkpoint{epoch - 1} written, resume with "
+                        f"--resume_training")
+                    if not main_rank:
+                        print(f"rank {world.rank}: preempted at epoch "
+                              f"{epoch} step {steps}")
                     return best_joint_err
                 if wandb_run is not None:
                     wandb_run.log({f"train_loss/{k}": v
                                    for k, v in _host(m).items()})
-                if steps - last_print >= cfg.TRAIN.print_freq:
+                if main_rank and steps - last_print >= cfg.TRAIN.print_freq:
                     last_print = steps
                     msg = " ".join(f"{k}: {v:.4f}"
                                    for k, v in _host(m).items())
@@ -190,18 +216,19 @@ def run_train(cfg: Config, exp_dir: Optional[str] = None,
             loss_history.append(epoch_loss)
             dt = time.time() - t0
             sps = steps * cfg.TRAIN.batch_size / max(dt, 1e-9)
-            print(f"epoch {epoch} loss {epoch_loss:.4f} "
-                  f"({dt:.1f}s, {sps:.0f} samples/s)")
+            say(f"epoch {epoch} loss {epoch_loss:.4f} "
+                f"({dt:.1f}s, {sps:.0f} samples/s)")
 
             # eval with exact per-sample aggregation (reference runs the
             # tester every epoch: main/train.py:41, base.py:224-230)
             t1 = time.time()
-            res = run_eval(eval_step, state.model, eval_sess.pipeline)
+            res = run_eval(eval_step, state.model, eval_sess.pipeline,
+                           world=world)
             j_err = float(res.get("joint_err", np.inf))
             s_err = float(res.get("surface_err", np.inf))
             error_history["joint"].append(j_err)
             error_history["surface"].append(s_err)
-            print(f"epoch {epoch} MPJPE: {j_err:.2f}  MPVPE: {s_err:.2f}")
+            say(f"epoch {epoch} MPJPE: {j_err:.2f}  MPVPE: {s_err:.2f}")
             if wandb_run is not None:
                 wandb_run.log({"error/MPJPE": j_err, "error/MPVPE": s_err})
 
@@ -210,7 +237,7 @@ def run_train(cfg: Config, exp_dir: Optional[str] = None,
             if sess.plateau is not None:
                 new_lr = sess.plateau.update(j_err)
                 set_learning_rate(state, new_lr)
-                print(f"plateau lr: {new_lr:g}")
+                say(f"plateau lr: {new_lr:g}")
 
             t2 = time.time()
             is_best = j_err < best_joint_err
@@ -219,9 +246,9 @@ def run_train(cfg: Config, exp_dir: Optional[str] = None,
                             loss_history, error_history, is_best=is_best,
                             is_final=(epoch == end_epoch),
                             scheduler_state=plateau_state(),
-                            step=state.step)
-            if not save_loss_plot(loss_history,
-                                  osp.join(exp_dir, "train_loss.pdf")) \
+                            step=state.step, world=world)
+            if main_rank and not save_loss_plot(
+                    loss_history, osp.join(exp_dir, "train_loss.pdf")) \
                     and not plot_said:
                 plot_said = True
                 print("matplotlib is not installed: train_loss.pdf skipped "
@@ -234,18 +261,20 @@ def run_train(cfg: Config, exp_dir: Optional[str] = None,
                     "save_s": time.time() - t2})
     finally:
         signal.signal(signal.SIGTERM, previous)
-    print(f"done; best joint error {best_joint_err:.2f}")
+    say(f"done; best joint error {best_joint_err:.2f}")
     return best_joint_err
 
 
 def main(argv=None):
+    """The CLI; under torchrun, one rank of a data-parallel run."""
     a = parse_args(argv)
     cfg = load_config(a.cfg, {"seed": a.seed} if a.seed is not None
                       else None)
-    return run_train(cfg, exp_dir=a.exp_dir, synthetic=a.synthetic,
-                     synthetic_n=a.synthetic_n, epochs=a.epochs,
-                     resume=a.resume_training, debug=a.debug,
-                     device=a.device)
+    with launched(a.device) as world:
+        return run_train(cfg, exp_dir=a.exp_dir, synthetic=a.synthetic,
+                         synthetic_n=a.synthetic_n, epochs=a.epochs,
+                         resume=a.resume_training, debug=a.debug,
+                         device=a.device, world=world)
 
 
 if __name__ == "__main__":

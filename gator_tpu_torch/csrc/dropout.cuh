@@ -1,5 +1,7 @@
 // Dropout masks of the training kernels: a counter-based hash keyed by
-// (seed, unit, sample, mask-id, element index), bit for bit the one of
+// (seed, unit, sample, mask-id, element index), `sample` the index in the
+// global batch (the kernel's sample base plus the local index), bit for
+// bit the one of
 // gator_tpu_torch/nn/dropout_masks.py (murmur3's 32-bit finalizer). Keep
 // when (bits >> 8) < thr, with thr = round((1 - rate) * 2^24), and scale
 // the kept value by 1 / (1 - rate); rate 0 gives thr = 2^24 (keep all) and

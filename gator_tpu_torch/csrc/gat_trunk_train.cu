@@ -157,6 +157,7 @@ struct Args {
   int B, J, G;
   uint32_t seed;
   int unit;
+  int sample0;         // global index of sample 0 (keys the dropout masks)
   Drop attn, proj, mlp, path;
 };
 
@@ -329,7 +330,7 @@ __device__ __forceinline__ void make_keys(const Args<T>& a, uint32_t* KEYS,
                                           int s0, int ns) {
   for (int i = threadIdx.x; i < ns * 13; i += NT)
     KEYS[(i / 13) * Sm<T>::NKEY + i % 13] =
-        stream_key(a.seed, a.unit, s0 + i / 13, i % 13);
+        stream_key(a.seed, a.unit, a.sample0 + s0 + i / 13, i % 13);
 }
 
 // One tile's forward: the block output, the saved operands and x1, and
@@ -1155,7 +1156,7 @@ template <typename T>
 Args<T> make_args(const void* x, const void* bias, const void* xm,
                   const void* w, const void* offs, void* ops, void* x1s,
                   int B, int J, int G, unsigned seed, int unit,
-                  const unsigned* thr, const float* scl) {
+                  int sample0, const unsigned* thr, const float* scl) {
   Args<T> a{};
   a.x = static_cast<const T*>(x);
   a.bias = static_cast<const float*>(bias);
@@ -1169,6 +1170,7 @@ Args<T> make_args(const void* x, const void* bias, const void* xm,
   a.G = G;
   a.seed = seed;
   a.unit = unit;
+  a.sample0 = sample0;
   a.attn = Drop{thr[0], scl[0]};
   a.proj = Drop{thr[1], scl[1]};
   a.mlp = Drop{thr[2], scl[2]};
@@ -1260,7 +1262,7 @@ extern "C" int gat_block_train_fwd(int dtype, const void* x, const void* bias,
                                    const void* offs, void* out, void* ops,
                                    void* x1s, void* masks, int B, int J,
                                    int G, int ntiles, unsigned seed, int unit,
-                                   unsigned t_attn, float s_attn,
+                                   int sample0, unsigned t_attn, float s_attn,
                                    unsigned t_proj, float s_proj,
                                    unsigned t_mlp, float s_mlp,
                                    unsigned t_path, float s_path,
@@ -1271,7 +1273,7 @@ extern "C" int gat_block_train_fwd(int dtype, const void* x, const void* bias,
   using gator::gtrain::Sm;
   if (dtype == 0) {
     auto a = make_args<float>(x, bias, xm, w, offs, ops, x1s, B, J, G, seed,
-                              unit, thr, scl);
+                              unit, sample0, thr, scl);
     a.out = static_cast<float*>(out);
     a.masks = static_cast<float*>(masks);
     return gator::gtrain::launch_smem(gator::gtrain::gat_block_fwd<float>,
@@ -1279,7 +1281,7 @@ extern "C" int gat_block_train_fwd(int dtype, const void* x, const void* bias,
                                       a);
   }
   auto a = make_args<__nv_bfloat16>(x, bias, xm, w, offs, ops, x1s, B, J, G,
-                                    seed, unit, thr, scl);
+                                    seed, unit, sample0, thr, scl);
   a.out = static_cast<__nv_bfloat16*>(out);
   a.masks = static_cast<float*>(masks);
   return gator::gtrain::launch_smem(
@@ -1298,7 +1300,8 @@ extern "C" int gat_block_train_bwd(
     const void* offs, const void* goffs, const void* gout, void* ops,
     void* x1s, void* dx, void* spart, long long sstride, void* wpart,
     long long wstride, void* sgrads, void* wgrads, int B, int J, int G,
-    int ntiles, int nc_w, int wper, unsigned seed, int unit, unsigned t_attn,
+    int ntiles, int nc_w, int wper, unsigned seed, int unit, int sample0,
+    unsigned t_attn,
     float s_attn, unsigned t_proj, float s_proj, unsigned t_mlp, float s_mlp,
     unsigned t_path, float s_path, void* stream) {
   const unsigned thr[4] = {t_attn, t_proj, t_mlp, t_path};
@@ -1306,7 +1309,7 @@ extern "C" int gat_block_train_bwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     auto a = make_args<float>(x, bias, xm, w, offs, ops, x1s, B, J, G, seed,
-                              unit, thr, scl);
+                              unit, sample0, thr, scl);
     a.goffs = static_cast<const int*>(goffs);
     a.gout = static_cast<const float*>(gout);
     a.out = static_cast<float*>(dx);
@@ -1318,7 +1321,7 @@ extern "C" int gat_block_train_bwd(
                                   static_cast<float*>(wgrads), s);
   }
   auto a = make_args<__nv_bfloat16>(x, bias, xm, w, offs, ops, x1s, B, J, G,
-                                    seed, unit, thr, scl);
+                                    seed, unit, sample0, thr, scl);
   a.goffs = static_cast<const int*>(goffs);
   a.gout = static_cast<const __nv_bfloat16*>(gout);
   a.out = static_cast<__nv_bfloat16*>(dx);

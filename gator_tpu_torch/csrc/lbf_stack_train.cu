@@ -190,8 +190,15 @@ struct Args {
   int nqt;           // 64-row tiles of the self-attention per sample
   uint32_t seed;
   int unit;
+  int sample0;       // global index of sample 0 (keys the dropout masks)
   Drop attn, proj, path, mlp, self_, outd;
 };
+
+// the stream key of local sample b's mask `mid` (keyed by its global index)
+template <typename T>
+__device__ __forceinline__ uint32_t skey(const Args<T>& a, int b, int mid) {
+  return stream_key(a.seed, a.unit, a.sample0 + b, mid);
+}
 
 template <typename T>
 struct Export {
@@ -372,7 +379,7 @@ __device__ void rows_fwd(const Args<T>& a, unsigned char* sm, int b, int tile,
     const int h = task / TR;
     const int r = task % TR;
     const int n = r0 + r;
-    const uint32_t key = stream_key(a.seed, a.unit, b, M_ATTN0 + h);
+    const uint32_t key = skey(a, b, M_ATTN0 + h);
     float* prow = P + r * L::LF + h * JMAX;
     T* pmrow = PM + r * L::LT + h * JMAX;
     float mx = -CUDART_INF_F;
@@ -406,9 +413,9 @@ __device__ void rows_fwd(const Args<T>& a, unsigned char* sm, int b, int tile,
 
   // x1 = x + DropPath1(ProjDrop(a1 @ proj + b))
   const T* proj_b = p + o[PROJ_B];
-  const float dp1 = drop(stream_key(a.seed, a.unit, b, M_DP1), 0, a.path);
+  const float dp1 = drop(skey(a, b, M_DP1), 0, a.path);
   if (dump && tile == 0 && tid == 0) a.masks[ex.dp1 + b] = dp1;
-  const uint32_t kproj = stream_key(a.seed, a.unit, b, M_PROJ);
+  const uint32_t kproj = skey(a, b, M_PROJ);
   tc::gemm<T, NB>(MT, C / 8, C, RowMajor<T>{A1, L::LT},
                   RowMajor<T>{WS, L::LT}, [&](int r, int c, float v) {
                     const int n = r0 + r;
@@ -426,7 +433,7 @@ __device__ void rows_fwd(const Args<T>& a, unsigned char* sm, int b, int tile,
                        put(O_Y2, r, c, v);
                      });
   const T* fc1_b = p + o[FC1_B];
-  const uint32_t kmlp1 = stream_key(a.seed, a.unit, b, M_MLP1);
+  const uint32_t kmlp1 = skey(a, b, M_MLP1);
   for (int nb = 0; nb < HID / C; ++nb) {  // fc1's four column blocks
     ready();
     tc::gemm<T, NB>(MT, C / 8, C, RowMajor<T>{Y2, L::LT},
@@ -450,9 +457,9 @@ __device__ void rows_fwd(const Args<T>& a, unsigned char* sm, int b, int tile,
   // x2 = x1 + DropPath2(MlpDrop(h1d @ fc2 + b)), fc2's four row blocks
   // summed in X2
   const T* fc2_b = p + o[FC2_B];
-  const float dp2 = drop(stream_key(a.seed, a.unit, b, M_DP2), 0, a.path);
+  const float dp2 = drop(skey(a, b, M_DP2), 0, a.path);
   if (dump && tile == 0 && tid == 0) a.masks[ex.dp2 + b] = dp2;
-  const uint32_t kmlp2 = stream_key(a.seed, a.unit, b, M_MLP2);
+  const uint32_t kmlp2 = skey(a, b, M_MLP2);
   for (int kb = 0; kb < HID / C; ++kb) {
     ready();
     tc::gemm<T, NB>(MT, C / 8, C, RowMajor<T>{H1D + kb * C, L::LTH},
@@ -553,7 +560,7 @@ __global__ void __launch_bounds__(NT, Sa<T>::MIN_CTAS)
   const size_t base = (size_t)b * Nv;
   const bool dump = a.masks != nullptr;
   const Export<T> ex(a);
-  const uint32_t key = stream_key(a.seed, a.unit, b, M_SELF0 + h);
+  const uint32_t key = skey(a, b, M_SELF0 + h);
 
   attn::QFrags<T, D> qf;
   row_frags<T>(qf, a.q2 + (base + m0) * C + h * D, Nv - m0);
@@ -635,7 +642,7 @@ __global__ void __launch_bounds__(NT, Sa<T>::MIN_CTAS)
   __syncthreads();
   const int nq = min(TQ, Nv - r0);
   const T* l3_b = a.w + a.offs[L3_B];
-  const uint32_t kout = stream_key(a.seed, a.unit, b, M_OUT);
+  const uint32_t kout = skey(a, b, M_OUT);
   tc::gemm<T, 2>(TQ / 16, C / 8, C, RowMajor<T>{O, S::LK},
                  RowMajor<T>{W3, S::LV}, [&](int m, int c, float v, float w) {
                    if (m >= nq) return;
@@ -698,7 +705,7 @@ __global__ void __launch_bounds__(NT, Sa<T>::MIN_CTAS)
 
   tc::stage(W3, L::LT, a.w + a.offs[L3_W], C, C, C);
   tc::cp_async_commit();
-  const uint32_t kout = stream_key(a.seed, a.unit, b, M_OUT);
+  const uint32_t kout = skey(a, b, M_OUT);
   for (int i = tid; i < TQ * C; i += NT) {
     const int r = i / C, c = i % C;
     float v = 0.0f, a2 = 0.0f;
@@ -756,7 +763,7 @@ __global__ void __launch_bounds__(NT, Sa<T>::MIN_CTAS)
     lse[rr] = a.lse[((size_t)b * H + h) * Nv + row];
     dd[rr] = DD[h * TQ + wr + g + 8 * rr];
   }
-  const uint32_t key = stream_key(a.seed, a.unit, b, M_SELF0 + h);
+  const uint32_t key = skey(a, b, M_SELF0 + h);
   float dq[NO][4] = {};
   T* Ks = reinterpret_cast<T*>(sm);
   T* Vs = Ks + kc * S::LK;
@@ -841,7 +848,7 @@ __global__ void __launch_bounds__(NT, Sa<T>::MIN_CTAS)
   attn::QFrags<T, D> kf, vf;
   row_frags<T>(kf, a.k2 + (base + m0) * C + h * D, Nv - m0);
   row_frags<T>(vf, a.v2 + (base + m0) * C + h * D, Nv - m0);
-  const uint32_t key = stream_key(a.seed, a.unit, b, M_SELF0 + h);
+  const uint32_t key = skey(a, b, M_SELF0 + h);
   float dk[NO][4] = {}, dv[NO][4] = {};
   for (int q0 = 0; q0 < Nv; q0 += kc) {
     const int n = min(kc, Nv - q0), nr = round_up(n, attn::KT);
@@ -969,8 +976,8 @@ __device__ void rows_bwd(const Args<T>& a, unsigned char* sm, float* PG,
                  PG + roff(B2W));
   load_w(WS, p + o[FC1_W], HID, 0, 0);
   // x2 = x1 + dp2 * m2 * h2
-  const float dp2 = drop(stream_key(a.seed, a.unit, b, M_DP2), 0, a.path);
-  const uint32_t kmlp2 = stream_key(a.seed, a.unit, b, M_MLP2);
+  const float dp2 = drop(skey(a, b, M_DP2), 0, a.path);
+  const uint32_t kmlp2 = skey(a, b, M_MLP2);
   for (int i = tid; i < TR * C; i += NT) {
     const int r = i / C, c = i % C;
     const float v = DX[r * L::LF + c] * dp2 *
@@ -995,7 +1002,7 @@ __device__ void rows_bwd(const Args<T>& a, unsigned char* sm, float* PG,
     else
       load_w(WS, p + o[FC2_W], C, 0, 0);
   }
-  const uint32_t kmlp1 = stream_key(a.seed, a.unit, b, M_MLP1);
+  const uint32_t kmlp1 = skey(a, b, M_MLP1);
   for (int nb = 0; nb < HID / C; ++nb) {
     ready();
     tc::gemm<T, NB>(MT, C / 8, C, RowMajor<float>{S2, L::LF},
@@ -1033,8 +1040,8 @@ __device__ void rows_bwd(const Args<T>& a, unsigned char* sm, float* PG,
                  PG + roff(N2_B));
   load_w(WS, p + o[PROJ_W], C, 0, 0);
   // x1 = x + dp1 * mproj * (a1 @ proj + b)
-  const float dp1 = drop(stream_key(a.seed, a.unit, b, M_DP1), 0, a.path);
-  const uint32_t kproj = stream_key(a.seed, a.unit, b, M_PROJ);
+  const float dp1 = drop(skey(a, b, M_DP1), 0, a.path);
+  const uint32_t kproj = skey(a, b, M_PROJ);
   for (int i = tid; i < TR * C; i += NT) {
     const int r = i / C, c = i % C;
     const float v = DX[r * L::LF + c] * dp1 *
@@ -1053,7 +1060,7 @@ __device__ void rows_bwd(const Args<T>& a, unsigned char* sm, float* PG,
   // cross-attention backward: dprob = m * (da . v) per (row, head, key),
   // then ds = p * (dprob - <dprob, p>) * scale per (row, head)
   for (int h = 0; h < H; ++h) {
-    const uint32_t key = stream_key(a.seed, a.unit, b, M_ATTN0 + h);
+    const uint32_t key = skey(a, b, M_ATTN0 + h);
     tc::gemm<T, 1>(MT, JMAX / 8, D, RowMajor<T>{DA1 + h * D, L::LT},
                    ColMajor<T>{VJ + h * D, L::LT}, [&](int r, int m, float v) {
                      S0[r * L::LF + h * JMAX + m] =
@@ -1439,7 +1446,7 @@ inline int reduce_fields(const float* pw, int nc_w, const float* pr,
 template <typename T>
 Args<T> make_args(const void* x, const void* jt, const void* w,
                   const void* offs, int B, int Nv, int J,
-                  unsigned seed, int unit, const unsigned* thr,
+                  unsigned seed, int unit, int sample0, const unsigned* thr,
                   const float* scl) {
   Args<T> a{};
   a.x = static_cast<const T*>(x);
@@ -1453,6 +1460,7 @@ Args<T> make_args(const void* x, const void* jt, const void* w,
   a.nqt = (Nv + TQ - 1) / TQ;
   a.seed = seed;
   a.unit = unit;
+  a.sample0 = sample0;
   a.attn = Drop{thr[0], scl[0]};
   a.proj = Drop{thr[1], scl[1]};
   a.path = Drop{thr[2], scl[2]};
@@ -1650,7 +1658,7 @@ extern "C" int lbf_train_fwd(int dtype, const void* x, const void* jt,
                              const void* w, const void* offs, void* out,
                              void* y3, void* q2, void* k2, void* v2, void* a2,
                              void* lse, void* masks, int B, int Nv, int J,
-                             int nctas, unsigned seed, int unit,
+                             int nctas, unsigned seed, int unit, int sample0,
                              unsigned t0, float s0, unsigned t1, float s1,
                              unsigned t2, float s2, unsigned t3, float s3,
                              unsigned t4, float s4, unsigned t5, float s5,
@@ -1670,11 +1678,11 @@ extern "C" int lbf_train_fwd(int dtype, const void* x, const void* jt,
   if (dtype == 0)
     return gator::ltrain::run_fwd(
         gator::ltrain::make_args<float>(x, jt, w, offs, B, Nv, J, seed, unit,
-                                        thr, scl),
+                                        sample0, thr, scl),
         q, nctas, s);
   return gator::ltrain::run_fwd(
       gator::ltrain::make_args<__nv_bfloat16>(x, jt, w, offs, B, Nv, J, seed,
-                                              unit, thr, scl),
+                                              unit, sample0, thr, scl),
       q, nctas, s);
 }
 
@@ -1691,7 +1699,8 @@ extern "C" int lbf_train_bwd(
     void* dx, void* djt, void* da2, void* dd, void* dq2, void* dk2, void* dv2,
     void* djk, void* djv, void* ops, void* part, void* grads,
     const void* host_offs, int B, int Nv, int J, int nc_rows, int nc_j,
-    int nc_w, int wper, unsigned seed, int unit, unsigned t0, float s0,
+    int nc_w, int wper, unsigned seed, int unit, int sample0, unsigned t0,
+    float s0,
     unsigned t1, float s1, unsigned t2, float s2, unsigned t3, float s3,
     unsigned t4, float s4, unsigned t5, float s5, void* stream) {
   const unsigned thr[6] = {t0, t1, t2, t3, t4, t5};
@@ -1720,10 +1729,10 @@ extern "C" int lbf_train_bwd(
   if (dtype == 0)
     return gator::ltrain::run_bwd(
         gator::ltrain::make_args<float>(x, jt, w, offs, B, Nv, J, seed, unit,
-                                        thr, scl),
+                                        sample0, thr, scl),
         q, nc_rows, nc_j, nc_w, wper, ho, s);
   return gator::ltrain::run_bwd(
       gator::ltrain::make_args<__nv_bfloat16>(x, jt, w, offs, B, Nv, J, seed,
-                                              unit, thr, scl),
+                                              unit, sample0, thr, scl),
       q, nc_rows, nc_j, nc_w, wper, ho, s);
 }

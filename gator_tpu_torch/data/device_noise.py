@@ -77,6 +77,30 @@ class GeneratorDraws(Draws):
                            device=self.generator.device)
 
 
+class RowDraws(GeneratorDraws):
+    """A data-parallel rank's draws: each draw is made for the global batch
+    of `size` times the rank's rows (the leading dim of every draw here is
+    the batch), from the one generator every rank seeds alike, and the
+    rank keeps its rows [rank*b, (rank+1)*b). The rank then draws what the
+    one-device step draws for those rows, and no two ranks share a
+    draw."""
+
+    def __init__(self, generator: torch.Generator, rank: int, size: int):
+        super().__init__(generator)
+        self.rank, self.size = rank, size
+
+    def _rows(self, draw, shape):
+        b = int(shape[0])
+        full = draw(self, None, (b * self.size,) + tuple(shape[1:]))
+        return full[self.rank * b:(self.rank + 1) * b]
+
+    def uniform(self, path, shape):
+        return self._rows(GeneratorDraws.uniform, shape)
+
+    def normal(self, path, shape):
+        return self._rows(GeneratorDraws.normal, shape)
+
+
 def _as_draws(draws) -> Draws:
     return (GeneratorDraws(draws) if isinstance(draws, torch.Generator)
             else draws)

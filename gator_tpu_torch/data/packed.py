@@ -23,7 +23,10 @@ what it reads to the device once.
     keyed per optimizer step from the step's seed, salted apart from the
     dropout stream: a device generator seeded with
     `step_seed(seed ^ _NOISE_SALT, state.step)`, reproducible from
-    (seed, step).
+    (seed, step). A data-parallel rank (`world=`) draws the global batch's
+    uniforms and normals and keeps its rows (`device_noise.RowDraws`)
+    before the candidate work, so its noise is what the one-device step
+    draws for those rows.
 
 Gendered rows take one SMPL forward per gender present in the table (a
 build-time set) and a per-row `torch.where` select (reference:
@@ -43,8 +46,8 @@ from ..precision import no_tf32
 from . import processing
 from .augment import augm_params_batch
 from .base import input_pose2d
-from .device_noise import (h36m_syn_error_device, synthesize_pose_device,
-                           wave_constants)
+from .device_noise import (RowDraws, h36m_syn_error_device,
+                           synthesize_pose_device, wave_constants)
 from .device_pipeline import (_flip_perm, _perm_on, affine_crop,
                               flip_standardize, j3d_augment, leaves_on,
                               precompute_rows, with_assembly)
@@ -218,7 +221,8 @@ def gendered_smpl_verts(params_by_gender: Dict, genders_present,
 def with_packed_input_pipeline(step_fn: Callable, table: PackedTable,
                                synth, jset, stage: str = "gator",
                                opts=None, device_input: bool = False,
-                               mesh_cache: bool = False) -> Callable:
+                               mesh_cache: bool = False,
+                               world=None) -> Callable:
     """Wrap a train step to assemble every target on the synthesizer's
     device from the packed table: gather the rows, synthesise the GT mesh
     (per-present-gender SMPL), augment the lift target and gather the fit
@@ -235,6 +239,10 @@ def with_packed_input_pipeline(step_fn: Callable, table: PackedTable,
     every epoch (no augmentation touches it), so it is computed once into
     an [N, V, 3] table and the step gathers it. Costs N*V*3*4 bytes of
     device memory (the session gates it by size, cfg.TRAIN.gt_mesh_cache).
+
+    world: a data-parallel rank's batch holds its rows of the global
+    batch; the detector noise is drawn for the global batch and sliced
+    (module docstring).
     """
     device = synth.device
     want_coco_noise = want_h36m_noise = False
@@ -284,6 +292,9 @@ def with_packed_input_pipeline(step_fn: Callable, table: PackedTable,
                                         device=device)
     noise_gen = (torch.Generator(device=device)
                  if want_coco_noise or want_h36m_noise else None)
+    draws = noise_gen
+    if noise_gen is not None and world is not None and world.size > 1:
+        draws = RowDraws(noise_gen, world.rank, world.size)
 
     def mesh_rows(row):
         """Rows -> GT mesh target [B, V, 3] (metres, root-relative)."""
@@ -311,11 +322,11 @@ def with_packed_input_pipeline(step_fn: Callable, table: PackedTable,
                 # noise on the 17 coco keypoints in crop space; the extra
                 # pelvis/neck rows pass through untouched
                 out = torch.cat([synthesize_pose_device(
-                    noise_gen, out[:, :17], tbl["crop_area"][row]),
+                    draws, out[:, :17], tbl["crop_area"][row]),
                     out[:, 17:]], dim=1)
             else:
                 noise = h36m_syn_error_device(
-                    noise_gen, tbl["h36m_stats"], row.shape[0], input_shape)
+                    draws, tbl["h36m_stats"], row.shape[0], input_shape)
                 out = out + noise * tbl["h36m_noise_on"][row][:, None, None]
         return flip_standardize(out, perm, input_shape, flips)
 

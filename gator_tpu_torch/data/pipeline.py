@@ -34,6 +34,7 @@ from typing import Dict, Iterator, List, Sequence
 import numpy as np
 import torch
 
+from ..parallel import local_rows
 from .base import SmplPoseDataset, mixed_epoch_indices
 from .gt_synth import GtSynthesizer
 from .packed import make_device_batch
@@ -49,12 +50,21 @@ class BatchPipeline:
                  synthesizer: GtSynthesizer, batch_size: int,
                  shuffle: bool = True, seed: int = 0,
                  stage: str = "gator", drop_last: bool = False,
-                 mode: str = "full"):
+                 mode: str = "full", world=None):
         """drop_last=False ends an epoch with a ragged last batch (eval
         keeps every sample; training sessions drop it); two batches are
-        prepared ahead."""
+        prepared ahead. With `world`, each batch is this rank's rows of a
+        global batch of `batch_size` (module docstring); that needs
+        drop_last, so that every batch divides over the ranks."""
         if mode not in ("full", "raw", "index", "packed", "device"):
             raise ValueError(f"unknown BatchPipeline mode {mode!r}")
+        if world is not None and world.size > 1 and (
+                not drop_last or batch_size % world.size):
+            raise ValueError(
+                f"a data-parallel pipeline needs drop_last and a global "
+                f"batch that divides over {world.size} ranks; got "
+                f"batch_size {batch_size}, drop_last {drop_last}")
+        self.world = world
         self.mode = mode
         self.drop_last = drop_last
         self.datasets = list(datasets)
@@ -91,7 +101,7 @@ class BatchPipeline:
                 for i in range(len(self))]
 
     def _make(self, pairs: np.ndarray, rng) -> Dict[str, object]:
-        out = self._merge(pairs, rng)
+        out = local_rows(self._merge(pairs, rng), self.world)
         if self.mode in ("index", "device"):
             out = {k: torch.as_tensor(v, device=self.synth.device)
                    for k, v in out.items()}

@@ -4,7 +4,10 @@ plain versions share bit for bit.
 
 A mask element is keyed by (seed, unit, sample, mask-id, element index):
 `unit` is the LBF layer (K4) or `GAT_UNIT_BASE + block` (K5), `sample` the
-sample's index in the batch, `mask-id` one of the ids below, and the element
+sample's index in the global batch (`sample0` + its index in the kernel's
+batch: a data-parallel rank that holds rows [r*b, (r+1)*b) of the global
+batch passes sample0 = r*b and draws those rows' masks), `mask-id` one of
+the ids below, and the element
 index the row-major offset inside that sample's mask. Keying per sample (not
 per tile, as the TPU kernels seed their PRNG per grid program) lets the
 forward and backward kernels tile differently and still draw the same mask.
@@ -73,24 +76,28 @@ def keep_scale(rate: float) -> float:
 
 
 def mask_bits(seed: int, unit: int, mid: int, batch: int, numel: int,
-              device=None) -> torch.Tensor:
-    """[batch, numel] uint32 draws (in int64)."""
-    keys = stream_keys(seed, unit, torch.arange(batch, device=device), mid)
+              device=None, sample0: int = 0) -> torch.Tensor:
+    """[batch, numel] uint32 draws (in int64) of samples sample0 ..
+    sample0 + batch - 1."""
+    keys = stream_keys(seed, unit, torch.arange(sample0, sample0 + batch,
+                                                device=device), mid)
     idx = _mul32(torch.arange(numel, dtype=torch.int64, device=device),
                  _GOLDEN)
     return fmix32(keys[:, None] ^ idx[None, :])
 
 
 def keep_mask(seed: int, unit: int, mid: int, rate: float, batch: int,
-              shape: Sequence[int], device=None) -> Optional[torch.Tensor]:
-    """Scaled keep mask [batch, *shape] (f32 values in {0, 1/(1-rate)}), or
-    None at rate 0 (no draw, as in the kernels)."""
+              shape: Sequence[int], device=None,
+              sample0: int = 0) -> Optional[torch.Tensor]:
+    """Scaled keep mask [batch, *shape] (f32 values in {0, 1/(1-rate)}) of
+    samples sample0 .. sample0 + batch - 1, or None at rate 0 (no draw, as
+    in the kernels)."""
     if rate == 0.0:
         return None
     numel = 1
     for n in shape:
         numel *= int(n)
-    bits = mask_bits(seed, unit, mid, batch, numel, device)
+    bits = mask_bits(seed, unit, mid, batch, numel, device, sample0)
     keep = (bits >> 8) < threshold(rate)
     return (keep.to(torch.float32) * keep_scale(rate)).reshape(batch,
                                                                *shape)

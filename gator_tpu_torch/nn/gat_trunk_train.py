@@ -72,12 +72,13 @@ _SIGNATURE = {
     "gat_block_train_op_cols": [],
     "gat_block_train_info": [ctypes.c_int] * 3,
     "gat_block_train_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 9
-    + [ctypes.c_int] * 4 + [ctypes.c_uint, ctypes.c_int] + _RATE_ARGS
-    + [ctypes.c_void_p],
+    + [ctypes.c_int] * 4 + [ctypes.c_uint, ctypes.c_int, ctypes.c_int]
+    + _RATE_ARGS + [ctypes.c_void_p],
     "gat_block_train_bwd": [ctypes.c_int] + [ctypes.c_void_p] * 11
     + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong]
     + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
-    + [ctypes.c_uint, ctypes.c_int] + _RATE_ARGS + [ctypes.c_void_p],
+    + [ctypes.c_uint, ctypes.c_int, ctypes.c_int] + _RATE_ARGS
+    + [ctypes.c_void_p],
 }
 
 
@@ -153,7 +154,9 @@ def extract_block_params(blk) -> Dict[str, torch.Tensor]:
 
 @dataclasses.dataclass(frozen=True)
 class BlockCfg:
-    """One block's dropout configuration (gator_tpu GatBlockCfg)."""
+    """One block's dropout configuration (gator_tpu GatBlockCfg).
+    sample0: the global index of the batch's first sample, which keys the
+    masks (a data-parallel rank's first row)."""
 
     num_heads: int
     block: int
@@ -162,6 +165,7 @@ class BlockCfg:
     proj_rate: float = 0.4
     mlp_rate: float = 0.1        # GatMlp's fixed 0.1 (reference quirk)
     path_rate: float = 0.0
+    sample0: int = 0
 
     @property
     def unit(self) -> int:
@@ -180,17 +184,19 @@ def block_masks(cfg: BlockCfg, batch: int, j: int, c: int,
     """The masks the kernels draw for one block, as the explicit-mask
     arrays of `gat_block_train_ref`: attn [B,H,J,J], proj [B,J,C],
     dp1/dp2 [B,1,1], mlp1 [B,J,4C], mlp2 [B,J,C] (None at rate 0)."""
-    s, u = cfg.seed, cfg.unit
-    heads = [keep_mask(s, u, M_ATTN0 + h, cfg.attn_rate, batch, (j, j),
-                       device) for h in range(cfg.num_heads)]
+    def mask(mid, rate, shape):
+        return keep_mask(cfg.seed, cfg.unit, mid, rate, batch, shape, device,
+                         cfg.sample0)
+
+    heads = [mask(M_ATTN0 + h, cfg.attn_rate, (j, j))
+             for h in range(cfg.num_heads)]
     return {
         "attn": None if heads[0] is None else torch.stack(heads, 1),
-        "proj": keep_mask(s, u, M_PROJ, cfg.proj_rate, batch, (j, c), device),
-        "dp1": keep_mask(s, u, M_DP1, cfg.path_rate, batch, (1, 1), device),
-        "mlp1": keep_mask(s, u, M_MLP1, cfg.mlp_rate, batch, (j, 4 * c),
-                          device),
-        "mlp2": keep_mask(s, u, M_MLP2, cfg.mlp_rate, batch, (j, c), device),
-        "dp2": keep_mask(s, u, M_DP2, cfg.path_rate, batch, (1, 1), device),
+        "proj": mask(M_PROJ, cfg.proj_rate, (j, c)),
+        "dp1": mask(M_DP1, cfg.path_rate, (1, 1)),
+        "mlp1": mask(M_MLP1, cfg.mlp_rate, (j, 4 * c)),
+        "mlp2": mask(M_MLP2, cfg.mlp_rate, (j, c)),
+        "dp2": mask(M_DP2, cfg.path_rate, (1, 1)),
     }
 
 
@@ -354,7 +360,7 @@ class GatBlockTrain(torch.autograd.Function):
                 lay["offs_dev"].data_ptr(), out.data_ptr(), ops.data_ptr(),
                 x1s.data_ptr(),
                 None if mask_buf is None else mask_buf.data_ptr(), b, j,
-                plan["g"], plan["ntiles"], cfg.seed, cfg.unit,
+                plan["g"], plan["ntiles"], cfg.seed, cfg.unit, cfg.sample0,
                 *cfg.rate_args(), cuda_lib.stream_ptr(x))
             cuda_lib.check(err, "gat_block_train_fwd")
             gat_trunk_train.launches_fwd += 1
@@ -389,7 +395,7 @@ class GatBlockTrain(torch.autograd.Function):
                 dx.data_ptr(), spart.data_ptr(), lay["gsstride"],
                 wpart.data_ptr(), lay["gwstride"], sgrads.data_ptr(),
                 wgrads.data_ptr(), b, j, plan["g"], plan["ntiles"],
-                plan["nc_w"], plan["wper"], cfg.seed, cfg.unit,
+                plan["nc_w"], plan["wper"], cfg.seed, cfg.unit, cfg.sample0,
                 *cfg.rate_args(), cuda_lib.stream_ptr(x))
             cuda_lib.check(err, "gat_block_train_bwd")
             gat_trunk_train.launches_bwd += 4
@@ -418,7 +424,8 @@ def _split_masks(buf: torch.Tensor, b: int, j: int,
 
 
 def _trunk(x, bias, block_params, masks_xfeat, num_heads, seed, attn_rate,
-           proj_rate, mlp_rate, drop_path_rate, export, kernel: bool):
+           proj_rate, mlp_rate, drop_path_rate, export, sample0: int,
+           kernel: bool):
     depth = len(block_params)
     dpr = np.linspace(0.0, drop_path_rate, depth)
     b, j, c = x.shape
@@ -427,7 +434,8 @@ def _trunk(x, bias, block_params, masks_xfeat, num_heads, seed, attn_rate,
     for bi, bp in enumerate(block_params):
         cfg = BlockCfg(num_heads=num_heads, block=bi, seed=int(seed),
                        attn_rate=attn_rate, proj_rate=proj_rate,
-                       mlp_rate=mlp_rate, path_rate=float(dpr[bi]))
+                       mlp_rate=mlp_rate, path_rate=float(dpr[bi]),
+                       sample0=int(sample0))
         if kernel:
             got = None if export is None else {}
             x = GatBlockTrain.apply(x, bias, xm, cfg, got,
@@ -445,12 +453,13 @@ def gat_trunk_train_ref(x: torch.Tensor, bias: torch.Tensor,
                         masks_xfeat, num_heads: int, seed: int,
                         attn_rate: float = 0.4, proj_rate: float = 0.4,
                         mlp_rate: float = 0.1, drop_path_rate: float = 0.2,
-                        export: Optional[List[Dict]] = None) -> torch.Tensor:
+                        export: Optional[List[Dict]] = None,
+                        sample0: int = 0) -> torch.Tensor:
     """The trunk on the plain version, on any device, with the masks the
     kernels draw (the plain path of the train steps)."""
     return _trunk(x, bias, block_params, masks_xfeat, num_heads, seed,
                   attn_rate, proj_rate, mlp_rate, drop_path_rate, export,
-                  kernel=False)
+                  sample0, kernel=False)
 
 
 def gat_trunk_train(x: torch.Tensor, bias: torch.Tensor,
@@ -458,19 +467,22 @@ def gat_trunk_train(x: torch.Tensor, bias: torch.Tensor,
                     masks_xfeat, num_heads: int, seed: int,
                     attn_rate: float = 0.4, proj_rate: float = 0.4,
                     mlp_rate: float = 0.1, drop_path_rate: float = 0.2,
-                    export: Optional[List[Dict]] = None) -> torch.Tensor:
+                    export: Optional[List[Dict]] = None,
+                    sample0: int = 0) -> torch.Tensor:
     """The lifter trunk in training mode (gator_tpu/nn/pallas_gat_train.py
     :530): one `GatBlockTrain` per block on a CUDA tensor, the plain
     version with the hash's masks on a CPU tensor (no fallback between
     them). DropPath rates are linspace(0, drop_path_rate, depth). bias:
     [H, J, J] (differentiable); masks_xfeat: [2, J, J] constants. With
     `export` (a list), each block's masks are appended to it: those the
-    kernel exported, or those the plain version used."""
+    kernel exported, or those the plain version used. sample0: the global
+    index of x's first sample, which keys its masks (a data-parallel rank
+    passes rank * b; 0 on one device)."""
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"gat_trunk_train: unsupported device {x.device}")
     return _trunk(x, bias, block_params, masks_xfeat, num_heads, seed,
                   attn_rate, proj_rate, mlp_rate, drop_path_rate, export,
-                  kernel=x.device.type == "cuda")
+                  sample0, kernel=x.device.type == "cuda")
 
 
 # launches of the CUDA kernels (forward and backward apart); the CPU path

@@ -74,10 +74,12 @@ _SIGNATURE = {
     "lbf_train_rows_wave": [ctypes.c_int],
     "lbf_train_info": [ctypes.c_int] * 4,
     "lbf_train_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 12
-    + [ctypes.c_int] * 4 + [ctypes.c_uint, ctypes.c_int] + _RATE_ARGS
+    + [ctypes.c_int] * 4 + [ctypes.c_uint, ctypes.c_int, ctypes.c_int]
+    + _RATE_ARGS
     + [ctypes.c_void_p],
     "lbf_train_bwd": [ctypes.c_int] + [ctypes.c_void_p] * 23
-    + [ctypes.c_int] * 7 + [ctypes.c_uint, ctypes.c_int] + _RATE_ARGS
+    + [ctypes.c_int] * 7 + [ctypes.c_uint, ctypes.c_int, ctypes.c_int]
+    + _RATE_ARGS
     + [ctypes.c_void_p],
 }
 
@@ -133,12 +135,15 @@ def extract_layer_params(mdr, layer: int) -> Dict[str, torch.Tensor]:
 
 @dataclasses.dataclass(frozen=True)
 class LayerCfg:
-    """One layer's dropout configuration (gator_tpu TrainLayerCfg)."""
+    """One layer's dropout configuration (gator_tpu TrainLayerCfg).
+    sample0: the global index of the batch's first sample, which keys the
+    masks (a data-parallel rank's first row)."""
 
     num_heads: int
     layer: int
     seed: int
     rates: tuple = DEFAULT_RATES
+    sample0: int = 0
 
     def rate_args(self) -> list:
         out = []
@@ -156,20 +161,22 @@ def layer_masks(cfg: LayerCfg, batch: int, nv: int, nj: int, c: int,
     r_attn, r_proj, r_path, r_mlp, r_self, r_out = cfg.rates
     s, u, h = cfg.seed, cfg.layer, cfg.num_heads
 
+    def mask(mid, rate, shape):
+        return keep_mask(s, u, mid, rate, batch, shape, device, cfg.sample0)
+
     def heads(mid0, rate, shape):
-        got = [keep_mask(s, u, mid0 + i, rate, batch, shape, device)
-               for i in range(h)]
+        got = [mask(mid0 + i, rate, shape) for i in range(h)]
         return None if got[0] is None else torch.stack(got, 1)
 
     return {
         "attn": heads(M_ATTN0, r_attn, (nv, nj)),
-        "proj": keep_mask(s, u, M_PROJ, r_proj, batch, (nv, c), device),
-        "dp1": keep_mask(s, u, M_DP1, r_path, batch, (1, 1), device),
-        "mlp1": keep_mask(s, u, M_MLP1, r_mlp, batch, (nv, 4 * c), device),
-        "mlp2": keep_mask(s, u, M_MLP2, r_mlp, batch, (nv, c), device),
-        "dp2": keep_mask(s, u, M_DP2, r_path, batch, (1, 1), device),
+        "proj": mask(M_PROJ, r_proj, (nv, c)),
+        "dp1": mask(M_DP1, r_path, (1, 1)),
+        "mlp1": mask(M_MLP1, r_mlp, (nv, 4 * c)),
+        "mlp2": mask(M_MLP2, r_mlp, (nv, c)),
+        "dp2": mask(M_DP2, r_path, (1, 1)),
         "self": heads(M_SELF0, r_self, (nv, nv)),
-        "out": keep_mask(s, u, M_OUT, r_out, batch, (nv, c), device),
+        "out": mask(M_OUT, r_out, (nv, c)),
     }
 
 
@@ -342,7 +349,7 @@ class LbfLayerTrain(torch.autograd.Function):
                 y3.data_ptr(), q2.data_ptr(), k2.data_ptr(), v2.data_ptr(),
                 a2.data_ptr(), lse.data_ptr(),
                 None if mask_buf is None else mask_buf.data_ptr(), b, nv, nj,
-                plan["nc_rows"], cfg.seed, cfg.layer,
+                plan["nc_rows"], cfg.seed, cfg.layer, cfg.sample0,
                 *cfg.rate_args(), cuda_lib.stream_ptr(x))
             cuda_lib.check(err, "lbf_train_fwd")
             lbf_stack_train.launches_fwd += 2
@@ -389,7 +396,7 @@ class LbfLayerTrain(torch.autograd.Function):
                 djv.data_ptr(), ops.data_ptr(), part.data_ptr(),
                 grads.data_ptr(), ctypes.addressof(lay["offs_host"]), b, nv,
                 nj, nc_rows, nc_j, nc_w, plan["wper"], cfg.seed, cfg.layer,
-                *cfg.rate_args(), cuda_lib.stream_ptr(x))
+                cfg.sample0, *cfg.rate_args(), cuda_lib.stream_ptr(x))
             cuda_lib.check(err, "lbf_train_bwd")
             lbf_stack_train.launches_bwd += 6
         dparams = [grads[off:off + p.numel()].view(p.shape).to(p.dtype)
@@ -411,11 +418,13 @@ def _split_masks(buf: torch.Tensor, b: int, nv: int, nj: int,
     return out
 
 
-def _stack(x, jt, layer_params, num_heads, seed, rates, export, kernel):
+def _stack(x, jt, layer_params, num_heads, seed, rates, export, sample0,
+           kernel):
     b, nv, c = x.shape
     for li, lp in enumerate(layer_params):
         cfg = LayerCfg(num_heads=num_heads, layer=li, seed=int(seed),
-                       rates=tuple(float(r) for r in rates))
+                       rates=tuple(float(r) for r in rates),
+                       sample0=int(sample0))
         if kernel:
             got = None if export is None else {}
             x = LbfLayerTrain.apply(x, jt, cfg, got,
@@ -431,26 +440,30 @@ def _stack(x, jt, layer_params, num_heads, seed, rates, export, kernel):
 def lbf_stack_train_ref(x: torch.Tensor, jt: torch.Tensor,
                         layer_params: Sequence[Dict[str, torch.Tensor]],
                         num_heads: int, seed: int, rates=DEFAULT_RATES,
-                        export: Optional[List[Dict]] = None) -> torch.Tensor:
+                        export: Optional[List[Dict]] = None,
+                        sample0: int = 0) -> torch.Tensor:
     """The stack on the plain version, on any device, with the masks the
     kernels draw (the plain path of the train steps)."""
     return _stack(x, jt, layer_params, num_heads, seed, rates, export,
-                  kernel=False)
+                  sample0, kernel=False)
 
 
 def lbf_stack_train(x: torch.Tensor, jt: torch.Tensor,
                     layer_params: Sequence[Dict[str, torch.Tensor]],
                     num_heads: int, seed: int, rates=DEFAULT_RATES,
-                    export: Optional[List[Dict]] = None) -> torch.Tensor:
+                    export: Optional[List[Dict]] = None,
+                    sample0: int = 0) -> torch.Tensor:
     """The LBF stack in training mode (gator_tpu/nn/pallas_mdr_train.py
     :592): one `LbfLayerTrain` per layer on a CUDA tensor, the plain
     version with the hash's masks on a CPU tensor (no fallback between
     them). jt feeds every layer; its gradient sums over the layers through
-    autograd. With `export` (a list), each layer's masks are appended."""
+    autograd. With `export` (a list), each layer's masks are appended.
+    sample0: the global index of x's first sample, which keys its masks
+    (a data-parallel rank passes rank * b; 0 on one device)."""
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"lbf_stack_train: unsupported device {x.device}")
     return _stack(x, jt, layer_params, num_heads, seed, rates, export,
-                  kernel=x.device.type == "cuda")
+                  sample0, kernel=x.device.type == "cuda")
 
 
 # launches of the CUDA kernels (forward and backward apart); the CPU path

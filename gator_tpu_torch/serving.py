@@ -8,6 +8,7 @@ the hand-written kernels when the model lives on a CUDA device:
 On a CPU model the same code runs the kernels' plain versions. The embeds,
 the hop/path bias, the A/B/C head and the 431->6890 upsample are plain
 torch, as they are XLA code (not Pallas) in the JAX package.
+`make_sharded_serving_fn` serves a batch over the data-parallel ranks.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from .models.gator import GATOR
 from .models.mdr import conv1d_len3
 from .nn import (fold_stack_weights, fold_trunk_weights, gat_trunk,
                  gat_trunk_ref, lbf_stack, lbf_stack_ref, layer_norm32)
+from .parallel import all_gather_rows, local_rows
 
 ServingFn = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 
@@ -162,5 +164,25 @@ def make_serving_fn(model: GATOR, dtype: torch.dtype = torch.bfloat16,
         pose_combine = torch.cat([pose2d, pose3d / 1000.0, feat], dim=2)
         mesh = mdr_serving_forward(model, w, consts, pose_combine, dtype)
         return mesh, pose3d
+
+    return serve
+
+
+def make_sharded_serving_fn(model: GATOR, world,
+                            dtype: torch.dtype = torch.bfloat16
+                            ) -> ServingFn:
+    """Data-parallel serving (counterpart of gator_tpu/serving.py:218): on
+    every rank, fn(pose2d [B, J, 2]) -> (mesh [B, V0, 3], pose3d [B, J,
+    3]) of the whole batch. Each rank serves its rows [r*b, (r+1)*b) on K1
+    and K2 (`make_serving_fn` over its replica of the model) and the mesh
+    and pose rows are all-gathered back in row order. B must be a multiple
+    of the world size; pad a ragged batch with `parallel.pad_to_multiple`.
+    """
+    serve_rows = make_serving_fn(model, dtype=dtype)
+
+    @torch.no_grad()
+    def serve(pose2d: torch.Tensor):
+        mesh, pose3d = serve_rows(local_rows(pose2d, world))
+        return all_gather_rows(mesh, world), all_gather_rows(pose3d, world)
 
     return serve

@@ -14,11 +14,20 @@ K5 and of K4, K4's and K5's gradient reductions apart, and the largest
 plain-torch kernels), and the device's busy and idle shares of the
 profiled window; writes the same as JSON to --out. Fails without a CUDA
 device.
+
+The JSON also holds `kernel_digests`: a sha256 digest of every output,
+input gradient, parameter gradient and exported mask of K5 (the six GAT
+blocks) and K4 (the three LBF layers), forward and backward at B=512 in
+f32 and bf16 at their default rates, seed and sample base, taken on the
+fresh model before the first step. The tool calls public entry points
+only, so a copy runs in an older tree: run it in both trees in one call,
+and equal digests mean bit-equal kernels.
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import hashlib
 import json
 import os
 import sys
@@ -61,6 +70,67 @@ def _is_kernel(evt) -> bool:
             and not getattr(evt, "is_user_annotation", False))
 
 
+def _digest(t: torch.Tensor) -> str:
+    data = t.detach().float().contiguous().cpu().numpy().tobytes()
+    return hashlib.sha256(data).hexdigest()[:16]
+
+
+def kernel_digests(model) -> dict:
+    """{"K5 <dtype>" / "K4 <dtype>": {name: digest}} (module docstring);
+    leaves the model's gradients set."""
+    from gator_tpu_torch.nn.gat_trunk_train import (extract_block_params,
+                                                    gat_trunk_train)
+    from gator_tpu_torch.nn.lbf_stack_train import (extract_layer_params,
+                                                    lbf_stack_train)
+
+    dev = next(model.parameters()).device
+    gat, mdr = model.pose_lifter, model.pose2mesh
+    gen = torch.Generator().manual_seed(5)
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen).to(dev).to(dtype)
+
+    def digests(y, inputs, module, masks):
+        got = {"out": _digest(y)}
+        got.update({n: _digest(t.grad) for n, t in inputs.items()})
+        got.update({n: _digest(p.grad) for n, p in module.named_parameters()
+                    if p.grad is not None})
+        got.update({f"mask{i}.{k}": _digest(m) for i, unit in
+                    enumerate(masks) for k, m in unit.items()})
+        return got
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = randn(BATCH, 17, 128, dtype=dtype).requires_grad_(True)
+        bias = gat.get_hop_path_encoding().detach().float().requires_grad_(
+            True)
+        cot = randn(BATCH, 17, 128, dtype=dtype)
+        gat.zero_grad(set_to_none=True)
+        masks = []
+        y = gat_trunk_train(x, bias, [extract_block_params(b)
+                                      for b in gat.blocks],
+                            gat.spec.masks_xfeat, gat.spec.num_heads, 1234,
+                            export=masks)
+        y.backward(cot)
+        torch.cuda.synchronize()
+        out[f"K5 {dtype}"] = digests(y, {"dx": x, "dbias": bias},
+                                     gat.blocks, masks)
+
+        nv = mdr.spec.coarse_num
+        x = randn(BATCH, nv, 64, dtype=dtype).requires_grad_(True)
+        jt = randn(BATCH, 17, 64, dtype=dtype).requires_grad_(True)
+        cot = randn(BATCH, nv, 64, dtype=dtype)
+        mdr.zero_grad(set_to_none=True)
+        masks = []
+        y = lbf_stack_train(x, jt, [extract_layer_params(mdr, i)
+                                    for i in range(3)],
+                            mdr.spec.num_heads, 4321, export=masks)
+        y.backward(cot)
+        torch.cuda.synchronize()
+        out[f"K4 {dtype}"] = digests(y, {"dx": x, "djt": jt}, mdr, masks)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--stage", type=int, default=2, choices=(1, 2))
@@ -80,6 +150,9 @@ def main(argv=None):
     assets = build_assets("human36", data_dirs=[],
                           synthetic_vertex_num=6890, seed=0)
     model = build_gator(GatorSpec.from_assets(assets), seed=11, device=dev)
+    with torch.enable_grad():
+        digests = kernel_digests(model)
+    model.zero_grad(set_to_none=True)
     b, j = BATCH, model.spec.gat.num_joint
     v = model.spec.mdr.full_num
     rng = np.random.default_rng(1)
@@ -168,6 +241,7 @@ def main(argv=None):
             0.0, 1.0 - busy / float(np.median(times))),
         "plain_top": [(name, us / 1e3 / n)
                       for name, us in plain.most_common(12)],
+        "kernel_digests": digests,
     }
     print(f"stage-{args.stage} step, B={b}, bf16, human36, "
           f"on {card}: {result['host_step_ms_median']:.3f} ms on the host "
@@ -180,6 +254,7 @@ def main(argv=None):
           f"step")
     print(f"  of the plain-torch time, the optimizer step: "
           f"{result['optimizer_device_ms_per_step']:.3f} ms")
+    print(f"  K4/K5 digests: {sum(len(d) for d in digests.values())}")
     print("  largest plain-torch kernels:")
     for name, ms in result["plain_top"]:
         print(f"    {ms:8.3f} ms  {name}")

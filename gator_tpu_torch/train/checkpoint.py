@@ -9,6 +9,9 @@ key, "step" (the reference's loader reads the six by name and ignores it):
 the step keys each update's dropout masks and the step schedule's
 boundaries, so a resumed run needs it (`load_checkpoint(path,
 target_state=...)`, counterpart of gator_tpu/train/checkpoint.py:60-83).
+Under data parallelism (`world=`) rank 0 alone writes, and every rank waits
+at a barrier after it, so that no rank reads a checkpoint before it is
+whole; every rank loads.
 """
 from __future__ import annotations
 
@@ -18,16 +21,24 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..parallel import barrier
+
 
 def save_checkpoint(ckpt_dir: str, model: torch.nn.Module, epoch: int,
                     optimizer: Optional[torch.optim.Optimizer] = None,
                     train_log=None, test_log=None, is_best: bool = False,
                     is_final: bool = False,
                     scheduler_state: Optional[Dict[str, Any]] = None,
-                    step: Optional[int] = None) -> str:
+                    step: Optional[int] = None, world=None) -> str:
     """Write checkpoint{epoch}.pth.tar (or final.pth.tar), and best.pth.tar
     too when `is_best`; -> the path written. `step`: the train step, saved
-    under "step" when given."""
+    under "step" when given. With a `world`, rank 0 writes and every rank
+    returns after the write (a barrier)."""
+    name = "final" if is_final else f"checkpoint{epoch}"
+    path = osp.abspath(osp.join(ckpt_dir, f"{name}.pth.tar"))
+    if world is not None and not world.is_main:
+        barrier(world)
+        return path
     os.makedirs(ckpt_dir, exist_ok=True)
     payload = {
         "epoch": int(epoch),
@@ -40,11 +51,10 @@ def save_checkpoint(ckpt_dir: str, model: torch.nn.Module, epoch: int,
     }
     if step is not None:
         payload["step"] = int(step)
-    name = "final" if is_final else f"checkpoint{epoch}"
-    path = osp.abspath(osp.join(ckpt_dir, f"{name}.pth.tar"))
     torch.save(payload, path)
     if is_best:
         torch.save(payload, osp.join(ckpt_dir, "best.pth.tar"))
+    barrier(world)
     return path
 
 

@@ -12,6 +12,16 @@ variance both in the normalisation and in the running-stat update, running
 stats updated with momentum 0.9 in flax form (new = 0.9 old + 0.1 batch);
 `nn.BatchNorm1d`'s own train mode (unbiased running variance) is not used.
 
+Data parallelism (`world` of more than one rank): the statistics are the
+global batch's, as the JAX step's are under GSPMD. The per-channel sums
+are summed over the ranks by a differentiable all-reduce (its backward
+sums the gradient over the ranks too), in two passes as on one device:
+the mean from the global sum of x, then the biased variance from the
+global sum of (x - mean)^2, each over the global count. The forward, the
+backward and the running stats are then the global batch's. Each rank's
+dropout masks are keyed by the global index of its first sample
+(`sample0`).
+
 With all rates zero this forward equals the JAX fused forward at zero rates
 (tests/test_torch_training.py).
 """
@@ -29,6 +39,7 @@ from ..nn.gat_trunk_train import (extract_block_params, gat_trunk_train,
 from ..nn.layers import layer_norm32
 from ..nn.lbf_stack_train import (extract_layer_params, lbf_stack_train,
                                   lbf_stack_train_ref)
+from ..parallel import sum_over_ranks
 
 Trunk = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, list],
                  torch.Tensor]
@@ -43,17 +54,18 @@ def rates_from_spec(mdr_spec) -> tuple:
 
 
 def gat_trunk_fn(spec, seed: int, use_kernels: bool = True,
-                 mlp_rate: float = 0.1) -> Trunk:
+                 mlp_rate: float = 0.1, sample0: int = 0) -> Trunk:
     """-> trunk(x, bias, masks_xfeat, block_params) on K5 (or its plain
     version) with the spec's attention/projection/DropPath rates and
-    GatMlp's `mlp_rate` (fixed 0.1 in the reference)."""
+    GatMlp's `mlp_rate` (fixed 0.1 in the reference); `sample0` keys the
+    masks (the global index of the batch's first sample)."""
     fn = gat_trunk_train if use_kernels else gat_trunk_train_ref
 
     def trunk(x, bias, masks_xfeat, block_params):
         return fn(x, bias, block_params, masks_xfeat, spec.num_heads,
                   seed, attn_rate=spec.attn_drop_rate,
                   proj_rate=spec.drop_rate, mlp_rate=mlp_rate,
-                  drop_path_rate=spec.drop_path_rate)
+                  drop_path_rate=spec.drop_path_rate, sample0=sample0)
 
     return trunk
 
@@ -95,12 +107,30 @@ def _dense(mod, y: torch.Tensor, dtype) -> torch.Tensor:
     return y @ mod.weight.T.to(dtype) + mod.bias.to(dtype)
 
 
+def batch_stats(m32: torch.Tensor, world=None):
+    """The BatchNorm's per-channel batch mean and biased variance of m32
+    [B, C, 3] over (batch, coord): this batch's, or with a `world` of
+    more than one rank the global batch's (differentiable through the
+    all-reduces)."""
+    if world is None or world.size == 1:
+        bmean = m32.mean(dim=(0, 2))
+        return bmean, ((m32 - bmean[None, :, None]) ** 2).mean(dim=(0, 2))
+    count = m32.shape[0] * m32.shape[2] * world.size
+    bmean = sum_over_ranks(m32.sum(dim=(0, 2)), world) / count
+    sq = ((m32 - bmean[None, :, None]) ** 2).sum(dim=(0, 2))
+    return bmean, sum_over_ranks(sq, world) / count
+
+
 def mdr_train_forward(mdr, x: torch.Tensor, seed: int,
                       dtype: torch.dtype = torch.bfloat16, rates=None,
-                      use_kernels: bool = True):
+                      use_kernels: bool = True, sample0: int = 0,
+                      world=None):
     """MDR in train mode (gator_tpu/train/fused_forward.py:46) -> (mesh
     [B, V0, 3], new BatchNorm running stats (mean, var) or None for the
-    LayerNorm head). The running stats are returned, not written."""
+    LayerNorm head). The running stats are returned, not written. With a
+    `world` of more than one rank, x is this rank's rows of the global
+    batch, from global index `sample0` on, and the BatchNorm statistics
+    are the global batch's."""
     s = mdr.spec
     if rates is None:
         rates = rates_from_spec(s)
@@ -115,7 +145,7 @@ def mdr_train_forward(mdr, x: torch.Tensor, seed: int,
     stack = lbf_stack_train if use_kernels else lbf_stack_train_ref
     verts_feat = stack(verts_feat.contiguous(), joint_feat.contiguous(),
                        [extract_layer_params(mdr, i) for i in range(3)],
-                       s.num_heads, seed, rates=rates)
+                       s.num_heads, seed, rates=rates, sample0=sample0)
 
     ac = _dense(mdr.motion_linear, verts_feat, dtype)
     mat_a, mat_c = ac[:, :, :s.num_basis], ac[:, :, -3:]
@@ -128,8 +158,7 @@ def mdr_train_forward(mdr, x: torch.Tensor, seed: int,
         mat_b = ((m32 - mean) * torch.rsqrt(var + 1e-5) * bn.weight
                  + bn.bias).to(dtype)
     else:
-        bmean = m32.mean(dim=(0, 2))
-        bvar = ((m32 - bmean[None, :, None]) ** 2).mean(dim=(0, 2))
+        bmean, bvar = batch_stats(m32, world)
         norm = (m32 - bmean[None, :, None]) \
             * torch.rsqrt(bvar[None, :, None] + 1e-5)
         mat_b = (norm * bn.weight[None, :, None]
@@ -153,24 +182,29 @@ def mdr_train_forward(mdr, x: torch.Tensor, seed: int,
 def make_fused_forward(spec, dtype: torch.dtype = torch.bfloat16,
                        rates=None, use_kernels: bool = True,
                        gat_mlp_rate: float = 0.1):
-    """-> fwd(model, pose2d, seed) -> (mesh, pose3d, new BatchNorm stats
-    or None), the counterpart of gator_tpu/train/fused_forward.py:134 with
-    both stacks on the training kernels (`use_kernels=False`: their plain
-    versions, on any device). `rates`: the LBF rates (default from the
-    spec); the GAT's come from the spec, GatMlp's is `gat_mlp_rate`."""
+    """-> fwd(model, pose2d, seed, sample0=0, world=None) -> (mesh, pose3d,
+    new BatchNorm stats or None), the counterpart of
+    gator_tpu/train/fused_forward.py:134 with both stacks on the training
+    kernels (`use_kernels=False`: their plain versions, on any device).
+    `rates`: the LBF rates (default from the spec); the GAT's come from
+    the spec, GatMlp's is `gat_mlp_rate`. A data-parallel rank passes the
+    global index of its first sample and its `world`."""
     s = spec
 
-    def fwd(model, pose2d: torch.Tensor, seed: int):
+    def fwd(model, pose2d: torch.Tensor, seed: int, sample0: int = 0,
+            world=None):
         b = pose2d.shape[0]
         pose2d = pose2d.reshape(b, s.gat.num_joint, 2).to(dtype)
-        trunk = gat_trunk_fn(s.gat, seed, use_kernels, gat_mlp_rate)
+        trunk = gat_trunk_fn(s.gat, seed, use_kernels, gat_mlp_rate,
+                             sample0)
         pose3d_flat, feat = gat_train_forward(model.pose_lifter, pose2d,
                                               dtype, trunk)
         pose3d = pose3d_flat.reshape(b, s.gat.num_joint, 3)
         pose_combine = torch.cat([pose2d, pose3d.to(dtype) / 1000.0,
                                   feat.to(dtype)], dim=2)
         mesh, new_stats = mdr_train_forward(model.pose2mesh, pose_combine,
-                                            seed, dtype, rates, use_kernels)
+                                            seed, dtype, rates, use_kernels,
+                                            sample0, world)
         return mesh, pose3d, new_stats
 
     return fwd

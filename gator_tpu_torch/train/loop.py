@@ -11,6 +11,17 @@ dropout seed for a step is `step_seed(seed, state.step)`, as the JAX steps
 fold the step counter into their PRNG key. TF32 is switched off for the
 step's f32 products (the JAX package pins Precision.HIGHEST for the joint
 regression, loop.py:96-97).
+
+Data parallelism (`world=`, a `parallel.World`): each rank takes its rows
+[r*b, (r+1)*b) of the global batch, keys its dropout masks from global
+index r*b (`sample0`), takes the BatchNorm statistics over the global
+batch, averages the gradients over the ranks between backward and the
+optimizer step (`parallel.all_reduce_grads`), and returns the metrics
+averaged over the ranks. The losses are plain means over equal shards,
+so the mean of the ranks' losses is the global batch's loss and the
+averaged gradient its gradient: the step computes what the one-device
+step computes on the global batch (the JAX package's `jit_data_parallel`
+meaning).
 """
 from __future__ import annotations
 
@@ -22,6 +33,7 @@ import torch
 
 from .. import losses, metrics
 from ..nn.dropout_masks import step_seed
+from ..parallel import all_reduce_grads, all_reduce_mean
 from ..precision import no_tf32
 from .fused_forward import gat_train_forward, gat_trunk_fn, make_fused_forward
 from .state import TrainState
@@ -34,7 +46,7 @@ def make_gator_train_step(spec, faces: np.ndarray,
                           weights: losses.LossWeights,
                           dtype: torch.dtype = torch.float32,
                           use_kernels: bool = True, rates=None,
-                          gat_mlp_rate: float = 0.1) -> Callable:
+                          gat_mlp_rate: float = 0.1, world=None) -> Callable:
     """Stage-2 step -> step(state, batch, seed, edge_enabled) -> metrics.
 
     batch (gator_tpu/train/loop.py:37-41): pose2d [B,J,2], mesh [B,V,3]
@@ -43,7 +55,9 @@ def make_gator_train_step(spec, faces: np.ndarray,
     targets; host arrays are copied to the model's device. edge_enabled: 0 or 1, the epoch-gated edge term. dtype=bf16
     computes the model in bf16 from f32 master weights; the face losses
     then run in bf16 with f32 reductions, the rest of the loss in f32. The
-    BatchNorm running stats (alpha=False) are updated in place."""
+    BatchNorm running stats (alpha=False) are updated in place. With
+    `world`, the batch is this rank's rows of the global batch (module
+    docstring)."""
     fwd = make_fused_forward(spec, dtype=dtype, rates=rates,
                              use_kernels=use_kernels,
                              gat_mlp_rate=gat_mlp_rate)
@@ -61,8 +75,9 @@ def make_gator_train_step(spec, faces: np.ndarray,
         model = state.model
         batch = _batch_on(batch, model)
         state.optimizer.zero_grad(set_to_none=True)
-        mesh, lift_pose, new_stats = fwd(model, batch["pose2d"],
-                                         step_seed(seed, state.step))
+        mesh, lift_pose, new_stats = fwd(
+            model, batch["pose2d"], step_seed(seed, state.step),
+            _sample0(batch, world), world)
         mesh = mesh.float()
         lift_pose = lift_pose.float()
         # mesh -> target-joint regression in mm, in true f32
@@ -74,28 +89,31 @@ def make_gator_train_step(spec, faces: np.ndarray,
             batch["lift_valid"], faces, weights, edge_enabled,
             face_loss_dtype=face_dtype)
         out.total.backward()
+        all_reduce_grads(list(model.parameters()), world)
         state.apply_gradients()
         if new_stats is not None:
             bn = model.pose2mesh.bias_norm
             with torch.no_grad():
                 bn.running_mean.copy_(new_stats[0])
                 bn.running_var.copy_(new_stats[1])
-        return {"loss": out.total.detach(), "vertex": out.vertex.detach(),
-                "normal": out.normal.detach(), "edge": out.edge.detach(),
-                "reg_joint": out.reg_joint.detach(),
-                "lift_joint": out.lift_joint.detach()}
+        return all_reduce_mean(
+            {"loss": out.total.detach(), "vertex": out.vertex.detach(),
+             "normal": out.normal.detach(), "edge": out.edge.detach(),
+             "reg_joint": out.reg_joint.detach(),
+             "lift_joint": out.lift_joint.detach()}, world)
 
     return step
 
 
 def make_gat_train_step(spec, dtype: torch.dtype = torch.float32,
                         use_kernels: bool = True,
-                        mlp_rate: float = 0.1) -> Callable:
+                        mlp_rate: float = 0.1, world=None) -> Callable:
     """Stage-1 (lifter pretrain) step on K5 -> step(state, batch, seed) ->
     {"loss"}: CoordLoss on the lifted joints (reference:
     lib/core/base.py:279-315). batch: pose2d [B,J,2], joint_cam [B,J,3],
     joint_valid [B,J,1], host arrays copied to the model's device. GatMlp's dropout is fixed at `mlp_rate` = 0.1
-    (the reference's quirk, kept by the JAX step)."""
+    (the reference's quirk, kept by the JAX step). `world` as in the
+    stage-2 step."""
     j = spec.num_joint
 
     def step(state: TrainState, batch: Batch, seed: int
@@ -104,14 +122,15 @@ def make_gat_train_step(spec, dtype: torch.dtype = torch.float32,
         batch = _batch_on(batch, state.model)
         state.optimizer.zero_grad(set_to_none=True)
         trunk = gat_trunk_fn(spec, step_seed(seed, state.step), use_kernels,
-                             mlp_rate)
+                             mlp_rate, _sample0(batch, world))
         pose3d, _ = gat_train_forward(state.model, batch["pose2d"], dtype,
                                       trunk)
         loss = losses.coord_l1_loss(pose3d.reshape(-1, j, 3).float(),
                                     batch["joint_cam"], batch["joint_valid"])
         loss.backward()
+        all_reduce_grads(list(state.model.parameters()), world)
         state.apply_gradients()
-        return {"loss": loss.detach()}
+        return all_reduce_mean({"loss": loss.detach()}, world)
 
     return step
 
@@ -212,6 +231,11 @@ def with_gt_synthesis(step_fn: Callable, synth, fitting_thr: float,
         return inner
 
     return with_assembly(step_fn, assemble)
+
+
+def _sample0(batch: Batch, world) -> int:
+    """The global index of this rank's first sample."""
+    return 0 if world is None else world.rank * batch["pose2d"].shape[0]
 
 
 def _on(x, device) -> torch.Tensor:

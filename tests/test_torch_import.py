@@ -152,3 +152,27 @@ def test_train_cli_and_convergence_tool_import_no_jax():
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split("\n")[-2]
     assert out == "[] []"
+
+
+PARALLEL_SCRIPT = """
+import sys
+import gator_tpu_torch.parallel
+import gator_tpu_torch.parallel.world, gator_tpu_torch.parallel.checks
+import gator_tpu_torch.parallel.dryrun
+from gator_tpu_torch.nn import cuda_lib
+import torch.distributed as dist
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                              "triton", "gator_tpu")]
+print(bad, sorted(cuda_lib._LOADED), dist.is_initialized())
+"""
+
+
+def test_parallel_modules_import_no_jax_and_join_no_group():
+    """The data-parallel package (the world and its collectives, the
+    rank-side checks, the dry run) imports neither JAX nor the JAX
+    package, loads no kernel library and starts no process group."""
+    out = subprocess.run([sys.executable, "-c", PARALLEL_SCRIPT], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout.split("\n")[-2]
+    assert out == "[] [] False"
