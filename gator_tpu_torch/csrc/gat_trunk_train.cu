@@ -13,6 +13,8 @@
 // (seed, 256 + block, sample, mask-id, element), so every launch draws the
 // same mask whatever its tiling. DropPath is one draw per sample.
 //
+// At embed width C = 128 or 64, 8 heads (`Width`).
+//
 // Design. A CTA takes one tile of RT = 32 token rows holding G = 32 / J
 // whole samples (one sample at J = 17 or 19), so the three per-sample mixes
 // (attention over J keys, MGCN's J x J adjacency, XFeat's hop rings) see a
@@ -23,17 +25,17 @@
 // memory (in T where they only meet a product, in f32 where the block keeps
 // f32) and in the products' register accumulators; the weights stream
 // through a two-slot cp.async ring of [64, 64] panels. The MLP walks its
-// 512 hidden units in chunks of 64 (fc1's chunk, then its share of fc2
+// 4C hidden units in chunks of 64 (fc1's chunk, then its share of fc2
 // into register accumulators), so the hidden layer is never held whole.
 // One tile per CTA and a 1-D grid: any batch size (B = 65537 runs).
-// Shared memory per CTA in bf16: 78 KB forward, 103 KB backward, so two
-// CTAs fit an SM; f32 takes one.
+// Shared memory per CTA in bf16 at C = 128: 78 KB forward, 103 KB
+// backward, so two CTAs fit an SM; f32 takes one.
 //
 // Save, do not recompute. The forward writes, per row, every operand the
 // backward reads (`ops`, T: y, q/k/v, a1, g0, g1, z, f0, f1, y2, the MLP
-// pre-activation and its dropped GELU; x1 in f32): 4.6 KB a row in bf16,
-// 40 MB a block at B = 512 and J = 17, written once at the card's memory
-// rate. The TPU kernel recomputes the forward in its backward; here that
+// pre-activation and its dropped GELU; x1 in f32): 4.6 KB a row in bf16
+// at C = 128, 40 MB a block at B = 512 and J = 17, written once at the
+// card's memory rate. The TPU kernel recomputes the forward in its backward; here that
 // would cost a second forward of every tile, several times the bytes.
 // The backward (gat_block_bwd) walks its tile back through MLP, LN2,
 // XFeat, MGCN, attention and LN1, writes dx and, per row, the cotangent
@@ -61,12 +63,22 @@
 namespace gator {
 namespace gtrain {
 
-constexpr int C = 128;    // embed width
+// The widths of a block at embed width C (gator_tpu/models/gat.py: 8
+// heads, MLP ratio 4; the XFeat second ring C / 8). The kernels are built
+// for C = 128 and C = 64; at C = 64 the head width and the second ring are
+// 8 wide, and a product of depth 8 in bf16 takes the mma k-step of 16 with
+// the fragments' upper half zeroed (`mma_tile`), adding exact zeros.
+template <int C_>
+struct Width {
+  static constexpr int C = C_;
+  static constexpr int D = C / 8;      // head width
+  static constexpr int C3 = 3 * C;     // qkv width
+  static constexpr int HID = 4 * C;    // MLP hidden
+  static constexpr int C2 = C / 8;     // second XFeat ring width
+  static_assert(C == 128 || C == 64, "K5 is built for C = 128 and 64");
+};
+
 constexpr int H = 8;      // heads
-constexpr int D = 16;     // head width
-constexpr int C3 = 384;   // qkv width
-constexpr int HID = 512;  // MLP hidden
-constexpr int C2 = 16;    // second XFeat ring width
 constexpr int JMAX = 32;  // most joints
 constexpr int RT = 32;    // token rows per tile
 constexpr int NT = 256;   // threads: 8 warps, 2 row tiles x 4 column groups
@@ -85,13 +97,19 @@ enum Field {
   N2_W, N2_B, FC1_W, FC1_B, FC2_W, FC2_B, HOP_BIAS, NFIELD
 };
 
-// Columns of one row of `ops` (T [B * J, O_W]): the forward's saved
-// operands, then the backward's cotangents (OP_COLS in the wrapper).
-enum OpCol {
-  O_Y = 0, O_QKV = 128, O_A1 = 512, O_G0 = 640, O_G1 = 768, O_Z = 896,
-  O_F0 = 1024, O_F1 = 1152, O_Y2 = 1168, O_PRE = 1296, O_HHD = 1808,
-  O_DMM2 = 2320, O_DPRE = 2448, O_DX1 = 2960, O_DF0P = 3088, O_DF1P = 3216,
-  O_DH0M = 3232, O_DH1M = 3360, O_DATT = 3488, O_DQKV = 3616, O_W = 4000
+// Columns of one row of `ops` (T [B * J, W]): the forward's saved
+// operands, then the backward's cotangents (`gat_block_train_op_cols`);
+// at C = 128: Y 0, QKV 128, A1 512, ..., DQKV 3616, W 4000.
+template <int C>
+struct Ops {
+  using Wd = Width<C>;
+  static constexpr int Y = 0, QKV = Y + C, A1 = QKV + Wd::C3, G0 = A1 + C,
+                       G1 = G0 + C, Z = G1 + C, F0 = Z + C, F1 = F0 + C,
+                       Y2 = F1 + Wd::C2, PRE = Y2 + C, HHD = PRE + Wd::HID,
+                       DMM2 = HHD + Wd::HID, DPRE = DMM2 + C,
+                       DX1 = DPRE + Wd::HID, DF0P = DX1 + C, DF1P = DF0P + C,
+                       DH0M = DF1P + Wd::C2, DH1M = DH0M + C, DATT = DH1M + C,
+                       DQKV = DATT + C, W = DQKV + Wd::C3;
 };
 
 using tc::ColMajor;
@@ -100,8 +118,10 @@ using tc::RowMajor;
 // Shared memory, in bytes from the start. Row strides are padded by 16
 // bytes (4 f32, 16 / sizeof(T) T) so a warp's fragment loads fall in
 // distinct banks. Regions are reused once their phase is over (comments).
-template <typename T>
+template <typename T, int C>
 struct Sm {
+  using Wd = Width<C>;
+  static constexpr int C3 = Wd::C3, C2 = Wd::C2;
   static constexpr int E = 16 / (int)sizeof(T);
   // q/k/v rows (never an ldmatrix operand) are padded by 2 elements only:
   // an odd number of words apart in bf16, so the attention backward's
@@ -109,6 +129,10 @@ struct Sm {
   static constexpr int LF = C + 4, LT = C + E, LT3 = C3 + 2, LTP = PK + E,
                        LT2 = C2 + E;
   static constexpr int FB = RT * LF * 4;                // [RT, C] f32
+  // DY: [RT, C] f32, or a head group's ds (f32) and probabilities (T)
+  static constexpr int DYB = FB > HG * RT * LJ * (4 + (int)sizeof(T))
+                                 ? FB
+                                 : HG * RT * LJ * (4 + (int)sizeof(T));
   static constexpr int TB = RT * LT * (int)sizeof(T);   // [RT, C] T
   static constexpr int T3B = RT * LT3 * (int)sizeof(T);
   static constexpr int T2B = RT * LT2 * (int)sizeof(T);
@@ -126,15 +150,13 @@ struct Sm {
   // backward: DX dx (f32, to the end); DY dy2, the attention's ds and
   // masked probabilities, then dy (f32); QR dz, M * g1, then q/k/v and
   // dq/dk/dv; U0..U2 the phases' T buffers (see gat_block_bwd)
-  static constexpr int DX = BASE, DY = DX + FB, QR = DY + FB, U0 = QR + T3B,
+  static constexpr int DX = BASE, DY = DX + FB, QR = DY + DYB, U0 = QR + T3B,
                        U1 = U0 + TB, U2 = U1 + TB, RING_B = U2 + TB,
                        BWD_BYTES = RING_B + RING;
   static constexpr int MIN_CTAS = sizeof(T) == 2 ? 2 : 1;
   static_assert(FB <= T3B && TB + 2 * T2B <= T3B && RT * LTP <= RT * LT3,
                 "QA holds the attention output, f0p | f1p | f1, the chunk");
   static_assert(2 * TB <= T3B && FB <= T3B, "QR holds x1, dz | M g1, x");
-  static_assert(HG * RT * LJ * (4 + (int)sizeof(T)) <= FB,
-                "a head group's ds and probabilities fit in DY");
   static_assert(2 * T2B <= TB && RT * LTP * (int)sizeof(T) <= TB,
                 "U2 holds df1 | df1p, U1 the chunk of dpre");
 };
@@ -149,7 +171,7 @@ struct Args {
   const int* goffs;    // field offsets in the gradient rows (wpart / spart)
   const T* gout;       // [B, J, C] output cotangent (backward)
   T* out;              // [B, J, C] forward output / backward dx
-  T* ops;              // [B * J, O_W] saved operands and cotangents
+  T* ops;              // [B * J, O::W] saved operands and cotangents
   float* x1s;          // [B * J, C] x1 (f32), saved by the forward
   float* spart;        // [ntiles, sstride] the tiles' small gradients
   long long sstride;
@@ -175,7 +197,7 @@ struct Pan {
 // and visible). Deeper rings (three or four slots) measured no faster.
 template <typename T, class PanOf, class Use>
 __device__ __forceinline__ void stream(T* ring, int np, PanOf pan, Use use) {
-  constexpr int E = Sm<T>::E, SLOT = Sm<T>::SLOT;
+  constexpr int E = 16 / (int)sizeof(T), SLOT = PK * (PK + E);
   auto issue = [&](int i) {
     const Pan<T> p = pan(i);
     tc::stage(ring + (i & 1) * SLOT, p.cols + E, p.src, p.lds, p.rows,
@@ -193,25 +215,38 @@ __device__ __forceinline__ void stream(T* ring, int np, PanOf pan, Use use) {
 }
 
 // acc += A[m0:m0+16, :K] @ B[:K, n0:n0+8*NB] on the tensor cores (one
-// warp; sums over k in a fixed order)
+// warp; sums over k in a fixed order). A depth that ends half-way through
+// a bf16 step (K = 8, the second XFeat ring at C = 64) zeroes the step's
+// depth 8..15 in both fragments: the step adds exact zeros there.
 template <typename T, int NB, class FA, class FB>
 __device__ __forceinline__ void mma_tile(float (&acc)[NB][4], FA a, FB b,
                                          int m0, int n0, int K) {
   using P = tc::Mma<T>;
+  constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
   for (int k0 = 0; k0 < K; k0 += P::KS) {
-    const typename P::A fa = P::load_a(a, m0, k0);
+    typename P::A fa = P::load_a(a, m0, k0);
+    const bool half = kBf16 && K - k0 < P::KS;
+    if constexpr (kBf16)
+      if (half) fa.r[2] = fa.r[3] = 0u;
 #pragma unroll
-    for (int j = 0; j < NB; ++j) P::mma(acc[j], fa, P::load_b(b, k0, n0 + 8 * j));
+    for (int j = 0; j < NB; ++j) {
+      typename P::B fb = P::load_b(b, k0, n0 + 8 * j);
+      if constexpr (kBf16)
+        if (half) fb.r[1] = 0u;
+      P::mma(acc[j], fa, fb);
+    }
   }
 }
 
 // the warp's accumulators to out(row, col, v, v') for columns col, col + 1
+// below nlim
 template <int NB, class Out>
 __device__ __forceinline__ void emit(const float (&acc)[NB][4], int m0,
-                                     int n0, Out out) {
+                                     int n0, Out out, int nlim = 1 << 30) {
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
 #pragma unroll
   for (int j = 0; j < NB; ++j) {
+    if (n0 + 8 * j >= nlim) continue;
     const int n = n0 + 8 * j + 2 * t;
     out(m0 + g, n, acc[j][0], acc[j][1]);
     out(m0 + g + 8, n, acc[j][2], acc[j][3]);
@@ -239,13 +274,13 @@ struct Term {
 };
 
 // out(r, n, v, v') = sum over the terms of A @ B, for every row of the
-// tile and n < N (N = 16 or a multiple of 64), in [64-column] panels; each
+// tile and n < N (N = C / 8 or a multiple of 64), in [64-column] panels; each
 // warp owns a [16, 16] block of a panel, its sum over the terms and depth
 // in its registers.
 template <typename T, int NTERM, class Out>
 __device__ void product(T* ring, const Term<T> (&tm)[NTERM], int N,
                         Out out) {
-  constexpr int E = Sm<T>::E;
+  constexpr int E = 16 / (int)sizeof(T);
   const int warp = threadIdx.x >> 5;
   const int m0 = (warp & 1) * 16, n0 = (warp >> 1) * 16;
   const int NW = min(N, PK);
@@ -284,7 +319,8 @@ __device__ void product(T* ring, const Term<T> (&tm)[NTERM], int N,
           mma_tile<T>(acc, fa, ColMajor<T>{s, kp + E}, m0, n0, kp);
         else
           mma_tile<T>(acc, fa, RowMajor<T>{s, NW + E}, m0, n0, kp);
-        if (i % per == per - 1) emit(acc, m0, nb * NW + n0, out);
+        if (i % per == per - 1)
+          emit(acc, m0, nb * NW + n0, out, nb * NW + NW);
       });
 }
 
@@ -308,6 +344,7 @@ __device__ __forceinline__ void colsum(const E* buf, int ld, int R, int n,
 
 // Sums over the tile's rows of dy * xhat and dy (a LayerNorm's weight and
 // bias gradients), xhat from X (f32, ldx apart) and the rows' stats
+template <int C>
 __device__ __forceinline__ void ln_param_sums(const float* DY, int ldy,
                                               const float* X, int ldx,
                                               const float* stats, int R,
@@ -325,20 +362,23 @@ __device__ __forceinline__ void ln_param_sums(const float* DY, int ldy,
 }
 
 // the tile's stream keys: KEYS[g * NKEY + mid] for its samples
-template <typename T>
+template <typename T, int C>
 __device__ __forceinline__ void make_keys(const Args<T>& a, uint32_t* KEYS,
                                           int s0, int ns) {
   for (int i = threadIdx.x; i < ns * 13; i += NT)
-    KEYS[(i / 13) * Sm<T>::NKEY + i % 13] =
+    KEYS[(i / 13) * Sm<T, C>::NKEY + i % 13] =
         stream_key(a.seed, a.unit, a.sample0 + s0 + i / 13, i % 13);
 }
 
 // One tile's forward: the block output, the saved operands and x1, and
 // the exported masks.
-template <typename T>
-__global__ void __launch_bounds__(NT, Sm<T>::MIN_CTAS)
+template <typename T, int C>
+__global__ void __launch_bounds__(NT, Sm<T, C>::MIN_CTAS)
     gat_block_fwd(Args<T> a) {
-  using L = Sm<T>;
+  using L = Sm<T, C>;
+  using O = Ops<C>;
+  constexpr int C3 = Width<C>::C3, C2 = Width<C>::C2, HID = Width<C>::HID,
+                D = Width<C>::D;
   using N = Num<T>;
   extern __shared__ __align__(16) unsigned char sm[];
   const int J = a.J;
@@ -349,7 +389,7 @@ __global__ void __launch_bounds__(NT, Sm<T>::MIN_CTAS)
   const int tid = threadIdx.x;
   const T* p = a.w;
   const int* o = a.offs;
-  T* ops = a.ops + row0 * O_W;
+  T* ops = a.ops + row0 * O::W;
   uint32_t* KEYS = at<uint32_t>(sm, L::KEYS);
   float* XS = at<float>(sm, L::XS);
   T* YS = at<T>(sm, L::YS);
@@ -372,10 +412,10 @@ __global__ void __launch_bounds__(NT, Sm<T>::MIN_CTAS)
   const size_t o_dp2 = o_mlp2 + (size_t)a.B * J * C;
   auto key = [&](int r, int mid) { return KEYS[(r / J) * L::NKEY + mid]; };
   auto put = [&](int col, int r, int c, float v0, float v1) {
-    if (r < R) st2(ops + (size_t)r * O_W + col + c, v0, v1);
+    if (r < R) st2(ops + (size_t)r * O::W + col + c, v0, v1);
   };
 
-  make_keys(a, KEYS, s0, ns);
+  make_keys<T, C>(a, KEYS, s0, ns);
   for (int i = tid; i < RT * C; i += NT) {
     const int r = i / C, c = i % C;
     XS[r * L::LF + c] =
@@ -385,7 +425,7 @@ __global__ void __launch_bounds__(NT, Sm<T>::MIN_CTAS)
   layer_norm_rows<C>(XS, L::LF, RT, p + o[N1_W], p + o[N1_B], 1e-5f, false,
                      [&](int r, int c, float v) {
                        YS[r * L::LT + c] = N::from_float(v);
-                       if (r < R) ops[(size_t)r * O_W + O_Y + c] = N::from_float(v);
+                       if (r < R) ops[(size_t)r * O::W + O::Y + c] = N::from_float(v);
                      });
   __syncthreads();
 
@@ -396,7 +436,7 @@ __global__ void __launch_bounds__(NT, Sm<T>::MIN_CTAS)
     product<T>(ring, tm, C3, [&](int r, int n, float v0, float v1) {
       const float2 b = ld2(qkv_b + n);
       st2(QKV + r * L::LT3 + n, v0 + b.x, v1 + b.y);
-      put(O_QKV, r, n, v0 + b.x, v1 + b.y);
+      put(O::QKV, r, n, v0 + b.x, v1 + b.y);
     });
   }
 
@@ -440,7 +480,7 @@ __global__ void __launch_bounds__(NT, Sm<T>::MIN_CTAS)
 #pragma unroll
     for (int d = 0; d < D; d += 2) {
       st2(A1 + r * L::LT + h * D + d, acc[d], acc[d + 1]);
-      put(O_A1, r, h * D + d, acc[d], acc[d + 1]);
+      put(O::A1, r, h * D + d, acc[d], acc[d + 1]);
     }
   }
   __syncthreads();
@@ -482,7 +522,7 @@ __global__ void __launch_bounds__(NT, Sm<T>::MIN_CTAS)
       float* z = ZF + r * L::LF + c;
       z[0] += dg * (v0 * m.x) + b.x;
       z[1] += dg * (v1 * m.y) + b.y;
-      put(O_G0, r, c, v0, v1);
+      put(O::G0, r, c, v0, v1);
     });
   }
   {
@@ -491,7 +531,7 @@ __global__ void __launch_bounds__(NT, Sm<T>::MIN_CTAS)
       float2 m = make_float2(0.0f, 0.0f);
       if (r < R) m = ld2(gm + (r % J) * C + c);
       st2(G1M + r * L::LT + c, v0 * m.x, v1 * m.y);
-      put(O_G1, r, c, v0, v1);
+      put(O::G1, r, c, v0, v1);
     });
   }
   // z = DropPath1(ZF + adj_off @ (M g1)), rounded into YS (y is dead)
@@ -507,7 +547,7 @@ __global__ void __launch_bounds__(NT, Sm<T>::MIN_CTAS)
       const float dp = drop(key(r, M_DP1), 0, a.path);
       if (dump && n == 0 && c == 0) a.masks[o_dp1 + s0 + g] = dp;
       z = (ZF[r * L::LF + c] + t) * dp;
-      ops[(size_t)r * O_W + O_Z + c] = N::from_float(z);
+      ops[(size_t)r * O::W + O::Z + c] = N::from_float(z);
     }
     YS[r * L::LT + c] = N::from_float(z);
   }
@@ -543,7 +583,7 @@ __global__ void __launch_bounds__(NT, Sm<T>::MIN_CTAS)
                  ring0 ? N::to_float(F0P[(g * J + m) * L::LT + c])
                        : N::to_float(F1P[(g * J + m) * L::LT2 + c - C]),
                  s);
-      ops[(size_t)r * O_W + (ring0 ? O_F0 + c : O_F1 + c - C)] =
+      ops[(size_t)r * O::W + (ring0 ? O::F0 + c : O::F1 + c - C)] =
           N::from_float(s);
     }
     if (ring0)
@@ -568,34 +608,36 @@ __global__ void __launch_bounds__(NT, Sm<T>::MIN_CTAS)
   layer_norm_rows<C>(XS, L::LF, RT, p + o[N2_W], p + o[N2_B], 1e-5f, false,
                      [&](int r, int c, float v) {
                        YS[r * L::LT + c] = N::from_float(v);
-                       if (r < R) ops[(size_t)r * O_W + O_Y2 + c] = N::from_float(v);
+                       if (r < R) ops[(size_t)r * O::W + O::Y2 + c] = N::from_float(v);
                      });
   __syncthreads();
 
-  // MLP in chunks of 64 hidden units: panels fc1[:, chunk] (two depth
-  // halves), then fc2[chunk, :] (two column halves) into acc2
+  // MLP in chunks of 64 hidden units: panels fc1[:, chunk] (NQ depth
+  // panels), then fc2[chunk, :] (NQ column panels) into acc2
+  constexpr int NQ = C / PK;
   const int warp = tid >> 5, m0 = (warp & 1) * 16, n0 = (warp >> 1) * 16;
   const T* fc1_b = p + o[FC1_B];
   const T* fc1 = p + o[FC1_W];
   const T* fc2 = p + o[FC2_W];
-  float acc1[2][4], acc2[2][2][4];
-  zero(acc2[0]);
-  zero(acc2[1]);
+  float acc1[2][4], acc2[NQ][2][4];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) zero(acc2[q]);
   stream<T>(
-      ring, 4 * (HID / PK),
+      ring, 2 * NQ * (HID / PK),
       [&](int i) {
-        const int hc = i / 4, q = i % 4;
-        return q < 2 ? Pan<T>{fc1 + (size_t)q * PK * HID + hc * PK, HID, PK, PK}
-                     : Pan<T>{fc2 + (size_t)hc * PK * C + (q - 2) * PK, C, PK,
-                              PK};
+        const int hc = i / (2 * NQ), q = i % (2 * NQ);
+        return q < NQ
+                   ? Pan<T>{fc1 + (size_t)q * PK * HID + hc * PK, HID, PK, PK}
+                   : Pan<T>{fc2 + (size_t)hc * PK * C + (q - NQ) * PK, C, PK,
+                            PK};
       },
       [&](int i, const T* s) {
-        const int hc = i / 4, q = i % 4;
-        if (q < 2) {
+        const int hc = i / (2 * NQ), q = i % (2 * NQ);
+        if (q < NQ) {
           if (q == 0) zero(acc1);
           mma_tile<T>(acc1, RowMajor<T>{YS + q * PK, L::LT},
                       RowMajor<T>{s, L::LTP}, m0, n0, PK);
-          if (q == 0) return;
+          if (q < NQ - 1) return;
           emit(acc1, m0, n0, [&](int r, int cc, float v0, float v1) {
             const int c = hc * PK + cc;
             const float2 b = ld2(fc1_b + c);
@@ -616,17 +658,17 @@ __global__ void __launch_bounds__(NT, Sm<T>::MIN_CTAS)
             const float h0 = gelu_exact(pre0) * m0k,
                         h1 = gelu_exact(pre1) * m1k;
             st2(HC + r * L::LTP + cc, h0, h1);
-            put(O_PRE, r, c, pre0, pre1);
-            put(O_HHD, r, c, h0, h1);
+            put(O::PRE, r, c, pre0, pre1);
+            put(O::HHD, r, c, h0, h1);
           });
         } else {
-          mma_tile<T>(acc2[q - 2], RowMajor<T>{HC, L::LTP},
+          mma_tile<T>(acc2[q - NQ], RowMajor<T>{HC, L::LTP},
                       RowMajor<T>{s, L::LTP}, m0, n0, PK);
         }
       });
   // out = x1 + DropPath2(MlpDrop(hhd @ fc2 + b))
   const T* fc2_b = p + o[FC2_B];
-  for (int half = 0; half < 2; ++half)
+  for (int half = 0; half < NQ; ++half)
     emit(acc2[half], m0, half * PK + n0,
          [&](int r, int c, float v0, float v1) {
            if (r >= R) return;
@@ -651,10 +693,13 @@ __global__ void __launch_bounds__(NT, Sm<T>::MIN_CTAS)
 // One tile's backward (gator_tpu/nn/pallas_gat_train.py `_block_bwd:227`)
 // from the saved operands: dx, the cotangent operands of the weight
 // gradients (to ops) and the tile's small gradients (to its spart row).
-template <typename T>
-__global__ void __launch_bounds__(NT, Sm<T>::MIN_CTAS)
+template <typename T, int C>
+__global__ void __launch_bounds__(NT, Sm<T, C>::MIN_CTAS)
     gat_block_bwd(Args<T> a) {
-  using L = Sm<T>;
+  using L = Sm<T, C>;
+  using O = Ops<C>;
+  constexpr int C3 = Width<C>::C3, C2 = Width<C>::C2, HID = Width<C>::HID,
+                D = Width<C>::D;
   using N = Num<T>;
   extern __shared__ __align__(16) unsigned char sm[];
   const int J = a.J;
@@ -666,7 +711,7 @@ __global__ void __launch_bounds__(NT, Sm<T>::MIN_CTAS)
   const T* p = a.w;
   const int* o = a.offs;
   const int* go = a.goffs;
-  T* ops = a.ops + row0 * O_W;
+  T* ops = a.ops + row0 * O::W;
   float* SG = a.spart + (size_t)blockIdx.x * a.sstride;
   uint32_t* KEYS = at<uint32_t>(sm, L::KEYS);
   float* STATS = at<float>(sm, L::STATS);
@@ -691,12 +736,12 @@ __global__ void __launch_bounds__(NT, Sm<T>::MIN_CTAS)
   T* ring = at<T>(sm, L::RING_B);
   const float scale = rsqrtf((float)D);
   auto key = [&](int r, int mid) { return KEYS[(r / J) * L::NKEY + mid]; };
-  auto opv = [&](int r, int col) { return N::to_float(ops[(size_t)r * O_W + col]); };
+  auto opv = [&](int r, int col) { return N::to_float(ops[(size_t)r * O::W + col]); };
   auto put = [&](int col, int r, int c, float v0, float v1) {
-    if (r < R) st2(ops + (size_t)r * O_W + col + c, v0, v1);
+    if (r < R) st2(ops + (size_t)r * O::W + col + c, v0, v1);
   };
 
-  make_keys(a, KEYS, s0, ns);
+  make_keys<T, C>(a, KEYS, s0, ns);
   __syncthreads();
   // out = x1 + dp2 * m2 * mm2: dx1 = g, dmm2 = g * dp2 * m2
   for (int i = tid; i < RT * C; i += NT) {
@@ -706,7 +751,7 @@ __global__ void __launch_bounds__(NT, Sm<T>::MIN_CTAS)
       go_ = N::to_float(a.gout[(row0 + r) * C + c]);
       d = go_ * drop(key(r, M_DP2), 0, a.path) *
           drop(key(r, M_MLP2), (r % J) * C + c, a.mlp);
-      ops[(size_t)r * O_W + O_DMM2 + c] = N::from_float(d);
+      ops[(size_t)r * O::W + O::DMM2 + c] = N::from_float(d);
     }
     DX[r * L::LF + c] = go_;
     DMM2[r * L::LT + c] = N::from_float(d);
@@ -715,29 +760,31 @@ __global__ void __launch_bounds__(NT, Sm<T>::MIN_CTAS)
   colsum(DMM2, L::LT, R, C, SG + go[FC2_B]);
 
   // MLP in chunks of 64 hidden units: dpre = (dmm2 fc2^T) * m1 * gelu'(pre)
-  // (fc2's rows of the chunk, two depth halves), then its share of
-  // dy2 = dpre fc1^T (fc1's columns of the chunk, two column halves)
+  // (fc2's rows of the chunk, NQ depth panels), then its share of
+  // dy2 = dpre fc1^T (fc1's columns of the chunk, NQ column panels)
+  constexpr int NQ = C / PK;
   const int warp = tid >> 5, m0 = (warp & 1) * 16, n0 = (warp >> 1) * 16;
   const T* fc1 = p + o[FC1_W];
   const T* fc2 = p + o[FC2_W];
-  float acc1[2][4], acc2[2][2][4];
-  zero(acc2[0]);
-  zero(acc2[1]);
+  float acc1[2][4], acc2[NQ][2][4];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) zero(acc2[q]);
   stream<T>(
-      ring, 4 * (HID / PK),
+      ring, 2 * NQ * (HID / PK),
       [&](int i) {
-        const int hc = i / 4, q = i % 4;
-        return q < 2 ? Pan<T>{fc2 + (size_t)hc * PK * C + q * PK, C, PK, PK}
-                     : Pan<T>{fc1 + (size_t)(q - 2) * PK * HID + hc * PK, HID,
-                              PK, PK};
+        const int hc = i / (2 * NQ), q = i % (2 * NQ);
+        return q < NQ
+                   ? Pan<T>{fc2 + (size_t)hc * PK * C + q * PK, C, PK, PK}
+                   : Pan<T>{fc1 + (size_t)(q - NQ) * PK * HID + hc * PK, HID,
+                            PK, PK};
       },
       [&](int i, const T* s) {
-        const int hc = i / 4, q = i % 4;
-        if (q < 2) {
+        const int hc = i / (2 * NQ), q = i % (2 * NQ);
+        if (q < NQ) {
           if (q == 0) zero(acc1);
           mma_tile<T>(acc1, RowMajor<T>{DMM2 + q * PK, L::LT},
                       ColMajor<T>{s, L::LTP}, m0, n0, PK);
-          if (q == 0) return;
+          if (q < NQ - 1) return;
           emit(acc1, m0, n0, [&](int r, int cc, float v0, float v1) {
             const int c = hc * PK + cc;
             float d0 = 0.0f, d1 = 0.0f;
@@ -745,20 +792,20 @@ __global__ void __launch_bounds__(NT, Sm<T>::MIN_CTAS)
               const uint32_t k = key(r, M_MLP1);
               const int n = r % J;
               d0 = v0 * drop(k, n * HID + c, a.mlp) *
-                   gelu_grad(opv(r, O_PRE + c));
+                   gelu_grad(opv(r, O::PRE + c));
               d1 = v1 * drop(k, n * HID + c + 1, a.mlp) *
-                   gelu_grad(opv(r, O_PRE + c + 1));
+                   gelu_grad(opv(r, O::PRE + c + 1));
             }
             st2(DPC + r * L::LTP + cc, d0, d1);
-            put(O_DPRE, r, c, d0, d1);
+            put(O::DPRE, r, c, d0, d1);
           });
         } else {
-          if (q == 2) colsum(DPC, L::LTP, R, PK, SG + go[FC1_B] + hc * PK);
-          mma_tile<T>(acc2[q - 2], RowMajor<T>{DPC, L::LTP},
+          if (q == NQ) colsum(DPC, L::LTP, R, PK, SG + go[FC1_B] + hc * PK);
+          mma_tile<T>(acc2[q - NQ], RowMajor<T>{DPC, L::LTP},
                       ColMajor<T>{s, L::LTP}, m0, n0, PK);
         }
       });
-  for (int half = 0; half < 2; ++half)
+  for (int half = 0; half < NQ; ++half)
     emit(acc2[half], m0, half * PK + n0,
          [&](int r, int c, float v0, float v1) {
            st2(DY + r * L::LF + c, v0, v1);
@@ -775,12 +822,12 @@ __global__ void __launch_bounds__(NT, Sm<T>::MIN_CTAS)
   ln_bwd_rows<C>(DY, L::LF, X1, L::LF, R, p + o[N2_W], 1e-5f, STATS,
                  [&](int r, int c, float v) { DX[r * L::LF + c] += v; });
   __syncthreads();
-  ln_param_sums(DY, L::LF, X1, L::LF, STATS, R, SG + go[N2_W], SG + go[N2_B]);
+  ln_param_sums<C>(DY, L::LF, X1, L::LF, STATS, R, SG + go[N2_W], SG + go[N2_B]);
   for (int i = tid; i < RT * C; i += NT) {
     const int r = i / C, c = i % C;
     const float v = DX[r * L::LF + c];
     DX1T[r * L::LT + c] = N::from_float(v);
-    if (r < R) ops[(size_t)r * O_W + O_DX1 + c] = N::from_float(v);
+    if (r < R) ops[(size_t)r * O::W + O::DX1 + c] = N::from_float(v);
   }
   __syncthreads();
   colsum(DX1T, L::LT, R, C, SG + go[BACK_B]);
@@ -811,7 +858,7 @@ __global__ void __launch_bounds__(NT, Sm<T>::MIN_CTAS)
                  ring0 ? N::to_float(DF0[(g * J + n) * L::LT + c])
                        : N::to_float(DF1[(g * J + n) * L::LT2 + c - C]),
                  s);
-      ops[(size_t)r * O_W + (ring0 ? O_DF0P + c : O_DF1P + c - C)] =
+      ops[(size_t)r * O::W + (ring0 ? O::DF0P + c : O::DF1P + c - C)] =
           N::from_float(s);
     }
     if (ring0)
@@ -840,7 +887,7 @@ __global__ void __launch_bounds__(NT, Sm<T>::MIN_CTAS)
       }
       st2(DZT + r * L::LT + c, z0, z1);
       st2(DATT + r * L::LT + c, t0, t1);
-      put(O_DATT, r, c, t0, t1);
+      put(O::DATT, r, c, t0, t1);
     });
   }
   colsum(DZT, L::LT, R, C, SG + go[GCN_B]);
@@ -862,7 +909,7 @@ __global__ void __launch_bounds__(NT, Sm<T>::MIN_CTAS)
   for (int i = tid; i < RT * C; i += NT) {
     const int r = i / C, c = i % C;
     G1M[r * L::LT + c] =
-        N::from_float(r < R ? opv(r, O_G1 + c) * ld(gm + (r % J) * C + c)
+        N::from_float(r < R ? opv(r, O::G1 + c) * ld(gm + (r % J) * C + c)
                             : 0.0f);
   }
   for (int i = R * C + tid; i < RT * C; i += NT) {
@@ -882,12 +929,12 @@ __global__ void __launch_bounds__(NT, Sm<T>::MIN_CTAS)
         dh1 = fmaf(ld(goff + m * J + n),
                    N::to_float(DZT[(g * J + m) * L::LT + c]), dh1);
       const float dh0 = dg * dz;
-      dmv += dh0 * opv(r, O_G0 + c) + dh1 * opv(r, O_G1 + c);
+      dmv += dh0 * opv(r, O::G0 + c) + dh1 * opv(r, O::G1 + c);
       const T h0 = N::from_float(dh0 * mv), h1 = N::from_float(dh1 * mv);
       DH0M[r * L::LT + c] = h0;
       DH1M[r * L::LT + c] = h1;
-      ops[(size_t)r * O_W + O_DH0M + c] = h0;
-      ops[(size_t)r * O_W + O_DH1M + c] = h1;
+      ops[(size_t)r * O::W + O::DH0M + c] = h0;
+      ops[(size_t)r * O::W + O::DH1M + c] = h1;
     }
     SG[go[GCN_M] + i] = dmv;
   }
@@ -901,7 +948,7 @@ __global__ void __launch_bounds__(NT, Sm<T>::MIN_CTAS)
       for (int g = 0; g < ns; ++g) {
         const int r = g * J + n;
         for (int c = lane; c < C; c += 32)
-          s = fmaf(opv(r, O_G0 + c) * ld(gm + n * C + c),
+          s = fmaf(opv(r, O::G0 + c) * ld(gm + n * C + c),
                    N::to_float(DZT[r * L::LT + c]), s);
       }
       s = warp_sum(s);
@@ -927,7 +974,7 @@ __global__ void __launch_bounds__(NT, Sm<T>::MIN_CTAS)
   // thread per (head, row, which)) written over q, k, v of those heads
   for (int i = tid; i < RT * C3 / 2; i += NT) {
     const int r = i / (C3 / 2), c = i % (C3 / 2) * 2;
-    const float2 v = r < R ? make_float2(opv(r, O_QKV + c), opv(r, O_QKV + c + 1))
+    const float2 v = r < R ? make_float2(opv(r, O::QKV + c), opv(r, O::QKV + c + 1))
                            : make_float2(0.0f, 0.0f);
     st2(QKV + r * L::LT3 + c, v.x, v.y);
   }
@@ -1013,7 +1060,7 @@ __global__ void __launch_bounds__(NT, Sm<T>::MIN_CTAS)
   for (int i = tid; i < R * C3 / 2; i += NT) {
     const int r = i / (C3 / 2), c = i % (C3 / 2) * 2;
     const float2 v = ld2(QKV + r * L::LT3 + c);
-    st2(ops + (size_t)r * O_W + O_DQKV + c, v.x, v.y);
+    st2(ops + (size_t)r * O::W + O::DQKV + c, v.x, v.y);
   }
   colsum(QKV, L::LT3, R, C3, SG + go[QKV_B]);
 
@@ -1039,49 +1086,61 @@ __global__ void __launch_bounds__(NT, Sm<T>::MIN_CTAS)
                        N::from_float(DX[r * L::LF + c] + v);
                  });
   __syncthreads();
-  ln_param_sums(DY, L::LF, XF, L::LF, STATS, R, SG + go[N1_W], SG + go[N1_B]);
+  ln_param_sums<C>(DY, L::LF, XF, L::LF, STATS, R, SG + go[N1_W], SG + go[N1_B]);
 }
 
 // gat_block_wgrad's products: G[k][n] = sum_r ops[r][ca + k] * ops[r][cb + n]
 // for k < ka, n < nb, a tile of field `field` at element g0 of its
-// gradient, rows ldg apart. A 16-wide operand is read as 64 columns (the
-// next 48 of the row come along) and only its valid part is written.
+// gradient, rows ldg apart. A C / 8-wide operand is read as 64 columns
+// (the rest of the 64 come along from the row) and only its valid part is
+// written.
 struct WJob {
   int ca, cb, field, g0, ldg, ka, nb;
 };
 
-constexpr int NWJOB = 68;
+// the jobs at embed width C: KC and KH 64-wide blocks of C and of the MLP
+// hidden width; 68 at C = 128, 18 at C = 64
+template <int C>
+struct WJobs {
+  static constexpr int KC = C / 64, KH = 4 * C / 64;
+  static constexpr int N = 3 * KC * KC + 4 * KC * KC + KC + KC * KC + KC +
+                           2 * KC * KH;
+};
 
+template <int C>
 __device__ __forceinline__ WJob wjob(int j) {
-  if (j < 12)  // qkv_w [128, 384]: y x dqkv
-    return {O_Y + 64 * (j / 6), O_DQKV + 64 * (j % 6), QKV_W,
-            64 * (j / 6) * C3 + 64 * (j % 6), C3, 64, 64};
-  j -= 12;
-  if (j < 16) {  // [128, 128]: proj_w, gcn_w0, gcn_w1, x0_w
-    const int f = j / 4, i = j % 4 / 2, k = j % 2;
-    const int ca[4] = {O_A1, O_Y, O_Y, O_Z};
-    const int cb[4] = {O_DATT, O_DH0M, O_DH1M, O_DF0P};
+  using O = Ops<C>;
+  constexpr int KC = WJobs<C>::KC, KH = WJobs<C>::KH, C3 = Width<C>::C3,
+                C2 = Width<C>::C2, HID = Width<C>::HID;
+  if (j < 3 * KC * KC)  // qkv_w [C, 3C]: y x dqkv
+    return {O::Y + 64 * (j / (3 * KC)), O::DQKV + 64 * (j % (3 * KC)), QKV_W,
+            64 * (j / (3 * KC)) * C3 + 64 * (j % (3 * KC)), C3, 64, 64};
+  j -= 3 * KC * KC;
+  if (j < 4 * KC * KC) {  // [C, C]: proj_w, gcn_w0, gcn_w1, x0_w
+    const int f = j / (KC * KC), i = j % (KC * KC) / KC, k = j % KC;
+    const int ca[4] = {O::A1, O::Y, O::Y, O::Z};
+    const int cb[4] = {O::DATT, O::DH0M, O::DH1M, O::DF0P};
     const int fd[4] = {PROJ_W, GCN_W0, GCN_W1, X0_W};
     return {ca[f] + 64 * i, cb[f] + 64 * k, fd[f], 64 * i * C + 64 * k, C,
             64, 64};
   }
-  j -= 16;
-  if (j < 2)  // x1_w [128, 16]: z x df1p
-    return {O_Z + 64 * j, O_DF1P, X1_W, 64 * j * C2, C2, 64, C2};
-  j -= 2;
-  if (j < 4)  // back_w0 [128, 128]: f0 x dx1
-    return {O_F0 + 64 * (j / 2), O_DX1 + 64 * (j % 2), BACK_W0,
-            64 * (j / 2) * C + 64 * (j % 2), C, 64, 64};
-  j -= 4;
-  if (j < 2)  // back_w1 [16, 128]: f1 x dx1
-    return {O_F1, O_DX1 + 64 * j, BACK_W1, 64 * j, C, C2, 64};
-  j -= 2;
-  if (j < 16)  // fc1_w [128, 512]: y2 x dpre
-    return {O_Y2 + 64 * (j / 8), O_DPRE + 64 * (j % 8), FC1_W,
-            64 * (j / 8) * HID + 64 * (j % 8), HID, 64, 64};
-  j -= 16;  // fc2_w [512, 128]: hhd x dmm2
-  return {O_HHD + 64 * (j / 2), O_DMM2 + 64 * (j % 2), FC2_W,
-          64 * (j / 2) * C + 64 * (j % 2), C, 64, 64};
+  j -= 4 * KC * KC;
+  if (j < KC)  // x1_w [C, C / 8]: z x df1p
+    return {O::Z + 64 * j, O::DF1P, X1_W, 64 * j * C2, C2, 64, C2};
+  j -= KC;
+  if (j < KC * KC)  // back_w0 [C, C]: f0 x dx1
+    return {O::F0 + 64 * (j / KC), O::DX1 + 64 * (j % KC), BACK_W0,
+            64 * (j / KC) * C + 64 * (j % KC), C, 64, 64};
+  j -= KC * KC;
+  if (j < KC)  // back_w1 [C / 8, C]: f1 x dx1
+    return {O::F1, O::DX1 + 64 * j, BACK_W1, 64 * j, C, C2, 64};
+  j -= KC;
+  if (j < KC * KH)  // fc1_w [C, 4C]: y2 x dpre
+    return {O::Y2 + 64 * (j / KH), O::DPRE + 64 * (j % KH), FC1_W,
+            64 * (j / KH) * HID + 64 * (j % KH), HID, 64, 64};
+  j -= KC * KH;  // fc2_w [4C, C]: hhd x dmm2
+  return {O::HHD + 64 * (j / KC), O::DMM2 + 64 * (j % KC), FC2_W,
+          64 * (j / KC) * C + 64 * (j % KC), C, 64, 64};
 }
 
 // One CTA per (weight tile, chunk of `per` rows): the chunk's rows staged
@@ -1089,16 +1148,16 @@ __device__ __forceinline__ WJob wjob(int j) {
 // on the tensor cores, the running sum in f32 registers (each chain added
 // rounded, in a fixed order); the tile written to the chunk's row of
 // `part` (every element of every weight field once per chunk).
-template <typename T>
+template <typename T, int C>
 __global__ void __launch_bounds__(NT) gat_block_wgrad(
     const T* __restrict__ ops, const int* __restrict__ goffs, float* part,
     long long pstride, int R, int per) {
-  using Pm = tc::Mma<T>;
+  using O = Ops<C>;
   constexpr int LD = 64 + 16 / (int)sizeof(T);
   extern __shared__ __align__(16) unsigned char sm[];
   T* As = reinterpret_cast<T*>(sm);  // [2][WR][LD]
   T* Bs = As + 2 * WR * LD;
-  const WJob job = wjob(blockIdx.x);
+  const WJob job = wjob<C>(blockIdx.x);
   const int rb = blockIdx.y * per, re = min(R, rb + per);
   const int nchunk = re > rb ? (re - rb + WR - 1) / WR : 0;
   const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
@@ -1108,8 +1167,8 @@ __global__ void __launch_bounds__(NT) gat_block_wgrad(
     const int r = rb + c * WR, n = min(WR, re - r);
     T* A = As + buf * WR * LD;
     T* B = Bs + buf * WR * LD;
-    tc::stage(A, LD, ops + (size_t)r * O_W + job.ca, O_W, n, 64);
-    tc::stage(B, LD, ops + (size_t)r * O_W + job.cb, O_W, n, 64);
+    tc::stage(A, LD, ops + (size_t)r * O::W + job.ca, O::W, n, 64);
+    tc::stage(B, LD, ops + (size_t)r * O::W + job.cb, O::W, n, 64);
     for (int i = threadIdx.x; i < (WR - n) * 64; i += NT) {
       A[(n + i / 64) * LD + i % 64] = Num<T>::from_float(0.0f);
       B[(n + i / 64) * LD + i % 64] = Num<T>::from_float(0.0f);
@@ -1194,16 +1253,16 @@ int wgrad_smem() {
   return 4 * WR * (64 + 16 / (int)sizeof(T)) * (int)sizeof(T);
 }
 
-template <typename T>
+template <typename T, int C>
 int run_bwd(Args<T> a, int ntiles, float* wpart, long long wstride,
             int nc_w, int wper, float* sgrads, float* wgrads,
             cudaStream_t s) {
-  int err = launch_smem(gat_block_bwd<T>, dim3(ntiles), Sm<T>::BWD_BYTES, s,
-                        a);
+  int err = launch_smem(gat_block_bwd<T, C>, dim3(ntiles),
+                        Sm<T, C>::BWD_BYTES, s, a);
   if (err != 0) return err;
-  err = launch_smem(gat_block_wgrad<T>, dim3(NWJOB, nc_w), wgrad_smem<T>(),
-                    s, (const T*)a.ops, a.goffs, wpart, wstride, a.B * a.J,
-                    wper);
+  err = launch_smem(gat_block_wgrad<T, C>, dim3(WJobs<C>::N, nc_w),
+                    wgrad_smem<T>(), s, (const T*)a.ops, a.goffs, wpart,
+                    wstride, a.B * a.J, wper);
   if (err != 0) return err;
   err = reduce_partials(wpart, nc_w, wstride, (int)wstride, wgrads, s);
   if (err != 0) return err;
@@ -1226,11 +1285,20 @@ int kernel_info(K kern, int smem, int what) {
   return what == 0 ? attr.numRegs : per;
 }
 
-template <typename T>
-int info(int kernel, int what) {
-  if (kernel == 0) return kernel_info(gat_block_fwd<T>, Sm<T>::FWD_BYTES, what);
-  if (kernel == 1) return kernel_info(gat_block_bwd<T>, Sm<T>::BWD_BYTES, what);
-  return kernel_info(gat_block_wgrad<T>, wgrad_smem<T>(), what);
+// the instance for (dtype, c): f(Tag<T, C>{}); -1 for a width not built
+template <typename T, int C>
+struct Tag {
+  using Type = T;
+  static constexpr int kC = C;
+};
+
+template <class F>
+int dispatch(int dtype, int c, F f) {
+  if (c == 128)
+    return dtype == 0 ? f(Tag<float, 128>{}) : f(Tag<__nv_bfloat16, 128>{});
+  if (c == 64)
+    return dtype == 0 ? f(Tag<float, 64>{}) : f(Tag<__nv_bfloat16, 64>{});
+  return -1;
 }
 
 }  // namespace gtrain
@@ -1239,96 +1307,97 @@ int info(int kernel, int what) {
 using gator::gtrain::Args;
 using gator::gtrain::make_args;
 
-// Columns of a row of the saved operands and cotangents (`ops`).
-extern "C" int gat_block_train_op_cols() { return gator::gtrain::O_W; }
+// Columns of a row of the saved operands and cotangents (`ops`) at embed
+// width c (-1 for a width the kernels are not built for).
+extern "C" int gat_block_train_op_cols(int c) {
+  return gator::gtrain::dispatch(0, c, [](auto tag) {
+    return gator::gtrain::Ops<decltype(tag)::kC>::W;
+  });
+}
 
 // Registers a thread (what = 0), CTAs resident per SM (1) or shared-memory
 // bytes (2) of gat_block_fwd (kernel = 0), gat_block_bwd (1) or
-// gat_block_wgrad (2) for dtype (0 = float32, 1 = bfloat16); -1 if the
-// query fails.
-extern "C" int gat_block_train_info(int dtype, int kernel, int what) {
-  if (dtype == 0) return gator::gtrain::info<float>(kernel, what);
-  return gator::gtrain::info<__nv_bfloat16>(kernel, what);
+// gat_block_wgrad (2) for dtype (0 = float32, 1 = bfloat16) and embed width
+// c; -1 if the query fails.
+extern "C" int gat_block_train_info(int dtype, int c, int kernel, int what) {
+  using namespace gator::gtrain;
+  return dispatch(dtype, c, [&](auto tag) {
+    using T = typename decltype(tag)::Type;
+    constexpr int C = decltype(tag)::kC;
+    if (kernel == 0)
+      return kernel_info(gat_block_fwd<T, C>, Sm<T, C>::FWD_BYTES, what);
+    if (kernel == 1)
+      return kernel_info(gat_block_bwd<T, C>, Sm<T, C>::BWD_BYTES, what);
+    return kernel_info(gat_block_wgrad<T, C>, wgrad_smem<T>(), what);
+  });
 }
 
 // Forward, one CTA per tile of G samples (ntiles = ceil(B / G)). dtype: 0 =
-// float32, 1 = bfloat16 (x, w, out, ops). ops: [B * J, op_cols]; x1s: [B * J,
-// 128] f32. thr/scl: (attn, proj, mlp, path) keep thresholds and scales.
-// masks (may be null): the export buffer, laid out attn [B,H,J,J] | proj
-// [B,J,C] | dp1 [B] | mlp1 [B,J,4C] | mlp2 [B,J,C] | dp2 [B]. Returns the
-// cudaError_t of the launch.
-extern "C" int gat_block_train_fwd(int dtype, const void* x, const void* bias,
-                                   const void* xm, const void* w,
-                                   const void* offs, void* out, void* ops,
-                                   void* x1s, void* masks, int B, int J,
-                                   int G, int ntiles, unsigned seed, int unit,
-                                   int sample0, unsigned t_attn, float s_attn,
-                                   unsigned t_proj, float s_proj,
-                                   unsigned t_mlp, float s_mlp,
+// float32, 1 = bfloat16 (x, w, out, ops); c: the embed width (128 or 64; 8
+// heads). ops: [B * J, op_cols(c)]; x1s: [B * J, c] f32. thr/scl: (attn,
+// proj, mlp, path) keep thresholds and scales. masks (may be null): the
+// export buffer, laid out attn [B,H,J,J] | proj [B,J,C] | dp1 [B] | mlp1
+// [B,J,4C] | mlp2 [B,J,C] | dp2 [B]. Returns the cudaError_t of the
+// launch, -1 for a width the kernels are not built for.
+extern "C" int gat_block_train_fwd(int dtype, int c, const void* x,
+                                   const void* bias, const void* xm,
+                                   const void* w, const void* offs,
+                                   void* out, void* ops, void* x1s,
+                                   void* masks, int B, int J, int G,
+                                   int ntiles, unsigned seed, int unit,
+                                   int sample0, unsigned t_attn,
+                                   float s_attn, unsigned t_proj,
+                                   float s_proj, unsigned t_mlp, float s_mlp,
                                    unsigned t_path, float s_path,
                                    void* stream) {
+  using namespace gator::gtrain;
   const unsigned thr[4] = {t_attn, t_proj, t_mlp, t_path};
   const float scl[4] = {s_attn, s_proj, s_mlp, s_path};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  using gator::gtrain::Sm;
-  if (dtype == 0) {
-    auto a = make_args<float>(x, bias, xm, w, offs, ops, x1s, B, J, G, seed,
-                              unit, sample0, thr, scl);
-    a.out = static_cast<float*>(out);
+  return dispatch(dtype, c, [&](auto tag) {
+    using T = typename decltype(tag)::Type;
+    constexpr int C = decltype(tag)::kC;
+    auto a = make_args<T>(x, bias, xm, w, offs, ops, x1s, B, J, G, seed,
+                          unit, sample0, thr, scl);
+    a.out = static_cast<T*>(out);
     a.masks = static_cast<float*>(masks);
-    return gator::gtrain::launch_smem(gator::gtrain::gat_block_fwd<float>,
-                                      dim3(ntiles), Sm<float>::FWD_BYTES, s,
-                                      a);
-  }
-  auto a = make_args<__nv_bfloat16>(x, bias, xm, w, offs, ops, x1s, B, J, G,
-                                    seed, unit, sample0, thr, scl);
-  a.out = static_cast<__nv_bfloat16*>(out);
-  a.masks = static_cast<float*>(masks);
-  return gator::gtrain::launch_smem(
-      gator::gtrain::gat_block_fwd<__nv_bfloat16>, dim3(ntiles),
-      Sm<__nv_bfloat16>::FWD_BYTES, s, a);
+    return launch_smem(gat_block_fwd<T, C>, dim3(ntiles),
+                       Sm<T, C>::FWD_BYTES, s, a);
+  });
 }
 
 // Backward: gat_block_bwd (one CTA per tile; the tiles' small gradients to
-// spart [ntiles, sstride]), gat_block_wgrad (68 weight tiles x nc_w chunks
-// of wper rows into wpart [nc_w, wstride]), then the two reductions in
-// order into wgrads [wstride] and sgrads [sstride] (f32). goffs: each
-// field's offset in its gradient row (the ten weights in wpart's, the rest
-// and the hop/path bias in spart's). ops and x1s as the forward left them.
+// spart [ntiles, sstride]), gat_block_wgrad (the weight tiles, 68 at c =
+// 128 and 18 at c = 64, x nc_w chunks of wper rows into wpart [nc_w,
+// wstride]), then the two reductions in order into wgrads [wstride] and
+// sgrads [sstride] (f32). goffs: each field's offset in its gradient row
+// (the ten weights in wpart's, the rest and the hop/path bias in spart's).
+// ops and x1s as the forward left them.
 extern "C" int gat_block_train_bwd(
-    int dtype, const void* x, const void* bias, const void* xm, const void* w,
-    const void* offs, const void* goffs, const void* gout, void* ops,
-    void* x1s, void* dx, void* spart, long long sstride, void* wpart,
-    long long wstride, void* sgrads, void* wgrads, int B, int J, int G,
-    int ntiles, int nc_w, int wper, unsigned seed, int unit, int sample0,
-    unsigned t_attn,
-    float s_attn, unsigned t_proj, float s_proj, unsigned t_mlp, float s_mlp,
-    unsigned t_path, float s_path, void* stream) {
+    int dtype, int c, const void* x, const void* bias, const void* xm,
+    const void* w, const void* offs, const void* goffs, const void* gout,
+    void* ops, void* x1s, void* dx, void* spart, long long sstride,
+    void* wpart, long long wstride, void* sgrads, void* wgrads, int B, int J,
+    int G, int ntiles, int nc_w, int wper, unsigned seed, int unit,
+    int sample0, unsigned t_attn, float s_attn, unsigned t_proj,
+    float s_proj, unsigned t_mlp, float s_mlp, unsigned t_path, float s_path,
+    void* stream) {
+  using namespace gator::gtrain;
   const unsigned thr[4] = {t_attn, t_proj, t_mlp, t_path};
   const float scl[4] = {s_attn, s_proj, s_mlp, s_path};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    auto a = make_args<float>(x, bias, xm, w, offs, ops, x1s, B, J, G, seed,
-                              unit, sample0, thr, scl);
+  return dispatch(dtype, c, [&](auto tag) {
+    using T = typename decltype(tag)::Type;
+    constexpr int C = decltype(tag)::kC;
+    auto a = make_args<T>(x, bias, xm, w, offs, ops, x1s, B, J, G, seed,
+                          unit, sample0, thr, scl);
     a.goffs = static_cast<const int*>(goffs);
-    a.gout = static_cast<const float*>(gout);
-    a.out = static_cast<float*>(dx);
+    a.gout = static_cast<const T*>(gout);
+    a.out = static_cast<T*>(dx);
     a.spart = static_cast<float*>(spart);
     a.sstride = sstride;
-    return gator::gtrain::run_bwd(a, ntiles, static_cast<float*>(wpart),
-                                  wstride, nc_w, wper,
-                                  static_cast<float*>(sgrads),
-                                  static_cast<float*>(wgrads), s);
-  }
-  auto a = make_args<__nv_bfloat16>(x, bias, xm, w, offs, ops, x1s, B, J, G,
-                                    seed, unit, sample0, thr, scl);
-  a.goffs = static_cast<const int*>(goffs);
-  a.gout = static_cast<const __nv_bfloat16*>(gout);
-  a.out = static_cast<__nv_bfloat16*>(dx);
-  a.spart = static_cast<float*>(spart);
-  a.sstride = sstride;
-  return gator::gtrain::run_bwd(a, ntiles, static_cast<float*>(wpart),
-                                wstride, nc_w, wper,
-                                static_cast<float*>(sgrads),
-                                static_cast<float*>(wgrads), s);
+    return run_bwd<T, C>(a, ntiles, static_cast<float*>(wpart), wstride,
+                         nc_w, wper, static_cast<float*>(sgrads),
+                         static_cast<float*>(wgrads), s);
+  });
 }

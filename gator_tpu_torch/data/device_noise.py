@@ -131,33 +131,39 @@ def wave_constants(device: torch.device):
     return t(((KPS_SIGMAS * 2) ** 2).astype(np.float32)), tuple(waves)
 
 
-def _annulus(draws: Draws, path, centers, r_lo, r_hi, k, reject, reject_r):
+def _annulus(draws: Draws, path, centers, r_lo, r_hi, k, reject, reject_r,
+             dtype: torch.dtype = torch.float32):
     """K candidates per row, uniform in the [r_lo, r_hi] annulus around
     centers [..., 2]; reject = [(other [..., 2], other_valid [...])]
     rejects points within reject_r (or the point's own radius when None)
     of the other centers. -> ((x, y) [..., K] each, accept [..., K]); the
-    coordinates stay apart (no [..., K, 2] tensor is made)."""
+    coordinates stay apart (no [..., K, 2] tensor is made). `dtype`: the
+    candidates' and distances' working type (f32 ships;
+    `tools.exp_noise_ablate` tries bf16)."""
     shp = (*centers.shape[:-1], k)
-    ang = draws.uniform(path + (0,), shp) * _TWO_PI
-    r = (draws.uniform(path + (1,), shp) * (r_hi - r_lo)[..., None]
-         + r_lo[..., None])
+    ang = draws.uniform(path + (0,), shp).to(dtype) * _TWO_PI
+    r = (draws.uniform(path + (1,), shp).to(dtype)
+         * (r_hi - r_lo).to(dtype)[..., None] + r_lo.to(dtype)[..., None])
+    centers = centers.to(dtype)
     px = centers[..., 0, None] + r * torch.cos(ang)
     py = centers[..., 1, None] + r * torch.sin(ang)
     mask = torch.ones(shp, dtype=torch.bool, device=centers.device)
     for other, ovalid in reject:
+        other = other.to(dtype)
         dx = px - other[..., 0, None]
         dy = py - other[..., 1, None]
         d = torch.sqrt(dx * dx + dy * dy)
-        rr = r if reject_r is None else reject_r[..., None]
+        rr = r if reject_r is None else reject_r.to(dtype)[..., None]
         mask = mask & torch.where(ovalid[..., None], d > rr, True)
     return (px, py), mask
 
 
 def _pick(draws: Draws, path, pts, mask):
     """Uniform pick among each row's accepted candidates -> (pt [..., 2],
-    ok [...]): the argmax of iid uniforms over the accepted set (an
-    all-rejected row picks index 0, as jnp.argmax does)."""
-    u = draws.uniform(path, mask.shape)
+    ok [...]): the argmax of iid uniforms (in the points' dtype) over the
+    accepted set (an all-rejected row picks index 0, as jnp.argmax
+    does)."""
+    u = draws.uniform(path, mask.shape).to(pts[0].dtype)
     sel = torch.where(mask, u, -1.0).argmax(-1, keepdim=True)
     return (torch.cat([c.gather(-1, sel) for c in pts], dim=-1),
             mask.any(-1))
@@ -170,6 +176,18 @@ def synthesize_pose_device(draws, joints: torch.Tensor, areas: torch.Tensor,
     [B, 17] (all visible by default, as the training path passes) ->
     [B, 17, 2], a row zeroed where no state had a candidate. `draws` is a
     `Draws` or a torch.Generator on the joints' device."""
+    return synthesize(draws, joints, areas, valid, k, k_miss)
+
+
+def synthesize(draws, joints: torch.Tensor, areas: torch.Tensor,
+               valid: torch.Tensor | None = None, k: int = 256,
+               k_miss: int = 512, dtype: torch.dtype = torch.float32,
+               pick=_pick) -> torch.Tensor:
+    """`synthesize_pose_device` with its levers open: `dtype` the
+    candidate math's working type (`_annulus`), `pick(draws, path, pts,
+    mask) -> (pt, ok)` the pick among a row's accepted candidates. The
+    defaults are the shipped form; `tools.exp_noise_ablate` measures the
+    others."""
     draws = _as_draws(draws)
     b = joints.shape[0]
     dev = joints.device
@@ -203,20 +221,21 @@ def synthesize_pose_device(draws, joints: torch.Tensor, areas: torch.Tensor,
         ks85w, ks50w, ks10w = ks85[:, J], ks50[:, J], ks10[:, J]
         zeros_r = torch.zeros((b, m), device=dev)
 
-        jit_pt, jit_ok = _pick(draws, (w, 0), *_annulus(
+        jit_pt, jit_ok = pick(draws, (w, 0), *_annulus(
             draws, (w, 1), gt, ks85w, ks50w, k, [(pair_pos, pair_valid)],
-            None))
-        good_pt, good_ok = _pick(draws, (w, 2), *_annulus(
+            None, dtype))
+        good_pt, good_ok = pick(draws, (w, 2), *_annulus(
             draws, (w, 3), gt, zeros_r, ks85w, k, [(pair_pos, pair_valid)],
-            None))
-        inv_pt, inv_ok = _pick(draws, (w, 4), *_annulus(
-            draws, (w, 5), pair_pos, zeros_r, ks50w, k, [(gt, ones)], None))
+            None, dtype))
+        inv_pt, inv_ok = pick(draws, (w, 4), *_annulus(
+            draws, (w, 5), pair_pos, zeros_r, ks50w, k, [(gt, ones)], None,
+            dtype))
         inv_ok = inv_ok & pair_valid
 
         mg_pts, mg_m = _annulus(draws, (w, 6), gt, ks50w, ks10w, k_miss,
-                                [(pair_pos, pair_valid)], ks50w)
+                                [(pair_pos, pair_valid)], ks50w, dtype)
         mp_pts, mp_m = _annulus(draws, (w, 7), pair_pos, ks50w, ks10w,
-                                k_miss, [(gt, ones)], ks50w)
+                                k_miss, [(gt, ones)], ks50w, dtype)
         mp_m = mp_m & pair_valid[..., None]
         n_g = mg_m.sum(-1)
         n_p = mp_m.sum(-1)
@@ -226,8 +245,8 @@ def synthesize_pose_device(draws, joints: torch.Tensor, areas: torch.Tensor,
         total = n_g + w_p
         take_pair = (draws.uniform((w, 8), (b, m))
                      * torch.clamp(total, min=1e-9)) < w_p
-        mg_pt, _ = _pick(draws, (w, 9), mg_pts, mg_m)
-        mp_pt, _ = _pick(draws, (w, 10), mp_pts, mp_m)
+        mg_pt, _ = pick(draws, (w, 9), mg_pts, mg_m)
+        mp_pt, _ = pick(draws, (w, 10), mp_pts, mp_m)
         miss_pt = torch.where(take_pair[..., None], mp_pt, mg_pt)
         miss_ok = total > 0
 
@@ -238,7 +257,7 @@ def synthesize_pose_device(draws, joints: torch.Tensor, areas: torch.Tensor,
         u = draws.uniform((w, 11), (b, m)) * torch.clamp(z, min=1e-12)
         state = torch.clamp(
             (u[..., None] >= torch.cumsum(probs, -1)).sum(-1), max=3)
-        cand = torch.stack([jit_pt, miss_pt, inv_pt, good_pt], dim=2)
+        cand = torch.stack([jit_pt, miss_pt, inv_pt, good_pt], dim=2).float()
         chosen = cand.gather(2, state[..., None, None].expand(b, m, 1, 2))
         synth = synth.index_copy(1, J, torch.where(
             (z <= 0)[..., None], 0.0, chosen[:, :, 0]))

@@ -12,6 +12,7 @@ from torch import nn
 
 from ..assets.bundle import GatorAssets
 from ..nn import MGCN, GraphLinear, HopPathEncoding
+from ..nn.gat_trunk import check_width
 from .gat import GAT, GatSpec
 from .mdr import MDR, Conv1dLen3, MdrSpec
 
@@ -102,7 +103,11 @@ def init_gator_(model: nn.Module, generator: torch.Generator) -> nn.Module:
 def build_gator(spec: GatorSpec, seed: int = 0,
                 device="cuda") -> GATOR:
     """A GATOR with seeded random weights, in eval mode, on `device` (the
-    card unless the caller asks for the CPU)."""
+    card unless the caller asks for the CPU). On the card the lifter's
+    (embed_dim, num_heads) must be one the GAT kernels take
+    (`nn.gat_trunk.check_width`)."""
+    if torch.device(device).type == "cuda":
+        check_width(spec.gat.embed_dim, spec.gat.num_heads)
     model = GATOR(spec)
     init_gator_(model, torch.Generator().manual_seed(seed))
     return model.eval().to(device)
@@ -110,7 +115,9 @@ def build_gator(spec: GatorSpec, seed: int = 0,
 
 def build_gat(spec: GatSpec, seed: int = 0, device="cuda") -> GAT:
     """A GAT lifter alone (stage 1) with seeded random weights, in eval
-    mode, on `device`."""
+    mode, on `device` (on the card, at a width the GAT kernels take)."""
+    if torch.device(device).type == "cuda":
+        check_width(spec.embed_dim, spec.num_heads)
     model = GAT(spec)
     init_gator_(model, torch.Generator().manual_seed(seed))
     return model.eval().to(device)

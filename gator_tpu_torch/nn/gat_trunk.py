@@ -9,6 +9,11 @@ lib/models/GAT.py:16-43).
 The trunk's weights are folded once per serving function by
 `fold_trunk_weights` into one packed tensor in the working dtype, and the
 matrices also into the kernel's weight panels (`pack_panels`).
+
+The kernel is built for the (embed width, heads) pairs of `WIDTHS`; every
+other width is derived from the embed width C as the JAX model derives it
+(qkv 3C, MLP hidden 4C, the second XFeat ring C / 8, head width C / 8).
+`check_width` refuses any other pair on the card, for K1 and K5 alike.
 """
 from __future__ import annotations
 
@@ -31,24 +36,22 @@ TRUNK_FIELDS = (
     "x0_w", "x0_b", "x1_w", "x1_b", "back_w", "back_b",
     "ln2_w", "ln2_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b",
 )
-# The kernel's products in the order it runs them ([in, out] sizes; `enum
-# Prod`), then the MLP's fc1 / fc2 in chunks of MLP_CHUNK hidden units.
-PRODUCTS = (("qkv_w", 128, 384), ("gcn_w1", 128, 128), ("proj_w", 128, 128),
-            ("gcn_w0", 128, 128), ("x0_w", 128, 128), ("x1_w", 128, 16),
-            ("back_w", 144, 128))
-PANEL_COLS, MLP_CHUNK, HIDDEN = 64, 64, 512
+PANEL_COLS, MLP_CHUNK = 64, 64
 
-EMBED, HEADS, RING2 = 128, 8, 16
+# (embed_dim, num_heads) pairs the GAT kernels K1 and K5 are built for
+# (`Width` in csrc/gat_trunk.cu and csrc/gat_trunk_train.cu)
+WIDTHS = ((64, 8), (128, 8))
+HEADS = 8
 JOINTS_MAX = 19              # `JMAX` of the kernel
-# token rows of a CTA's tile (`Tile<T>::RT`): 5 and 3 tiles of 16 rows
+# token rows of a CTA's tile (`Tile<T, C>::RT`): 5 and 3 tiles of 16 rows
 TILE_ROWS = {torch.bfloat16: 80, torch.float32: 48}
 SMEM_MAX = 232448            # bytes of shared memory a CTA can use
 
 _SIGNATURE = {
-    "gat_trunk_launch": [ctypes.c_int] + [ctypes.c_void_p] * 5 + [
+    "gat_trunk_launch": [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [
         ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-    "gat_trunk_info": [ctypes.c_int, ctypes.c_int],
+    "gat_trunk_info": [ctypes.c_int] * 3,
 }
 
 
@@ -60,23 +63,45 @@ class TrunkWeights(cuda_lib.Packed):
     panels: torch.Tensor
 
 
+def check_width(embed_dim: int, num_heads: int) -> None:
+    """Refuse an (embed_dim, num_heads) pair the GAT kernels K1 and K5 are
+    not built for; every CUDA build of a GAT model, serving function or
+    train step calls it before any launch. The plain versions take any
+    width."""
+    if (int(embed_dim), int(num_heads)) not in WIDTHS:
+        raise ValueError(
+            f"the GAT kernels K1 and K5 take (embed_dim, num_heads) in "
+            f"{list(WIDTHS)}, got ({embed_dim}, {num_heads})")
+
+
+def products(c: int) -> Tuple[Tuple[str, int, int], ...]:
+    """The kernel's products at embed width c in the order it runs them
+    ([in, out] sizes; `enum Prod`); the MLP's fc1 / fc2 follow in chunks
+    of MLP_CHUNK hidden units."""
+    c2 = c // 8
+    return (("qkv_w", c, 3 * c), ("gcn_w1", c, c), ("proj_w", c, c),
+            ("gcn_w0", c, c), ("x0_w", c, c), ("x1_w", c, c2),
+            ("back_w", c + c2, c))
+
+
 def panel_depth(dtype: torch.dtype) -> int:
-    """Rows of a weight panel (`Tile<T>::KP`): 64 in bf16, 32 in f32."""
+    """Rows of a weight panel (`Tile<T, C>::KP`): 64 in bf16, 32 in f32."""
     return 64 if dtype == torch.bfloat16 else 32
 
 
-def panel_order(kp: int) -> List[Tuple[str, int, int]]:
+def panel_order(kp: int, c: int) -> List[Tuple[str, int, int]]:
     """(matrix, first row, first column) of each [kp, 64] panel of a block
-    in the order the kernel takes them: each product's column panels, each
-    over its depth panels; then per chunk of MLP_CHUNK hidden units fc1's
-    depth panels and fc2's, column half by column half."""
+    at embed width c in the order the kernel takes them: each product's
+    column panels, each over its depth panels; then per chunk of MLP_CHUNK
+    hidden units fc1's depth panels and fc2's, column panel by column
+    panel."""
     order = []
-    for name, k, n in PRODUCTS:
+    for name, k, n in products(c):
         for c0 in range(0, n, PANEL_COLS):
             order += [(name, r0, c0) for r0 in range(0, k, kp)]
-    for h0 in range(0, HIDDEN, MLP_CHUNK):
-        order += [("fc1_w", r0, h0) for r0 in range(0, EMBED, kp)]
-        for c0 in range(0, EMBED, PANEL_COLS):
+    for h0 in range(0, 4 * c, MLP_CHUNK):
+        order += [("fc1_w", r0, h0) for r0 in range(0, c, kp)]
+        for c0 in range(0, c, PANEL_COLS):
             order += [("fc2_w", h0 + r0, c0)
                       for r0 in range(0, MLP_CHUNK, kp)]
     return order
@@ -92,12 +117,13 @@ def pack_panels(layers, dtype: torch.dtype) -> torch.Tensor:
     per = 16 // torch.empty((), dtype=dtype).element_size()
     pieces = PANEL_COLS // per
     device = layers[0]["qkv_w"].device
+    c = layers[0]["qkv_w"].shape[0]
     k = torch.arange(kp, device=device)
     swz = (k & 7) if dtype == torch.bfloat16 else (k & 7) << 1
     where = torch.arange(pieces, device=device)[None, :] ^ swz[:, None]
     out = []
     for layer in layers:
-        for name, r0, c0 in panel_order(kp):
+        for name, r0, c0 in panel_order(kp, c):
             w = layer[name]
             blk = w.new_zeros(kp, PANEL_COLS)
             part = w[r0:r0 + kp, c0:c0 + PANEL_COLS]
@@ -181,10 +207,11 @@ def gat_trunk_ref(x: torch.Tensor, bias: torch.Tensor, masks: torch.Tensor,
     return x.to(dt)
 
 
-def smem_bytes(dtype: torch.dtype) -> int:
-    """Shared memory of one CTA (`Tile<T>::BYTES`): per token row the f32
-    residual stream X (C + 4 floats) and, in the working dtype T padded by
-    16 bytes, Y (C), P (3C) and O (C + 16); then the ring's slots (4 in
+def smem_bytes(dtype: torch.dtype, c: int) -> int:
+    """Shared memory of one CTA at embed width c (`Tile<T, C>::BYTES`): per
+    token row the f32 residual stream X (C + 4 floats) and, in the working
+    dtype T padded by 16 bytes, Y (C), P (3C) and O (the XFeat concat C +
+    C / 8, padded to a multiple of 16); then the ring's slots (4 in
     bf16, 3 in f32) of a [KP, 64] weight panel (`panel_depth`); three
     [32, 32] tables in T, rows padded by 16 bytes (the hop-ring masks and
     the MGCN off-diagonal adjacency, zero past J); and, in f32, a block's
@@ -194,10 +221,11 @@ def smem_bytes(dtype: torch.dtype) -> int:
     e = 16 // t
     rows = TILE_ROWS[dtype]
     kp, slots = panel_depth(dtype), (4 if t == 2 else 3)
-    per_row = (EMBED + 4) * 4 + t * (
-        (EMBED + e) + (3 * EMBED + e) + (EMBED + RING2 + e))
+    c2 = c // 8
+    cfp = -(-(c + c2) // 16) * 16
+    per_row = (c + 4) * 4 + t * ((c + e) + (3 * c + e) + (cfp + e))
     tables = 3 * 32 * (32 + e) * t
-    consts = 12 * EMBED + RING2 + HIDDEN + 2 * JOINTS_MAX * EMBED
+    consts = 12 * c + c2 + 4 * c + 2 * JOINTS_MAX * c
     bias = HEADS * JOINTS_MAX * JOINTS_MAX
     return (rows * per_row + slots * kp * PANEL_COLS * t + tables
             + 4 * (consts + bias))
@@ -240,13 +268,14 @@ def _sms(device: torch.device) -> int:
     return _SMS[idx]
 
 
-def kernel_info(dtype: torch.dtype) -> Dict[str, int]:
+def kernel_info(dtype: torch.dtype, c: int) -> Dict[str, int]:
     """Registers a thread, CTAs resident per SM, shared-memory bytes, token
     rows a tile, threads a CTA, weight panels a block and panel depth of
-    the K1 kernel for `dtype`, from the current card."""
+    the K1 kernel for `dtype` at embed width c, from the current card."""
+    check_width(c, HEADS)
     lib = cuda_lib.load("gat_trunk", _SIGNATURE)
     code = cuda_lib.kernel_dtype(dtype)
-    return {what: lib.gat_trunk_info(code, w) for w, what in enumerate(
+    return {what: lib.gat_trunk_info(code, c, w) for w, what in enumerate(
         ("registers", "ctas_per_sm", "smem_bytes", "rows", "threads",
          "panels", "panel_depth"))}
 
@@ -255,10 +284,13 @@ def gat_trunk_cuda(x: torch.Tensor, bias: torch.Tensor, masks: torch.Tensor,
                    weights: TrunkWeights) -> torch.Tensor:
     """Launch csrc/gat_trunk.cu on CUDA tensors."""
     b, j, c = x.shape
-    if c != EMBED or bias.shape != (HEADS, j, j) or masks.shape != (2, j, j):
-        raise ValueError(f"gat_trunk kernel takes C={EMBED}, {HEADS} heads: "
-                         f"x {tuple(x.shape)}, bias {tuple(bias.shape)}, "
-                         f"masks {tuple(masks.shape)}")
+    check_width(c, bias.shape[0])
+    if (bias.shape != (HEADS, j, j) or masks.shape != (2, j, j)
+            or weights.layers[0]["qkv_w"].shape[0] != c):
+        raise ValueError(f"gat_trunk kernel: x {tuple(x.shape)}, bias "
+                         f"{tuple(bias.shape)}, masks {tuple(masks.shape)}, "
+                         f"weights of width "
+                         f"{weights.layers[0]['qkv_w'].shape[0]}")
     if x.dtype != weights.dtype:
         raise TypeError(f"x is {x.dtype}, weights are {weights.dtype}")
     for t in (bias, masks, weights.flat, weights.offsets, weights.panels):
@@ -273,7 +305,7 @@ def gat_trunk_cuda(x: torch.Tensor, bias: torch.Tensor, masks: torch.Tensor,
         return out
     plan = launch_plan(b, j, x.dtype, _sms(x.device))
     err = lib.gat_trunk_launch(
-        cuda_lib.kernel_dtype(x.dtype), x.data_ptr(), bias.data_ptr(),
+        cuda_lib.kernel_dtype(x.dtype), c, x.data_ptr(), bias.data_ptr(),
         masks.data_ptr(), weights.flat.data_ptr(), weights.offsets.data_ptr(),
         weights.flat.shape[1], weights.panels.data_ptr(),
         weights.flat.shape[0], out.data_ptr(), b, j, plan["g"],
@@ -288,8 +320,7 @@ def gat_trunk(x: torch.Tensor, bias: torch.Tensor, masks: torch.Tensor,
     """The GAT trunk: the CUDA kernel for a CUDA tensor, the plain version
     for a CPU tensor (and nothing else: no fallback between the two)."""
     if x.device.type == "cuda":
-        if num_heads != HEADS:
-            raise ValueError(f"gat_trunk kernel takes {HEADS} heads")
+        check_width(x.shape[-1], num_heads)
         return gat_trunk_cuda(x, bias, masks, weights)
     if x.device.type == "cpu":
         return gat_trunk_ref(x, bias, masks, weights, num_heads)

@@ -43,6 +43,7 @@ import torch.nn.functional as F
 from . import cuda_lib
 from .dropout_masks import (GAT_UNIT_BASE, M_ATTN0, M_DP1, M_DP2, M_MLP1,
                             M_MLP2, M_PROJ, keep_mask, keep_scale, threshold)
+from .gat_trunk import HEADS, check_width
 from .graph import symmetric_adjacency
 
 # per-block parameter keys, in the kernel's field order (`enum Field` in
@@ -56,10 +57,11 @@ BLOCK_PARAM_KEYS = (
     "fc1_w", "fc1_b", "fc2_w", "fc2_b",
 )
 
-EMBED, HEADS, HIDDEN, RING2, JOINTS_MAX = 128, 8, 512, 16, 32
+JOINTS_MAX = 32
 TILE_ROWS = 32               # token rows of a CTA's tile (csrc RT): G = 32 // J
 WGRAD_ROWS = 64              # rows of one gat_block_wgrad chain
-WGRAD_CHUNKS = 8             # row chunks of gat_block_wgrad (grid 68 x chunks)
+WGRAD_CHUNKS = 8             # row chunks of gat_block_wgrad (grid 68 x
+#                              chunks at C = 128, 18 x chunks at C = 64)
 GRID_MAX = 2 ** 31 - 1       # CTAs of a 1-D grid on the card
 
 # the ten matrices whose gradients gat_block_wgrad forms from `ops`; the other
@@ -69,12 +71,12 @@ WEIGHT_KEYS = ("qkv_w", "proj_w", "gcn_w0", "gcn_w1", "x0_w", "x1_w",
 
 _RATE_ARGS = [ctypes.c_uint, ctypes.c_float] * 4
 _SIGNATURE = {
-    "gat_block_train_op_cols": [],
-    "gat_block_train_info": [ctypes.c_int] * 3,
-    "gat_block_train_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 9
+    "gat_block_train_op_cols": [ctypes.c_int],
+    "gat_block_train_info": [ctypes.c_int] * 4,
+    "gat_block_train_fwd": [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
     + [ctypes.c_int] * 4 + [ctypes.c_uint, ctypes.c_int, ctypes.c_int]
     + _RATE_ARGS + [ctypes.c_void_p],
-    "gat_block_train_bwd": [ctypes.c_int] + [ctypes.c_void_p] * 11
+    "gat_block_train_bwd": [ctypes.c_int] * 2 + [ctypes.c_void_p] * 11
     + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong]
     + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
     + [ctypes.c_uint, ctypes.c_int, ctypes.c_int] + _RATE_ARGS
@@ -105,19 +107,22 @@ def launch_plan(b: int, j: int) -> Dict[str, int]:
             "nc_w": -(-rows // wper)}
 
 
-def partial_strides(j: int) -> Dict[str, int]:
+def partial_strides(j: int, c: int) -> Dict[str, int]:
     """Floats in a row of gat_block_wgrad's chunk partials (`weights`: the
-    ten WEIGHT_KEYS) and of a tile's small gradients (`small`)."""
-    lay = _layout(j, "cpu")
+    ten WEIGHT_KEYS) and of a tile's small gradients (`small`) at embed
+    width c."""
+    lay = _layout(j, c, "cpu")
     return {"weights": lay["gwstride"], "small": lay["gsstride"]}
 
 
-def kernel_info(dtype: torch.dtype) -> Dict[str, Dict[str, int]]:
+def kernel_info(dtype: torch.dtype, c: int) -> Dict[str, Dict[str, int]]:
     """Registers a thread, CTAs resident per SM and shared-memory bytes of
-    the three K5 kernels for `dtype`, from the current card."""
+    the three K5 kernels for `dtype` at embed width c, from the current
+    card."""
+    check_width(c, HEADS)
     lib = cuda_lib.load("gat_trunk_train", _SIGNATURE)
     code = cuda_lib.kernel_dtype(dtype)
-    return {name: {what: lib.gat_block_train_info(code, k, w)
+    return {name: {what: lib.gat_block_train_info(code, c, k, w)
                    for w, what in enumerate(("registers", "ctas_per_sm",
                                              "smem_bytes"))}
             for k, name in enumerate(("gat_block_fwd", "gat_block_bwd",
@@ -259,26 +264,27 @@ def gat_block_train_ref(x: torch.Tensor, bias: torch.Tensor,
 
 # --- the CUDA path ---------------------------------------------------------
 
-def _layout(j: int, device) -> Dict:
-    """Element offsets of the packed fields (8-aligned) and the weight
-    stride; the gradients' two rows: the ten WEIGHT_KEYS in a row of
+def _layout(j: int, c: int, device) -> Dict:
+    """Element offsets of the packed fields (8-aligned) at embed width c
+    and the weight stride; the gradients' two rows: the ten WEIGHT_KEYS in
+    a row of
     `wstride` (gat_block_wgrad's chunks), the other fields and the [H, J, J]
     hop/path bias in a row of `sstride` (a tile's sums); `goffs` gives each
     field's offset in its row, in the kernel's field order."""
-    key = (j, str(device))
+    key = (j, c, str(device))
     if key not in _LAYOUTS:
-        c = EMBED
+        c2, hidden = c // 8, 4 * c
         shapes = {
             "norm1_scale": (c,), "norm1_bias": (c,),
             "qkv_w": (c, 3 * c), "qkv_b": (3 * c,),
             "proj_w": (c, c), "proj_b": (c,),
             "gcn_w0": (c, c), "gcn_w1": (c, c), "gcn_m": (j, c),
             "gcn_adj_diag": (j, 1), "gcn_adj_off": (j, j), "gcn_b": (c,),
-            "x0_w": (c, c), "x0_b": (c,), "x1_w": (c, RING2),
-            "x1_b": (RING2,), "back_w0": (c, c), "back_w1": (RING2, c),
+            "x0_w": (c, c), "x0_b": (c,), "x1_w": (c, c2),
+            "x1_b": (c2,), "back_w0": (c, c), "back_w1": (c2, c),
             "back_b": (c,), "norm2_scale": (c,), "norm2_bias": (c,),
-            "fc1_w": (c, HIDDEN), "fc1_b": (HIDDEN,),
-            "fc2_w": (HIDDEN, c), "fc2_b": (c,),
+            "fc1_w": (c, hidden), "fc1_b": (hidden,),
+            "fc2_w": (hidden, c), "fc2_b": (c,),
         }
         offsets, pos = cuda_lib.field_offsets(
             np.prod(shapes[name]) for name in BLOCK_PARAM_KEYS)
@@ -306,12 +312,18 @@ _LAYOUTS: Dict = {}
 def _check(x: torch.Tensor, bias: torch.Tensor, masks_xfeat: torch.Tensor,
            params: Sequence[torch.Tensor], num_heads: int) -> None:
     b, j, c = x.shape
-    if (c != EMBED or num_heads != HEADS or not 1 <= j <= JOINTS_MAX
-            or bias.shape != (HEADS, j, j)
+    check_width(c, num_heads)
+    if (not 1 <= j <= JOINTS_MAX or bias.shape != (HEADS, j, j)
             or masks_xfeat.shape[-2:] != (j, j)):
-        raise ValueError(f"gat_trunk_train kernels take C={EMBED}, {HEADS} "
-                         f"heads and 1..{JOINTS_MAX} joints: x "
-                         f"{tuple(x.shape)}, bias {tuple(bias.shape)}")
+        raise ValueError(f"gat_trunk_train kernels take 1..{JOINTS_MAX} "
+                         f"joints: x {tuple(x.shape)}, bias "
+                         f"{tuple(bias.shape)}")
+    shapes = _layout(j, c, "cpu")["shapes"]
+    for name, t in zip(BLOCK_PARAM_KEYS, params):
+        if tuple(t.shape) != shapes[name]:
+            raise ValueError(f"gat_trunk_train: {name} is "
+                             f"{tuple(t.shape)}, x {tuple(x.shape)} needs "
+                             f"{shapes[name]}")
     cuda_lib.kernel_dtype(x.dtype)
     for t in (bias, masks_xfeat, *params):
         if t.device != x.device:
@@ -324,8 +336,9 @@ class GatBlockTrain(torch.autograd.Function):
     saves, per row, the operands the backward reads: `ops` in x's dtype and
     x1 in f32), backward `gat_block_bwd` (dx, the weight gradients'
     cotangent operands, each tile's small gradients), `gat_block_wgrad`
-    and the two fixed-order reductions. Inputs: x [B, J, 128] (f32 or
-    bf16), the hop/path bias [8, J, J] (gets a gradient), the XFeat masks
+    and the two fixed-order reductions. Inputs: x [B, J, C] (C = 128 or
+    64, `gat_trunk.WIDTHS`; f32 or bf16), the hop/path bias [8, J, J]
+    (gets a gradient), the XFeat masks
     [2, J, J] (constants), a `BlockCfg`, an optional dict that receives the
     exported masks, then the 25 parameters in BLOCK_PARAM_KEYS order. The
     output and dx are in x's dtype, as the JAX kernel writes them
@@ -336,7 +349,7 @@ class GatBlockTrain(torch.autograd.Function):
     def forward(ctx, x, bias, masks_xfeat, cfg: BlockCfg, export, *params):
         _check(x, bias, masks_xfeat, params, cfg.num_heads)
         b, j, c = x.shape
-        lay = _layout(j, x.device)
+        lay = _layout(j, c, x.device)
         lib = cuda_lib.load("gat_trunk_train", _SIGNATURE)
         x = x.contiguous()
         bias32 = bias.detach().float().contiguous()
@@ -344,18 +357,18 @@ class GatBlockTrain(torch.autograd.Function):
         w = cuda_lib.pack_fields(params, lay["offsets"], lay["wstride"],
                                  x.dtype)
         out = torch.empty_like(x)
-        ops = torch.empty(b * j, lib.gat_block_train_op_cols(),
+        ops = torch.empty(b * j, lib.gat_block_train_op_cols(c),
                           dtype=x.dtype, device=x.device)
         x1s = torch.empty(b * j, c, dtype=torch.float32, device=x.device)
         mask_buf = None
         if export is not None:
             mask_buf = torch.empty(
-                b * (HEADS * j * j + 2 * j * c + j * HIDDEN + 2),
+                b * (HEADS * j * j + 2 * j * c + j * 4 * c + 2),
                 dtype=torch.float32, device=x.device)
         if b > 0:
             plan = launch_plan(b, j)
             err = lib.gat_block_train_fwd(
-                cuda_lib.kernel_dtype(x.dtype), x.data_ptr(),
+                cuda_lib.kernel_dtype(x.dtype), c, x.data_ptr(),
                 bias32.data_ptr(), xm.data_ptr(), w.data_ptr(),
                 lay["offs_dev"].data_ptr(), out.data_ptr(), ops.data_ptr(),
                 x1s.data_ptr(),
@@ -375,7 +388,7 @@ class GatBlockTrain(torch.autograd.Function):
         cfg = ctx.cfg
         x, bias32, xm, w, ops, x1s, *params = ctx.saved_tensors
         b, j, c = x.shape
-        lay = _layout(j, x.device)
+        lay = _layout(j, c, x.device)
         lib = cuda_lib.load("gat_trunk_train", _SIGNATURE)
         gout = gout.to(x.dtype).contiguous()
         dx = torch.empty_like(x)
@@ -388,7 +401,7 @@ class GatBlockTrain(torch.autograd.Function):
             spart = torch.empty(plan["ntiles"], lay["gsstride"], **f32)
             wpart = torch.empty(plan["nc_w"], lay["gwstride"], **f32)
             err = lib.gat_block_train_bwd(
-                cuda_lib.kernel_dtype(x.dtype), x.data_ptr(),
+                cuda_lib.kernel_dtype(x.dtype), c, x.data_ptr(),
                 bias32.data_ptr(), xm.data_ptr(), w.data_ptr(),
                 lay["offs_dev"].data_ptr(), lay["goffs_dev"].data_ptr(),
                 gout.data_ptr(), ops.data_ptr(), x1s.data_ptr(),
@@ -413,7 +426,7 @@ class GatBlockTrain(torch.autograd.Function):
 def _split_masks(buf: torch.Tensor, b: int, j: int,
                  c: int) -> Dict[str, torch.Tensor]:
     sizes = [("attn", (b, HEADS, j, j)), ("proj", (b, j, c)),
-             ("dp1", (b, 1, 1)), ("mlp1", (b, j, HIDDEN)),
+             ("dp1", (b, 1, 1)), ("mlp1", (b, j, 4 * c)),
              ("mlp2", (b, j, c)), ("dp2", (b, 1, 1))]
     out, pos = {}, 0
     for name, shape in sizes:

@@ -5,8 +5,8 @@
 
 n processes, one per card over NCCL (or over gloo on the CPU with
 --device cpu), run the data-parallel surfaces at tiny shapes (640
-vertices, depth 2, and embed 128, not dryrun_multichip's 64, because K1
-and K5 take 128 channels only): the stage-2 step on a global batch of 2n;
+vertices, depth 2, embed 64 as dryrun_multichip): the stage-2 step on a
+global batch of 2n;
 sharded eval; sharded serving on a ragged batch of n + 1, padded, equal
 to the unsharded path; the `full`-mode step; the packed and device coco
 steps on the synthetic H36M + COCO + MuCo mix; the mesh-cache step, equal
@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 V = 640
-EMBED = 128
+EMBED = 64
 # the ranks are killed, and the run fails, after this many seconds
 TIMEOUT_S = 600
 

@@ -22,6 +22,7 @@ from .models.gator import GATOR
 from .models.mdr import conv1d_len3
 from .nn import (fold_stack_weights, fold_trunk_weights, gat_trunk,
                  gat_trunk_ref, lbf_stack, lbf_stack_ref, layer_norm32)
+from .nn.gat_trunk import check_width
 from .parallel import all_gather_rows, local_rows
 
 ServingFn = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
@@ -118,6 +119,8 @@ def serving_weights(model: GATOR, dtype: torch.dtype,
     spec = model.spec
     gat, mdr = model.pose_lifter, model.pose2mesh
     device = next(model.parameters()).device
+    if use_kernels and device.type == "cuda":
+        check_width(spec.gat.embed_dim, spec.gat.num_heads)
     with torch.no_grad():
         w = {k: v if ("running_" in k or not v.is_floating_point())
              else v.to(dtype) for k, v in model.state_dict().items()}

@@ -9,8 +9,13 @@ at B=2048 bf16 with 17 seeded random joint tokens, times K2
 CUDA events. Then the device time per launch of each of their kernels
 under torch.profiler, the registers ptxas gave each kernel of K2 and
 K2-layer (their build logs), and K2's plan on the card (keys per staged
-K/V chunk of its self-attention, CTAs per SM of both launches). Run it
-from two checkouts in one call to compare them on one card. `main`
+K/V chunk of its self-attention, CTAs per SM of both launches). For
+scale only (the port never calls it), `scaled_dot_product_attention` on
+the LBF self-attention's shapes over three layers (2 heads of 32 over the
+431 vertices, bf16): at B=2048, beside K2's and T1's self-attention
+launches, and at the train step's B=512 forward and forward plus
+backward, beside K4's `lbf_sa_fwd` and `lbf_sa_bwd_dq` + `lbf_sa_bwd_dkv`.
+Run it from two checkouts in one call to compare them on one card. `main`
 returns the numbers. Fails without a CUDA device.
 """
 from __future__ import annotations
@@ -48,6 +53,27 @@ def registers(lib: str) -> dict:
             if m and name:
                 out[name], name = int(m.group(1)), None
     return out
+
+
+def sdpa_ms(b: int, nv: int, layers: int = 3) -> dict:
+    """`scaled_dot_product_attention` on [b, 2, nv, 32] bf16 q/k/v, a call
+    per layer: forward ms and forward-plus-backward ms (CUDA events)."""
+    gen = torch.Generator().manual_seed(1)
+    q, k, v = (torch.randn(b, 2, nv, 32, generator=gen).to(
+        "cuda", torch.bfloat16).requires_grad_(True) for _ in range(3))
+    g = torch.randn(b, 2, nv, 32, generator=gen).to("cuda", torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def fwd():
+        with torch.no_grad():
+            for _ in range(layers):
+                sdpa(q, k, v)
+
+    def fwd_bwd():
+        for _ in range(layers):
+            torch.autograd.grad(sdpa(q, k, v), (q, k, v), g)
+
+    return {"forward": time_ms(fwd), "forward_backward": time_ms(fwd_bwd)}
 
 
 def main(argv=None):
@@ -102,8 +128,14 @@ def main(argv=None):
         for name, n in kerns.items():
             print(f"  {n:4d}  {lib}: {name}")
     print(f"K2 plan: {plan}")
+    sdpa = {"B=2048": sdpa_ms(BATCH, mdr.spec.coarse_num),
+            "B=512": sdpa_ms(512, mdr.spec.coarse_num)}
+    print("for scale, scaled_dot_product_attention, 3 layers of [B, 2, "
+          "431, 32] bf16: " + "; ".join(
+              f"{b_}: forward {t['forward']:.3f} ms, forward and backward "
+              f"{t['forward_backward']:.3f} ms" for b_, t in sdpa.items()))
     return {"card": card, "ms": ms, "kernel_ms": dict(kernels),
-            "registers": regs, "plan": plan}
+            "registers": regs, "plan": plan, "sdpa_ms": sdpa}
 
 
 if __name__ == "__main__":

@@ -1,8 +1,11 @@
 """The card's name and CUDA-event timing, shared by the tools and by
-chip_smoke.py. Both need a CUDA device."""
+chip_smoke.py (both need a CUDA device), and `measure`, which profiles a
+call on the card or times it on the host clock where a tool runs with
+--device cpu."""
 from __future__ import annotations
 
 import subprocess
+import time
 from typing import Callable
 
 import numpy as np
@@ -36,3 +39,20 @@ def time_ms(fn: Callable[[], object], reps: int = 5, calls: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return float(np.median(times))
+
+
+def measure(fn: Callable[[], object], cuda: bool, reps: int = 5) -> dict:
+    """fn() per call: on the card `profile_packed_step.profile`'s device
+    ms, launches, idle share and host ms; on the CPU the host ms alone
+    (median of `reps` calls after one warm-up), with no device number."""
+    if cuda:
+        from .profile_packed_step import profile
+        return profile(fn, reps)
+    fn()
+    t = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        t.append((time.perf_counter() - t0) * 1e3)
+    return {"host_ms": float(np.median(t)), "device_ms": None,
+            "launches": None, "idle_share": None}

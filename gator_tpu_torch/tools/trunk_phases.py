@@ -34,7 +34,7 @@ STAMPS = (
     ("    __syncthreads();\n    auto kv2", "    TS(1)\n", False),
     ("    // o = softmax(q k^T / 4 + bias) v, per sample and head\n",
      "    TS(2)\n", True),
-    ("      attention<T>(P, O, HB, R, rows, J);\n",
+    ("      attention<T, C>(P, O, HB, R, rows, J);\n",
      "    __syncthreads(); TS(3)\n", True),
     ("    // ZF = attn = rounded o @ Wproj + b (over the dead k, v)\n",
      "    TS(4)\n", True),
@@ -43,16 +43,18 @@ STAMPS = (
      "dead\n", "    TS(6)\n", False),
     ("    // XFeat ring projections: f0p -> P[:, 0:C], f1p -> P[:, ZC:ZC+C2]"
      "\n", "    __syncthreads(); TS(7)\n", False),
-    ("    product<T, P_X1>(ring, blk, mt, Y, L::LT,", "    TS(8)\n", False),
+    ("    product<T, C, P_X1>(ring, blk, mt, Y, L::LT,", "    TS(8)\n",
+     False),
     ("    // ring sums over each sample's hop masks -> O[:, 0:CF] (o is dead)"
      "\n", "    TS(9)\n", False),
     ("    // x += [f0, f1] @ Wback + b\n", "    __syncthreads(); TS(10)\n",
      False),
     ("    // x += fc2(gelu(fc1(LN2(x)))): per chunk of HC hidden units, fc1's"
      "\n", "    TS(11)\n", False),
-    ("    constexpr int P1 = Ring<T>::P1, P2 = Ring<T>::P2;\n",
+    ("    using RG = Ring<T, C>;\n",
      "    __syncthreads(); TS(12)\n", False),
-    ("      emit(acc2b, m0, n0, NP, NP, add);\n    }\n    __syncthreads();\n",
+    ("        emit(acc2[half], m0, n0, NP, half * NP, add);\n    }\n"
+     "    __syncthreads();\n",
      "    TS(13)\n", True),
 )
 HEAD = ("namespace gator {\nnamespace trunk {\n",
@@ -131,7 +133,7 @@ def main(argv=None):
         g = launch_plan(b, j, torch.bfloat16, sms)["g"]
         for _ in range(3):
             cuda_lib.check(dll.gat_trunk_launch(
-                1, x.data_ptr(), bias.data_ptr(), masks.data_ptr(),
+                1, 128, x.data_ptr(), bias.data_ptr(), masks.data_ptr(),
                 w.flat.data_ptr(), w.offsets.data_ptr(), w.flat.shape[1],
                 w.panels.data_ptr(), nblk, y.data_ptr(), b, j, g,
                 cuda_lib.stream_ptr(x)), "gat_trunk_launch")

@@ -181,21 +181,23 @@ def mdr_train_forward(mdr, x: torch.Tensor, seed: int,
 
 def make_fused_forward(spec, dtype: torch.dtype = torch.bfloat16,
                        rates=None, use_kernels: bool = True,
-                       gat_mlp_rate: float = 0.1):
+                       gat_mlp_rate: float = 0.1, gat_kernel=None):
     """-> fwd(model, pose2d, seed, sample0=0, world=None) -> (mesh, pose3d,
     new BatchNorm stats or None), the counterpart of
     gator_tpu/train/fused_forward.py:134 with both stacks on the training
     kernels (`use_kernels=False`: their plain versions, on any device).
     `rates`: the LBF rates (default from the spec); the GAT's come from
-    the spec, GatMlp's is `gat_mlp_rate`. A data-parallel rank passes the
-    global index of its first sample and its `world`."""
+    the spec, GatMlp's is `gat_mlp_rate`. `gat_kernel` (default:
+    `use_kernels`) sets the GAT trunk's apart. A data-parallel rank passes
+    the global index of its first sample and its `world`."""
     s = spec
+    gat_kernel = use_kernels if gat_kernel is None else gat_kernel
 
     def fwd(model, pose2d: torch.Tensor, seed: int, sample0: int = 0,
             world=None):
         b = pose2d.shape[0]
         pose2d = pose2d.reshape(b, s.gat.num_joint, 2).to(dtype)
-        trunk = gat_trunk_fn(s.gat, seed, use_kernels, gat_mlp_rate,
+        trunk = gat_trunk_fn(s.gat, seed, gat_kernel, gat_mlp_rate,
                              sample0)
         pose3d_flat, feat = gat_train_forward(model.pose_lifter, pose2d,
                                               dtype, trunk)

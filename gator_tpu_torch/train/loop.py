@@ -46,7 +46,8 @@ def make_gator_train_step(spec, faces: np.ndarray,
                           weights: losses.LossWeights,
                           dtype: torch.dtype = torch.float32,
                           use_kernels: bool = True, rates=None,
-                          gat_mlp_rate: float = 0.1, world=None) -> Callable:
+                          gat_mlp_rate: float = 0.1, world=None,
+                          gat_kernel=None) -> Callable:
     """Stage-2 step -> step(state, batch, seed, edge_enabled) -> metrics.
 
     batch (gator_tpu/train/loop.py:37-41): pose2d [B,J,2], mesh [B,V,3]
@@ -57,10 +58,15 @@ def make_gator_train_step(spec, faces: np.ndarray,
     then run in bf16 with f32 reductions, the rest of the loss in f32. The
     BatchNorm running stats (alpha=False) are updated in place. With
     `world`, the batch is this rank's rows of the global batch (module
-    docstring)."""
+    docstring). `gat_kernel` (default: `use_kernels`) runs the GAT trunk
+    on K5 or on its plain version apart from the LBF stack (a lever of
+    `tools.exp_train_ablate`). `step.forward_loss(state, batch, seed,
+    edge_enabled)` -> (the losses, the new BatchNorm stats or None) is the
+    step's forward and loss alone, on the same masks."""
     fwd = make_fused_forward(spec, dtype=dtype, rates=rates,
                              use_kernels=use_kernels,
-                             gat_mlp_rate=gat_mlp_rate)
+                             gat_mlp_rate=gat_mlp_rate,
+                             gat_kernel=gat_kernel)
     j_reg_np = np.asarray(j_regressor_target, dtype=np.float32)
     face_dtype = dtype if dtype != torch.float32 else None
 
@@ -69,12 +75,11 @@ def make_gator_train_step(spec, faces: np.ndarray,
         # copied to each device once, not on every step
         return torch.as_tensor(j_reg_np, device=device)
 
-    def step(state: TrainState, batch: Batch, seed: int,
-             edge_enabled: float = 1.0) -> Dict[str, torch.Tensor]:
+    def forward_loss(state: TrainState, batch: Batch, seed: int,
+                     edge_enabled: float = 1.0):
         no_tf32()
         model = state.model
         batch = _batch_on(batch, model)
-        state.optimizer.zero_grad(set_to_none=True)
         mesh, lift_pose, new_stats = fwd(
             model, batch["pose2d"], step_seed(seed, state.step),
             _sample0(batch, world), world)
@@ -88,6 +93,13 @@ def make_gator_train_step(spec, faces: np.ndarray,
             batch["lift_pose3d"], batch["mesh_valid"], batch["reg_valid"],
             batch["lift_valid"], faces, weights, edge_enabled,
             face_loss_dtype=face_dtype)
+        return out, new_stats
+
+    def step(state: TrainState, batch: Batch, seed: int,
+             edge_enabled: float = 1.0) -> Dict[str, torch.Tensor]:
+        model = state.model
+        state.optimizer.zero_grad(set_to_none=True)
+        out, new_stats = forward_loss(state, batch, seed, edge_enabled)
         out.total.backward()
         all_reduce_grads(list(model.parameters()), world)
         state.apply_gradients()
@@ -102,6 +114,7 @@ def make_gator_train_step(spec, faces: np.ndarray,
              "reg_joint": out.reg_joint.detach(),
              "lift_joint": out.lift_joint.detach()}, world)
 
+    step.forward_loss = forward_loss
     return step
 
 

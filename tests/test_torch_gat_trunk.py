@@ -107,12 +107,13 @@ def test_gat_trunk_ref_bf16_matches_jax_kernel(trunk_case):
     assert (diff == 0).mean() >= 0.5, (diff == 0).mean()
 
 
+@pytest.mark.parametrize("c", [128, 64])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_gat_trunk_tile_fits_one_cta(dtype):
-    """The kernel's shared memory (`Tile<T>::BYTES`, mirrored by
-    `smem_bytes`) fits a CTA, and its tile holds whole samples of the
-    largest skeleton it takes."""
-    assert smem_bytes(dtype) <= SMEM_MAX
+def test_gat_trunk_tile_fits_one_cta(dtype, c):
+    """The kernel's shared memory (`Tile<T, C>::BYTES`, mirrored by
+    `smem_bytes`) fits a CTA at both embed widths, and its tile holds
+    whole samples of the largest skeleton it takes."""
+    assert smem_bytes(dtype, c) <= SMEM_MAX
     assert TILE_ROWS[dtype] % 16 == 0 and TILE_ROWS[dtype] >= JOINTS_MAX
 
 
@@ -123,7 +124,7 @@ def test_gat_trunk_panels_hold_the_packed_matrices(trunk_case, dtype):
     every block exactly, zero past the matrices' edges."""
     weights = fold_trunk_weights(trunk_case[2].blocks, dtype, "cpu")
     kp = panel_depth(dtype)
-    order = panel_order(kp)
+    order = panel_order(kp, 128)
     per = 8 if dtype == torch.bfloat16 else 4
     panels = weights.panels.view(len(weights.layers), len(order), kp,
                                  64 // per, per)

@@ -8,7 +8,8 @@ Bars: f32 atol 1e-4; bf16 atol 5e-2 (sums taken in another order can flip
 a bf16 rounding of an intermediate). K1 at its tile edges (B=1, a ragged
 last tile, several tiles, the serving batch B=2048) and its geometry as
 the card reports it; K2 also at the serving batch B=2048, past the grid's
-65535 samples, its launch count and its plan (CTAs per SM).
+65535 samples, its launch count and its plan (CTAs per SM). K1 at embed
+width 64 (its other instance) as at 128.
 """
 import numpy as np
 import pytest
@@ -39,6 +40,18 @@ def model(request):
                        device="cuda")
 
 
+@pytest.fixture(scope="module")
+def model64():
+    """The human36 model at embed width 64 (8 heads)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assets = build_assets("human36", data_dirs=[], synthetic_vertex_num=890,
+                          seed=0)
+    return build_gator(GatorSpec.from_assets(assets, embed_dim=64, depth=2),
+                       seed=4, device="cuda")
+
+
 def _randn(rng, *shape):
     return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda()
 
@@ -57,6 +70,28 @@ def test_gat_trunk_kernel_matches_ref(model, dtype, batch):
         assert batch % plan["g"] != 0, plan
     rng = np.random.default_rng(batch)
     x = _randn(rng, batch, j, 128).to(dtype)
+    bias = _randn(rng, 8, j, j)
+    masks = gat.blocks[0].x_feat.masks
+    weights = fold_trunk_weights(gat.blocks, dtype, "cuda")
+    before = gat_trunk.launches
+    got = gat_trunk(x, bias, masks, weights, 8)
+    torch.cuda.synchronize()
+    assert gat_trunk.launches == before + 1
+    ref = gat_trunk_ref(x, bias, masks, weights, 8)
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [1, 300, 1001, 2048])
+def test_gat_trunk_kernel_matches_ref_at_embed_64(model64, dtype, batch):
+    """K1's C = 64 instance: head width 8, the XFeat concat 72 taken
+    zero-padded to 80."""
+    gat = model64.pose_lifter
+    j = gat.spec.num_joint
+    rng = np.random.default_rng(batch + 64)
+    x = _randn(rng, batch, j, 64).to(dtype)
     bias = _randn(rng, 8, j, j)
     masks = gat.blocks[0].x_feat.masks
     weights = fold_trunk_weights(gat.blocks, dtype, "cuda")
@@ -100,17 +135,18 @@ def test_wrappers_reject_what_the_kernels_do_not_take(model):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c", [128, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_gat_trunk_kernel_geometry_matches_the_wrapper(model, dtype):
-    """The kernel's tile rows and shared memory are the wrapper's, and one
-    CTA of it fits an SM."""
-    info = kernel_info(dtype)
+def test_gat_trunk_kernel_geometry_matches_the_wrapper(model, dtype, c):
+    """The kernel's tile rows and shared memory are the wrapper's at both
+    embed widths, and one CTA of it fits an SM."""
+    info = kernel_info(dtype, c)
     assert info["rows"] == TILE_ROWS[dtype]
-    assert info["smem_bytes"] == smem_bytes(dtype)
+    assert info["smem_bytes"] == smem_bytes(dtype, c)
     assert info["ctas_per_sm"] >= 1 and info["registers"] > 0
     assert info["threads"] == 4 * TILE_ROWS[dtype] + 32
     assert info["panel_depth"] == panel_depth(dtype)
-    assert info["panels"] == len(panel_order(panel_depth(dtype)))
+    assert info["panels"] == len(panel_order(panel_depth(dtype), c))
 
 
 def _lbf_case(model, dtype, batch, nv, seed):

@@ -9,7 +9,8 @@ Every exported mask must equal the plain hash's bit for bit. Bars on the
 output, the input gradients and every parameter gradient, each scaled by
 its max: f32 1e-4; bf16 5e-2 (sums taken in another order can flip a bf16
 rounding of an intermediate). Attention key biases have a zero true
-gradient and are left out of the scaled comparison.
+gradient and are left out of the scaled comparison. K5 at embed width 64
+(its other instance) as at 128.
 """
 import numpy as np
 import pytest
@@ -47,6 +48,18 @@ def model(request):
                           synthetic_vertex_num=890, seed=0)
     return build_gator(GatorSpec.from_assets(assets, depth=2), seed=3,
                        device="cuda")
+
+
+@pytest.fixture(scope="module")
+def model64():
+    """The human36 model at embed width 64 (8 heads)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assets = build_assets("human36", data_dirs=[], synthetic_vertex_num=890,
+                          seed=0)
+    return build_gator(GatorSpec.from_assets(assets, embed_dim=64, depth=2),
+                       seed=4, device="cuda")
 
 
 def _randn(rng, *shape):
@@ -126,6 +139,27 @@ def test_gat_trunk_train_kernels_match_plain(model, dtype, rates, batch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rates", sorted(K5_RATES))
+@pytest.mark.parametrize("batch", [1, 5, 512])
+def test_gat_trunk_train_kernels_match_plain_at_embed_64(model64, dtype,
+                                                         rates, batch):
+    """K5's C = 64 instance: head width 8, the 8-wide XFeat ring's
+    products of depth 8 (bf16: half an mma step, zero-padded)."""
+    gat = model64.pose_lifter
+    j = gat.spec.num_joint
+    rng = np.random.default_rng(batch + 64)
+    x0 = _randn(rng, batch, j, 64).to(dtype)
+    cot = _randn(rng, batch, j, 64).to(dtype)
+    got = _run_k5(gat, x0, cot, K5_RATES[rates], gat_trunk_train)
+    want = _run_k5(gat, x0, cot, K5_RATES[rates], gat_trunk_train_ref)
+    _check_masks(got[4], want[4])
+    for a, b in zip(got[:3], want[:3]):
+        assert _scaled(a, b) <= TOL[dtype]
+    _check_grads(got[3], want[3], TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gat_trunk_train_repeat_runs_bit_identical(model, dtype):
     """At the main path's batch (512 tiles, gat_block_wgrad's eight
     chunks): two runs with one seed agree bit for bit (output, dx, dbias,
@@ -189,8 +223,9 @@ def test_gat_block_train_takes_65537_samples(model):
 
 
 @pytest.mark.cuda
-def test_gat_trunk_train_kernels_fit_two_ctas_per_sm_in_bf16(model):
-    info = kernel_info(torch.bfloat16)
+@pytest.mark.parametrize("c", [128, 64])
+def test_gat_trunk_train_kernels_fit_two_ctas_per_sm_in_bf16(model, c):
+    info = kernel_info(torch.bfloat16, c)
     assert info["gat_block_fwd"]["ctas_per_sm"] >= 2, info
     assert info["gat_block_bwd"]["ctas_per_sm"] >= 2, info
 
