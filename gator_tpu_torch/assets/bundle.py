@@ -16,6 +16,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..profiling import span
 from . import graphs, mesh_sampling, skeletons, smpl_assets
 
 
@@ -73,8 +74,15 @@ def build_assets(
     (`base_data/smpl_mean_vertices.npy`, `base_data/mesh_downsampling.npz`,
     `Human36M/J_regressor_h36m_correct.npy`, `COCO/J_regressor_coco.npy`,
     SMPL pkls under `smpl/` or `base_data/`). Anything missing falls back to
-    the synthetic stand-ins.
+    the synthetic stand-ins. Runs in the set-up span setup.assets.
     """
+    with span("setup.assets", always=True):
+        return _assemble(input_joint_set, data_dirs, smpl_model,
+                         synthetic_vertex_num, seed)
+
+
+def _assemble(input_joint_set, data_dirs, smpl_model, synthetic_vertex_num,
+              seed) -> GatorAssets:
     data_dirs = data_dirs if data_dirs is not None else default_data_dirs()
     jset = skeletons.get_joint_set(input_joint_set)
 

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..precision import no_tf32
+from ..profiling import span
 from .base import GENDERS
 from .gt_synth import fit_valid_mask_fn, fitting_error_fn, mesh_cam_fn
 
@@ -132,9 +133,12 @@ def leaves_on(batch: Dict, device) -> Dict[str, torch.Tensor]:
 def with_assembly(step_fn: Callable, assemble: Callable) -> Callable:
     """`step(state, batch, *extra) = step_fn(state, assemble(state, batch,
     *extra), *extra)`, with the assembly exposed as `step.assemble` and the
-    wrapped step as `step.inner`."""
+    wrapped step as `step.inner`. The assembly in the step is the span
+    step.assemble, and the SMPL synthesis in it step.gt."""
     def step(state, batch, *extra):
-        return step_fn(state, assemble(state, batch, *extra), *extra)
+        with span("step.assemble"):
+            inner = assemble(state, batch, *extra)
+        return step_fn(state, inner, *extra)
 
     step.assemble = assemble
     step.inner = step_fn
@@ -250,14 +254,16 @@ def with_device_input_pipeline(step_fn: Callable, synth, table, jset, opts,
         """Rows -> (mesh_rel [B, V, 3] metres, valid [B, 1, 1]): the part
         of the targets that is the same in every epoch."""
         no_tf32()
-        jc = tbl["joint_cam"][idx]
-        jh = jc - jc[:, :1]
-        mesh_mm = _gendered_mesh_cam(
-            synth, tbl, genders, idx, tbl["pose"][idx], tbl["shape"][idx],
-            tbl["trans"][idx], tbl["cam_r"][idx], tbl["cam_t"][idx])
-        fit = fitting_error_fn(synth.j_reg_h36m, jh, mesh_mm)
-        return (((mesh_mm - jc[:, :1]) / 1000.0).float(),
-                fit_valid_mask_fn(fit, fitting_thr))
+        with span("step.gt"):
+            jc = tbl["joint_cam"][idx]
+            jh = jc - jc[:, :1]
+            mesh_mm = _gendered_mesh_cam(
+                synth, tbl, genders, idx, tbl["pose"][idx],
+                tbl["shape"][idx], tbl["trans"][idx], tbl["cam_r"][idx],
+                tbl["cam_t"][idx])
+            fit = fitting_error_fn(synth.j_reg_h36m, jh, mesh_mm)
+            return (((mesh_mm - jc[:, :1]) / 1000.0).float(),
+                    fit_valid_mask_fn(fit, fitting_thr))
 
     if mesh_cache:
         with torch.no_grad():

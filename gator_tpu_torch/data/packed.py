@@ -43,6 +43,7 @@ import torch
 from ..bodymodel.smpl import smpl_forward
 from ..nn.dropout_masks import step_seed
 from ..precision import no_tf32
+from ..profiling import span
 from . import processing
 from .augment import augm_params_batch
 from .base import input_pose2d
@@ -299,11 +300,12 @@ def with_packed_input_pipeline(step_fn: Callable, table: PackedTable,
     def mesh_rows(row):
         """Rows -> GT mesh target [B, V, 3] (metres, root-relative)."""
         no_tf32()
-        codes = tbl["gender"][row] if len(genders) > 1 else None
-        verts = gendered_smpl_verts(synth.params, genders, codes,
-                                    tbl["pose_eff"][row],
-                                    tbl["shape_eff"][row])
-        return (verts + tbl["offset_m"][row][:, None]).float()
+        with span("step.gt"):
+            codes = tbl["gender"][row] if len(genders) > 1 else None
+            verts = gendered_smpl_verts(synth.params, genders, codes,
+                                        tbl["pose_eff"][row],
+                                        tbl["shape_eff"][row])
+            return (verts + tbl["offset_m"][row][:, None]).float()
 
     if mesh_cache and stage == "gator":
         with torch.no_grad():
@@ -318,16 +320,18 @@ def with_packed_input_pipeline(step_fn: Callable, table: PackedTable,
         if noise_gen is not None:
             noise_gen.manual_seed(step_seed(int(seed) ^ _NOISE_SALT,
                                             state.step))
-            if want_coco_noise:
-                # noise on the 17 coco keypoints in crop space; the extra
-                # pelvis/neck rows pass through untouched
-                out = torch.cat([synthesize_pose_device(
-                    draws, out[:, :17], tbl["crop_area"][row]),
-                    out[:, 17:]], dim=1)
-            else:
-                noise = h36m_syn_error_device(
-                    draws, tbl["h36m_stats"], row.shape[0], input_shape)
-                out = out + noise * tbl["h36m_noise_on"][row][:, None, None]
+            with span("step.noise"):
+                if want_coco_noise:
+                    # noise on the 17 coco keypoints in crop space; the
+                    # extra pelvis/neck rows pass through untouched
+                    out = torch.cat([synthesize_pose_device(
+                        draws, out[:, :17], tbl["crop_area"][row]),
+                        out[:, 17:]], dim=1)
+                else:
+                    noise = h36m_syn_error_device(
+                        draws, tbl["h36m_stats"], row.shape[0], input_shape)
+                    out = out + noise * tbl["h36m_noise_on"][row][
+                        :, None, None]
         return flip_standardize(out, perm, input_shape, flips)
 
     def assemble(state, batch, seed, *extra):

@@ -20,6 +20,8 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
+from ..profiling import span
+
 CSRC = osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))), "csrc")
 BUILD_DIR = osp.join(osp.dirname(osp.dirname(CSRC)), "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -66,13 +68,15 @@ def build(name: str) -> Tuple[str, float]:
 
 def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
     """Build (if needed) and load lib<name>.so, declaring each C function's
-    argument types; every function returns a cudaError_t as int."""
+    argument types; every function returns a cudaError_t as int. The first
+    load of a library is the set-up span setup.kernels."""
     if name not in _LOADED:
-        lib = ctypes.CDLL(build(name)[0])
-        for fn, argtypes in signatures.items():
-            getattr(lib, fn).argtypes = list(argtypes)
-            getattr(lib, fn).restype = ctypes.c_int
-        _LOADED[name] = lib
+        with span("setup.kernels", always=True):
+            lib = ctypes.CDLL(build(name)[0])
+            for fn, argtypes in signatures.items():
+                getattr(lib, fn).argtypes = list(argtypes)
+                getattr(lib, fn).restype = ctypes.c_int
+            _LOADED[name] = lib
     return _LOADED[name]
 
 

@@ -18,9 +18,11 @@ and CUDA activities), in device ms per call:
     standardise), and the detector noise alone with its kernel launches;
   * the target gathers (lift augmentation, regression target, masks).
 With each: its kernel launches, the host-clock ms per call (median of
-five synchronised calls, unprofiled) and the device's idle share of that
-time. Prints them and writes them as JSON to --out. Fails without a CUDA
-device.
+five synchronised calls, unprofiled) and the device's idle share of the
+profiled window; for the whole step, each step.* span (step.assemble,
+step.noise, step.gt with the mesh cache off, and the inner step's) with
+its host ms, launches, device ms and the idle that opens in it. Prints them and writes them as JSON to --out. Fails
+without a CUDA device.
 """
 from __future__ import annotations
 
@@ -33,8 +35,7 @@ import time
 import numpy as np
 import torch
 
-from .profile_train import _device_us, _is_kernel
-from .timing import card_name
+from .timing import card_name, span_profile
 
 WARMUP, REPS = 3, 5
 CONFIG = "configs/gator_synthetic_flagship.yml"
@@ -42,9 +43,11 @@ CONFIG = "configs/gator_synthetic_flagship.yml"
 
 def profile(fn, reps: int = REPS):
     """fn() run WARMUP times, `reps` times each synchronised on the host
-    clock, then `reps` times under torch.profiler -> {device_ms, host_ms
-    (median, unprofiled), profiled_ms, launches, idle_share (of the
-    unprofiled host time)}, each per call."""
+    clock, then `reps` times in one profiled window (`span_profile`) ->
+    {device_ms, host_ms (median, unprofiled), profiled_ms, launches,
+    idle_share (the device's idle inside the profiled window), spans (the
+    step.* spans' host ms, launches, device ms and idle)}, each per
+    call."""
     for _ in range(WARMUP):
         fn()
     torch.cuda.synchronize()
@@ -54,24 +57,15 @@ def profile(fn, reps: int = REPS):
         fn()
         torch.cuda.synchronize()
         host.append((time.perf_counter() - t0) * 1e3)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
-    busy_us, launches = 0.0, 0
-    for evt in prof.key_averages():
-        if _is_kernel(evt):
-            busy_us += _device_us(evt)
-            launches += evt.count
-    device_ms = busy_us / 1e3 / reps
-    host_ms = float(np.median(host))
-    return {"device_ms": device_ms, "host_ms": host_ms,
-            "profiled_ms": window_ms / reps, "launches": launches / reps,
-            "idle_share": max(0.0, 1.0 - device_ms / host_ms)}
+    spans = span_profile(fn, reps)
+    window = spans["trace"]
+    return {"device_ms": window["device_ms"],
+            "host_ms": float(np.median(host)),
+            "profiled_ms": window["host_ms"],
+            "launches": window["launches"],
+            "idle_share": window["idle_ms"] / window["host_ms"],
+            "spans": {k: v for k, v in spans.items()
+                      if k.startswith("step.")}}
 
 
 def main(argv=None):
@@ -198,6 +192,11 @@ def main(argv=None):
               f"{p['idle_share']:.3f}  {name}")
     print(f"  detector noise: {100 * result['noise_share_of_step']:.1f} % "
           f"of the step's device time")
+    for name in ("device step, mesh cache on", "device step, mesh cache off"):
+        print(f"  {name}, per span (host ms, launches, device ms, idle ms):")
+        for span, f in pieces[name]["spans"].items():
+            print(f"  {f['host_ms']:10.3f} {f['launches']:9.1f} "
+                  f"{f['device_ms']:10.3f} {f['idle_ms']:10.3f}  {span}")
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)

@@ -15,9 +15,14 @@ False, seeded random weights) and times, in bf16 at batch PROF_BATCH
                  (below zero where three K2-layer calls take longer than
                  the K2 call inside mdr total);
   full serving   the whole `make_serving_fn` call.
-Each time is the median of 5 runs of 3 calls, by CUDA events. Prints the
-card's name and power limit and the JAX tool's lines; `main` returns the
-numbers. Fails without a CUDA device.
+Each time is the median of 5 runs of 3 calls, by CUDA events. Then, from
+one profiled window of 5 whole serving calls (CPU and CUDA activity,
+`timing.span_profile`), for the call's span `serve` and each of its
+stages (serve.gat_embed, serve.k1, serve.gat_head, serve.mdr_tokens,
+serve.k2, serve.head, serve.upsample): host ms, kernel launches, device
+ms and the device idle that opens inside it, per call. Prints the card's
+name and power limit, the JAX tool's lines and the stages; `main` returns
+the numbers. Fails without a CUDA device.
 """
 from __future__ import annotations
 
@@ -31,9 +36,12 @@ import torch
 
 from .. import serving
 from ..nn import extract_layer_params, lbf_layer, lbf_stack
-from .timing import card_name, time_ms
+from .timing import card_name, span_profile, time_ms
 
 DTYPE = torch.bfloat16
+STAGES = ("serve.gat_embed", "serve.k1", "serve.gat_head",
+          "serve.mdr_tokens", "serve.k2", "serve.head", "serve.upsample",
+          "serve")
 
 
 def make_stages(model, dtype: torch.dtype, batch: int, seed: int = 0
@@ -97,6 +105,8 @@ def main(argv=None):
     with torch.no_grad():
         ms = {name: time_ms(lambda fn=fn, a=a: fn(*a))
               for name, (fn, a) in stages.items()}
+        fn, a = stages["full serving"]
+        spans = span_profile(lambda: fn(*a), 5)
     ms["head+embeds"] = ms["mdr total"] - ms["lbf layers"]
     print(f"batch {b}, bf16, on {card}")
     print(f"  gat total      {ms['gat total']:8.3f} ms")
@@ -106,8 +116,16 @@ def main(argv=None):
     print(f"    lbf v3 stack {ms['lbf v3 stack']:8.3f} ms")
     print(f"    head+embeds  {ms['head+embeds']:8.3f} ms")
     print(f"  full serving   {ms['full serving']:8.3f} ms "
-          f"({b / ms['full serving'] * 1e3:,.0f} poses/s)", flush=True)
-    return {"card": card, "batch": b, "dtype": "bfloat16", "ms": ms}
+          f"({b / ms['full serving'] * 1e3:,.0f} poses/s)")
+    print("  per stage of a serving call (one profiled window of 5 calls):")
+    print("     host ms  launches  device ms    idle ms  span")
+    for name in STAGES:
+        f = spans[name]
+        print(f"  {f['host_ms']:10.3f} {f['launches']:9.1f} "
+              f"{f['device_ms']:10.3f} {f['idle_ms']:10.3f}  {name}")
+    sys.stdout.flush()
+    return {"card": card, "batch": b, "dtype": "bfloat16", "ms": ms,
+            "stages": {name: spans[name] for name in STAGES}}
 
 
 if __name__ == "__main__":

@@ -13,8 +13,11 @@ profiles five more with
 torch.profiler (CPU and CUDA activities). Prints the step time on the host
 clock (synchronised), the device time per kernel group (each launch of
 K5 and of K4, K4's and K5's gradient reductions apart, and the largest
-plain-torch kernels), and the device's busy and idle shares of the
-profiled window; writes the same as JSON to --out. Fails without a CUDA
+plain-torch kernels), the device's busy and idle shares of the profiled
+window, and for each of the step's spans (step.forward, step.loss,
+step.backward, step.allreduce, step.optimizer; `profiling.attribute`) its
+host ms, kernel launches, device ms and the device idle that opens inside
+it, per step; writes the same as JSON to --out. Fails without a CUDA
 device.
 
 The JSON also holds `kernel_digests`: a sha256 digest of every output,
@@ -47,14 +50,18 @@ import hashlib
 import json
 import os
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from .timing import card_name
+from .. import profiling
+from .timing import card_name, read_spans
 
 BATCH, STEPS = 512, 5
+SPANS = ("step.forward", "step.loss", "step.backward", "step.allreduce",
+         "step.optimizer")
 GROUPS = (
     ("gat_block_fwd", "K5 forward (gat_block_fwd)"),
     ("gat_block_bwd", "K5 backward, rows (gat_block_bwd)"),
@@ -377,22 +384,14 @@ def main(argv=None):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
-        t0 = time.perf_counter()
-        for _ in range(STEPS):
-            step()
-        torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as log_dir:
+        with profiling.trace(log_dir) as prof:
+            for _ in range(STEPS):
+                step()
+        spans = read_spans(log_dir, STEPS)
     groups = collections.OrderedDict((label, 0.0) for _, label in GROUPS)
     plain = collections.Counter()
-    optimizer_us = 0.0
     for evt in prof.key_averages():
-        if (getattr(evt, "is_user_annotation", False)
-                and evt.key.startswith("Optimizer.step")
-                and "CUDA" in str(getattr(evt, "device_type", ""))):
-            optimizer_us += _device_us(evt)
         if not _is_kernel(evt):
             continue
         us = _device_us(evt)
@@ -406,7 +405,8 @@ def main(argv=None):
     kernel_ms = {k: v / 1e3 / n for k, v in groups.items()}
     plain_ms = sum(plain.values()) / 1e3 / n
     busy = sum(kernel_ms.values()) + plain_ms
-    step_ms = window_ms / n
+    window = spans["trace"]
+    step_ms = window["host_ms"]
     result = {
         "card": card, "stage": args.stage, "batch": b, "dtype": "bfloat16",
         "joint_set": "human36",
@@ -415,14 +415,11 @@ def main(argv=None):
         "profiled_step_ms": step_ms,
         "device_ms_per_step": {**kernel_ms, "plain torch (all other kernels)":
                                plain_ms},
-        # the optimizer's range on the device (its kernels are part of the
-        # plain-torch total)
-        "optimizer_device_ms_per_step": optimizer_us / 1e3 / n,
         "device_busy_ms_per_step": busy,
-        # against the profiled window, and against the unprofiled step
-        "device_idle_share": max(0.0, 1.0 - busy / step_ms),
-        "device_idle_share_unprofiled": max(
-            0.0, 1.0 - busy / float(np.median(times))),
+        # the union of device intervals over the profiled window
+        "device_idle_share": window["idle_ms"] / window["host_ms"],
+        # per step: host ms, launches, device ms, idle opened in the span
+        "spans": {name: spans[name] for name in SPANS if name in spans},
         "plain_top": [(name, us / 1e3 / n)
                       for name, us in plain.most_common(12)],
         "kernel_digests": digests,
@@ -433,11 +430,12 @@ def main(argv=None):
     for label, ms in result["device_ms_per_step"].items():
         print(f"  {ms:9.3f} ms  {100 * ms / step_ms:5.1f} %  {label}")
     print(f"  device busy {busy:.3f} ms per step, idle share "
-          f"{result['device_idle_share']:.3f} of the profiled window, "
-          f"{result['device_idle_share_unprofiled']:.3f} of the unprofiled "
-          f"step")
-    print(f"  of the plain-torch time, the optimizer step: "
-          f"{result['optimizer_device_ms_per_step']:.3f} ms")
+          f"{result['device_idle_share']:.3f} of the profiled window")
+    print("  per span of a step:")
+    print("     host ms  launches  device ms    idle ms  span")
+    for name, f in result["spans"].items():
+        print(f"  {f['host_ms']:10.3f} {f['launches']:9.1f} "
+              f"{f['device_ms']:10.3f} {f['idle_ms']:10.3f}  {name}")
     print(f"  K4/K5 digests: {sum(len(d) for d in digests.values())}")
     print("  largest plain-torch kernels:")
     for name, ms in result["plain_top"]:

@@ -1,15 +1,21 @@
 """The card's name and CUDA-event timing, shared by the tools and by
-chip_smoke.py (both need a CUDA device), and `measure`, which profiles a
-call on the card or times it on the host clock where a tool runs with
---device cpu."""
+chip_smoke.py (both need a CUDA device); `span_profile`, which attributes
+one profiled window's launches, device time and idle to the program's
+spans (`profiling.attribute`); and `measure`, which profiles a call on the
+card or times it on the host clock where a tool runs with --device cpu."""
 from __future__ import annotations
 
+import json
+import os.path as osp
 import subprocess
+import tempfile
 import time
-from typing import Callable
+from typing import Callable, Dict
 
 import numpy as np
 import torch
+
+from .. import profiling
 
 
 def card_name() -> str:
@@ -41,9 +47,29 @@ def time_ms(fn: Callable[[], object], reps: int = 5, calls: int = 3) -> float:
     return float(np.median(times))
 
 
+def read_spans(log_dir: str, calls: int) -> Dict[str, dict]:
+    """`profiling.attribute` of the trace that `profiling.trace(log_dir)`
+    wrote, every figure divided by `calls` (the calls of the window)."""
+    with open(osp.join(log_dir, "trace.json")) as f:
+        got = profiling.attribute(json.load(f))
+    return {name: {k: v / calls for k, v in fig.items()}
+            for name, fig in got.items()}
+
+
+def span_profile(fn: Callable[[], object], calls: int) -> Dict[str, dict]:
+    """fn() `calls` times in one `profiling.trace` window (CPU and CUDA
+    activity) -> {span: {calls, host_ms, launches, device_ms, idle_ms}} per
+    call of fn (`read_spans`); the whole window is the span "trace"."""
+    with tempfile.TemporaryDirectory() as log_dir:
+        with profiling.trace(log_dir):
+            for _ in range(calls):
+                fn()
+        return read_spans(log_dir, calls)
+
+
 def measure(fn: Callable[[], object], cuda: bool, reps: int = 5) -> dict:
     """fn() per call: on the card `profile_packed_step.profile`'s device
-    ms, launches, idle share and host ms; on the CPU the host ms alone
+    ms, launches, idle share (of its profiled window) and host ms; on the CPU the host ms alone
     (median of `reps` calls after one warm-up), with no device number."""
     if cuda:
         from .profile_packed_step import profile

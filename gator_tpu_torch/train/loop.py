@@ -10,7 +10,10 @@ weights, the losses in f32, backward, and one optimizer step. The kernels'
 dropout seed for a step is `step_seed(seed, state.step)`, as the JAX steps
 fold the step counter into their PRNG key. TF32 is switched off for the
 step's f32 products (the JAX package pins Precision.HIGHEST for the joint
-regression, loop.py:96-97).
+regression, loop.py:96-97). A train step's phases are the spans
+step.forward, step.loss, step.backward, step.allreduce and step.optimizer
+(`profiling.span`, recorded while a torch.profiler session runs);
+`with_gt_synthesis`'s mesh synthesis is step.gt.
 
 Data parallelism (`world=`, a `parallel.World`): each rank takes its rows
 [r*b, (r+1)*b) of the global batch, keys its dropout masks from global
@@ -35,6 +38,7 @@ from .. import losses, metrics
 from ..nn.dropout_masks import step_seed
 from ..parallel import all_reduce_grads, all_reduce_mean
 from ..precision import no_tf32
+from ..profiling import span
 from .fused_forward import gat_train_forward, gat_trunk_fn, make_fused_forward
 from .state import TrainState
 
@@ -80,19 +84,22 @@ def make_gator_train_step(spec, faces: np.ndarray,
         no_tf32()
         model = state.model
         batch = _batch_on(batch, model)
-        mesh, lift_pose, new_stats = fwd(
-            model, batch["pose2d"], step_seed(seed, state.step),
-            _sample0(batch, world), world)
-        mesh = mesh.float()
-        lift_pose = lift_pose.float()
-        # mesh -> target-joint regression in mm, in true f32
-        pred_pose = torch.einsum("jv,bvc->bjc", j_reg_on(mesh.device),
-                                 mesh * 1000.0)
-        out = losses.gator_loss(
-            mesh, pred_pose, lift_pose, batch["mesh"], batch["reg_pose3d"],
-            batch["lift_pose3d"], batch["mesh_valid"], batch["reg_valid"],
-            batch["lift_valid"], faces, weights, edge_enabled,
-            face_loss_dtype=face_dtype)
+        with span("step.forward"):
+            mesh, lift_pose, new_stats = fwd(
+                model, batch["pose2d"], step_seed(seed, state.step),
+                _sample0(batch, world), world)
+        with span("step.loss"):
+            mesh = mesh.float()
+            lift_pose = lift_pose.float()
+            # mesh -> target-joint regression in mm, in true f32
+            pred_pose = torch.einsum("jv,bvc->bjc", j_reg_on(mesh.device),
+                                     mesh * 1000.0)
+            out = losses.gator_loss(
+                mesh, pred_pose, lift_pose, batch["mesh"],
+                batch["reg_pose3d"], batch["lift_pose3d"],
+                batch["mesh_valid"], batch["reg_valid"],
+                batch["lift_valid"], faces, weights, edge_enabled,
+                face_loss_dtype=face_dtype)
         return out, new_stats
 
     def step(state: TrainState, batch: Batch, seed: int,
@@ -100,9 +107,12 @@ def make_gator_train_step(spec, faces: np.ndarray,
         model = state.model
         state.optimizer.zero_grad(set_to_none=True)
         out, new_stats = forward_loss(state, batch, seed, edge_enabled)
-        out.total.backward()
-        all_reduce_grads(list(model.parameters()), world)
-        state.apply_gradients()
+        with span("step.backward"):
+            out.total.backward()
+        with span("step.allreduce"):
+            all_reduce_grads(list(model.parameters()), world)
+        with span("step.optimizer"):
+            state.apply_gradients()
         if new_stats is not None:
             bn = model.pose2mesh.bias_norm
             with torch.no_grad():
@@ -134,15 +144,22 @@ def make_gat_train_step(spec, dtype: torch.dtype = torch.float32,
         no_tf32()
         batch = _batch_on(batch, state.model)
         state.optimizer.zero_grad(set_to_none=True)
-        trunk = gat_trunk_fn(spec, step_seed(seed, state.step), use_kernels,
-                             mlp_rate, _sample0(batch, world))
-        pose3d, _ = gat_train_forward(state.model, batch["pose2d"], dtype,
-                                      trunk)
-        loss = losses.coord_l1_loss(pose3d.reshape(-1, j, 3).float(),
-                                    batch["joint_cam"], batch["joint_valid"])
-        loss.backward()
-        all_reduce_grads(list(state.model.parameters()), world)
-        state.apply_gradients()
+        with span("step.forward"):
+            trunk = gat_trunk_fn(spec, step_seed(seed, state.step),
+                                 use_kernels, mlp_rate,
+                                 _sample0(batch, world))
+            pose3d, _ = gat_train_forward(state.model, batch["pose2d"],
+                                          dtype, trunk)
+        with span("step.loss"):
+            loss = losses.coord_l1_loss(pose3d.reshape(-1, j, 3).float(),
+                                        batch["joint_cam"],
+                                        batch["joint_valid"])
+        with span("step.backward"):
+            loss.backward()
+        with span("step.allreduce"):
+            all_reduce_grads(list(state.model.parameters()), world)
+        with span("step.optimizer"):
+            state.apply_gradients()
         return all_reduce_mean({"loss": loss.detach()}, world)
 
     return step
@@ -229,16 +246,18 @@ def with_gt_synthesis(step_fn: Callable, synth, fitting_thr: float,
     def assemble(state, batch: Batch, *extra) -> Batch:
         no_tf32()
         b = {k: _on(v, synth.device) for k, v in batch.items()}
-        mesh_mm, _ = mesh_cam_fn(
-            synth.params[gender], synth.mean_betas[gender], b["smpl_pose"],
-            b["smpl_shape"], b["smpl_trans"], b["cam_r"], b["cam_t"])
         inner = {k: v for k, v in b.items() if k not in _RAW_BATCH_KEYS}
-        inner["mesh"] = ((mesh_mm - b["mesh_root_mm"]) / 1000.0).float()
-        # the fit-gate target is reg_pose3d (the root-relative h36m
-        # joints, not augmented on this path)
-        fit = fitting_error_fn(synth.j_reg_h36m, inner["reg_pose3d"],
-                               mesh_mm)
-        inner["mesh_valid"] = fit_valid_mask_fn(fit, fitting_thr)
+        with span("step.gt"):
+            mesh_mm, _ = mesh_cam_fn(
+                synth.params[gender], synth.mean_betas[gender],
+                b["smpl_pose"], b["smpl_shape"], b["smpl_trans"],
+                b["cam_r"], b["cam_t"])
+            inner["mesh"] = ((mesh_mm - b["mesh_root_mm"]) / 1000.0).float()
+            # the fit-gate target is reg_pose3d (the root-relative h36m
+            # joints, not augmented on this path)
+            fit = fitting_error_fn(synth.j_reg_h36m, inner["reg_pose3d"],
+                                   mesh_mm)
+            inner["mesh_valid"] = fit_valid_mask_fn(fit, fitting_thr)
         inner["lift_valid"] = torch.ones_like(inner["mesh_valid"])
         inner["reg_valid"] = torch.ones_like(inner["mesh_valid"])
         return inner

@@ -7,7 +7,7 @@ flax weights converted by `state_dict_from_jax`, within 1e-5;
 adjacencies, clusters and permutations; rescaled Laplacians within 1e-5,
 since the JAX package's ARPACK start vector is random), MANO (the same
 synthetic model, forward within 1e-5, the pickle loader on a file written
-here), `StepTimer` and `profiling.trace`.
+here) and `profiling.trace`.
 
 The coarsening comparisons give the JAX package's matching its degrees in
 float64. Its numpy form adds `d_v + d_u + 1e-9` in the degrees' float32,
@@ -318,17 +318,6 @@ def test_load_mano_pkl_matches_jax(tmp_path):
 
 
 # profiling
-
-def test_step_timer(monkeypatch):
-    clock = iter([10.0, 10.5, 11.5, 13.5])
-    monkeypatch.setattr(profiling.time, "perf_counter", lambda: next(clock))
-    timer = profiling.StepTimer(window=2)
-    assert timer.mean_step_time == 0.0 and timer.throughput(8) == 0.0
-    assert timer.tick() is None
-    assert [timer.tick() for _ in range(3)] == [0.5, 1.0, 2.0]
-    assert timer.mean_step_time == 1.5      # the window keeps the last two
-    assert timer.throughput(3) == 2.0
-
 
 def test_trace_writes_a_trace_file(tmp_path):
     with profiling.trace(str(tmp_path / "trace")):
