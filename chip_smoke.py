@@ -9,8 +9,9 @@ Phases, one line each:
   3. K1 against its plain version, full width, at B=1, 300 (a few
      tiles), 1001 (a ragged last tile) and 2048, J=17 and 19 (f32 within
      1e-4, bf16 reported);
-  4. K2 against its plain version, B=16 and the serving batch B=2048 (f32),
-     431 vertices, J=17 and 19;
+  4. K2 against its plain version, B=16 and the serving batch B=2048, 431
+     vertices, J=17 and 19 (f32 within 1e-4, bf16 within 5e-2; the
+     kernels line reports bf16's, the dtype phase 7 times);
   5. end to end: full-width synthetic 6890-vertex model, kernel path
      against the plain path (f32 within 1e-4 m; bf16 within 5e-2 m of f32);
   6. the serve CLI on 300 seeded COCO poses: this is the main path the
@@ -19,7 +20,9 @@ Phases, one line each:
      path beside its plain version (CUDA events, median of 5); K2's two
      launches (rows_kernel, lbf_selfattn_kernel) in device ms per serving
      call and K1's launch from torch.profiler, each beside its bound, with
-     K1's registers, CTAs per SM and shared bytes; K1 and the serving call
+     K1's registers, CTAs per SM and shared bytes and the plan of K2's bf16
+     rows kernel (csrc/lbf_rows_wg.cuh), whose launches the trace must show
+     under gator::lbf_wg and none of lbf_layer.cuh's; K1 and the serving call
      at B=1, 64 and 256, each beside its plain version.
 The training path (K4 csrc/lbf_stack_train.cu, K5 csrc/gat_trunk_train.cu):
   8. (a) K4 and K5 are built with the others in phase 2;
@@ -3345,26 +3348,28 @@ def run_phases(torch, dev, card, gate, gate_json):
                        + (" (bar 1e-4)" if dt == f32 else " (reported)"))
             del x, got, ref
 
-    # 4. K2 against its plain version, at B=16 and at the serving batch
+    # 4. K2 against its plain version, at B=16 and at the serving batch.
+    # bf16 takes its own rows kernel (csrc/lbf_rows_wg.cuh): its bar is the
+    # card tests' (sums in another order can flip a bf16 rounding), and its
+    # error is the kernels line's, since phase 7 times bf16
     for joint_set, model in models.items():
         mdr = model.pose2mesh
         j = mdr.spec.num_joint
-        for nb, dts in ((16, (f32, bf16)), (2048, (f32,))):
+        for nb in (16, 2048):
             verts, joints = randn(nb, coarse_v, 64), randn(nb, j, 64)
-            for dt in dts:
+            for dt, bar in ((f32, 1e-4), (bf16, 5e-2)):
                 w = fold_stack_weights(mdr, dt, dev)
                 got = lbf_stack(verts.to(dt), joints.to(dt), w, 2)
                 ref = lbf_stack_ref(verts.to(dt), joints.to(dt), w, 2)
                 torch.cuda.synchronize()
                 err = max_err(got, ref)
-                check(np.isfinite(err), f"K2 {dt} finite")
-                if dt == f32:
-                    check(err <= 1e-4,
-                          f"K2 f32 J={j} B={nb} err {err} <= 1e-4")
+                check(err <= bar,
+                      f"K2 {str(dt)[6:]} J={j} B={nb} err {err} <= {bar}")
+                if dt == bf16:
                     errs["lbf_stack"] = max(errs["lbf_stack"], err)
                 say(4, f"K2 lbf_stack J={j} B={nb} Nv={coarse_v} "
-                       f"{str(dt)[6:]}: max abs err {err:.3e} vs plain"
-                       + (" (bar 1e-4)" if dt == f32 else " (reported)"))
+                       f"{str(dt)[6:]}: max abs err {err:.3e} vs plain "
+                       f"(bar {bar:g})")
             del verts, joints, got, ref
 
     # 5. end to end, kernel path against plain path
@@ -3471,12 +3476,20 @@ def run_phases(torch, dev, card, gate, gate_json):
         for _ in range(3):
             lbf_stack(verts, joints, sw, 2)
         torch.cuda.synchronize()
+    rows_names = set()
     for evt in prof.key_averages():
         for key in k2_ms:
             if _is_kernel(evt) and key in evt.key:
                 k2_ms[key] += _device_us(evt) / 1e3 / 3
+                if key == "rows_kernel":
+                    rows_names.add(evt.key)
     check(all(v > 0 for v in k2_ms.values()),
           f"the profiler saw K2's two launches: {k2_ms}")
+    # bf16's rows launches run csrc/lbf_rows_wg.cuh's kernel, and none
+    # lbf_layer.cuh's (which f32, K2-layer and T1 keep)
+    check(any("lbf_wg::rows_kernel" in n for n in rows_names)
+          and not any("lbf_layer::rows_kernel" in n for n in rows_names),
+          f"bf16 K2's rows launches in the trace: {sorted(rows_names)}")
     k2_io = 3 * b * coarse_v * 64 * (4 + 4 + 6)
     k2_bounds = {
         "rows_kernel": bound(3 * b * fma_lbf_rows_fwd(coarse_v, 17), k2_io),
@@ -3484,11 +3497,19 @@ def run_phases(torch, dev, card, gate, gate_json):
             3 * b * (2 * coarse_v * coarse_v * 64 + coarse_v * 64 * 64),
             k2_io),
     }
+    from gator_tpu_torch.nn.lbf_stack import stack_plan
+    rp = stack_plan(bf16, coarse_v)
     say(7, f"K2 launches per serving call (3 layers, B={b} bf16) on {card}: "
            + "; ".join(
                f"{key} {k2_ms[key]:.3f} ms device (bound "
                f"{k2_bounds[key][0]:.3f} ms, {k2_bounds[key][1]}: "
-               f"{k2_io / 1e9:.2f} GB at 3.35 TB/s)" for key in k2_ms))
+               f"{k2_io / 1e9:.2f} GB at 3.35 TB/s)" for key in k2_ms)
+           + f"; the rows launch on {rp['rows_kernel']} (traced as "
+           f"{', '.join(sorted(rows_names))}): "
+           f"{rp['rows_ctas_per_sm']} CTA an SM of {rp['rows_warpgroups']} "
+           f"warpgroups, {rp['rows_tile']}-row tiles, "
+           f"{rp['rows_smem_bytes']} shared bytes, "
+           f"{rp['rows_registers']} registers")
 
     # K1 alone: device ms per launch (six blocks) from torch.profiler
     # beside its bound (x in and out, the weights once), and its registers,

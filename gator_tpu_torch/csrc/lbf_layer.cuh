@@ -1,7 +1,8 @@
 // One MDR LBF layer of unfolded weights, as two launches: the device code
 // shared by K2-layer (lbf_layer.cu) and T1 (lbf_ablate.cu). K2
-// (lbf_stack.cu) runs the row-local launch too, under T1's policy with an
-// f32 residual input; its self-attention is its own.
+// (lbf_stack.cu) runs the row-local launch too in f32, under T1's policy
+// with an f32 residual input (in bf16 it takes lbf_rows_wg.cuh's); its
+// self-attention is its own.
 //
 // The layer (reference: lib/models/MDR.py:139-153; gator_tpu/nn/
 // pallas_mdr.py:87 `_layer_math`):
@@ -28,7 +29,7 @@
 //                over the J joints, LN2, the MLP, the std-LN and the q2/k2/v2
 //                projections (T1's preproj and fold1dot project v2 through
 //                L3 here). Row-local modes write the layer's output here.
-//                K2 runs it too.
+//                K2 runs it in f32.
 //   attn_kernel: per (64-query tile, sample), both heads, one CTA of eight
 //                warps (four per head, 16 query rows each, q fragments in
 //                registers): the self-attention over all Nv keys on

@@ -12,17 +12,20 @@
 // Design. One head's 431 x 431 score tile is 743 KB in f32, more than a
 // CTA's 227 KB of shared memory, so the layer is cut where the rows stop
 // being independent:
-//   rows:         per (32-row tile, sample; 16 rows in f32): the
-//                 cross-attention over the whole J-key joint set, LN2, the
-//                 MLP, the std-LN and the q2/k2/v2 projections. Writes
-//                 y3 (f32) and q2/k2/v2 (T). This is lbf_layer.cuh's
-//                 `rows_kernel` (shared with
-//                 K2-layer and T1) under T1's rounding policy, which is
-//                 K2's: products and bias adds in f32, operands rounded to
-//                 T where they enter a product. Its design and bounds are
-//                 written there: every product on the tensor cores, the
-//                 weights through a two-slot cp.async ring, a persistent
-//                 grid whose CTAs prepare a sample's joints once.
+//   rows:         per (row tile, sample): the cross-attention over the
+//                 whole J-key joint set, LN2, the MLP, the std-LN and the
+//                 q2/k2/v2 projections. Writes y3 (f32) and q2/k2/v2 (T),
+//                 under T1's rounding policy, which is K2's: products and
+//                 bias adds in f32, operands rounded to T where they enter
+//                 a product. Two kernels, split on the dtype:
+//                 bf16, lbf_rows_wg.cuh's `rows_kernel`: one persistent
+//                 CTA an SM with the layer's weights resident in shared
+//                 memory, warpgroups on 64-row tiles, every product a
+//                 `wgmma` with A from registers. f32 (3xTF32),
+//                 lbf_layer.cuh's `rows_kernel` (shared with K2-layer and
+//                 T1): 16-row tiles, the weights through a two-slot
+//                 cp.async ring, `mma.sync`. Each file holds its design and
+//                 bounds.
 //   lbf_selfattn: per (64-query tile, sample), both heads, one CTA of
 //                 eight warps (four per head, 16 query rows each): the
 //                 two-pass attention of attn_tc.cuh (shared with K3) on
@@ -46,11 +49,13 @@
 // self-attention 52 GFMA (0.11 ms; 76 with pass 1's scores) against
 // 0.79 GB of q2/k2/v2 and y3 in and x' out (0.24 ms), and 760 M
 // exponentials twice. Both are bound by the bytes; measured on one H100
-// 80GB HBM3 at 700 W they take 2.26 and 1.41 ms a layer (chip_smoke.py,
-// tools/profile_lbf.py). bf16 products are exact, so only the f32 sums
-// reorder; f32 runs as 3xTF32 (mma.cuh), never single TF32.
+// 80GB HBM3 at 700 W the self-attention takes 1.41 ms a layer
+// (chip_smoke.py, tools/profile_lbf.py; the rows launch's time is in
+// lbf_rows_wg.cuh). bf16 products are exact, so only the f32 sums reorder;
+// f32 runs as 3xTF32 (mma.cuh), never single TF32.
 #include "attn_tc.cuh"
 #include "lbf_layer.cuh"
+#include "lbf_rows_wg.cuh"
 
 namespace gator {
 namespace lbf {
@@ -201,10 +206,15 @@ int selfattn_plan(int Nv, int* kc, int* ctas_per_sm) {
 
 // dtype: 0 = float32, 1 = bfloat16. Each returns the cudaError_t of its
 // launch. x, y3 and xout are f32 [B, Nv, 64]; joints, q2, k2, v2 are T.
-extern "C" int lbf_rows_launch(int dtype, const void* x, const void* joints,
-                               const void* weights, const void* offs,
-                               void* y3, void* q2, void* k2, void* v2, int B,
-                               int Nv, int J, void* stream) {
+// The rows launch takes lbf_rows_wg.cuh's kernel in bf16 and lbf_layer.cuh's
+// in f32, and counts each launch under the kernel it took;
+// lbf_rows_shared_launch runs lbf_layer.cuh's in either dtype, uncounted
+// (the card tests hold the two against each other).
+extern "C" int lbf_rows_shared_launch(int dtype, const void* x,
+                                      const void* joints,
+                                      const void* weights, const void* offs,
+                                      void* y3, void* q2, void* k2, void* v2,
+                                      int B, int Nv, int J, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using gator::lbf_layer::FULL;
   using gator::lbf_layer::launch_rows;
@@ -213,6 +223,44 @@ extern "C" int lbf_rows_launch(int dtype, const void* x, const void* joints,
         x, joints, weights, offs, y3, q2, k2, v2, nullptr, B, Nv, J, s);
   return launch_rows<__nv_bfloat16, false, FULL, float>(
       x, joints, weights, offs, y3, q2, k2, v2, nullptr, B, Nv, J, s);
+}
+
+namespace {
+
+// the rows kernels, as lbf_rows_launch and lbf_stack_plan index them
+enum RowsKernel { ROWS_SHARED = 0, ROWS_WG = 1 };
+
+RowsKernel rows_kernel_of(int dtype) {
+  return dtype == 0 ? ROWS_SHARED : ROWS_WG;
+}
+
+// lbf_rows_launch's launches in this process, by RowsKernel
+long long rows_launched[2];
+
+}  // namespace
+
+extern "C" int lbf_rows_launch(int dtype, const void* x, const void* joints,
+                               const void* weights, const void* offs,
+                               void* y3, void* q2, void* k2, void* v2, int B,
+                               int Nv, int J, void* stream) {
+  const RowsKernel kern = rows_kernel_of(dtype);
+  const int err =
+      kern == ROWS_SHARED
+          ? lbf_rows_shared_launch(dtype, x, joints, weights, offs, y3, q2,
+                                   k2, v2, B, Nv, J, stream)
+          : gator::lbf_wg::launch_rows(x, joints, weights, offs, y3, q2, k2,
+                                       v2, B, Nv, J,
+                                       static_cast<cudaStream_t>(stream));
+  if (err == 0) ++rows_launched[kern];
+  return err;
+}
+
+// lbf_rows_launch's launches so far, by RowsKernel: out[0] lbf_layer.cuh's,
+// out[1] lbf_rows_wg.cuh's. Returns 0.
+extern "C" int lbf_rows_launch_counts(long long* out) {
+  out[ROWS_SHARED] = rows_launched[ROWS_SHARED];
+  out[ROWS_WG] = rows_launched[ROWS_WG];
+  return 0;
 }
 
 extern "C" int lbf_selfattn_launch(int dtype, const void* q2, const void* k2,
@@ -227,36 +275,44 @@ extern "C" int lbf_selfattn_launch(int dtype, const void* q2, const void* k2,
                                                     offs, xout, B, Nv, s);
 }
 
-// The self-attention launch's plan (keys per K/V chunk, CTAs per SM) and
-// the rows launch's CTAs per SM at Nv keys. Returns a cudaError_t.
-extern "C" int lbf_stack_plan(int dtype, int Nv, int* kc, int* sa_ctas,
-                              int* rows_ctas) {
-  using gator::lbf_layer::FULL;
-  using gator::lbf_layer::NT_ROWS;
-  using gator::lbf_layer::RowsSmem;
-  using gator::lbf_layer::rows_kernel;
-  int err;
-  if (dtype == 0) {
-    err = gator::lbf::selfattn_plan<float>(Nv, kc, sa_ctas);
-    auto kern = rows_kernel<float, false, FULL, float>;
-    if (err == 0)
-      err = (int)cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          RowsSmem<float>::BYTES);
-    if (err == 0)
-      err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          rows_ctas, kern, NT_ROWS, RowsSmem<float>::BYTES);
-    return err;
-  }
-  using bf16 = __nv_bfloat16;
-  err = gator::lbf::selfattn_plan<bf16>(Nv, kc, sa_ctas);
-  auto kern = rows_kernel<bf16, false, FULL, float>;
-  if (err == 0)
-    err = (int)cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        RowsSmem<bf16>::BYTES);
+namespace {
+
+// lbf_layer.cuh's rows_kernel for T, under K2's policy: rows[0] CTAs an
+// SM, [1] rows a tile, [2] shared bytes, [3] registers
+template <typename T>
+int shared_rows_plan(int* rows) {
+  using namespace gator::lbf_layer;
+  auto kern = rows_kernel<T, false, FULL, float>;
+  const int smem = RowsSmem<T>::BYTES;
+  cudaFuncAttributes attr;
+  int err = (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == 0)
     err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        rows_ctas, kern, NT_ROWS, RowsSmem<bf16>::BYTES);
+        &rows[0], kern, NT_ROWS, smem);
+  if (err == 0) err = (int)cudaFuncGetAttributes(&attr, kern);
+  rows[1] = RowsSmem<T>::TR;
+  rows[2] = smem;
+  rows[3] = err == 0 ? attr.numRegs : 0;
+  rows[4] = 0;
   return err;
+}
+
+}  // namespace
+
+// The self-attention launch's plan (keys per K/V chunk, CTAs per SM) at Nv
+// keys, and the plan of the rows kernel that lbf_rows_launch takes in that
+// dtype: rows[0] CTAs an SM, [1] rows a tile, [2] shared bytes, [3]
+// registers a thread, [4] warpgroups a CTA (0: lbf_layer.cuh's kernel,
+// which has none of its own), [5] the kernel (RowsKernel). Returns a
+// cudaError_t.
+extern "C" int lbf_stack_plan(int dtype, int Nv, int* kc, int* sa_ctas,
+                              int* rows) {
+  rows[5] = rows_kernel_of(dtype);
+  if (dtype == 0) {
+    const int err = gator::lbf::selfattn_plan<float>(Nv, kc, sa_ctas);
+    return err != 0 ? err : shared_rows_plan<float>(rows);
+  }
+  const int err = gator::lbf::selfattn_plan<__nv_bfloat16>(Nv, kc, sa_ctas);
+  return err != 0 ? err : gator::lbf_wg::plan(rows);
 }

@@ -7,13 +7,17 @@ one layer is gator_tpu/nn/pallas_mdr.py:87 `_layer_math` (reference:
 lib/models/MDR.py:139-153).
 
 Per layer the kernel path makes two launches, both on the tensor cores:
-`lbf_rows` (everything that is local to a vertex row: the row-local kernel
-of csrc/lbf_layer.cuh, which K2-layer and T1 share) and `lbf_selfattn` (the
-Nv x Nv self-attention in two passes, the normalised probabilities rounded
-to the working dtype, then L3 and the residual; csrc/attn_tc.cuh, shared
-with K3). The residual stream between layers stays f32; the result is cast
-to the working dtype once. Any batch size: the rows launch has a 1-D grid,
-the self-attention launches again past the grid's 65535 samples.
+`lbf_rows` (everything that is local to a vertex row) and `lbf_selfattn`
+(the Nv x Nv self-attention in two passes, the normalised probabilities
+rounded to the working dtype, then L3 and the residual; csrc/attn_tc.cuh,
+shared with K3). The rows launch takes one of two kernels by dtype: in
+bf16 csrc/lbf_rows_wg.cuh's, written for Hopper (weights resident in shared
+memory, warpgroups on 64-row tiles, `wgmma`); in f32 csrc/lbf_layer.cuh's,
+which K2-layer and T1 share; `rows_launches` reads how many launches the
+C entry sent to each. The residual stream between layers stays f32; the
+result is cast to the working dtype once. Any batch size: the rows launch
+has a 1-D persistent grid, the self-attention launches again past the
+grid's 65535 samples.
 """
 from __future__ import annotations
 
@@ -26,14 +30,23 @@ from . import cuda_lib
 from .layers import layer_norm32, std_layer_norm
 from .lbf_layer import EMBED, HEADS, JOINTS_MAX, extract_layer_params
 
+_ROWS_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 \
+    + [ctypes.c_void_p]
 _SIGNATURE = {
-    "lbf_rows_launch": [ctypes.c_int] + [ctypes.c_void_p] * 8
-    + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "lbf_rows_launch": _ROWS_ARGS,
+    # lbf_layer.cuh's rows kernel in either dtype, for the card tests
+    "lbf_rows_shared_launch": _ROWS_ARGS,
+    "lbf_rows_launch_counts": [ctypes.c_void_p],
     "lbf_selfattn_launch": [ctypes.c_int] + [ctypes.c_void_p] * 7
     + [ctypes.c_int] * 2 + [ctypes.c_void_p],
     "lbf_stack_plan": [ctypes.c_int] * 2
     + [ctypes.POINTER(ctypes.c_int)] * 3,
 }
+
+
+# the rows kernels, in the order the C entry counts and plans them:
+# csrc/lbf_layer.cuh's (f32) and csrc/lbf_rows_wg.cuh's (bf16)
+ROWS_KERNELS = ("lbf_layer", "lbf_rows_wg")
 
 
 def fold_stack_weights(mdr, dtype: torch.dtype, device) -> cuda_lib.Packed:
@@ -139,17 +152,33 @@ def lbf_stack_cuda(verts: torch.Tensor, joints: torch.Tensor,
     return out.copy_(x)
 
 
+def rows_launches() -> dict:
+    """The rows launches the C entry has made in this process, by the
+    kernel it took (`ROWS_KERNELS`)."""
+    lib = cuda_lib.load("lbf_stack", _SIGNATURE)
+    counts = (ctypes.c_longlong * len(ROWS_KERNELS))()
+    cuda_lib.check(lib.lbf_rows_launch_counts(counts),
+                   "lbf_rows_launch_counts")
+    return dict(zip(ROWS_KERNELS, counts))
+
+
 def stack_plan(dtype: torch.dtype, nv: int) -> dict:
     """The launches' plan on the current CUDA device at `nv` vertices:
-    keys per staged K/V chunk of the self-attention and the CTAs an SM
-    holds of each launch."""
+    keys per staged K/V chunk of the self-attention and its CTAs an SM;
+    the rows kernel the C entry takes in the dtype (`ROWS_KERNELS`) and its
+    CTAs an SM, rows a tile, shared bytes, registers a thread and
+    warpgroups a CTA (0 for lbf_layer.cuh's kernel)."""
     lib = cuda_lib.load("lbf_stack", _SIGNATURE)
-    kc, sa, rows = (ctypes.c_int() for _ in range(3))
+    kc, sa = ctypes.c_int(), ctypes.c_int()
+    rows = (ctypes.c_int * 6)()
     cuda_lib.check(lib.lbf_stack_plan(cuda_lib.kernel_dtype(dtype), nv,
                                       ctypes.byref(kc), ctypes.byref(sa),
-                                      ctypes.byref(rows)), "lbf_stack_plan")
+                                      rows), "lbf_stack_plan")
     return {"chunk_keys": kc.value, "selfattn_ctas_per_sm": sa.value,
-            "rows_ctas_per_sm": rows.value}
+            "rows_kernel": ROWS_KERNELS[rows[5]],
+            "rows_ctas_per_sm": rows[0], "rows_tile": rows[1],
+            "rows_smem_bytes": rows[2], "rows_registers": rows[3],
+            "rows_warpgroups": rows[4]}
 
 
 def lbf_stack(verts: torch.Tensor, joints: torch.Tensor,

@@ -9,7 +9,9 @@ at B=2048 bf16 with 17 seeded random joint tokens, times K2
 CUDA events. Then the device time per launch of each of their kernels
 under torch.profiler, the registers ptxas gave each kernel of K2 and
 K2-layer (their build logs), and K2's plan on the card (keys per staged
-K/V chunk of its self-attention, CTAs per SM of both launches). For
+K/V chunk of its self-attention, CTAs per SM of both launches, and the
+rows kernel bf16 takes with its tile rows, shared bytes, registers and
+warpgroups). For
 scale only (the port never calls it), `scaled_dot_product_attention` on
 the LBF self-attention's shapes over three layers (2 heads of 32 over the
 431 vertices, bf16): at B=2048, beside K2's and T1's self-attention

@@ -9,7 +9,11 @@ a bf16 rounding of an intermediate). K1 at its tile edges (B=1, a ragged
 last tile, several tiles, the serving batch B=2048) and its geometry as
 the card reports it; K2 also at the serving batch B=2048, past the grid's
 65535 samples, its launch count and its plan (CTAs per SM). K1 at embed
-width 64 (its other instance) as at 128.
+width 64 (its other instance) as at 128. K2's bf16 rows kernel
+(csrc/lbf_rows_wg.cuh) against the rows kernel it replaced
+(csrc/lbf_layer.cuh's, which f32 keeps) on the same inputs, over batch,
+vertex and joint counts and a batch whose items split unevenly over the
+persistent grid; the serving call's row launches through it.
 """
 import numpy as np
 import pytest
@@ -23,7 +27,10 @@ from gator_tpu_torch.nn import (fold_stack_weights, fold_trunk_weights,
 from gator_tpu_torch.nn.gat_trunk import (TILE_ROWS, kernel_info,
                                           launch_plan, panel_depth,
                                           panel_order, smem_bytes)
-from gator_tpu_torch.nn.lbf_stack import stack_plan
+from gator_tpu_torch.nn import cuda_lib
+from gator_tpu_torch.nn.lbf_stack import (_SIGNATURE, rows_launches,
+                                          stack_plan)
+from gator_tpu_torch.serving import make_serving_fn
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 
@@ -194,7 +201,125 @@ def test_lbf_stack_launches_two_kernels_a_layer(model, batch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_lbf_stack_plan_keeps_two_self_attention_ctas_per_sm(model, dtype):
+    """The self-attention keeps two CTAs an SM; the rows kernel the dtype
+    takes: bf16 lbf_rows_wg.cuh's (one CTA an SM of three warpgroups on
+    64-row tiles, its weights resident), f32 lbf_layer.cuh's (two CTAs an
+    SM of 16-row tiles)."""
     plan = stack_plan(dtype, 431)
     assert plan["chunk_keys"] % 64 == 0 and plan["chunk_keys"] >= 64
     assert plan["selfattn_ctas_per_sm"] >= 2
-    assert plan["rows_ctas_per_sm"] >= (3 if dtype == torch.bfloat16 else 2)
+    assert plan["rows_registers"] > 0
+    if dtype == torch.bfloat16:
+        assert plan["rows_kernel"] == "lbf_rows_wg"
+        assert plan["rows_ctas_per_sm"] == 1
+        assert plan["rows_tile"] == 64 and plan["rows_warpgroups"] == 3
+        assert 120 * 1024 < plan["rows_smem_bytes"] <= 227 * 1024
+        assert plan["rows_registers"] <= 65536 // (128 * 3)
+    else:
+        assert plan["rows_kernel"] == "lbf_layer"
+        assert plan["rows_ctas_per_sm"] >= 2
+        assert plan["rows_tile"] == 16 and plan["rows_warpgroups"] == 0
+
+
+# (B, Nv, J): every batch at every vertex count at J=17, the other joint
+# counts at a ragged Nv, and the serving shape at the most joints
+ROWS_CASES = ([(b, nv, 17) for b in (1, 7, 2048) for nv in (16, 64, 65, 431)]
+              + [(7, 65, j) for j in (1, 19, 32)] + [(2048, 431, 32)])
+
+
+def _rows(entry: str, x, joints, layer, offsets):
+    """One rows launch through the C entry `entry` of csrc/lbf_stack.cu
+    ("lbf_rows_launch", the bf16 kernel, or "lbf_rows_shared_launch",
+    lbf_layer.cuh's): x f32 [B, Nv, 64], joints and one layer's packed
+    weights in bf16 -> (y3 f32, q2, k2, v2 bf16)."""
+    b, nv, _ = x.shape
+    y3 = torch.empty_like(x)
+    q2, k2, v2 = (torch.empty(x.shape, dtype=torch.bfloat16, device="cuda")
+                  for _ in range(3))
+    fn = getattr(cuda_lib.load("lbf_stack", _SIGNATURE), entry)
+    cuda_lib.check(fn(1, x.data_ptr(), joints.data_ptr(), layer.data_ptr(),
+                      offsets.data_ptr(), y3.data_ptr(), q2.data_ptr(),
+                      k2.data_ptr(), v2.data_ptr(), b, nv, joints.shape[1],
+                      cuda_lib.stream_ptr(x)), entry)
+    return y3, q2, k2, v2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nv,nj", ROWS_CASES)
+def test_lbf_rows_wg_matches_the_shared_rows_kernel(model, b, nv, nj):
+    """The bf16 rows launch against lbf_layer.cuh's rows kernel on the
+    same inputs and layer. Both round each product's operands to bf16, so
+    the products are exact and only the order of the f32 sums differs:
+    where no bf16 rounding flips, y3 agrees to f32 rounding (~5e-7). A
+    reordered sum can flip the bf16 rounding of an intermediate (a cross
+    probability, the cross output, a hidden unit, a LayerNorm output),
+    which moves that row's y3 by up to ~3e-3 (measured on the card) and
+    its q2/k2/v2 by a bf16 step or a flipped y3 operand's share of a
+    product; a flip in a sample's joint K or V moves every row of the
+    sample (B=1 at Nv=431 shows one: 59 % of y3 by more than 1e-4, a
+    quarter of q2/k2/v2 unequal). Bars: y3 within 1e-2 and 1e-3 on
+    average, q2/k2/v2 within the stack's bf16 bar (5e-2), and from B=7 on,
+    where a K/V flip is one sample among several, at most 1 % of q2/k2/v2
+    unequal (measured 0.06-0.7 %). A wrong row, head or weight block moves
+    values by O(1). B=2048 at Nv=431 splits 14,336 tiles unevenly over
+    the persistent grid: one CTA an SM of three warpgroups, each taking a
+    contiguous run of (sample, 64-row tile) items (asserted)."""
+    mdr = model.pose2mesh
+    w = fold_stack_weights(mdr, torch.bfloat16, "cuda")
+    if (b, nv) == (2048, 431):
+        plan = stack_plan(torch.bfloat16, nv)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        items = b * -(-nv // plan["rows_tile"])
+        assert items > sms * plan["rows_warpgroups"]
+        assert items % (sms * plan["rows_warpgroups"]) != 0
+    rng = np.random.default_rng(b * 1000 + nv + nj)
+    x = _randn(rng, b, nv, 64)
+    joints = _randn(rng, b, nj, 64).to(torch.bfloat16)
+    for layer in range(w.flat.shape[0]):
+        new = _rows("lbf_rows_launch", x, joints, w.flat[layer], w.offsets)
+        old = _rows("lbf_rows_shared_launch", x, joints, w.flat[layer],
+                    w.offsets)
+        torch.cuda.synchronize()
+        dy = (new[0] - old[0]).abs()
+        assert dy.max().item() <= 1e-2 and dy.mean().item() <= 1e-3, (
+            dy.max().item(), dy.mean().item())
+        for got, want in zip(new[1:], old[1:]):
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= TOL[torch.bfloat16], err
+            if b >= 7:
+                assert (got != want).float().mean().item() <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nv,nj", [(1, 16, 17), (7, 65, 1), (7, 64, 19),
+                                     (7, 431, 32), (1, 431, 17)])
+def test_lbf_stack_bf16_matches_ref_across_shapes(model, b, nv, nj):
+    """The whole bf16 stack (the new rows kernel and the self-attention,
+    three layers) against its plain version at other batch, vertex and
+    joint counts than the model's: the bf16 bar."""
+    rng = np.random.default_rng(b + nv + nj)
+    verts = _randn(rng, b, nv, 64).to(torch.bfloat16)
+    joints = _randn(rng, b, nj, 64).to(torch.bfloat16)
+    weights = fold_stack_weights(model.pose2mesh, torch.bfloat16, "cuda")
+    got = lbf_stack(verts, joints, weights, 2)
+    torch.cuda.synchronize()
+    ref = lbf_stack_ref(verts, joints, weights, 2)
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= TOL[torch.bfloat16], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_serving_row_launches_take_the_dtypes_rows_kernel(model, dtype):
+    """A serving call's three row launches, as the C entry counts them by
+    the kernel it launched: all on the dtype's rows kernel."""
+    serve = make_serving_fn(model, dtype)
+    pose = torch.randn(4, model.pose_lifter.spec.num_joint, 2,
+                       device="cuda")
+    before = rows_launches()
+    serve(pose)
+    torch.cuda.synchronize()
+    after = rows_launches()
+    grown = {k: after[k] - before[k] for k in before}
+    want = "lbf_rows_wg" if dtype == torch.bfloat16 else "lbf_layer"
+    assert grown == {"lbf_layer": 0, "lbf_rows_wg": 0, want: 3}, grown

@@ -1,7 +1,9 @@
 """K2, the MDR LBF stack: the port's plain version `lbf_stack_ref` against
 the JAX package's fused kernel (interpret mode) and its XLA form, at 56
-and at the full 431 vertex tokens, for 17 and 19 joints. The CUDA kernels
-are held against `lbf_stack_ref` in test_torch_kernels_cuda.py.
+and at the full 431 vertex tokens, for 17 and 19 joints, and against the
+XLA form in f32 at the tile and joint edges the card tests use (16, 64 and
+65 vertices; 1, 17 and 32 joints). The CUDA kernels are held against
+`lbf_stack_ref` in test_torch_kernels_cuda.py.
 
 Same weights on both sides (flax init -> `state_dict_from_jax` -> the
 port's `GATOR`). Bars: f32 atol 2e-4 (tests/test_serving.py:136); bf16
@@ -45,27 +47,43 @@ def stack_case(request, small_assets, small_assets_coco):
     return _setup(request.param, jax_assets[request.param], seed=4)
 
 
-@pytest.mark.parametrize("nv", [56, 431])
-def test_lbf_stack_ref_matches_jax(stack_case, nv):
+def _f32_against_jax(stack_case, nv, j, seed, fused=True):
     jspec, mdr_params, mdr = stack_case
-    j = jspec.gat.num_joint
-    rng = np.random.default_rng(nv)
+    rng = np.random.default_rng(seed)
     verts = rng.normal(size=(2, nv, 64)).astype(np.float32)
     joints = rng.normal(size=(2, j, 64)).astype(np.float32)
     lps = [extract_layer_params(mdr_params, i) for i in range(3)]
-    fused = lbf_stack_fused(jnp.asarray(verts), jnp.asarray(joints), lps,
-                            jspec.mdr.num_heads, group=2, interpret=True)
     xla = lbf_stack_xla(jnp.asarray(verts), jnp.asarray(joints), lps,
                         jspec.mdr.num_heads)
     weights = fold_stack_weights(mdr, torch.float32, "cpu")
     got = lbf_stack_ref(torch.from_numpy(verts), torch.from_numpy(joints),
                         weights, jspec.mdr.num_heads)
-    np.testing.assert_allclose(got.numpy(), np.asarray(fused), atol=2e-4)
+    if fused:
+        want = lbf_stack_fused(jnp.asarray(verts), jnp.asarray(joints), lps,
+                               jspec.mdr.num_heads, group=2, interpret=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4)
     np.testing.assert_allclose(got.numpy(), np.asarray(xla), atol=2e-4)
     disp = lbf_stack(torch.from_numpy(verts), torch.from_numpy(joints),
                      weights, jspec.mdr.num_heads)
     assert torch.equal(disp, got)
 
+
+@pytest.mark.parametrize("nv", [56, 431])
+def test_lbf_stack_ref_matches_jax(stack_case, nv):
+    _f32_against_jax(stack_case, nv, stack_case[0].gat.num_joint, seed=nv)
+
+
+@pytest.mark.parametrize("nv", [16, 64, 65])
+@pytest.mark.parametrize("nj", [1, 17, 32])
+def test_lbf_stack_ref_matches_jax_at_tile_and_joint_edges(stack_case, nv,
+                                                           nj):
+    """The plain version, which the card tests hold the kernels to, at the
+    vertex and joint counts they take it to: less than one 64-row tile,
+    one tile, one row past it, and one joint key up to the most the
+    kernels take (32). Against the XLA form alone, the function's plain
+    JAX statement: the fused kernel in interpret mode is held at 56 and
+    431 above, and costs a compile of its own at each shape."""
+    _f32_against_jax(stack_case, nv, nj, seed=100 * nv + nj, fused=False)
 
 
 @pytest.mark.parametrize("nv", [56, 431])
