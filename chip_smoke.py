@@ -243,6 +243,24 @@ The GAT kernels' second width and the root-level tools (no new kernel):
      and the GT-synthesis profile's three steps and four parts, each with
      device time; the phase's wall time. Its main-path K1 and K5 launches
      join the kernels line.
+MotionBERT's serving call (models/motionbert.py; K3's serving path):
+ 32. (y) (a) K3's two modes at 128 clips x 16 frames x 17 joints, 8 heads
+     of 64, on views of one qkv product: spatial [2048, 17, 8, 64] and
+     temporal [128, 17, 16, 8, 64] written through a permuted view,
+     against its plain version (f32 within 1e-4, bf16 within 5e-2, the
+     bf16 ulps reported), each mode's ms a launch (CUDA events) beside
+     its bound; (b) the full-width model
+     (`build_motionbert_mesh`, the head at xavier gain 1 and a drawn
+     stream gate, so the input moves the mesh) served at B=128, T=16 bf16
+     through `make_serving_fn`, against the same call with
+     `use_kernels=False` (mesh and kp3d RMS gaps, and the worst clip's,
+     as shares of the f32 plain call's RMS spread over the clips: bf16
+     bars 0.2, 0.3, 0.2; the same in f32, bars 1e-3, 2e-3, 1e-3), a
+     planted fault (each clip's temporal output written into the next
+     clip's) outside every bf16 bar, 20 K3 launches and no other kernel
+     from the counters zeroed just before the bf16 call; (c) the call's
+     time beside the plain call's. Its 20 launches join the kernels line,
+     its f32 K3 error K3's.
 Then a JSON line with each kernel's numbers, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without a CUDA device the
@@ -3233,6 +3251,172 @@ def width_tool_phases(torch, dev, card, randn, gate, gate_json):
     return out
 
 
+def motionbert_phases(torch, dev, card, randn):
+    """Phase 32 (y): MotionBERT's serving call (models/motionbert.py), 128
+    clips of 16 frames of 17 H36M joints, 8 heads of 64, bf16: (a) K3's two
+    modes against its plain version on views of one qkv product, the
+    spatial one [2048 frames, 17, 8, 64], the temporal one [128 clips, 17
+    joints, 16, 8, 64] written through a permuted view, each mode's ms a
+    launch beside its bound; (b) the serving call on K3 against the same call
+    on plain attention, with a planted fault in the temporal launch's
+    addressing that the bar has to see, and its launches from the counter
+    zeroed just before it; (c) its times. -> {"errs", "launches"}."""
+    from gator_tpu_torch.assets import build_assets
+    from gator_tpu_torch.models import build_motionbert_mesh, motionbert
+    from gator_tpu_torch.nn.fused_attention import (fused_attention_into,
+                                                    fused_attention_ref)
+    from gator_tpu_torch.serving import make_serving_fn
+    from gator_tpu_torch.tools.timing import time_ms
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    n, t, j, h, d = 128, 16, 17, 8, 64
+    scale = d ** -0.5
+
+    # 32 (a): each mode reads the qkv product's views in place
+    def modes(dt):
+        q, k, v = randn(n, t, j, 3, h, d).to(dt).unbind(3)
+        spatial = [z.view(n * t, j, h, d) for z in (q, k, v)]
+        temporal = [z.permute(0, 2, 1, 3, 4) for z in (q, k, v)]
+        buf = torch.empty(n, t, j, h, d, dtype=dt, device=dev)
+        return spatial, temporal, buf, buf.permute(0, 2, 1, 3, 4)
+
+    err_f32 = 0.0
+    for dt, bar in ((f32, 1e-4), (bf16, 5e-2)):
+        spatial, temporal, buf, buf_t = modes(dt)
+        got = {"spatial": fused_attention_into(*spatial, scale)}
+        fused_attention_into(*temporal, scale, buf_t)
+        got["temporal"] = buf_t
+        torch.cuda.synchronize()
+        want = {"spatial": fused_attention_ref(*spatial, None, scale),
+                "temporal": fused_attention_ref(
+                    *(z.reshape(n * j, t, h, d) for z in temporal), None,
+                    scale).view(n, j, t, h, d)}
+        for mode in got:
+            err = max_err(got[mode], want[mode])
+            check(np.isfinite(err) and err <= bar,
+                  f"K3 MotionBERT {mode} {dt} err {err} <= {bar}")
+            if dt == f32:
+                err_f32 = max(err_f32, err)
+            say(32, f"K3 MotionBERT {mode} {str(dt)[6:]}: max abs err "
+                    f"{err:.3e} vs plain (bar {bar:g})"
+                    + ("" if dt == f32 else
+                       f"; {bf16_ulps(got[mode], want[mode])}"))
+        del spatial, temporal, buf, buf_t, got, want
+
+    # each mode's time a launch on CUDA events (the launches queue, so the
+    # device's time), beside the bound: q, k, v read and out written once,
+    # at 3.35 TB/s. (Here, after phase 31, torch.profiler records none of
+    # these launches; the benchmark's traced run names each mode's kernel)
+    spatial, temporal, _, buf_t = modes(bf16)
+    k3_bound = bound(n * t * h * 2 * j * j * d, 4 * n * t * j * h * d * 2)
+    k3_ms = {"spatial": time_ms(
+                 lambda: fused_attention_into(*spatial, scale)),
+             "temporal": time_ms(
+                 lambda: fused_attention_into(*temporal, scale, buf_t))}
+    say(32, f"K3 MotionBERT launches bf16 on {card}: " + "; ".join(
+        f"{mode} {ms_:.4f} ms" for mode, ms_ in k3_ms.items())
+        + " a launch (CUDA events)"
+        + f" (bound {k3_bound[0]:.4f} ms each, {k3_bound[1]}: "
+        f"{4 * n * t * j * h * d * 2 / 1e6:.1f} MB at 3.35 TB/s)")
+    del spatial, temporal, buf_t
+
+    # 32 (b): the served clips on K3 against the same call on plain
+    # attention. MotionBERT's head starts at xavier gain 0.01, where the
+    # mesh hardly depends on the input: gain 1 and a drawn stream gate
+    # make a fault in an attention move the mesh
+    assets = build_assets("human36", data_dirs=[],
+                          synthetic_vertex_num=6890, seed=0)
+    model = build_motionbert_mesh(assets, seed=1, device=dev)
+    model.head.head_pose.weight.mul_(100.0)
+    model.head.head_shape.weight.mul_(100.0)
+    for lin in model.backbone.ts_attn:
+        lin.weight.copy_(randn(*lin.weight.shape) * 0.02)
+    gen = torch.Generator().manual_seed(32)
+    u = torch.rand(n, t, j, 3, generator=gen)
+    clips = torch.cat([u[..., :2] * 2 - 1, u[..., 2:]], -1).to(dev)
+    serve_k = make_serving_fn(model, bf16)
+    serve_p = make_serving_fn(model, bf16, use_kernels=False)
+    reset_counts, read_counts = launch_counters(torch)
+    reset_counts()
+    verts, kp3d = serve_k(clips)
+    counts = read_counts()
+    check(counts["fused_attention"] == 20 and all(
+        c == 0 for name, c in counts.items() if name != "fused_attention"),
+        f"20 K3 launches and no other kernel in a MotionBERT call: {counts}")
+    check(verts.shape == (n, t, 6890, 3) and kp3d.shape == (n, t, j, 3)
+          and verts.dtype == f32, f"served {verts.shape} {kp3d.shape}")
+    got = {bf16: (verts, kp3d), f32: make_serving_fn(model, f32)(clips)}
+    ref = {bf16: serve_p(clips),
+           f32: make_serving_fn(model, f32, use_kernels=False)(clips)}
+
+    def rms(z):
+        return float(z.double().pow(2).mean().sqrt())
+
+    # gaps as a share of what the clips decide: the f32 plain call's RMS
+    # distance from its mean over the clips. In bf16 a probability that
+    # rounds the other way (1 ulp in ~1e-4 of K3's outputs) moves the
+    # tokens by bf16 roundings, ~0.5 % of the 6D rotations, which is
+    # several % of their part that the clips decide; f32 holds the call
+    # to K3's own error
+    ref_v, ref_k = ref[f32]
+    spread_v = rms(ref_v - ref_v.mean(0, keepdim=True))
+    spread_k = rms(ref_k - ref_k.mean(0, keepdim=True))
+    check(spread_v > 1e-3, f"the clips move the mesh: {spread_v} m")
+
+    def gaps(dt, v_, k_):
+        rv, rk = ref[dt]
+        return {"mesh_rel_rms": rms(v_ - rv) / spread_v,
+                "mesh_clip_rel_rms_max": float(
+                    (v_ - rv).double().pow(2).mean((1, 2, 3)).sqrt()
+                    .max()) / spread_v,
+                "kp3d_rel_rms": rms(k_ - rk) / spread_k}
+
+    bars = {f32: {"mesh_rel_rms": 1e-3, "mesh_clip_rel_rms_max": 2e-3,
+                  "kp3d_rel_rms": 1e-3},
+            bf16: {"mesh_rel_rms": 0.2, "mesh_clip_rel_rms_max": 0.3,
+                   "kp3d_rel_rms": 0.2}}
+
+    # the planted fault: the temporal launches write each clip's output
+    # into the clip after it (a wrong second batch stride)
+    def shifted(q, k, v, sc, out=None, use_kernel=True):
+        got_ = fused_attention_into(q, k, v, sc, out, use_kernel)
+        if q.dim() == 5:
+            got_.copy_(got_.roll(1, dims=0))
+        return got_
+
+    motionbert.fused_attention_into = shifted
+    try:
+        bad = gaps(bf16, *make_serving_fn(model, bf16)(clips))
+    finally:
+        motionbert.fused_attention_into = fused_attention_into
+    for dt in (f32, bf16):
+        good = gaps(dt, *got[dt])
+        check(all(good[k_] <= bars[dt][k_] for k_ in good),
+              f"{dt} kernel vs plain {good} within {bars[dt]}")
+        say(32, f"MotionBERT serving B={n} clips x T={t} {str(dt)[6:]} "
+                f"({n * t:,} frames): K3 vs plain attention " + ", ".join(
+                    f"{k_} {good[k_]:.2e} (bar {bars[dt][k_]:g})"
+                    for k_ in good)
+                + f", as shares of the clips' RMS spread, mesh "
+                f"{spread_v:.4f} m, kp3d {spread_k:.4f} m")
+    check(all(bad[k_] > bars[bf16][k_] for k_ in bad),
+          f"the planted fault {bad} outside {bars[bf16]}")
+    say(32, "the planted fault (each clip's temporal output written into "
+            "the next clip's), bf16: " + ", ".join(
+                f"{k_} {v_:.3f}" for k_, v_ in bad.items())
+            + f"; launches of the bf16 call {counts} (counters zeroed just "
+            f"before it)")
+
+    # 32 (c): times
+    ms_k, ms_p = time_ms(lambda: serve_k(clips)), time_ms(
+        lambda: serve_p(clips))
+    say(32, f"MotionBERT serving call B={n}x{t} bf16 on {card}: K3 "
+            f"{ms_k:.3f} ms ({n * t / ms_k * 1e3:,.0f} frames/s), plain "
+            f"attention {ms_p:.3f} ms ({n * t / ms_p * 1e3:,.0f} frames/s)")
+    return {"errs": {"fused_attention": err_f32},
+            "launches": {"fused_attention": counts["fused_attention"]}}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3276,7 +3460,7 @@ def main():
 
 
 def run_phases(torch, dev, card, gate, gate_json):
-    """Phases 3-31 and the result lines."""
+    """Phases 3-32 and the result lines."""
     from gator_tpu_torch.assets import build_assets
     from gator_tpu_torch.cli import serve as serve_cli
     from gator_tpu_torch.data import processing
@@ -3611,6 +3795,13 @@ def run_phases(torch, dev, card, gate, gate_json):
     wide = width_tool_phases(torch, dev, card, randn, gate, gate_json)
     for name, n in wide["launches"].items():
         launches[name] += n
+
+    # 32: MotionBERT's serving call, K3's serving path; its one counted
+    # call's launches join the kernels line, its f32 error K3's
+    mb = motionbert_phases(torch, dev, card, randn)
+    launches["fused_attention"] += mb["launches"]["fused_attention"]
+    errs["fused_attention"] = max(errs["fused_attention"],
+                                  mb["errs"]["fused_attention"])
 
     check("jax" not in sys.modules and "gator_tpu" not in sys.modules,
           "no JAX imported")

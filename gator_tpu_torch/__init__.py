@@ -1,5 +1,7 @@
 """gator_tpu_torch — GATOR (pose -> mesh) in PyTorch with hand-written CUDA
-kernels for an NVIDIA H100 (sm_90a): the serving path, the train steps of
+kernels for an NVIDIA H100 (sm_90a), and MotionBERT's mesh model (2D
+skeleton clips -> meshes, `models.motionbert`) on the same serving path:
+the serving path, the train steps of
 both stages, the evaluation path (SMPL body model, GT synthesis, metrics,
 eval CLI), the demo, data parallelism over one process per card
 (`parallel`), and the kernel tools (per-stage serving profile, LBF-layer

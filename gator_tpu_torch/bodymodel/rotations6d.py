@@ -1,6 +1,7 @@
 """6D rotation representation and the SVD rotation projection on tensors
 (counterpart of gator_tpu/bodymodel/rotations6d.py; reference:
-manopth/manopth/rot6d.py:4-24, rotproj.py:4-21)."""
+manopth/manopth/rot6d.py:4-24, rotproj.py:4-21), and the SPIN/VIBE 6D
+layout that MotionBERT's mesh head reads (`rot6d_to_rotmat_spin`)."""
 from __future__ import annotations
 
 import torch
@@ -19,6 +20,22 @@ def rot6d_to_rotmat(x6d: torch.Tensor) -> torch.Tensor:
     b2 = a2 - proj * b1
     b2 = b2 / torch.linalg.vector_norm(
         b2, dim=-1, keepdim=True).clamp(min=1e-8)
+    b3 = torch.linalg.cross(b1, b2, dim=-1)
+    return torch.stack([b1, b2, b3], dim=-1)
+
+
+def rot6d_to_rotmat_spin(x6d: torch.Tensor) -> torch.Tensor:
+    """[..., 6] -> [..., 3, 3] in the SPIN/VIBE layout that MotionBERT's
+    mesh head uses (MotionBERT lib/utils/utils_smpl.py `rot6d_to_rotmat`):
+    the six numbers are a [3, 2] matrix in row order, a1 = x[0::2] and
+    a2 = x[1::2], not manopth's [a1 | a2]; normalised as F.normalize does
+    (eps 1e-12), then Gram-Schmidt."""
+    a1, a2 = x6d[..., 0::2], x6d[..., 1::2]
+    b1 = a1 / torch.linalg.vector_norm(
+        a1, dim=-1, keepdim=True).clamp(min=1e-12)
+    b2 = a2 - (b1 * a2).sum(-1, keepdim=True) * b1
+    b2 = b2 / torch.linalg.vector_norm(
+        b2, dim=-1, keepdim=True).clamp(min=1e-12)
     b3 = torch.linalg.cross(b1, b2, dim=-1)
     return torch.stack([b1, b2, b3], dim=-1)
 

@@ -77,10 +77,22 @@ def smpl_forward(params: SmplParams, pose_axisang: torch.Tensor,
     """(pose [B, 72], betas [B, 10][, trans [B, 3]]) -> (verts [B, V, 3],
     joints [B, 24, 3]) in metres: root-rotation-first kinematics,
     rest-joint translation subtracted, homogeneous LBS."""
-    no_tf32()
     b = pose_axisang.shape[0]
     nj = len(params.parents)
     rotmats = axis_angle_to_rotmat(pose_axisang.reshape(b, nj, 3))
+    return smpl_forward_rotmat(params, rotmats, betas, trans)
+
+
+def smpl_forward_rotmat(params: SmplParams, rotmats: torch.Tensor,
+                        betas: torch.Tensor,
+                        trans: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`smpl_forward` from rotation matrices (rotmats [B, 24, 3, 3], the
+    root's first; smplx's `pose2rot=False`, as MotionBERT's mesh head
+    calls it) -> (verts [B, V, 3], joints [B, 24, 3]) in metres."""
+    no_tf32()
+    b = rotmats.shape[0]
+    nj = len(params.parents)
     pose_feature = rotmat_flat_minus_id(rotmats[:, 1:])     # [B, 207]
 
     v_shaped = params.v_template + torch.einsum(

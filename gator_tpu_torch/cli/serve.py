@@ -26,6 +26,15 @@ On N cards, one process each:
 is padded to a multiple of N, each rank serves its rows of every chunk on
 K1 and K2 (`serving.make_sharded_serving_fn`), and rank 0 alone writes the
 .npy and .obj files and prints the rate with the number of ranks.
+
+--model motionbert_mesh serves MotionBERT's mesh model
+(`models.motionbert`) instead: --input_poses holds [N, T, 17, 2or3] clips
+of H36M joints already normalised as MotionBERT's data hands them to the
+model (x, y in a [-1, 1] crop; a missing confidence is 1), --batch_size
+counts clips, --output gets [N, T, 6890, 3] meshes and --joints_output the
+[N, T, 17, 3] H36M joints regressed from them, both in metres; --obj_dir
+writes the first frame of every --obj_every-th clip; --joint_set is
+human36.
 """
 from __future__ import annotations
 
@@ -39,7 +48,7 @@ import torch
 
 from ..assets import build_assets
 from ..data import processing
-from ..models import GatorSpec, build_gator
+from ..models import GatorSpec, build_gator, build_motionbert_mesh
 from ..parallel import launched, main_print, pad_to_multiple
 from ..serving import make_serving_fn, make_sharded_serving_fn
 from ..train.checkpoint import load_weights
@@ -49,7 +58,11 @@ from ..vis import save_obj
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="GATOR batch serving (PyTorch)")
     p.add_argument("--input_poses", type=str, required=True,
-                   help=".npy of [N, 17, 2or3] pixel keypoints")
+                   help=".npy of [N, 17, 2or3] pixel keypoints (with "
+                        "--model motionbert_mesh: [N, T, 17, 2or3] "
+                        "normalised clips)")
+    p.add_argument("--model", type=str, default="gator",
+                   choices=("gator", "motionbert_mesh"))
     p.add_argument("--joint_set", type=str, default="coco",
                    choices=("coco", "human36"))
     p.add_argument("--weights", type=str, default=None)
@@ -82,22 +95,8 @@ def run_serve(pose_path: str, joint_set: str = "coco",
     assets = assets or build_assets(joint_set)
     spec = GatorSpec.from_assets(assets)
     model = build_gator(spec, seed=0, device="cpu")
-    if weights:
-        load_weights(model, weights)
-    else:
-        say("WARNING: serving randomly initialized weights")
-    model = model.to(device)
-    ranks = 1
-    if world is not None and world.grouped:
-        ranks = world.size
-        fn = make_sharded_serving_fn(model, world,
-                                     dtype=getattr(torch, dtype))
-        if batch_size % ranks:
-            batch_size = -(-batch_size // ranks) * ranks
-            say(f"batch_size rounded up to {batch_size} (multiple of "
-                f"{ranks} ranks)")
-    else:
-        fn = make_serving_fn(model, dtype=getattr(torch, dtype))
+    fn, batch_size, ranks = _serving(model, weights, device, world, dtype,
+                                     batch_size)
 
     poses = np.load(pose_path).astype(np.float32)
     poses = poses.reshape(len(poses), 17, -1)
@@ -144,14 +143,97 @@ def run_serve(pose_path: str, joint_set: str = "coco",
     return {"meshes": meshes, "joints3d": joints3d}
 
 
+def _serving(model, weights, device, world, dtype: str, batch_size: int):
+    """The model's weights loaded (or left random, with a warning), the
+    model on `device`, and its serving function, sharded over `world`'s
+    ranks when there are several -> (fn, batch size, ranks)."""
+    say = main_print(world)
+    if weights:
+        load_weights(model, weights)
+    else:
+        say("WARNING: serving randomly initialized weights")
+    model = model.to(device)
+    if world is None or not world.grouped:
+        return make_serving_fn(model, dtype=getattr(torch, dtype)), \
+            batch_size, 1
+    ranks = world.size
+    fn = make_sharded_serving_fn(model, world, dtype=getattr(torch, dtype))
+    if batch_size % ranks:
+        batch_size = -(-batch_size // ranks) * ranks
+        say(f"batch_size rounded up to {batch_size} (multiple of "
+            f"{ranks} ranks)")
+    return fn, batch_size, ranks
+
+
+def run_serve_clips(clip_path: str, weights: str | None = None,
+                    output: str = "meshes.npy",
+                    joints_output: str | None = None,
+                    obj_dir: str | None = None, obj_every: int = 100,
+                    batch_size: int = 256, dtype: str = "bfloat16",
+                    device: str = "cuda", assets=None, world=None):
+    """Serve MotionBERT's mesh model over normalised H36M clips (module
+    docstring) -> {"meshes" [N, T, V0, 3], "joints3d" [N, T, 17, 3]}, in
+    metres (every rank returns the whole arrays)."""
+    say = main_print(world)
+    device = world.device if world is not None else torch.device(device)
+    assets = assets or build_assets("human36")
+    model = build_motionbert_mesh(assets, seed=0, device="cpu")
+    fn, batch_size, ranks = _serving(model, weights, device, world, dtype,
+                                     batch_size)
+    clips = np.load(clip_path).astype(np.float32)
+    if clips.ndim != 4 or clips.shape[2] != 17 or clips.shape[3] not in (2,
+                                                                          3):
+        raise ValueError(f"{clip_path}: clips must be [N, T, 17, 2or3], "
+                         f"not {clips.shape}")
+    if clips.shape[-1] == 2:
+        clips = np.concatenate(
+            [clips, np.ones(clips.shape[:3] + (1,), np.float32)], axis=-1)
+    n, t = clips.shape[:2]
+    v0 = assets.smpl.vertex_num
+    meshes = np.empty((n, t, v0, 3), np.float32)
+    joints3d = np.empty((n, t, 17, 3), np.float32)
+    t0 = time.perf_counter()
+    for lo in range(0, n, batch_size):
+        chunk, real = pad_to_multiple(clips[lo:lo + batch_size], ranks)
+        verts, kp3d = fn(torch.from_numpy(chunk).to(device))
+        meshes[lo:lo + real] = verts[:real].cpu().numpy()
+        joints3d[lo:lo + real] = kp3d[:real].cpu().numpy()
+    dt = time.perf_counter() - t0
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    say(f"served {n} clips of {t} frames in {dt:.2f}s "
+        f"({n * t / max(dt, 1e-9):,.0f} frames/s on {name}"
+        + (f" x {ranks} ranks" if ranks > 1 else "")
+        + f", {dtype}, batch {batch_size} clips, host clock incl. "
+          f"transfers)")
+    if world is None or world.is_main:
+        np.save(output, meshes)
+        print(f"meshes -> {output}  [{n}, {t}, {v0}, 3] (meters)")
+        if joints_output:
+            np.save(joints_output, joints3d)
+            print(f"3D joints -> {joints_output} (meters)")
+        if obj_dir:
+            os.makedirs(obj_dir, exist_ok=True)
+            for i in range(0, n, max(1, obj_every)):
+                save_obj(meshes[i, 0], assets.faces,
+                         osp.join(obj_dir, f"clip_{i:06d}.obj"))
+            print(f"objs -> {obj_dir}")
+    return {"meshes": meshes, "joints3d": joints3d}
+
+
 def main(argv=None):
     """The CLI; under torchrun, one rank of a data-parallel run."""
     a = parse_args(argv)
+    dtype = "float32" if a.f32 else a.dtype
     with launched(a.device) as world:
+        if a.model == "motionbert_mesh":
+            return run_serve_clips(a.input_poses, a.weights, a.output,
+                                   a.joints_output, a.obj_dir, a.obj_every,
+                                   a.batch_size, dtype, a.device,
+                                   world=world)
         return run_serve(a.input_poses, a.joint_set, a.weights, a.output,
                          a.joints_output, a.obj_dir, a.obj_every,
-                         a.batch_size, "float32" if a.f32 else a.dtype,
-                         a.device, world=world)
+                         a.batch_size, dtype, a.device, world=world)
 
 
 if __name__ == "__main__":

@@ -3,11 +3,18 @@
 //
 // Replaces gator_tpu/nn/pallas_attention.py:142 `fused_attention` (kernels
 // `_kernel:31` and `_kernel_bias:49`, pallas_calls `:84` and `:94`).
-// q [B, Nq, H, D], k and v [B, Nk, H, D] in the caller's strides (the last
-// dimension contiguous, rows 16-byte aligned), an optional f32 bias
-// [H, Nq, Nk] shared by every sample; out [B, Nq, H, D] contiguous, in q's
-// dtype. On the model's path this is the MDR vertex self-attention of the
-// module form (eval): Nq = Nk = 431, H = 2, D = 32, no bias.
+// q [B, B1, Nq, H, D], k and v [B, B1, Nk, H, D] in the caller's strides
+// (the last dimension contiguous, rows 16-byte aligned), an optional f32
+// bias [H, Nq, Nk] shared by every sample; out [B, B1, Nq, H, D] in q's
+// dtype, in the caller's strides too. A sample is a (b, b1) pair, so that
+// rows one batch stride cannot address (MotionBERT's temporal attention:
+// the frames of one joint of one clip) are read and written in place.
+// On the model's paths: the MDR vertex self-attention of the module form
+// (eval): Nq = Nk = 431, H = 2, D = 32, no bias, B1 = 1; MotionBERT's
+// serving call (models/motionbert.py), H = 8, D = 64: the spatial
+// attention over the 17 joints of each frame (B = clips x frames, B1 = 1)
+// and the temporal attention over the 16 frames of each joint (B = clips,
+// B1 = joints), both read from the qkv product's strided view.
 //
 // Numerics, as the TPU kernel: scores and softmax in f32; the normalised
 // probabilities rounded to v's dtype before the PV product, which
@@ -40,13 +47,18 @@ namespace attn {
 constexpr int NW = 8;  // warps per CTA, 16 query rows each
 
 struct Shape {
-  int nq, nk, h, kc;
-  long long q_b, q_n, q_h, k_b, k_n, k_h, v_b, v_n, v_h;
+  int nq, nk, h, kc, nb1;
+  long long q_b, q_b1, q_n, q_h, k_b, k_b1, k_n, k_h, v_b, v_b1, v_n, v_h;
+  long long o_b, o_b1, o_n, o_h;
 };
 
 // two CTAs per SM at every head width: at most 128 registers a thread
-// (f32 at D = 64 takes 174 without the cap)
-template <typename T, int D>
+// (f32 at D = 64 takes 174 without the cap). SPLIT: a sample is the pair
+// (b, b1) and out has the caller's strides; without it (one batch
+// dimension, out contiguous) the addressing is the plain [B, N, H, D] one,
+// which keeps the eval shape's registers: the general addressing on every
+// launch measured 5-6 % slower there in bf16.
+template <typename T, int D, bool SPLIT>
 __global__ void __launch_bounds__(32 * NW, 2)
     attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ bias,
@@ -61,13 +73,16 @@ __global__ void __launch_bounds__(32 * NW, 2)
   T* Vs = Ks + sh.kc * L::LK;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int h = blockIdx.y;
-  const long long b = blockIdx.z;
+  // the sample of this CTA: blockIdx.z = b * nb1 + b1
+  const long long b = SPLIT ? blockIdx.z / sh.nb1 : blockIdx.z;
+  const long long b1 = SPLIT ? blockIdx.z - b * sh.nb1 : 0;
   const int m0 = blockIdx.x * 16 * NW + (threadIdx.x >> 5) * 16;
   const bool active = m0 < sh.nq;
   const int nk = sh.nk;
-  const T* qb = q + b * sh.q_b + h * sh.q_h + (long long)m0 * sh.q_n;
-  const T* kb = k + b * sh.k_b + h * sh.k_h;
-  const T* vb = v + b * sh.v_b + h * sh.v_h;
+  const T* qb =
+      q + b * sh.q_b + b1 * sh.q_b1 + h * sh.q_h + (long long)m0 * sh.q_n;
+  const T* kb = k + b * sh.k_b + b1 * sh.k_b1 + h * sh.k_h;
+  const T* vb = v + b * sh.v_b + b1 * sh.v_b1 + h * sh.v_h;
   const float* bh = bias == nullptr ? nullptr : bias + (size_t)h * sh.nq * nk;
   const int rows[2] = {m0 + g, m0 + g + 8};
 
@@ -122,7 +137,9 @@ __global__ void __launch_bounds__(32 * NW, 2)
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     if (rows[rr] >= sh.nq) continue;
-    T* orow = out + ((b * sh.nq + rows[rr]) * sh.h + h) * D + 2 * t;
+    T* orow = SPLIT ? out + b * sh.o_b + b1 * sh.o_b1 + rows[rr] * sh.o_n +
+                          h * sh.o_h + 2 * t
+                    : out + ((b * sh.nq + rows[rr]) * sh.h + h) * D + 2 * t;
 #pragma unroll
     for (int jn = 0; jn < NO; ++jn) {
       orow[8 * jn] = Num<T>::from_float(o[jn][2 * rr]);
@@ -136,7 +153,7 @@ __global__ void __launch_bounds__(32 * NW, 2)
 template <typename T, int D>
 int plan(int nk, int* kc, int* ctas_per_sm) {
   *kc = chunk_keys<T, D>(nk);
-  auto kern = attention_kernel<T, D>;
+  auto kern = attention_kernel<T, D, false>;
   const int smem = *kc * Pad<T, D>::KEY_BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -151,11 +168,15 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
            void* out, int B, Shape sh, float scale, cudaStream_t stream) {
   sh.kc = chunk_keys<T, D>(sh.nk);
   const int smem = sh.kc * Pad<T, D>::KEY_BYTES;
-  auto kern = attention_kernel<T, D>;
+  const bool split = sh.nb1 != 1 || sh.o_h != D ||
+                     sh.o_n != (long long)sh.h * D ||
+                     sh.o_b != (long long)sh.nq * sh.h * D;
+  auto kern =
+      split ? attention_kernel<T, D, true> : attention_kernel<T, D, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((sh.nq + 16 * NW - 1) / (16 * NW), sh.h, B);
+  dim3 grid((sh.nq + 16 * NW - 1) / (16 * NW), sh.h, B * sh.nb1);
   kern<<<grid, 32 * NW, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), bias, static_cast<T*>(out), sh, scale);
@@ -200,16 +221,20 @@ extern "C" int fused_attention_plan(int dtype, int D, int Nk, int* kc,
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out); D in {8, 16, 32, 64};
-// strides in elements; bias f32 [H, Nq, Nk] contiguous, or null. Returns
-// the cudaError_t of the launch.
+// B * B1 samples (at most 65535); strides in elements, per tensor (b, b1,
+// n, h); bias f32 [H, Nq, Nk] contiguous, or null. Returns the cudaError_t
+// of the launch.
 extern "C" int fused_attention_launch(
     int dtype, int D, const void* q, const void* k, const void* v,
-    const void* bias, void* out, int B, int Nq, int Nk, int H,
-    long long q_b, long long q_n, long long q_h, long long k_b, long long k_n,
-    long long k_h, long long v_b, long long v_n, long long v_h, float scale,
+    const void* bias, void* out, int B, int B1, int Nq, int Nk, int H,
+    long long q_b, long long q_b1, long long q_n, long long q_h,
+    long long k_b, long long k_b1, long long k_n, long long k_h,
+    long long v_b, long long v_b1, long long v_n, long long v_h,
+    long long o_b, long long o_b1, long long o_n, long long o_h, float scale,
     void* stream) {
-  const gator::attn::Shape sh{Nq,  Nk,  H,   0,   q_b, q_n, q_h,
-                              k_b, k_n, k_h, v_b, v_n, v_h};
+  const gator::attn::Shape sh{Nq,   Nk,  H,   0,    B1,  q_b, q_b1,
+                              q_n,  q_h, k_b, k_b1, k_n, k_h, v_b,
+                              v_b1, v_n, v_h, o_b,  o_b1, o_n, o_h};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* bf = static_cast<const float*>(bias);
   if (dtype == 0)

@@ -1,7 +1,9 @@
 from .gat import GAT, GATBlock, GatSpec
 from .gator import GATOR, GatorSpec, build_gat, build_gator, init_gator_
 from .mdr import MDR, MdrSpec, conv1d_len3
+from .motionbert import MeshRegressor, MotionBertSpec, build_motionbert_mesh
 
 __all__ = ["GAT", "GATBlock", "GATOR", "GatSpec", "GatorSpec", "MDR",
-           "MdrSpec", "build_gat", "build_gator", "conv1d_len3",
+           "MdrSpec", "MeshRegressor", "MotionBertSpec", "build_gat",
+           "build_gator", "build_motionbert_mesh", "conv1d_len3",
            "init_gator_"]

@@ -9,6 +9,11 @@ On a CPU model the same code runs the kernels' plain versions. The embeds,
 the hop/path bias, the A/B/C head and the 431->6890 upsample are plain
 torch, as they are XLA code (not Pallas) in the JAX package.
 `make_sharded_serving_fn` serves a batch over the data-parallel ranks.
+
+The same two functions serve MotionBERT's mesh model
+(`models.motionbert.MeshRegressor`): clips [B, T, 17, 3] -> (verts
+[B, T, V0, 3], kp3d [B, T, 17, 3]), the batch axis counting clips, its
+function `models.motionbert.mesh_forward` with both attentions on K3.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import torch.nn.functional as F
 from .models.gat import pinned
 from .models.gator import GATOR
 from .models.mdr import conv1d_len3
+from .models.motionbert import MeshRegressor, fold_weights, mesh_forward
 from .nn import (fold_stack_weights, fold_trunk_weights, gat_trunk,
                  gat_trunk_ref, lbf_stack, lbf_stack_ref, layer_norm32)
 from .nn.gat_trunk import check_width
@@ -158,16 +164,20 @@ def serving_weights(model: GATOR, dtype: torch.dtype,
     return w, consts
 
 
-def make_serving_fn(model: GATOR, dtype: torch.dtype = torch.bfloat16,
+def make_serving_fn(model, dtype: torch.dtype = torch.bfloat16,
                     use_kernels: bool = True) -> ServingFn:
     """-> fn(pose2d [B, J, 2]) -> (mesh [B, V0, 3], pose3d [B, J, 3]), on
-    the model's device, without gradients.
+    the model's device, without gradients; for a MotionBERT mesh model
+    fn(clips [B, T, J, 3]) -> (verts [B, T, V0, 3], kp3d [B, T, 17, 3]),
+    f32 (`clip_serving_fn`).
 
     `use_kernels=False` runs the kernels' plain versions on any device:
     the on-card numerics oracle and speed baseline of chip_smoke.py, as
     `use_fused=False` is in the JAX package. The weights and tables are
     derived once, by `serving_weights`. A call is the span `serve`, its
     stages the spans of the two forward functions."""
+    if isinstance(model, MeshRegressor):
+        return clip_serving_fn(model, dtype, use_kernels)
     j = model.spec.gat.num_joint
     device = next(model.parameters()).device
     w, consts = serving_weights(model, dtype, use_kernels)
@@ -187,6 +197,28 @@ def make_serving_fn(model: GATOR, dtype: torch.dtype = torch.bfloat16,
     return serve
 
 
+def clip_serving_fn(model: MeshRegressor,
+                    dtype: torch.dtype = torch.bfloat16,
+                    use_kernels: bool = True) -> ServingFn:
+    """MotionBERT's serving call: fn(clips [B, T, J, 3]) -> (verts [B, T,
+    V0, 3], kp3d [B, T, 17, 3]) in f32 metres, on the model's device,
+    without gradients; the backbone and head in `dtype`, the attentions on
+    K3 (its plain version with `use_kernels=False`), SMPL in f32. The
+    weights are derived once (`models.motionbert.fold_weights`). A call is
+    the span `serve`, its stages serve.mb_embed, serve.mb_blocks,
+    serve.mb_head and serve.mb_smpl."""
+    device = next(model.parameters()).device
+    w, consts = fold_weights(model, dtype, use_kernels)
+
+    @torch.no_grad()
+    def serve(clips: torch.Tensor):
+        with span("serve"):
+            return mesh_forward(model.spec, w, consts,
+                                clips.to(device=device), dtype)
+
+    return serve
+
+
 def make_sharded_serving_fn(model: GATOR, world,
                             dtype: torch.dtype = torch.bfloat16
                             ) -> ServingFn:
@@ -196,6 +228,7 @@ def make_sharded_serving_fn(model: GATOR, world,
     and K2 (`make_serving_fn` over its replica of the model) and the mesh
     and pose rows are all-gathered back in row order. B must be a multiple
     of the world size; pad a ragged batch with `parallel.pad_to_multiple`.
+    A MotionBERT mesh model is served the same way, its rows clips.
     """
     serve_rows = make_serving_fn(model, dtype=dtype)
 

@@ -10,6 +10,12 @@ the plain version, and its plan (keys per staged K/V chunk, CTAs resident
 per SM); then the registers and spills ptxas gave each instantiation (the
 build log). Run it from two checkouts in one call to compare them on one
 card. `main` returns the numbers. Fails without a CUDA device.
+
+Then K3 as MotionBERT's serving call launches it (`clip_modes`: 128 clips
+of 16 frames of 17 joints, 8 heads of 64, bf16, on views of one qkv
+product): the spatial mode, [2048 frames, 17, 8, 64], and the temporal
+mode, [128 clips, 17 joints, 16, 8, 64] written through a permuted view,
+each beside its bound: q, k, v and out, 142.6 MB, at 3.35 TB/s.
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ import torch
 
 from ..nn import cuda_lib
 from ..nn.fused_attention import (attention_plan, fused_attention,
-                                  fused_attention_ref)
+                                  fused_attention_into, fused_attention_ref)
 from .timing import card_name, time_ms
 
 # (B, N, H, D): queries and keys alike
@@ -45,6 +51,26 @@ def ptxas_report(lib: str) -> dict:
             if m and name:
                 out[name], name = (int(m.group(1)), spill), None
     return out
+
+
+def clip_modes(clips: int = 128, t: int = 16, j: int = 17) -> dict:
+    """{mode: {"ms", "bound_ms"}} of K3's two launches in MotionBERT's
+    serving call (module docstring)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    qkv = torch.randn(clips, t, j, 3, 8, 64, generator=gen,
+                      device="cuda").bfloat16()
+    q, k, v = qkv.unbind(3)
+    spatial = [z.view(clips * t, j, 8, 64) for z in (q, k, v)]
+    temporal = [z.permute(0, 2, 1, 3, 4) for z in (q, k, v)]
+    out = torch.empty(clips, t, j, 8, 64, dtype=torch.bfloat16,
+                      device="cuda").permute(0, 2, 1, 3, 4)
+    bound = 4 * q.numel() * 2 / 3.35e12 * 1e3
+    with torch.no_grad():
+        return {
+            "spatial": {"ms": time_ms(lambda: fused_attention_into(
+                *spatial, 0.125)), "bound_ms": bound},
+            "temporal": {"ms": time_ms(lambda: fused_attention_into(
+                *temporal, 0.125, out)), "bound_ms": bound}}
 
 
 def main(argv=None):
@@ -70,15 +96,20 @@ def main(argv=None):
             rows[f"B={b} {n}x{n} H={h} D={d} {str(dtype)[6:]}"] = {
                 "ms": ms, "max_abs_err": err, "chunk_keys": kc,
                 "ctas_per_sm": ctas}
+    clip = clip_modes()
     regs = ptxas_report("fused_attention")
     print(f"K3 on {card}")
     for name, r in rows.items():
         print(f"  {name:32s} {r['ms']:8.4f} ms  err {r['max_abs_err']:.3e}"
               f"  chunk {r['chunk_keys']} keys, {r['ctas_per_sm']} CTAs/SM")
+    for mode, r in clip.items():
+        print(f"  MotionBERT {mode:21s} {r['ms']:8.4f} ms  bound "
+              f"{r['bound_ms']:.4f} ms (bytes)")
     print("registers (spill store bytes):")
     for name, (n, spill) in regs.items():
         print(f"  {n:4d} ({spill})  {name}")
-    return {"card": card, "shapes": rows, "registers": regs}
+    return {"card": card, "shapes": rows, "clip_modes": clip,
+            "registers": regs}
 
 
 if __name__ == "__main__":

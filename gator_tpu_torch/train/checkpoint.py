@@ -155,13 +155,19 @@ def load_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
     (best first, as the eval CLI picks; `pick_checkpoint`). A DataParallel
     "module." prefix is stripped, and so are the reference's buffer keys
     (`REFERENCE_BUFFERS`) that the model does not hold: a released
-    `.pth.tar` carries four. Any other unknown or missing key raises."""
+    `.pth.tar` carries four. MotionBERT's layout ({"model": ...}) loads
+    too, without the keys the model's `checkpoint_ignored` prefixes name
+    (its SMPL layer's tables). Any other unknown or missing key raises."""
     if osp.isdir(path):
         path = pick_checkpoint(path, pick_best=True)
     state = load_checkpoint(path)
+    if isinstance(state.get("model"), dict):
+        state = state["model"]
     state = _strip_module(state.get("model_state_dict", state))
     own = model.state_dict()
+    ignored = getattr(model, "checkpoint_ignored", ())
     state = {k: v for k, v in state.items()
-             if k in own or k.split(".")[-1] not in REFERENCE_BUFFERS}
+             if (k in own or k.split(".")[-1] not in REFERENCE_BUFFERS)
+             and not k.startswith(ignored)}
     model.load_state_dict(state, strict=True)
     return model
