@@ -249,7 +249,10 @@ MotionBERT's serving call (models/motionbert.py; K3's serving path):
      temporal [128, 17, 16, 8, 64] written through a permuted view,
      against its plain version (f32 within 1e-4, bf16 within 5e-2, the
      bf16 ulps reported), each mode's ms a launch (CUDA events) beside
-     its bound; (b) the full-width model
+     its bound, the short-row kernel's plan, and sha256 digests of K3's
+     outputs at both modes and at the 431-key eval shape, bf16 and f32
+     (`k3_digests`: run it from an older tree to compare the bits); (b)
+     the full-width model
      (`build_motionbert_mesh`, the head at xavier gain 1 and a drawn
      stream gate, so the input moves the mesh) served at B=128, T=16 bf16
      through `make_serving_fn`, against the same call with
@@ -257,8 +260,9 @@ MotionBERT's serving call (models/motionbert.py; K3's serving path):
      as shares of the f32 plain call's RMS spread over the clips: bf16
      bars 0.2, 0.3, 0.2; the same in f32, bars 1e-3, 2e-3, 1e-3), a
      planted fault (each clip's temporal output written into the next
-     clip's) outside every bf16 bar, 20 K3 launches and no other kernel
-     from the counters zeroed just before the bf16 call; (c) the call's
+     clip's) outside every bf16 bar, 20 K3 launches, all 20 on the
+     short-row kernel, and no other kernel from the counters zeroed just
+     before the bf16 call; (c) the call's
      time beside the plain call's. Its 20 launches join the kernels line,
      its f32 K3 error K3's.
 Then a JSON line with each kernel's numbers, and as the last line
@@ -3251,6 +3255,44 @@ def width_tool_phases(torch, dev, card, randn, gate, gate_json):
     return out
 
 
+def k3_digests(torch, dev):
+    """-> {case: sha256 of K3's output}: MotionBERT's spatial and temporal
+    launches (128 clips x 16 frames x 17 joints, 8 heads of 64, on views
+    of one qkv product, the temporal one written through a permuted view)
+    and the eval shape (B = 512, 431 x 431, 2 heads of 32, with and
+    without a bias), bf16 and f32, on seeded inputs. Public entry points
+    only, so that an older tree's K3 gives its digests too."""
+    import hashlib
+
+    from gator_tpu_torch.nn.fused_attention import (fused_attention,
+                                                    fused_attention_into)
+
+    def digest(t):
+        return hashlib.sha256(t.contiguous().view(torch.uint8).cpu()
+                              .numpy().tobytes()).hexdigest()[:16]
+
+    gen = torch.Generator(device=dev).manual_seed(2022)
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt)[6:]
+        q, k, v = torch.randn(128, 16, 17, 3, 8, 64, generator=gen,
+                              device=dev).to(dt).unbind(3)
+        out[f"spatial_{name}"] = digest(fused_attention_into(
+            *(z.reshape(2048, 17, 8, 64) for z in (q, k, v)), 0.125))
+        buf = torch.empty(128, 16, 17, 8, 64, dtype=dt, device=dev)
+        fused_attention_into(*(z.permute(0, 2, 1, 3, 4) for z in (q, k, v)),
+                             0.125, buf.permute(0, 2, 1, 3, 4))
+        out[f"temporal_{name}"] = digest(buf)
+        q, k, v = (torch.randn(512, 431, 2, 32, generator=gen, device=dev)
+                   .to(dt) for _ in range(3))
+        bias = torch.randn(2, 431, 431, generator=gen, device=dev)
+        out[f"eval_{name}"] = digest(fused_attention(q, k, v, None, 0.17))
+        out[f"eval_bias_{name}"] = digest(fused_attention(q, k, v, bias,
+                                                          0.17))
+    torch.cuda.synchronize()
+    return out
+
+
 def motionbert_phases(torch, dev, card, randn):
     """Phase 32 (y): MotionBERT's serving call (models/motionbert.py), 128
     clips of 16 frames of 17 H36M joints, 8 heads of 64, bf16: (a) K3's two
@@ -3263,8 +3305,10 @@ def motionbert_phases(torch, dev, card, randn):
     zeroed just before it; (c) its times. -> {"errs", "launches"}."""
     from gator_tpu_torch.assets import build_assets
     from gator_tpu_torch.models import build_motionbert_mesh, motionbert
-    from gator_tpu_torch.nn.fused_attention import (fused_attention_into,
-                                                    fused_attention_ref)
+    from gator_tpu_torch.nn.fused_attention import (fused_attention,
+                                                    fused_attention_into,
+                                                    fused_attention_ref,
+                                                    short_plan)
     from gator_tpu_torch.serving import make_serving_fn
     from gator_tpu_torch.tools.timing import time_ms
 
@@ -3319,6 +3363,11 @@ def motionbert_phases(torch, dev, card, randn):
         + f" (bound {k3_bound[0]:.4f} ms each, {k3_bound[1]}: "
         f"{4 * n * t * j * h * d * 2 / 1e6:.1f} MB at 3.35 TB/s)")
     del spatial, temporal, buf_t
+    say(32, "K3 short-row kernel's plan bf16: spatial "
+            f"{short_plan(n * t, j, j, h, d, bf16)}, temporal "
+            f"{short_plan(n, t, t, h, d, bf16, b1=j)}")
+    say(32, "K3 output digests (sha256[:16]): "
+            + json.dumps(k3_digests(torch, dev)))
 
     # 32 (b): the served clips on K3 against the same call on plain
     # attention. MotionBERT's head starts at xavier gain 0.01, where the
@@ -3338,11 +3387,14 @@ def motionbert_phases(torch, dev, card, randn):
     serve_p = make_serving_fn(model, bf16, use_kernels=False)
     reset_counts, read_counts = launch_counters(torch)
     reset_counts()
+    fused_attention.short_launches = 0
     verts, kp3d = serve_k(clips)
     counts = read_counts()
-    check(counts["fused_attention"] == 20 and all(
+    short = fused_attention.short_launches
+    check(counts["fused_attention"] == 20 and short == 20 and all(
         c == 0 for name, c in counts.items() if name != "fused_attention"),
-        f"20 K3 launches and no other kernel in a MotionBERT call: {counts}")
+        f"20 K3 launches, 20 of them short, and no other kernel in a "
+        f"MotionBERT call: {counts}, {short} short")
     check(verts.shape == (n, t, 6890, 3) and kp3d.shape == (n, t, j, 3)
           and verts.dtype == f32, f"served {verts.shape} {kp3d.shape}")
     got = {bf16: (verts, kp3d), f32: make_serving_fn(model, f32)(clips)}
@@ -3404,8 +3456,8 @@ def motionbert_phases(torch, dev, card, randn):
     say(32, "the planted fault (each clip's temporal output written into "
             "the next clip's), bf16: " + ", ".join(
                 f"{k_} {v_:.3f}" for k_, v_ in bad.items())
-            + f"; launches of the bf16 call {counts} (counters zeroed just "
-            f"before it)")
+            + f"; launches of the bf16 call {counts}, {short} of K3's on "
+            f"the short-row kernel (counters zeroed just before it)")
 
     # 32 (c): times
     ms_k, ms_p = time_ms(lambda: serve_k(clips)), time_ms(

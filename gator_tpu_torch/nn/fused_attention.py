@@ -1,19 +1,24 @@
 """K3: fused attention, softmax(q kᵀ·scale + bias) v without a probability
 tensor in device memory.
 
-`fused_attention` runs the hand-written CUDA kernel of
+`fused_attention` runs the hand-written CUDA kernels of
 `csrc/fused_attention.cu` (products on the tensor cores: bf16 `mma`, or in
-f32 the 3xTF32 split, which keeps f32 accuracy; K and V staged in shared
-memory in their own dtype, in chunks the kernel sizes so that two CTAs
-fit on an SM) on CUDA tensors and the
-plain PyTorch version `fused_attention_ref` on CPU tensors. It replaces
-gator_tpu/nn/pallas_attention.py:142 `fused_attention`; the plain version
-is the counterpart of its `_xla_attention` (:104), rounding where the TPU
-kernel rounds (scores and softmax in f32, the normalised probabilities
-rounded to v's dtype before the PV product; in f32 the two are the same
-function). As in the JAX package, the gradient is a plain recompute
-(`_fused_bwd:122`): `FusedAttention` has the kernel forward and a plain
-PyTorch backward.
+f32 the 3xTF32 split, which keeps f32 accuracy) on CUDA tensors and the
+plain PyTorch version `fused_attention_ref` on CPU tensors. `route` picks
+the kernel from Nq and Nk alone: up to `SHORT_TOKENS` queries and keys
+the short-row kernel (a warp a (sample, head), persistent CTAs over whole
+samples through a two-stage shared-memory ring, one pass with the row's
+scores in registers; bound by the bytes of q, k, v and out), else the
+tiled one (a CTA per 128-query tile, head and sample, K and V staged in
+chunks sized so that two CTAs fit on an SM, two passes; bound by the
+bytes at bf16, by the products in f32). Both give the same bits. They
+replace gator_tpu/nn/pallas_attention.py:142 `fused_attention`; the plain
+version is the counterpart of its `_xla_attention` (:104), rounding where
+the TPU kernel rounds (scores and softmax in f32, the normalised
+probabilities rounded to v's dtype before the PV product; in f32 the two
+are the same function). As in the JAX package, the gradient is a plain
+recompute (`_fused_bwd:122`): `FusedAttention` has the kernel forward and
+a plain PyTorch backward.
 
 In the model the module-form `attend` (nn/attention.py) routes here when
 Nq·Nk ≥ 128² (the JAX package's own threshold, pallas_attention.py:160):
@@ -22,7 +27,8 @@ the MDR vertex self-attention, 431 x 431. MotionBERT's serving call
 through `fused_attention_into`, on strided views of its qkv product: the
 temporal rows, (clip, joint) pairs, take the launch's second batch
 dimension, and the output is written in the token layout the next product
-reads.
+reads. Those take the short-row kernel (16-17 tokens); the 431-key
+calls (eval, the demo) the tiled one.
 """
 from __future__ import annotations
 
@@ -35,13 +41,27 @@ import torch
 from . import cuda_lib
 
 HEAD_DIMS = (8, 16, 32, 64)
+# the most queries and keys of the short-row kernel: two m16 query tiles a
+# warp, a row's scores in registers
+SHORT_TOKENS = 32
 
 _SIGNATURE = {
     "fused_attention_launch": [ctypes.c_int, ctypes.c_int]
     + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 16
     + [ctypes.c_float, ctypes.c_void_p],
     "fused_attention_plan": [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2,
+    "fused_attention_short_plan": [ctypes.c_int] * 7 + [ctypes.c_void_p],
 }
+# the short-row kernel takes the tiled kernel's arguments
+_SIGNATURE["fused_attention_short_launch"] = _SIGNATURE[
+    "fused_attention_launch"]
+
+
+def route(nq: int, nk: int) -> str:
+    """The kernel a launch of Nq queries against Nk keys takes: "short"
+    (csrc/fused_attention.cu `attn_short::attention_kernel`) up to
+    SHORT_TOKENS of each, else "tiled" (`attn::attention_kernel`)."""
+    return "short" if nq <= SHORT_TOKENS and nk <= SHORT_TOKENS else "tiled"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -90,6 +110,21 @@ def attention_plan(nk: int, d: int, dtype: torch.dtype) -> Tuple[int, int]:
     return kc.value, ctas.value
 
 
+def short_plan(b: int, nq: int, nk: int, h: int, d: int,
+               dtype: torch.dtype, b1: int = 1) -> dict:
+    """The short-row kernel's plan for B x B1 samples on the current CUDA
+    device: heads a unit (a sample's heads, or a group of them), units a
+    ring stage, shared-memory bytes a CTA, CTAs resident an SM and CTAs
+    launched."""
+    lib = cuda_lib.load("fused_attention", _SIGNATURE)
+    out = (ctypes.c_int * 5)()
+    cuda_lib.check(lib.fused_attention_short_plan(
+        cuda_lib.kernel_dtype(dtype), d, b, b1, nq, nk, h, out),
+        "fused_attention_short_plan")
+    return dict(zip(("heads_per_unit", "units_per_stage", "smem_bytes",
+                     "ctas_per_sm", "ctas"), out))
+
+
 def fused_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         bias: Optional[torch.Tensor] = None,
                         scale: float = 1.0) -> torch.Tensor:
@@ -134,20 +169,31 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         bias = bias.to(torch.float32).contiguous()
     if b * b1 == 0 or nq == 0 or h == 0:
         return out
-    # strided reads in the [B, B1, N, H, D] layout: D contiguous, and k and
-    # v rows on 16-byte boundaries for cp.async (else a fresh copy)
-    q = q if q.stride(-1) == 1 else q.contiguous()
+    short = route(nq, nk) == "short"
+    # strided reads in the [B, B1, N, H, D] layout: D contiguous, and rows
+    # on 16-byte boundaries for cp.async (the tiled kernel reads q by
+    # element; else a fresh copy); the short kernel writes out in 16-byte
+    # pieces too (else into a fresh tensor, then copied)
+    q = q if (rows_aligned(q) if short else q.stride(-1) == 1) else \
+        q.clone(memory_format=torch.contiguous_format)
     k, v = (t if rows_aligned(t) else t.clone(
         memory_format=torch.contiguous_format) for t in (k, v))
+    dst = o5 if not short or rows_aligned(o5) else torch.empty(
+        o5.shape, dtype=o5.dtype, device=o5.device)
     lib = cuda_lib.load("fused_attention", _SIGNATURE)
-    err = lib.fused_attention_launch(
-        cuda_lib.kernel_dtype(q.dtype), d, q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), None if bias is None else bias.data_ptr(),
-        o5.data_ptr(), b, b1, nq, nk, h, *q.stride()[:4], *k.stride()[:4],
-        *v.stride()[:4], *o5.stride()[:4], float(scale),
-        cuda_lib.stream_ptr(q))
-    cuda_lib.check(err, "fused_attention_launch")
+    fn = (lib.fused_attention_short_launch if short
+          else lib.fused_attention_launch)
+    err = fn(cuda_lib.kernel_dtype(q.dtype), d, q.data_ptr(), k.data_ptr(),
+             v.data_ptr(), None if bias is None else bias.data_ptr(),
+             dst.data_ptr(), b, b1, nq, nk, h, *q.stride()[:4],
+             *k.stride()[:4], *v.stride()[:4], *dst.stride()[:4],
+             float(scale), cuda_lib.stream_ptr(q))
+    cuda_lib.check(err, "fused_attention_short_launch" if short
+                   else "fused_attention_launch")
+    if dst is not o5:
+        o5.copy_(dst)
     fused_attention.launches += 1
+    fused_attention.short_launches += short
     return out
 
 
@@ -200,8 +246,9 @@ def fused_attention_into(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, Nq, H, D] or [B, B1, Nq, H, D], k and v alike, in any strides with
     D contiguous, written into `out` (q's shape, any strides with D
     contiguous) or a fresh contiguous tensor, which is returned. The CUDA
-    kernel for CUDA tensors (counted in `fused_attention.launches`), the
-    plain version for CPU tensors or with `use_kernel=False`."""
+    kernels for CUDA tensors (counted in `fused_attention.launches`, and
+    in `fused_attention.short_launches` on the short route), the plain
+    version for CPU tensors or with `use_kernel=False`."""
     if use_kernel and q.device.type == "cuda":
         return _launch(q, k, v, None, scale, out)
     if use_kernel and q.device.type != "cpu":
@@ -213,5 +260,7 @@ def fused_attention_into(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.copy_(got.reshape(q.shape))
 
 
-# launches of the CUDA kernel; the CPU path never counts
+# launches of the CUDA kernels (either route), and of the short-row kernel
+# among them; the CPU path never counts
 fused_attention.launches = 0
+fused_attention.short_launches = 0

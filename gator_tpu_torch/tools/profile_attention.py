@@ -11,11 +11,12 @@ per SM); then the registers and spills ptxas gave each instantiation (the
 build log). Run it from two checkouts in one call to compare them on one
 card. `main` returns the numbers. Fails without a CUDA device.
 
-Then K3 as MotionBERT's serving call launches it (`clip_modes`: 128 clips
-of 16 frames of 17 joints, 8 heads of 64, bf16, on views of one qkv
-product): the spatial mode, [2048 frames, 17, 8, 64], and the temporal
-mode, [128 clips, 17 joints, 16, 8, 64] written through a permuted view,
-each beside its bound: q, k, v and out, 142.6 MB, at 3.35 TB/s.
+Then K3 as MotionBERT's serving call launches it, on the short-row kernel
+(`clip_modes`: 128 clips of 16 frames of 17 joints, 8 heads of 64, bf16,
+on views of one qkv product): the spatial mode, [2048 frames, 17, 8, 64],
+and the temporal mode, [128 clips, 17 joints, 16, 8, 64] written through a
+permuted view, each beside its bound: q, k, v and out, 142.6 MB, at 3.35
+TB/s.
 """
 from __future__ import annotations
 

@@ -13,8 +13,8 @@ import torch
 
 from gator_tpu.nn.pallas_attention import fused_attention as jax_fused
 from gator_tpu_torch.nn import attend
-from gator_tpu_torch.nn.fused_attention import (fused_attention,
-                                                fused_attention_ref)
+from gator_tpu_torch.nn.fused_attention import (SHORT_TOKENS, fused_attention,
+                                                fused_attention_ref, route)
 
 # (B, Nq, Nk, H, D, bias): the MDR self-attention (431 x 431, 2 heads of
 # 32) with and without a bias, the GAT attention shape (17 x 17, 8 heads of
@@ -97,3 +97,20 @@ def test_attend_routes_by_score_tile_size():
         small.numpy(),
         fused_attention_ref(tq[:, :17], tk[:, :17], tv[:, :17], None,
                             0.2).numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("nq, nk, with_bias, want", [
+    (17, 17, False, "short"), (16, 16, False, "short"),
+    (1, 1, False, "short"), (32, 32, False, "short"),
+    (17, 17, True, "short"), (33, 33, False, "tiled"),
+    (17, 431, False, "tiled"), (431, 431, False, "tiled"),
+    (200, 90, True, "tiled")])
+def test_route_by_query_and_key_counts(nq, nk, with_bias, want):
+    """The kernel a CUDA launch takes depends on Nq and Nk alone: up to
+    SHORT_TOKENS of each (MotionBERT's 16-17 tokens) the short-row kernel,
+    else the tiled one (the 431-key eval attention); a bias changes
+    nothing."""
+    q, k, _, bias = _inputs(1, nq, nk, 2, 8, with_bias)
+    assert (bias is not None) == with_bias
+    assert SHORT_TOKENS == 32
+    assert route(q.shape[1], k.shape[1]) == want
