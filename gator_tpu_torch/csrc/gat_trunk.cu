@@ -45,7 +45,7 @@
 // bf16); the wrapper (nn/gat_trunk.py `launch_plan`) chooses G from B so
 // that the CTAs spread evenly over the SMs (B = 256: 128 CTAs of 2
 // samples). The kernel takes about 12 times its bound at B = 2048
-// (chip_smoke.py phase 7 prints it beside the bound;
+// (the benchmark's k1_roofline.serve reads it against the bound;
 // tools/trunk_phases.py splits a CTA's cycles by phase): the products'
 // mma.sync and ldmatrix issue, a panel and a barrier at a time, and the
 // exact-erf GELU of the MLP's epilogues, the LayerNorms, the attention and

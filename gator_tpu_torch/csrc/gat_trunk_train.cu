@@ -52,7 +52,8 @@
 // B = 512 on bf16 tensor cores, and about as long for the bytes the
 // launches move (x, out, gout, dx, the saved operands, the weights). The
 // forward and the row backward take about 15 and 20 times their bounds
-// (chip_smoke.py phase 14 prints each launch beside its own), spread over
+// (tools/profile_train.py times each launch; benchmark/core/counts.py
+// counts the work), spread over
 // the products' epilogues, the mma, the
 // panel copies and the mixes, none dominant: a tile of one sample leaves
 // each panel little work between barriers. Deeper rings (three or four

@@ -50,7 +50,7 @@
 // 0.79 GB of q2/k2/v2 and y3 in and x' out (0.24 ms), and 760 M
 // exponentials twice. Both are bound by the bytes; measured on one H100
 // 80GB HBM3 at 700 W the self-attention takes 1.41 ms a layer
-// (chip_smoke.py, tools/profile_lbf.py; the rows launch's time is in
+// (tools/profile_lbf.py; the rows launch's time is in
 // lbf_rows_wg.cuh). bf16 products are exact, so only the f32 sums reorder;
 // f32 runs as 3xTF32 (mma.cuh), never single TF32.
 #include "attn_tc.cuh"

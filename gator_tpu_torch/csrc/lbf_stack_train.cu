@@ -87,8 +87,8 @@
 // 1.5 (forward), 1.4 (dq) and 1.2 ms (dk/dv) per stage-2 step, ~6x their
 // bounds, with one dropout hash and one or two exponentials per score;
 // the joints' launch ~0.3 ms, reading each row tile's share, and the
-// reduction ~0.04 ms (chip_smoke.py phase 14 prints each launch beside
-// its bound; tools/profile_train.py).
+// reduction ~0.04 ms (tools/profile_train.py times each launch;
+// benchmark/core/counts.py counts the work).
 #include "attn_tc.cuh"
 #include "train_ops.cuh"
 

@@ -5,8 +5,8 @@ parameter's gradient after the all-reduce, the parameters after the
 optimizer step, the BatchNorm running stats, an eval result or served
 meshes. `spawn(run_cases, n, args=(cases,))` runs them over n ranks, and
 `run_cases(None, cases)` runs the one-process counterpart on the global
-batch. chip_smoke.py (phase 30), `parallel.dryrun` and the CPU tests use
-them.
+batch. tests/test_torch_paths_cuda.py on the card, `parallel.dryrun` and
+the CPU tests use them.
 
 A case is a dict. Every kind takes "assets" (a port asset bundle) and
 "device" (for world None; a rank takes its world's). Kinds:

@@ -172,8 +172,9 @@ def make_serving_fn(model, dtype: torch.dtype = torch.bfloat16,
     f32 (`clip_serving_fn`).
 
     `use_kernels=False` runs the kernels' plain versions on any device:
-    the on-card numerics oracle and speed baseline of chip_smoke.py, as
-    `use_fused=False` is in the JAX package. The weights and tables are
+    the on-card numerics oracle of tests/test_torch_paths_cuda.py and the
+    speed baseline of tools/profile_trunk.py, as `use_fused=False` is in
+    the JAX package. The weights and tables are
     derived once, by `serving_weights`. A call is the span `serve`, its
     stages the spans of the two forward functions."""
     if isinstance(model, MeshRegressor):

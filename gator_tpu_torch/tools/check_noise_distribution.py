@@ -23,8 +23,8 @@ a synchronize. The three areas' host forms run in --workers processes
 (each area restarts its own streams, so the numbers do not depend on
 it). Without a CUDA device it fails unless --device cpu is given.
 
-chip_smoke.py's phase 26 and the CPU tests share `gate_poses`,
-`noise_states` and `noise_gate`.
+tests/test_torch_paths_cuda.py on the card and the CPU tests share
+`gate_poses`, `noise_states` and `noise_gate`.
 """
 from __future__ import annotations
 

@@ -135,7 +135,7 @@ def run(device="cuda", batches=BATCHES, batch=512, vertex_num=6890,
         last = {}
 
         def call():
-            # whatever the caller's grad mode (chip_smoke runs with it off)
+            # whatever the caller's grad mode (a caller may run with it off)
             with torch.set_grad_enabled(not fwd_only):
                 if fwd_only:
                     last["loss"] = step.forward_loss(state, data, SEED,

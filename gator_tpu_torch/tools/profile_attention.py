@@ -17,10 +17,17 @@ on views of one qkv product): the spatial mode, [2048 frames, 17, 8, 64],
 and the temporal mode, [128 clips, 17 joints, 16, 8, 64] written through a
 permuted view, each beside its bound: q, k, v and out, 142.6 MB, at 3.35
 TB/s.
+
+Last, sha256 digests of K3's outputs (`digests`) at both MotionBERT modes
+and at the eval shape with and without a bias, bf16 and f32, on seeded
+inputs, through the public entry points only: the same tool run in an
+older checkout gives that tree's, so that two trees' K3 can be compared
+bit for bit in one call.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import os
 import re
 import sys
@@ -74,6 +81,40 @@ def clip_modes(clips: int = 128, t: int = 16, j: int = 17) -> dict:
                 *temporal, 0.125, out)), "bound_ms": bound}}
 
 
+def digests() -> dict:
+    """{case: sha256[:16] of K3's output} (module docstring): the
+    spatial and temporal launches of 128 clips x 16 frames x 17 joints, 8
+    heads of 64, on views of one qkv product, the temporal one written
+    through a permuted view; the eval shape (B=512, 431 x 431, 2 heads of
+    32) with and without a bias."""
+    def digest(t):
+        return hashlib.sha256(t.contiguous().view(torch.uint8).cpu()
+                              .numpy().tobytes()).hexdigest()[:16]
+
+    gen = torch.Generator(device="cuda").manual_seed(2022)
+    out = {}
+    with torch.no_grad():
+        for dt in (torch.bfloat16, torch.float32):
+            name = str(dt)[6:]
+            q, k, v = torch.randn(128, 16, 17, 3, 8, 64, generator=gen,
+                                  device="cuda").to(dt).unbind(3)
+            out[f"spatial_{name}"] = digest(fused_attention_into(
+                *(z.reshape(2048, 17, 8, 64) for z in (q, k, v)), 0.125))
+            buf = torch.empty(128, 16, 17, 8, 64, dtype=dt, device="cuda")
+            fused_attention_into(
+                *(z.permute(0, 2, 1, 3, 4) for z in (q, k, v)), 0.125,
+                buf.permute(0, 2, 1, 3, 4))
+            out[f"temporal_{name}"] = digest(buf)
+            q, k, v = (torch.randn(512, 431, 2, 32, generator=gen,
+                                   device="cuda").to(dt) for _ in range(3))
+            bias = torch.randn(2, 431, 431, generator=gen, device="cuda")
+            out[f"eval_{name}"] = digest(fused_attention(q, k, v, None,
+                                                         0.17))
+            out[f"eval_bias_{name}"] = digest(fused_attention(q, k, v, bias,
+                                                              0.17))
+    return out
+
+
 def main(argv=None):
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args(
         argv)
@@ -98,6 +139,7 @@ def main(argv=None):
                 "ms": ms, "max_abs_err": err, "chunk_keys": kc,
                 "ctas_per_sm": ctas}
     clip = clip_modes()
+    bits = digests()
     regs = ptxas_report("fused_attention")
     print(f"K3 on {card}")
     for name, r in rows.items():
@@ -109,8 +151,11 @@ def main(argv=None):
     print("registers (spill store bytes):")
     for name, (n, spill) in regs.items():
         print(f"  {n:4d} ({spill})  {name}")
+    print("output digests (sha256[:16]):")
+    for name, d in bits.items():
+        print(f"  {name:16s} {d}")
     return {"card": card, "shapes": rows, "clip_modes": clip,
-            "registers": regs}
+            "registers": regs, "digests": bits}
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""The card's name and CUDA-event timing, shared by the tools and by
-chip_smoke.py (both need a CUDA device); `span_profile`, which attributes
+"""The card's name and CUDA-event timing, shared by the tools (they need
+a CUDA device); `span_profile`, which attributes
 one profiled window's launches, device time and idle to the program's
 spans (`profiling.attribute`); and `measure`, which profiles a call on the
 card or times it on the host clock where a tool runs with --device cpu."""

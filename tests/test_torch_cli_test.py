@@ -26,8 +26,8 @@ from gator_tpu_torch.convert import state_dict_from_jax
 from gator_tpu_torch.models import GatorSpec, build_gator
 from gator_tpu_torch.train import save_checkpoint
 from test_torch_convert import jax_variables
-from test_torch_readers import _chip_smoke
 from test_torch_readers import one_torch_thread  # noqa: F401 (autouse)
+from torch_fixtures import write_fixtures
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 40
@@ -138,7 +138,7 @@ def test_run_test_metric_suite_matches_jax_cli(case, tmp_path, jax_cache,
                                                monkeypatch, capsys,
                                                small_assets,
                                                small_assets_coco):
-    """`run_test` on a fabricated dataset tree (chip_smoke.py's writer)
+    """`run_test` on a fabricated dataset tree (tests/torch_fixtures.py)
     read through $GATOR_DATA_DIR, with weights that gator_tpu saved and
     tools/jax_checkpoint_to_torch.py converted: the dataset's metric suite
     (Human36M's per-action protocol-2 report; `evaluate_joint` for the GAT
@@ -149,8 +149,8 @@ def test_run_test_metric_suite_matches_jax_cli(case, tmp_path, jax_cache,
 
     name, init, (pred_key, gt_key), keys = SUITE_CASES[case]
     data = tmp_path / "data"
-    _chip_smoke().write_fixtures(str(data), h36m_test=40, h36m_train=0,
-                                 pw3d=20, coco=0, muco=0, seed=5)
+    write_fixtures(str(data), h36m_test=40, h36m_train=0, pw3d=20, coco=0,
+                   muco=0, seed=5)
     monkeypatch.setenv("GATOR_DATA_DIR", str(data))
     with open(os.path.join(ROOT, "configs", name)) as f:
         raw = yaml.safe_load(f)
@@ -219,8 +219,8 @@ def test_cli_main_on_fabricated_h36m_tree(name, debug, tmp_path, monkeypatch,
                            seed=0)
     monkeypatch.setattr(cli_common, "build_assets", lambda *a, **k: passets)
     data = tmp_path / "data"
-    _chip_smoke().write_fixtures(str(data), h36m_test=30, h36m_train=0,
-                                 pw3d=0, coco=0, muco=0, seed=6)
+    write_fixtures(str(data), h36m_test=30, h36m_train=0, pw3d=0, coco=0,
+                   muco=0, seed=6)
     monkeypatch.setenv("GATOR_DATA_DIR", str(data))
     with open(os.path.join(ROOT, "configs", name)) as f:
         raw = yaml.safe_load(f)

@@ -11,9 +11,10 @@ The weights are one flax init per joint set, converted with
 `state_dict_from_jax` and saved as a reference-layout .pth.tar that both
 demos load through their `weights` argument. Both demos build their model
 from `GatorSpec.from_assets` at depth 2 (the class is patched in both
-modules; the full depth 6 runs in chip_smoke.py), and the JAX demo's own
-init, whose every leaf the weights replace, returns the cached init:
-each flax init compiles for ~9 s on one core.
+modules; the full depth 6 runs on the card in
+tests/test_torch_paths_cuda.py), and the JAX demo's own init, whose every
+leaf the weights replace, returns the cached init: each flax init compiles
+for ~9 s on one core.
 """
 import functools
 import sys

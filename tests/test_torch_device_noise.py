@@ -6,8 +6,8 @@ Fed the JAX function's own uniforms in the JAX key schedule, the port's
 within 1e-3 px, except at most 0.2 % boundary cases, each shown to be one
 (a candidate within 1e-3 px of its acceptance radius, a state uniform
 within 1e-6 of a cumulative-probability edge, or its symmetric pair such
-a case in the wave before; chip_smoke.noise_same_draws, which phase 26
-shares). XLA's and torch's cos, sin and sums may differ by an ulp, which
+a case in the wave before; tests/torch_fixtures.noise_same_draws, which
+the card's test of the simulator shares). XLA's and torch's cos, sin and sums may differ by an ulp, which
 moves such a draw across the edge.
 `h36m_syn_error_device` from the same draws within 1e-6. With the port's
 own generator, the simulator passes tests/test_device_noise.py's bars
@@ -29,8 +29,8 @@ from gator_tpu.data.gt_synth import GtSynthesizer as JaxSynth
 from gator_tpu.data.packed import build_packed_tables as jbuild
 from gator_tpu.data.synthetic import synthetic_coco_dataset as jcoco
 from gator_tpu_torch.data import device_noise as dn
-from test_torch_readers import _chip_smoke
 from test_torch_readers import one_torch_thread  # noqa: F401
+from torch_fixtures import noise_same_draws
 
 H36M_NAMES = ("Pelvis", "R_Hip", "R_Knee", "R_Ankle", "L_Hip", "L_Knee",
               "L_Ankle", "Torso", "Neck", "Nose", "Head", "L_Shoulder",
@@ -102,12 +102,12 @@ def shared():
 
 
 def test_same_draws_same_function(shared, capsys):
-    """chip_smoke.noise_same_draws's rule (phase 26 holds the card to the
-    CPU with it)."""
+    """torch_fixtures.noise_same_draws's rule (tests/test_torch_paths_cuda.py
+    holds the card to the CPU with it)."""
     joints, areas, draws, want, got = shared
     assert got.shape == want.shape == (B, 17, 2)
-    off, explained, rest = _chip_smoke().noise_same_draws(
-        joints, areas, draws.table, got, want)
+    off, explained, rest = noise_same_draws(joints, areas, draws.table,
+                                            got, want)
     with capsys.disabled():
         print(f"\nshared draws: {off} of {B * 17} (row, joint) beyond 1e-3 "
               f"px, {explained} of them boundary cases; the rest within "

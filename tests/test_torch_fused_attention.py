@@ -3,7 +3,7 @@ Function's plain backward against the JAX package's `fused_attention`
 (which runs its plain `_xla_attention` off the TPU), on the same numpy
 inputs. Bars: f32 outputs within 1e-5; gradients scaled by their max within
 1e-5. The kernel itself is held against `fused_attention_ref` on the card
-(tests/test_torch_eval_kernels_cuda.py, chip_smoke.py).
+(tests/test_torch_eval_kernels_cuda.py, tests/test_torch_motionbert_cuda.py).
 """
 import jax
 import jax.numpy as jnp

@@ -11,7 +11,9 @@ Past 65535 samples (the grid's y limit) the host launches the kernels
 again for the rest of the batch: B=65537 at Nv=50 checks that seam. The
 self-attention kernel of each variant (K2-layer's; T1's full, preproj,
 fold1dot, bf16smax, nosoftmax) gives the same bits on a second run, and
-in bf16 those with 64-wide V rows hold two CTAs per SM.
+in bf16 those with 64-wide V rows hold two CTAs per SM. Every T1 mode
+gives the same bits for groups of 1 and 8 samples, and K2-layer in f32
+equals K2 (`lbf_stack`) run on the same one layer within the f32 bar.
 """
 import importlib
 
@@ -22,8 +24,8 @@ import torch
 from gator_tpu_torch.assets import build_assets
 from gator_tpu_torch.models import GatorSpec, build_gator
 from gator_tpu_torch.nn import (MODES, cuda_lib, extract_layer_params,
-                                lbf_layer, lbf_layer_ref, run_layers,
-                                run_layers_ref)
+                                lbf_layer, lbf_layer_ref, lbf_stack,
+                                run_layers, run_layers_ref)
 from gator_tpu_torch.nn.lbf_ablate import ATTN_KERNELS
 
 # the modules (the package exports functions of the same names)
@@ -56,7 +58,8 @@ def _err(got, ref):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("batch,nv", [(16, 431), (1100, 431), (3, 50)])
+@pytest.mark.parametrize("batch,nv", [(16, 431), (1100, 431), (2048, 431),
+                                      (3, 50)])
 def test_lbf_layer_kernel_matches_ref(mdr, dtype, batch, nv):
     j = mdr.spec.num_joint
     rng = np.random.default_rng(batch + nv)
@@ -69,16 +72,22 @@ def test_lbf_layer_kernel_matches_ref(mdr, dtype, batch, nv):
     assert got.dtype == dtype and got.shape == verts.shape
     err = _err(got, lbf_layer_ref(verts, joints, weights, 2))
     assert err <= TOL[dtype], err
+    if dtype == torch.float32:
+        err = _err(got, lbf_stack(verts, joints, weights, 2))
+        assert err <= TOL[dtype], err
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", MODES)
-def test_run_layers_kernel_matches_ref(mdr, dtype, mode):
+@pytest.mark.parametrize("batch", [16, 2048])
+def test_run_layers_kernel_matches_ref(mdr, dtype, mode, batch):
+    """Every mode at B=16 and at the ablation tool's B=2048, against its
+    plain version; groups of 1 and 8 give the same bits."""
     j = mdr.spec.num_joint
     rng = np.random.default_rng(MODES.index(mode))
-    verts = _randn(rng, 16, 431, 64).to(dtype)
-    joints = _randn(rng, 16, j, 64).to(dtype)
+    verts = _randn(rng, batch, 431, 64).to(dtype)
+    joints = _randn(rng, batch, j, 64).to(dtype)
     layers = [extract_layer_params(mdr, i, dtype, "cuda") for i in range(3)]
     before = run_layers.launches
     got = run_layers(verts, joints, layers, 2, 8, mode)
@@ -86,6 +95,7 @@ def test_run_layers_kernel_matches_ref(mdr, dtype, mode):
     assert run_layers.launches == before + 3 * per_layer
     err = _err(got, run_layers_ref(verts, joints, layers, 2, 8, mode))
     assert err <= TOL[dtype], (mode, err)
+    assert torch.equal(got, run_layers(verts, joints, layers, 2, 1, mode))
 
 
 @pytest.mark.cuda

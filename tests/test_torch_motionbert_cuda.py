@@ -13,17 +13,24 @@ Bars: K3 as tests/test_torch_eval_kernels_cuda.py (f32 atol 1e-4, bf16
 the second batch dimension and the output strides move no arithmetic, so
 bit-equal; the short-row kernel runs the tiled kernel's arithmetic, so
 bit-equal to it; the served clips held to the cell's own limits
-(benchmark/traffic/serve-clip16-b128.json).
+(benchmark/traffic/serve-clip16-b128.json), and on K3 against the same call
+on plain attention at the cell's 128 clips (gaps as shares of the clips'
+RMS spread: f32 1e-3 / 2e-3 / 1e-3, bf16 0.2 / 0.3 / 0.2), with a planted
+fault in the temporal launches' addressing that the bf16 bars see.
 """
 import pytest
 import torch
 
+from gator_tpu_torch.assets import build_assets
+from gator_tpu_torch.models import build_motionbert_mesh, motionbert
 from gator_tpu_torch.nn import cuda_lib
 from gator_tpu_torch.nn.fused_attention import (_SIGNATURE, HEAD_DIMS,
                                                 _launch, fused_attention,
                                                 fused_attention_into,
                                                 fused_attention_ref,
                                                 short_plan)
+from gator_tpu_torch.serving import make_serving_fn
+from torch_fixtures import launched, only
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 
@@ -47,15 +54,17 @@ def _qkv(card, n, t, j, dtype, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k3_spatial_17_tokens(card, dtype):
-    """The spatial attention: [clips*T, 17, 8, 64] views of qkv."""
-    qkv = _qkv(card, 16, 16, 17, dtype)
-    q, k, v = (qkv[:, :, :, i].reshape(256, 17, 8, 64) for i in range(3))
+    """The spatial attention: [clips*T, 17, 8, 64] views of qkv, at the
+    cell's 128 clips (2048 frames: several samples a persistent CTA, so
+    the cp.async ring's second stage fills)."""
+    qkv = _qkv(card, 128, 16, 17, dtype)
+    q, k, v = (qkv[:, :, :, i].reshape(2048, 17, 8, 64) for i in range(3))
     before = fused_attention.launches
     with torch.no_grad():
         got = fused_attention_into(q, k, v, 0.125)
     torch.cuda.synchronize()
     assert fused_attention.launches == before + 1
-    assert short_plan(256, 17, 17, 8, 64, dtype)["heads_per_unit"] == 8
+    assert short_plan(2048, 17, 17, 8, 64, dtype)["heads_per_unit"] == 8
     want = fused_attention_ref(q.contiguous(), k.contiguous(),
                                v.contiguous(), None, 0.125)
     assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
@@ -66,20 +75,21 @@ def test_k3_spatial_17_tokens(card, dtype):
 def test_k3_temporal_16_tokens(card, dtype):
     """The temporal attention: [clips, 17, T=16, 8, 64] views of qkv (two
     batch dimensions), written through a permuted view into [clips, T,
-    17, 8, 64]."""
-    qkv = _qkv(card, 16, 16, 17, dtype, seed=1)
+    17, 8, 64], at the cell's 128 clips (2176 samples)."""
+    qkv = _qkv(card, 128, 16, 17, dtype, seed=1)
     q, k, v = (qkv[:, :, :, i].permute(0, 2, 1, 3, 4) for i in range(3))
-    out = torch.empty(16, 16, 17, 8, 64, dtype=dtype, device=card)
+    out = torch.empty(128, 16, 17, 8, 64, dtype=dtype, device=card)
     with torch.no_grad():
         fused_attention_into(q, k, v, 0.125, out.permute(0, 2, 1, 3, 4))
     torch.cuda.synchronize()
-    flat = [z.reshape(16 * 17, 16, 8, 64) for z in (q, k, v)]
-    want = fused_attention_ref(*flat, None, 0.125).reshape(16, 17, 16, 8, 64)
+    flat = [z.reshape(128 * 17, 16, 8, 64) for z in (q, k, v)]
+    want = fused_attention_ref(*flat, None, 0.125).reshape(128, 17, 16, 8,
+                                                           64)
     got = out.permute(0, 2, 1, 3, 4)
     assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
     # the same bits as the one-dimension launch into a contiguous tensor
     with torch.no_grad():
-        one = fused_attention_into(*flat, 0.125).view(16, 17, 16, 8, 64)
+        one = fused_attention_into(*flat, 0.125).view(128, 17, 16, 8, 64)
     assert torch.equal(got, one)
 
 
@@ -244,3 +254,86 @@ def test_served_clips_match_the_reference(card):
     values = drv.compare([out], [x], w, ref.tables_of(assets, card), cfg, 8)
     ok, checks = check.judge(values, mix["limits"])
     assert ok, checks
+
+
+def _rms(z):
+    return float(z.double().pow(2).mean().sqrt())
+
+
+CLIP_BARS = {torch.float32: {"mesh_rel_rms": 1e-3,
+                             "mesh_clip_rel_rms_max": 2e-3,
+                             "kp3d_rel_rms": 1e-3},
+             torch.bfloat16: {"mesh_rel_rms": 0.2,
+                              "mesh_clip_rel_rms_max": 0.3,
+                              "kp3d_rel_rms": 0.2}}
+
+
+@pytest.mark.cuda
+def test_served_clips_on_k3_match_the_plain_path(card, monkeypatch,
+                                                 record_property):
+    """128 clips of 16 frames served through `make_serving_fn` in f32 and
+    bf16, on K3 against the same call with use_kernels=False. The gaps are
+    shares of what the clips decide: the plain f32 call's RMS distance
+    from its mean over the clips. In bf16 a probability that rounds the
+    other way moves the tokens by bf16 roundings, several % of that part;
+    f32 holds the call to K3's own error. MotionBERT's head starts at
+    xavier gain 0.01, where the mesh hardly depends on the input: gain 1
+    and a drawn stream gate make a fault in an attention move the mesh.
+    The planted fault, each clip's temporal output written into the next
+    clip's, must read outside every bf16 bar. The bf16 call launches K3
+    20 times, all on the short-row kernel, and no other kernel. The gaps
+    go to the JUnit report (`--junitxml`) as properties."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    n, t, j = 128, 16, 17
+    gen = torch.Generator().manual_seed(32)
+    assets = build_assets("human36", data_dirs=[],
+                          synthetic_vertex_num=6890, seed=0)
+    model = build_motionbert_mesh(assets, seed=1, device=card)
+    with torch.no_grad():
+        model.head.head_pose.weight.mul_(100.0)
+        model.head.head_shape.weight.mul_(100.0)
+        for lin in model.backbone.ts_attn:
+            lin.weight.copy_(torch.randn(*lin.weight.shape, generator=gen)
+                             * 0.02)
+    u = torch.rand(n, t, j, 3, generator=gen)
+    clips = torch.cat([u[..., :2] * 2 - 1, u[..., 2:]], -1).to(card)
+
+    short = fused_attention.short_launches
+    with launched() as counts:
+        got = {bf16: make_serving_fn(model, bf16)(clips)}
+    only(counts, fused_attention=20)
+    assert fused_attention.short_launches - short == 20
+    verts, kp3d = got[bf16]
+    assert verts.shape == (n, t, 6890, 3) and verts.dtype == f32
+    assert kp3d.shape == (n, t, j, 3)
+    got[f32] = make_serving_fn(model, f32)(clips)
+    ref = {dt: make_serving_fn(model, dt, use_kernels=False)(clips)
+           for dt in (f32, bf16)}
+    ref_v, ref_k = ref[f32]
+    spread_v = _rms(ref_v - ref_v.mean(0, keepdim=True))
+    spread_k = _rms(ref_k - ref_k.mean(0, keepdim=True))
+    assert spread_v > 1e-3, spread_v
+
+    def gaps(dt, v, k):
+        rv, rk = ref[dt]
+        return {"mesh_rel_rms": _rms(v - rv) / spread_v,
+                "mesh_clip_rel_rms_max": float(
+                    (v - rv).double().pow(2).mean((1, 2, 3)).sqrt().max())
+                / spread_v,
+                "kp3d_rel_rms": _rms(k - rk) / spread_k}
+
+    for dt in (f32, bf16):
+        good = gaps(dt, *got[dt])
+        record_property(str(dt)[6:], good)
+        assert all(good[m] <= CLIP_BARS[dt][m] for m in good), (dt, good)
+
+    def shifted(q, k, v, scale, out=None, use_kernel=True):
+        res = fused_attention_into(q, k, v, scale, out, use_kernel)
+        if q.dim() == 5:
+            res.copy_(res.roll(1, dims=0))
+        return res
+
+    monkeypatch.setattr(motionbert, "fused_attention_into", shifted)
+    bad = gaps(bf16, *make_serving_fn(model, bf16)(clips))
+    record_property("planted_fault_bfloat16", bad)
+    assert all(bad[m] > CLIP_BARS[bf16][m] for m in bad), bad

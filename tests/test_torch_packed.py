@@ -2,8 +2,8 @@
 "packed" and "device"), the mixed pipeline's index-only batches and the
 session's mode resolution, against the JAX package's, on the CPU.
 
-The readers read the fabricated annotation trees of chip_smoke.py (and
-tests/test_readers.py's AMASS files) in both packages. Packed-table
+The readers read the fabricated annotation trees of tests/torch_fixtures.py
+(and tests/test_readers.py's AMASS files) in both packages. Packed-table
 columns: from file tables bit-equal; from the SMPL pass within f32
 rounding (joints 2e-3 mm, offsets 2e-6 m, effective poses and betas 1e-5,
 pixels 1e-3); masks and genders equal. The batches the wrappers assemble

@@ -10,12 +10,11 @@ bit-equal from one seed; GT meshes within 1e-4 m in f32, joints within
 0.1 mm, inputs derived from the device's SMPL pass within 1e-4; the
 metric suites within rtol 1e-5 on the same predictions; the stand-ins'
 tables within rtol 1e-4 (their keypoints come from the SMPL pass). The
-files are those of chip_smoke.py's fixture writer at a small size (what
-the card's run reads) and of tests/test_readers.py (the readers' filter
-cases and AMASS).
+files are those of tests/torch_fixtures.py's writer at a small size (what
+the card's tests read at full size) and of tests/test_readers.py (the
+readers' filter cases and AMASS).
 """
 import dataclasses
-import importlib.util
 import os
 
 import numpy as np
@@ -32,6 +31,7 @@ from gator_tpu_torch.config import load_config
 from test_readers import (_write_amass_fixture, _write_coco_fixture,
                           _write_h36m_fixture, _write_muco_fixture,
                           _write_pw3d_fixture)
+from torch_fixtures import write_fixtures
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -48,21 +48,13 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 @pytest.fixture(scope="module")
 def trees(tmp_path_factory):
-    """{"chip": chip_smoke's tree at a small size, plus AMASS;
-    "jax": tests/test_readers.py's trees}."""
+    """{"chip": tests/torch_fixtures.py's tree at a small size, plus
+    AMASS; "jax": tests/test_readers.py's trees}."""
     chip = str(tmp_path_factory.mktemp("chip"))
-    _chip_smoke().write_fixtures(chip, h36m_test=60, h36m_train=40,
-                                 pw3d=12, coco=10, muco=10, seed=3)
+    write_fixtures(chip, h36m_test=60, h36m_train=40, pw3d=12, coco=10,
+                   muco=10, seed=3)
     _write_amass_fixture(chip)
     jax_tree = str(tmp_path_factory.mktemp("jaxtree"))
     for write in (_write_h36m_fixture, _write_pw3d_fixture,

@@ -218,7 +218,7 @@ def test_noise_ablation_main_on_the_cpu(tmp_path, monkeypatch):
 def test_train_ablation_variants_step_on_the_cpu():
     """Every variant builds and takes CPU steps at small size (890
     vertices, depth 2, B=4) with a finite loss, under a caller's
-    `no_grad` too (chip_smoke's); the sweep's fit, the derived block and
+    `no_grad` too; the sweep's fit, the derived block and
     `not_ported` (the JAX tool's three levers) are there."""
     from gator_tpu_torch.tools import exp_train_ablate as eta
     with torch.no_grad():
