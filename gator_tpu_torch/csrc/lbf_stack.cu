@@ -26,36 +26,44 @@
 //                 T1): 16-row tiles, the weights through a two-slot
 //                 cp.async ring, `mma.sync`. Each file holds its design and
 //                 bounds.
-//   lbf_selfattn: per (64-query tile, sample), both heads, one CTA of
-//                 eight warps (four per head, 16 query rows each): the
-//                 two-pass attention of attn_tc.cuh (shared with K3) on
-//                 the tensor cores, the sample's K and V staged whole-row
-//                 (both heads, 64 wide) with cp.async in chunks that let
-//                 two CTAs share an SM (bf16 at Nv = 431: 384 + 47 keys;
-//                 f32: 192-key chunks); the normalised probabilities
-//                 rounded to T, as the TPU kernel rounds them
-//                 (pallas_mdr.py:342), then PV in f32 rounded to T. The
-//                 epilogue puts the tile's T(o) [64, 64] in shared memory
-//                 beside L3's weights (cp.async) and adds o @ L3 + l3_b to
-//                 y3 on the tensor cores into x' (f32).
+//   lbf_selfattn: the Nv x Nv self-attention, then L3 and the residual into
+//                 x' (f32); the normalised probabilities rounded to T, as
+//                 the TPU kernel rounds them (pallas_mdr.py:342), then PV in
+//                 f32 rounded to T. Two kernels, routed by the C entry on
+//                 what it is given:
+//                 bf16 with Nv <= NV_WG (448; every GATOR configuration has
+//                 431), lbf_selfattn_wg.cuh's `lbf_selfattn_kernel`: one
+//                 pass, each score and exponential once, the key row held
+//                 across four warpgroups, every product a `wgmma`; its file
+//                 holds its design and bounds.
+//                 f32, or a longer row, this file's `lbf_selfattn_kernel`:
+//                 per (64-query tile, sample), both heads, one CTA of eight
+//                 warps (four per head, 16 query rows each): the two-pass
+//                 attention of attn_tc.cuh (shared with K3) on `mma.sync`,
+//                 the sample's K and V staged whole-row (both heads, 64
+//                 wide) with cp.async in chunks that let two CTAs share an
+//                 SM (f32: 192-key chunks); the epilogue puts the tile's
+//                 T(o) [64, 64] in shared memory beside L3's weights
+//                 (cp.async) and adds o @ L3 + l3_b to y3 on the tensor
+//                 cores into x' (f32).
 // The residual stream between layers stays f32. The ragged 431 edge is
 // masked by row counts; the TPU kernel's 431->432 and J->24 row padding
 // and its block-diagonal cross mask are gone. Past the grid's 65535
-// samples the self-attention launches again; the rows launch has a 1-D
-// persistent grid.
+// samples the two-pass self-attention launches again; the rows launches
+// and the bf16 self-attention have 1-D persistent grids.
 //
 // What bounds it on the H100 (B = 2048, Nv = 431, J = 17, a layer, bf16):
 // rows 49 GFMA (0.10 ms at 989 TFLOP/s) against 0.79 GB (0.24 ms);
-// self-attention 52 GFMA (0.11 ms; 76 with pass 1's scores) against
-// 0.79 GB of q2/k2/v2 and y3 in and x' out (0.24 ms), and 760 M
-// exponentials twice. Both are bound by the bytes; measured on one H100
-// 80GB HBM3 at 700 W the self-attention takes 1.41 ms a layer
-// (tools/profile_lbf.py; the rows launch's time is in
-// lbf_rows_wg.cuh). bf16 products are exact, so only the f32 sums reorder;
-// f32 runs as 3xTF32 (mma.cuh), never single TF32.
+// self-attention 52 GFMA (0.11 ms) against 0.79 GB of q2/k2/v2 and y3 in
+// and x' out (0.24 ms) and 761 M exponentials (0.195 ms at ~3.9 T/s), which
+// the two-pass kernel takes twice: 1.39-1.42 ms a layer in bf16, against
+// lbf_selfattn_wg.cuh's 0.79-0.81 (one H100 80GB HBM3 at 700 W,
+// tools/profile_lbf.py). bf16 products are exact, so only the f32 sums
+// reorder; f32 runs as 3xTF32 (mma.cuh), never single TF32.
 #include "attn_tc.cuh"
 #include "lbf_layer.cuh"
 #include "lbf_rows_wg.cuh"
+#include "lbf_selfattn_wg.cuh"
 
 namespace gator {
 namespace lbf {
@@ -186,18 +194,23 @@ int launch_selfattn(const void* q2, const void* k2, const void* v2,
   return 0;
 }
 
-// The self-attention launch's plan at Nv keys: keys per staged K/V chunk
-// into *kc, CTAs resident per SM on the current device into *ctas_per_sm
+// The two-pass self-attention's plan at Nv keys, as lbf_stack_plan gives
+// it: sa[1] CTAs resident an SM on the current device, [2] keys a staged
+// K/V chunk, [3] shared bytes, [4] registers a thread, [5] 0 warpgroups
 template <typename T>
-int selfattn_plan(int Nv, int* kc, int* ctas_per_sm) {
+int selfattn_plan(int Nv, int* sa) {
   auto kern = lbf_selfattn_kernel<T>;
-  *kc = attn::chunk_keys<T, C>(Nv);
-  const int smem = SelfAttn<T>::smem(*kc);
+  sa[2] = attn::chunk_keys<T, C>(Nv);
+  sa[3] = SelfAttn<T>::smem(sa[2]);
+  sa[5] = 0;
+  cudaFuncAttributes attr;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, sa[3]);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        ctas_per_sm, kern, 32 * SA_WARPS, smem);
+        &sa[1], kern, 32 * SA_WARPS, sa[3]);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kern);
+  sa[4] = err == cudaSuccess ? attr.numRegs : 0;
   return (int)err;
 }
 
@@ -263,16 +276,59 @@ extern "C" int lbf_rows_launch_counts(long long* out) {
   return 0;
 }
 
-extern "C" int lbf_selfattn_launch(int dtype, const void* q2, const void* k2,
-                                   const void* v2, const void* y3,
-                                   const void* weights, const void* offs,
-                                   void* xout, int B, int Nv, void* stream) {
+// lbf_stack.cu's two-pass self-attention in either dtype, uncounted (the
+// card tests hold the bf16 kernels against each other)
+extern "C" int lbf_selfattn_shared_launch(int dtype, const void* q2,
+                                          const void* k2, const void* v2,
+                                          const void* y3, const void* weights,
+                                          const void* offs, void* xout, int B,
+                                          int Nv, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return gator::lbf::launch_selfattn<float>(q2, k2, v2, y3, weights, offs,
                                               xout, B, Nv, s);
   return gator::lbf::launch_selfattn<__nv_bfloat16>(q2, k2, v2, y3, weights,
                                                     offs, xout, B, Nv, s);
+}
+
+namespace {
+
+// the self-attention kernels, as lbf_selfattn_launch and lbf_stack_plan
+// index them
+enum SelfAttnKernel { SA_TWO_PASS = 0, SA_WG = 1 };
+
+SelfAttnKernel selfattn_kernel_of(int dtype, int Nv) {
+  return dtype == 1 && Nv <= gator::lbf_sa_wg::NV_WG ? SA_WG : SA_TWO_PASS;
+}
+
+// lbf_selfattn_launch's launches in this process, by SelfAttnKernel
+long long selfattn_launched[2];
+
+}  // namespace
+
+// The self-attention launch: lbf_selfattn_wg.cuh's kernel for bf16 rows of
+// up to NV_WG keys, else the two-pass kernel; counted by the kernel taken.
+extern "C" int lbf_selfattn_launch(int dtype, const void* q2, const void* k2,
+                                   const void* v2, const void* y3,
+                                   const void* weights, const void* offs,
+                                   void* xout, int B, int Nv, void* stream) {
+  const SelfAttnKernel kern = selfattn_kernel_of(dtype, Nv);
+  const int err =
+      kern == SA_TWO_PASS
+          ? lbf_selfattn_shared_launch(dtype, q2, k2, v2, y3, weights, offs,
+                                       xout, B, Nv, stream)
+          : gator::lbf_sa_wg::launch(q2, k2, v2, y3, weights, offs, xout, B,
+                                     Nv, static_cast<cudaStream_t>(stream));
+  if (err == 0) ++selfattn_launched[kern];
+  return err;
+}
+
+// lbf_selfattn_launch's launches so far, by SelfAttnKernel: out[0] the
+// two-pass kernel's, out[1] lbf_selfattn_wg.cuh's. Returns 0.
+extern "C" int lbf_selfattn_launch_counts(long long* out) {
+  out[SA_TWO_PASS] = selfattn_launched[SA_TWO_PASS];
+  out[SA_WG] = selfattn_launched[SA_WG];
+  return 0;
 }
 
 namespace {
@@ -300,19 +356,24 @@ int shared_rows_plan(int* rows) {
 
 }  // namespace
 
-// The self-attention launch's plan (keys per K/V chunk, CTAs per SM) at Nv
-// keys, and the plan of the rows kernel that lbf_rows_launch takes in that
-// dtype: rows[0] CTAs an SM, [1] rows a tile, [2] shared bytes, [3]
-// registers a thread, [4] warpgroups a CTA (0: lbf_layer.cuh's kernel,
-// which has none of its own), [5] the kernel (RowsKernel). Returns a
-// cudaError_t.
-extern "C" int lbf_stack_plan(int dtype, int Nv, int* kc, int* sa_ctas,
-                              int* rows) {
+// The plans of the kernels the launches take in that dtype at Nv keys:
+// the self-attention's sa[0] kernel (SelfAttnKernel), [1] CTAs an SM, [2]
+// keys a staged K/V chunk (lbf_selfattn_wg.cuh's: its whole row, NV_WG),
+// [3] shared bytes, [4] registers a thread, [5] warpgroups a CTA (0 for
+// the two-pass kernel); the rows kernel's rows[0] CTAs an SM, [1] rows a
+// tile, [2] shared bytes, [3] registers a thread, [4] warpgroups a CTA (0:
+// lbf_layer.cuh's kernel, which has none of its own), [5] the kernel
+// (RowsKernel). Returns a cudaError_t.
+extern "C" int lbf_stack_plan(int dtype, int Nv, int* sa, int* rows) {
+  sa[0] = selfattn_kernel_of(dtype, Nv);
   rows[5] = rows_kernel_of(dtype);
-  if (dtype == 0) {
-    const int err = gator::lbf::selfattn_plan<float>(Nv, kc, sa_ctas);
-    return err != 0 ? err : shared_rows_plan<float>(rows);
-  }
-  const int err = gator::lbf::selfattn_plan<__nv_bfloat16>(Nv, kc, sa_ctas);
-  return err != 0 ? err : gator::lbf_wg::plan(rows);
+  int err;
+  if (sa[0] == SA_WG)
+    err = gator::lbf_sa_wg::plan(sa);
+  else if (dtype == 0)
+    err = gator::lbf::selfattn_plan<float>(Nv, sa);
+  else
+    err = gator::lbf::selfattn_plan<__nv_bfloat16>(Nv, sa);
+  if (err != 0) return err;
+  return dtype == 0 ? shared_rows_plan<float>(rows) : gator::lbf_wg::plan(rows);
 }

@@ -8,16 +8,21 @@ lib/models/MDR.py:139-153).
 
 Per layer the kernel path makes two launches, both on the tensor cores:
 `lbf_rows` (everything that is local to a vertex row) and `lbf_selfattn`
-(the Nv x Nv self-attention in two passes, the normalised probabilities
-rounded to the working dtype, then L3 and the residual; csrc/attn_tc.cuh,
-shared with K3). The rows launch takes one of two kernels by dtype: in
-bf16 csrc/lbf_rows_wg.cuh's, written for Hopper (weights resident in shared
-memory, warpgroups on 64-row tiles, `wgmma`); in f32 csrc/lbf_layer.cuh's,
-which K2-layer and T1 share; `rows_launches` reads how many launches the
-C entry sent to each. The residual stream between layers stays f32; the
-result is cast to the working dtype once. Any batch size: the rows launch
-has a 1-D persistent grid, the self-attention launches again past the
-grid's 65535 samples.
+(the Nv x Nv self-attention, the normalised probabilities rounded to the
+working dtype, then L3 and the residual). The C entries pick each launch's
+kernel from what they are given and count the launches by kernel. Rows,
+by dtype: in bf16 csrc/lbf_rows_wg.cuh's, written for Hopper (weights
+resident in shared memory, warpgroups on 64-row tiles, `wgmma`); in f32
+csrc/lbf_layer.cuh's, which K2-layer and T1 share (`rows_launches`).
+Self-attention: bf16 rows of up to `NV_WG` keys (every GATOR
+configuration has 431) take csrc/lbf_selfattn_wg.cuh's kernel, one pass
+that computes each score and its exponential once with the key row held
+across four warpgroups on `wgmma`; f32, or a longer row, the two-pass
+kernel of csrc/lbf_stack.cu on csrc/attn_tc.cuh, shared with K3
+(`selfattn_launches`). The residual stream between layers stays f32; the
+result is cast to the working dtype once. Any batch size: the rows
+launches and the bf16 self-attention have 1-D persistent grids, the
+two-pass self-attention launches again past the grid's 65535 samples.
 """
 from __future__ import annotations
 
@@ -32,21 +37,30 @@ from .lbf_layer import EMBED, HEADS, JOINTS_MAX, extract_layer_params
 
 _ROWS_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 \
     + [ctypes.c_void_p]
+_SA_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 \
+    + [ctypes.c_void_p]
 _SIGNATURE = {
     "lbf_rows_launch": _ROWS_ARGS,
     # lbf_layer.cuh's rows kernel in either dtype, for the card tests
     "lbf_rows_shared_launch": _ROWS_ARGS,
     "lbf_rows_launch_counts": [ctypes.c_void_p],
-    "lbf_selfattn_launch": [ctypes.c_int] + [ctypes.c_void_p] * 7
-    + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+    "lbf_selfattn_launch": _SA_ARGS,
+    # the two-pass self-attention in either dtype, for the card tests
+    "lbf_selfattn_shared_launch": _SA_ARGS,
+    "lbf_selfattn_launch_counts": [ctypes.c_void_p],
     "lbf_stack_plan": [ctypes.c_int] * 2
-    + [ctypes.POINTER(ctypes.c_int)] * 3,
+    + [ctypes.POINTER(ctypes.c_int)] * 2,
 }
 
 
 # the rows kernels, in the order the C entry counts and plans them:
 # csrc/lbf_layer.cuh's (f32) and csrc/lbf_rows_wg.cuh's (bf16)
 ROWS_KERNELS = ("lbf_layer", "lbf_rows_wg")
+# the self-attention kernels, likewise: csrc/lbf_stack.cu's two-pass one
+# (f32, and rows longer than NV_WG) and csrc/lbf_selfattn_wg.cuh's (bf16)
+SELFATTN_KERNELS = ("two_pass", "lbf_selfattn_wg")
+# the longest key row lbf_selfattn_wg.cuh's kernel holds (its NV_WG)
+NV_WG = 448
 
 
 def fold_stack_weights(mdr, dtype: torch.dtype, device) -> cuda_lib.Packed:
@@ -152,29 +166,42 @@ def lbf_stack_cuda(verts: torch.Tensor, joints: torch.Tensor,
     return out.copy_(x)
 
 
+def _counts(entry: str, names) -> dict:
+    lib = cuda_lib.load("lbf_stack", _SIGNATURE)
+    counts = (ctypes.c_longlong * len(names))()
+    cuda_lib.check(getattr(lib, entry)(counts), entry)
+    return dict(zip(names, counts))
+
+
 def rows_launches() -> dict:
     """The rows launches the C entry has made in this process, by the
     kernel it took (`ROWS_KERNELS`)."""
-    lib = cuda_lib.load("lbf_stack", _SIGNATURE)
-    counts = (ctypes.c_longlong * len(ROWS_KERNELS))()
-    cuda_lib.check(lib.lbf_rows_launch_counts(counts),
-                   "lbf_rows_launch_counts")
-    return dict(zip(ROWS_KERNELS, counts))
+    return _counts("lbf_rows_launch_counts", ROWS_KERNELS)
+
+
+def selfattn_launches() -> dict:
+    """The self-attention launches the C entry has made in this process, by
+    the kernel it took (`SELFATTN_KERNELS`)."""
+    return _counts("lbf_selfattn_launch_counts", SELFATTN_KERNELS)
 
 
 def stack_plan(dtype: torch.dtype, nv: int) -> dict:
-    """The launches' plan on the current CUDA device at `nv` vertices:
-    keys per staged K/V chunk of the self-attention and its CTAs an SM;
-    the rows kernel the C entry takes in the dtype (`ROWS_KERNELS`) and its
-    CTAs an SM, rows a tile, shared bytes, registers a thread and
-    warpgroups a CTA (0 for lbf_layer.cuh's kernel)."""
+    """The launches' plan on the current CUDA device at `nv` vertices: the
+    self-attention kernel the C entry takes (`SELFATTN_KERNELS`), its keys
+    a staged K/V chunk (the bf16 kernel: its whole row, `NV_WG`), CTAs an
+    SM, shared bytes, registers a thread and warpgroups a CTA (0 for the
+    two-pass kernel); the rows kernel it takes in the dtype
+    (`ROWS_KERNELS`) and its CTAs an SM, rows a tile, shared bytes,
+    registers a thread and warpgroups a CTA (0 for lbf_layer.cuh's
+    kernel)."""
     lib = cuda_lib.load("lbf_stack", _SIGNATURE)
-    kc, sa = ctypes.c_int(), ctypes.c_int()
-    rows = (ctypes.c_int * 6)()
-    cuda_lib.check(lib.lbf_stack_plan(cuda_lib.kernel_dtype(dtype), nv,
-                                      ctypes.byref(kc), ctypes.byref(sa),
+    sa, rows = (ctypes.c_int * 6)(), (ctypes.c_int * 6)()
+    cuda_lib.check(lib.lbf_stack_plan(cuda_lib.kernel_dtype(dtype), nv, sa,
                                       rows), "lbf_stack_plan")
-    return {"chunk_keys": kc.value, "selfattn_ctas_per_sm": sa.value,
+    return {"selfattn_kernel": SELFATTN_KERNELS[sa[0]],
+            "selfattn_ctas_per_sm": sa[1], "chunk_keys": sa[2],
+            "selfattn_smem_bytes": sa[3], "selfattn_registers": sa[4],
+            "selfattn_warpgroups": sa[5],
             "rows_kernel": ROWS_KERNELS[rows[5]],
             "rows_ctas_per_sm": rows[0], "rows_tile": rows[1],
             "rows_smem_bytes": rows[2], "rows_registers": rows[3],

@@ -11,7 +11,12 @@ under torch.profiler, the registers ptxas gave each kernel of K2 and
 K2-layer (their build logs), and K2's plan on the card (keys per staged
 K/V chunk of its self-attention, CTAs per SM of both launches, and the
 rows kernel bf16 takes with its tile rows, shared bytes, registers and
-warpgroups). For
+warpgroups). K2's bf16 self-attention launch alone, over the three layers'
+own rows output: the kernel the serving call takes
+(csrc/lbf_selfattn_wg.cuh) beside csrc/lbf_stack.cu's two-pass kernel
+through its uncounted C entry, by CUDA events, with the launch's three
+floors a layer on an H100 (`selfattn_floors_ms`: its bytes at 3.35 TB/s,
+its products at 989 TFLOP/s, its exponentials at ~3.9 T/s). For
 scale only (the port never calls it), `scaled_dot_product_attention` on
 the LBF self-attention's shapes over three layers (2 heads of 32 over the
 431 vertices, bf16): at B=2048, beside K2's and T1's self-attention
@@ -32,7 +37,7 @@ import torch
 
 from ..nn import (cuda_lib, extract_layer_params, fold_stack_weights,
                   lbf_layer, lbf_stack, run_layers)
-from ..nn.lbf_stack import stack_plan
+from ..nn.lbf_stack import _SIGNATURE, stack_plan
 from .profile_train import _device_us, _is_kernel
 from .timing import card_name, time_ms
 
@@ -76,6 +81,59 @@ def sdpa_ms(b: int, nv: int, layers: int = 3) -> dict:
             torch.autograd.grad(sdpa(q, k, v), (q, k, v), g)
 
     return {"forward": time_ms(fwd), "forward_backward": time_ms(fwd_bwd)}
+
+
+def selfattn_floors_ms(b: int, nv: int, c: int = 64,
+                       heads: int = 2) -> dict:
+    """The least ms a layer of K2's self-attention launch can take on an
+    H100, by each of its three limits: the bytes (q2/k2/v2 in bf16 and y3
+    in, x' out in f32) at 3.35 TB/s; the products (QK and PV over every
+    key, then L3) at 989 TFLOP/s in bf16; one exponential a score at the
+    special-function units' ~3.9 T/s (FlashAttention-3's figure)."""
+    d = c // heads
+    fma = b * heads * nv * nv * d * 2 + b * nv * c * c
+    return {"bytes": b * nv * c * (3 * 2 + 4 + 4) / 3.35e12 * 1e3,
+            "products": 2 * fma / 989e12 * 1e3,
+            "exponentials": b * heads * nv * nv / 3.9e12 * 1e3}
+
+
+def selfattn_ms(verts: torch.Tensor, joints: torch.Tensor, stack) -> dict:
+    """K2's bf16 self-attention launch alone over the three layers, ms a
+    call (CUDA events): "lbf_selfattn_wg" through `lbf_selfattn_launch`
+    (the kernel a bf16 serving call takes), "two_pass" through
+    `lbf_selfattn_shared_launch`, each on the same per-layer rows output
+    (the serving call's layers, the bf16 kernel's x' into the next)."""
+    lib = cuda_lib.load("lbf_stack", _SIGNATURE)
+    b, nv, _ = verts.shape
+    stream = cuda_lib.stream_ptr(verts)
+    offs = stack.offsets.data_ptr()
+    x = verts.float()
+    rows = []
+    for layer in stack.flat:
+        r = [torch.empty_like(x)] + [torch.empty_like(verts)
+                                     for _ in range(3)]
+        cuda_lib.check(lib.lbf_rows_launch(
+            1, x.data_ptr(), joints.data_ptr(), layer.data_ptr(), offs,
+            *(t.data_ptr() for t in r), b, nv, joints.shape[1], stream),
+            "lbf_rows_launch")
+        rows.append(r)
+        x = torch.empty_like(x)
+        cuda_lib.check(lib.lbf_selfattn_launch(
+            1, *(t.data_ptr() for t in r[1:]), r[0].data_ptr(),
+            layer.data_ptr(), offs, x.data_ptr(), b, nv, stream),
+            "lbf_selfattn_launch")
+    out = torch.empty_like(x)
+
+    def run(entry):
+        fn = getattr(lib, entry)
+        for layer, (y3, q2, k2, v2) in zip(stack.flat, rows):
+            cuda_lib.check(fn(1, q2.data_ptr(), k2.data_ptr(), v2.data_ptr(),
+                              y3.data_ptr(), layer.data_ptr(), offs,
+                              out.data_ptr(), b, nv, stream), entry)
+
+    return {name: time_ms(lambda e=entry: run(e))
+            for name, entry in (("lbf_selfattn_wg", "lbf_selfattn_launch"),
+                                ("two_pass", "lbf_selfattn_shared_launch"))}
 
 
 def main(argv=None):
@@ -130,6 +188,12 @@ def main(argv=None):
         for name, n in kerns.items():
             print(f"  {n:4d}  {lib}: {name}")
     print(f"K2 plan: {plan}")
+    sa = selfattn_ms(v, j, stack)
+    floors = selfattn_floors_ms(BATCH, mdr.spec.coarse_num)
+    print("K2 self-attention alone, 3 layers: " + ", ".join(
+        f"{k} {t:.3f} ms ({t / 3:.3f} a layer)" for k, t in sa.items()))
+    print("  its floors a layer: " + ", ".join(
+        f"{k} {t:.3f} ms" for k, t in floors.items()))
     sdpa = {"B=2048": sdpa_ms(BATCH, mdr.spec.coarse_num),
             "B=512": sdpa_ms(512, mdr.spec.coarse_num)}
     print("for scale, scaled_dot_product_attention, 3 layers of [B, 2, "
@@ -137,7 +201,8 @@ def main(argv=None):
               f"{b_}: forward {t['forward']:.3f} ms, forward and backward "
               f"{t['forward_backward']:.3f} ms" for b_, t in sdpa.items()))
     return {"card": card, "ms": ms, "kernel_ms": dict(kernels),
-            "registers": regs, "plan": plan, "sdpa_ms": sdpa}
+            "registers": regs, "plan": plan, "selfattn_ms": sa,
+            "selfattn_floors_ms": floors, "sdpa_ms": sdpa}
 
 
 if __name__ == "__main__":

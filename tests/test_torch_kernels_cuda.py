@@ -13,7 +13,11 @@ width 64 (its other instance) as at 128. K2's bf16 rows kernel
 (csrc/lbf_rows_wg.cuh) against the rows kernel it replaced
 (csrc/lbf_layer.cuh's, which f32 keeps) on the same inputs, over batch,
 vertex and joint counts and a batch whose items split unevenly over the
-persistent grid; the serving call's row launches through it.
+persistent grid; the serving call's row launches through it. K2's bf16
+self-attention (csrc/lbf_selfattn_wg.cuh) against the two-pass kernel it
+replaced (csrc/lbf_stack.cu's, which f32 and rows past NV_WG keys keep) on
+the same rows output, over batch and vertex counts up to NV_WG and one past
+it; the serving call's self-attention launches through it.
 """
 import numpy as np
 import pytest
@@ -28,7 +32,8 @@ from gator_tpu_torch.nn.gat_trunk import (TILE_ROWS, kernel_info,
                                           launch_plan, panel_depth,
                                           panel_order, smem_bytes)
 from gator_tpu_torch.nn import cuda_lib
-from gator_tpu_torch.nn.lbf_stack import (_SIGNATURE, rows_launches,
+from gator_tpu_torch.nn.lbf_stack import (_SIGNATURE, NV_WG,
+                                          rows_launches, selfattn_launches,
                                           stack_plan)
 from gator_tpu_torch.serving import make_serving_fn
 
@@ -201,21 +206,32 @@ def test_lbf_stack_launches_two_kernels_a_layer(model, batch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_lbf_stack_plan_keeps_two_self_attention_ctas_per_sm(model, dtype):
-    """The self-attention keeps two CTAs an SM; the rows kernel the dtype
-    takes: bf16 lbf_rows_wg.cuh's (one CTA an SM of three warpgroups on
-    64-row tiles, its weights resident), f32 lbf_layer.cuh's (two CTAs an
-    SM of 16-row tiles)."""
+    """The kernels each dtype takes at Nv=431. bf16: the self-attention on
+    lbf_selfattn_wg.cuh's kernel (one persistent CTA an SM of four
+    warpgroups holding the whole 448-key row, at most 128 registers a
+    thread, its two K/V slots, query tiles, L3, head 0's o, the partial
+    o tiles and y3 in 190-227 KB of shared memory) and the rows on
+    lbf_rows_wg.cuh's (one CTA an SM of three warpgroups on 64-row tiles,
+    its weights resident). f32: the two-pass self-attention, two CTAs an
+    SM, and lbf_layer.cuh's rows kernel (two CTAs an SM of 16-row
+    tiles)."""
     plan = stack_plan(dtype, 431)
-    assert plan["chunk_keys"] % 64 == 0 and plan["chunk_keys"] >= 64
-    assert plan["selfattn_ctas_per_sm"] >= 2
     assert plan["rows_registers"] > 0
     if dtype == torch.bfloat16:
+        assert plan["selfattn_kernel"] == "lbf_selfattn_wg"
+        assert plan["selfattn_ctas_per_sm"] == 1
+        assert plan["selfattn_warpgroups"] == 4
+        assert plan["chunk_keys"] == NV_WG == 448
+        assert 190 * 1024 < plan["selfattn_smem_bytes"] <= 227 * 1024
+        assert 0 < plan["selfattn_registers"] <= 65536 // (128 * 4)
         assert plan["rows_kernel"] == "lbf_rows_wg"
         assert plan["rows_ctas_per_sm"] == 1
         assert plan["rows_tile"] == 64 and plan["rows_warpgroups"] == 3
         assert 120 * 1024 < plan["rows_smem_bytes"] <= 227 * 1024
         assert plan["rows_registers"] <= 65536 // (128 * 3)
     else:
+        assert plan["chunk_keys"] % 64 == 0 and plan["chunk_keys"] >= 64
+        assert plan["selfattn_ctas_per_sm"] >= 2
         assert plan["rows_kernel"] == "lbf_layer"
         assert plan["rows_ctas_per_sm"] >= 2
         assert plan["rows_tile"] == 16 and plan["rows_warpgroups"] == 0
@@ -323,3 +339,88 @@ def test_serving_row_launches_take_the_dtypes_rows_kernel(model, dtype):
     grown = {k: after[k] - before[k] for k in before}
     want = "lbf_rows_wg" if dtype == torch.bfloat16 else "lbf_layer"
     assert grown == {"lbf_layer": 0, "lbf_rows_wg": 0, want: 3}, grown
+
+
+# (B, Nv): every batch at every vertex count, then the longest row the bf16
+# kernel holds and one key past it, which the two-pass kernel takes
+SA_CASES = ([(b, nv) for b in (1, 7, 2048) for nv in (16, 64, 65, 431)]
+            + [(7, NV_WG), (7, NV_WG + 1)])
+
+
+def _selfattn(entry: str, rows, layer, offsets):
+    """One self-attention launch through the C entry `entry` of
+    csrc/lbf_stack.cu ("lbf_selfattn_launch", routed, or
+    "lbf_selfattn_shared_launch", the two-pass kernel) on a rows launch's
+    (y3 f32, q2, k2, v2 bf16) and one layer's packed bf16 weights -> x'
+    (f32)."""
+    y3, q2, k2, v2 = rows
+    b, nv, _ = y3.shape
+    out = torch.empty_like(y3)
+    fn = getattr(cuda_lib.load("lbf_stack", _SIGNATURE), entry)
+    cuda_lib.check(fn(1, q2.data_ptr(), k2.data_ptr(), v2.data_ptr(),
+                      y3.data_ptr(), layer.data_ptr(), offsets.data_ptr(),
+                      out.data_ptr(), b, nv, cuda_lib.stream_ptr(y3)), entry)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nv", SA_CASES)
+def test_lbf_selfattn_wg_matches_the_two_pass_kernel(model, b, nv):
+    """The routed bf16 self-attention launch against csrc/lbf_stack.cu's
+    two-pass kernel (the uncounted C entry) on the same rows output
+    (q2/k2/v2/y3 of a bf16 rows launch) and layer, every layer. Up to
+    NV_WG keys the launch takes lbf_selfattn_wg.cuh's kernel, past it the
+    two-pass one, bit for bit (the counter shows which). Both compute the
+    same roundings (the normalised probabilities and PV's output to bf16)
+    and differ in the order of f32 sums only (the exponential sum, PV,
+    L3), so most of x' is bit-equal (the median difference is 0 on the
+    card); a flipped p or o moves a row of x' by an o step's share of L3
+    (measured up to 7e-4). Bars: x' within the stack's bf16 bar (5e-2),
+    and from B=7 on at most 2 % of x' moved by more than 1e-5 (measured
+    0.02-0.64 %; B=1 reads up to 0.95 %, one sample's flips). A wrong key,
+    head, row or weight block moves x' by O(0.1)."""
+    w = fold_stack_weights(model.pose2mesh, torch.bfloat16, "cuda")
+    rng = np.random.default_rng(b * 1000 + nv + 7)
+    x = _randn(rng, b, nv, 64)
+    joints = _randn(rng, b, 17, 64).to(torch.bfloat16)
+    want = "lbf_selfattn_wg" if nv <= NV_WG else "two_pass"
+    for layer in range(w.flat.shape[0]):
+        rows = _rows("lbf_rows_launch", x, joints, w.flat[layer], w.offsets)
+        before = selfattn_launches()
+        new = _selfattn("lbf_selfattn_launch", rows, w.flat[layer],
+                        w.offsets)
+        after = selfattn_launches()
+        old = _selfattn("lbf_selfattn_shared_launch", rows, w.flat[layer],
+                        w.offsets)
+        torch.cuda.synchronize()
+        grown = {k: after[k] - before[k] for k in before}
+        assert grown == {"two_pass": 0, "lbf_selfattn_wg": 0, want: 1}, grown
+        if nv > NV_WG:
+            assert torch.equal(new, old)
+            continue
+        dx = (new - old).abs()
+        assert dx.max().item() <= TOL[torch.bfloat16], dx.max().item()
+        if b >= 7:
+            moved = (dx > 1e-5).float().mean().item()
+            assert moved <= 2e-2, moved
+        x = new
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_serving_selfattn_launches_take_the_dtypes_kernel(model, dtype):
+    """A serving call's three self-attention launches, as the C entry
+    counts them by the kernel it launched: bf16 on lbf_selfattn_wg.cuh's
+    (the model's vertex tokens are within NV_WG), f32 on the two-pass
+    kernel."""
+    assert model.pose2mesh.spec.coarse_num <= NV_WG
+    serve = make_serving_fn(model, dtype)
+    pose = torch.randn(4, model.pose_lifter.spec.num_joint, 2,
+                       device="cuda")
+    before = selfattn_launches()
+    serve(pose)
+    torch.cuda.synchronize()
+    after = selfattn_launches()
+    grown = {k: after[k] - before[k] for k in before}
+    want = "lbf_selfattn_wg" if dtype == torch.bfloat16 else "two_pass"
+    assert grown == {"two_pass": 0, "lbf_selfattn_wg": 0, want: 3}, grown
