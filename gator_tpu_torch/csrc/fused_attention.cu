@@ -14,7 +14,11 @@
 // serving call (models/motionbert.py), H = 8, D = 64: the spatial
 // attention over the 17 joints of each frame (B = clips x frames, B1 = 1)
 // and the temporal attention over the 16 frames of each joint (B = clips,
-// B1 = joints), both read from the qkv product's strided view.
+// B1 = joints), both read from the qkv product's strided view; HMR 2.0's
+// serving call (models/hmr2.py): the ViT-H backbone's self-attention over
+// its 192 patch tokens, H = 16, D = 80 (tiled), its decoder's
+// cross-attention of one query against those 192 tokens, H = 8, D = 64
+// (tiled), and the decoder's one-token self-attention (short).
 //
 // Numerics, as the TPU kernel: scores and softmax in f32; the normalised
 // probabilities rounded to v's dtype before the PV product, which
@@ -78,11 +82,12 @@ struct Shape {
 };
 
 // two CTAs per SM at every head width: at most 128 registers a thread
-// (f32 at D = 64 takes 174 without the cap). SPLIT: a sample is the pair
-// (b, b1) and out has the caller's strides; without it (one batch
-// dimension, out contiguous) the addressing is the plain [B, N, H, D] one,
-// which keeps the eval shape's registers: the general addressing on every
-// launch measured 5-6 % slower there in bf16.
+// (f32 at D = 64 takes 174 without the cap; f32 at D = 80 spills under it,
+// a path no cell runs: HMR 2.0 serves its 80-wide heads in bf16). SPLIT:
+// a sample is the pair (b, b1) and out has the caller's strides; without
+// it (one batch dimension, out contiguous) the addressing is the plain
+// [B, N, H, D] one, which keeps the eval shape's registers: the general
+// addressing on every launch measured 5-6 % slower there in bf16.
 template <typename T, int D, bool SPLIT>
 __global__ void __launch_bounds__(32 * NW, 2)
     attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -217,6 +222,7 @@ int dispatch(int D, const void* q, const void* k, const void* v,
     case 16: return launch<T, 16>(q, k, v, bias, out, B, sh, scale, s);
     case 32: return launch<T, 32>(q, k, v, bias, out, B, sh, scale, s);
     case 64: return launch<T, 64>(q, k, v, bias, out, B, sh, scale, s);
+    case 80: return launch<T, 80>(q, k, v, bias, out, B, sh, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -228,6 +234,7 @@ int dispatch_plan(int D, int nk, int* kc, int* ctas_per_sm) {
     case 16: return plan<T, 16>(nk, kc, ctas_per_sm);
     case 32: return plan<T, 32>(nk, kc, ctas_per_sm);
     case 64: return plan<T, 64>(nk, kc, ctas_per_sm);
+    case 80: return plan<T, 80>(nk, kc, ctas_per_sm);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -244,19 +251,19 @@ using attn::Shape;
 constexpr int NW = 8;           // warps a CTA, one (sample, head) pair each
 constexpr int MAX_TOKENS = 32;  // queries, keys: two m16 tiles, 4 key groups
 constexpr int NJ = MAX_TOKENS / 8;  // 8-key groups of a row's scores
-constexpr int ZROW = 64;        // the zero row that stands for every key
-                                // row past Nk: a head's widest read
 constexpr long long SMEM_MAX = 227 * 1024;  // dynamic shared memory a CTA
 
 // A head's q, k or v row staged in shared memory: WS elements (bf16 at
 // D = 8 pads to the mma step's 16 with zeros), in 16-byte pieces of V
-// elements, CPR of them a head.
+// elements, CPR of them a head. ZROW: the length of the zero row that
+// stands for every key row past Nk, a head's widest read (64 up to D = 64).
 template <typename T, int D>
 struct Geo {
   static constexpr bool F32 = sizeof(T) == 4;
   static constexpr int WS = !F32 && D < 16 ? 16 : D;
   static constexpr int V = 16 / (int)sizeof(T);
   static constexpr int CPR = D / V;
+  static constexpr int ZROW = D > 64 ? D : 64;
 };
 
 // The launch's plan. A unit is one sample's group of `hg` heads (hg = H
@@ -279,7 +286,7 @@ Plan make_plan(const Shape& sh, unsigned samples) {
   using G = Geo<T, D>;
   Plan p{};
   auto bytes = [&](int upi) {
-    return (ZROW + 2LL * upi * (sh.nq * (long long)p.lq +
+    return (G::ZROW + 2LL * upi * (sh.nq * (long long)p.lq +
                                 sh.nk * (long long)(p.lk + p.lv))) *
            (long long)sizeof(T);
   };
@@ -542,10 +549,10 @@ __global__ void __launch_bounds__(32 * NW, sizeof(T) == 2 ? 2 : 1)
   using G = Geo<T, D>;
   extern __shared__ __align__(16) unsigned char smem[];
   T* zrow = reinterpret_cast<T*>(smem);
-  T* ring = zrow + ZROW;
+  T* ring = zrow + G::ZROW;
   // zeros once: the zero row, and the pad columns no copy writes
   {
-    const int n16 = (ZROW + 2 * p.stage) * (int)sizeof(T) / 16;
+    const int n16 = (G::ZROW + 2 * p.stage) * (int)sizeof(T) / 16;
     for (int i = threadIdx.x; i < n16; i += blockDim.x)
       reinterpret_cast<uint4*>(smem)[i] = make_uint4(0, 0, 0, 0);
   }
@@ -595,7 +602,7 @@ template <typename T, int D>
 int configure(const Shape& sh, int B, Plan* p, int* smem, int* ctas,
               int* grid) {
   *p = make_plan<T, D>(sh, (unsigned)B * (unsigned)sh.nb1);
-  *smem = (ZROW + 2 * p->stage) * (int)sizeof(T);
+  *smem = (Geo<T, D>::ZROW + 2 * p->stage) * (int)sizeof(T);
   auto kern = attention_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
@@ -645,6 +652,7 @@ int dispatch(int D, const void* q, const void* k, const void* v,
     case 16: return run<T, 16>(q, k, v, bias, out, B, sh, scale, s);
     case 32: return run<T, 32>(q, k, v, bias, out, B, sh, scale, s);
     case 64: return run<T, 64>(q, k, v, bias, out, B, sh, scale, s);
+    case 80: return run<T, 80>(q, k, v, bias, out, B, sh, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -656,6 +664,7 @@ int dispatch_plan(int D, int B, const Shape& sh, int* out) {
     case 16: return plan<T, 16>(sh, B, out);
     case 32: return plan<T, 32>(sh, B, out);
     case 64: return plan<T, 64>(sh, B, out);
+    case 80: return plan<T, 80>(sh, B, out);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -673,7 +682,8 @@ extern "C" int fused_attention_plan(int dtype, int D, int Nk, int* kc,
   return gator::attn::dispatch_plan<__nv_bfloat16>(D, Nk, kc, ctas_per_sm);
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out); D in {8, 16, 32, 64};
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out); D in {8, 16, 32, 64,
+// 80};
 // B * B1 samples (at most 65535); strides in elements, per tensor (b, b1,
 // n, h); bias f32 [H, Nq, Nk] contiguous, or null. Returns the cudaError_t
 // of the launch.

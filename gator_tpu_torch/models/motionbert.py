@@ -38,8 +38,9 @@ bundle's. `backbone.head` (the pretraining's 3D output) is held for the
 same reason and is not on the mesh path.
 
 `mesh_forward` is the model's function over the weights `fold_weights`
-derives once: the serving call (`serving.make_serving_fn`, bf16) and the
-module's own `forward` (f32) run it. The backbone and head run in the
+derives once: the serving call (`serving.make_serving_fn`, bf16, through
+the model's `serving_fold` and `serving_forward`) and the module's own
+`forward` (f32) run it. The backbone and head run in the
 serving type, LayerNorm statistics in f32 (PyTorch's LayerNorm
 accumulates a bf16 input in f32), BatchNorm in f32, SMPL in f32. Both
 attentions run on K3 (`nn.fused_attention_into`) on CUDA, on its plain
@@ -170,6 +171,13 @@ class MeshRegressor(nn.Module):
         self.head = SMPLRegressor(spec)
         self.smpl = smpl
         self.j_regressor_h36m = np.asarray(j_regressor_h36m, np.float32)
+
+    def serving_fold(self, dtype: torch.dtype, use_kernels: bool = True):
+        return fold_weights(self, dtype, use_kernels)
+
+    def serving_forward(self, w, consts, clips: torch.Tensor,
+                        dtype: torch.dtype):
+        return mesh_forward(self.spec, w, consts, clips, dtype)
 
     @torch.no_grad()
     def forward(self, clips: torch.Tensor):

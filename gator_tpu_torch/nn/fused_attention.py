@@ -28,10 +28,15 @@ through `fused_attention_into`, on strided views of its qkv product: the
 temporal rows, (clip, joint) pairs, take the launch's second batch
 dimension, and the output is written in the token layout the next product
 reads. Those take the short-row kernel (16-17 tokens); the 431-key
-calls (eval, the demo) the tiled one.
+calls (eval, the demo) the tiled one. HMR 2.0's serving call
+(models/hmr2.py) runs its ViT-H backbone's 32 self-attentions (192 patch
+tokens, 16 heads of 80) and its decoder's 6 cross-attentions (one query
+against the 192 tokens, 8 heads of 64) on the tiled kernel, and the
+decoder's 6 one-token self-attentions on the short-row one.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 from typing import Optional, Tuple
@@ -40,7 +45,7 @@ import torch
 
 from . import cuda_lib
 
-HEAD_DIMS = (8, 16, 32, 64)
+HEAD_DIMS = (8, 16, 32, 64, 80)
 # the most queries and keys of the short-row kernel: two m16 query tiles a
 # warp, a row's scores in registers
 SHORT_TOKENS = 32
@@ -194,6 +199,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         o5.copy_(dst)
     fused_attention.launches += 1
     fused_attention.short_launches += short
+    fused_attention.launches_by_dim[d] += 1
+    fused_attention.short_launches_by_dim[d] += short
     return out
 
 
@@ -247,7 +254,8 @@ def fused_attention_into(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     D contiguous, written into `out` (q's shape, any strides with D
     contiguous) or a fresh contiguous tensor, which is returned. The CUDA
     kernels for CUDA tensors (counted in `fused_attention.launches`, and
-    in `fused_attention.short_launches` on the short route), the plain
+    in `fused_attention.short_launches` on the short route; by head width
+    in `launches_by_dim` and `short_launches_by_dim`), the plain
     version for CPU tensors or with `use_kernel=False`."""
     if use_kernel and q.device.type == "cuda":
         return _launch(q, k, v, None, scale, out)
@@ -261,6 +269,8 @@ def fused_attention_into(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # launches of the CUDA kernels (either route), and of the short-row kernel
-# among them; the CPU path never counts
+# among them, in all and by head width D; the CPU path never counts
 fused_attention.launches = 0
 fused_attention.short_launches = 0
+fused_attention.launches_by_dim = collections.Counter()
+fused_attention.short_launches_by_dim = collections.Counter()

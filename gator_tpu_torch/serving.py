@@ -10,10 +10,14 @@ the hop/path bias, the A/B/C head and the 431->6890 upsample are plain
 torch, as they are XLA code (not Pallas) in the JAX package.
 `make_sharded_serving_fn` serves a batch over the data-parallel ranks.
 
-The same two functions serve MotionBERT's mesh model
-(`models.motionbert.MeshRegressor`): clips [B, T, 17, 3] -> (verts
-[B, T, V0, 3], kp3d [B, T, 17, 3]), the batch axis counting clips, its
-function `models.motionbert.mesh_forward` with both attentions on K3.
+The same two functions serve any model that brings its own fold and
+forward (`serving_fold(dtype, use_kernels)` -> (w, consts) and
+`serving_forward(w, consts, x, dtype)`; `own_serving_fn`): MotionBERT's
+mesh model (`models.motionbert.MeshRegressor`: clips [B, T, 17, 3] ->
+(verts [B, T, V0, 3], kp3d [B, T, 17, 3]), the batch axis counting
+clips) and HMR 2.0 (`models.hmr2.HMR2`: crops [B, 3, 256, 256] -> (verts
+[B, V0, 3], joints [B, 24, 3], cam_t [B, 3])), every attention of both on
+K3.
 """
 from __future__ import annotations
 
@@ -25,14 +29,13 @@ import torch.nn.functional as F
 from .models.gat import pinned
 from .models.gator import GATOR
 from .models.mdr import conv1d_len3
-from .models.motionbert import MeshRegressor, fold_weights, mesh_forward
 from .nn import (fold_stack_weights, fold_trunk_weights, gat_trunk,
                  gat_trunk_ref, lbf_stack, lbf_stack_ref, layer_norm32)
 from .nn.gat_trunk import check_width
 from .parallel import all_gather_rows, local_rows
 from .profiling import span
 
-ServingFn = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
+ServingFn = Callable[[torch.Tensor], Tuple[torch.Tensor, ...]]
 
 
 def gat_serving_forward(model: GATOR, w: Dict[str, torch.Tensor], consts,
@@ -167,9 +170,9 @@ def serving_weights(model: GATOR, dtype: torch.dtype,
 def make_serving_fn(model, dtype: torch.dtype = torch.bfloat16,
                     use_kernels: bool = True) -> ServingFn:
     """-> fn(pose2d [B, J, 2]) -> (mesh [B, V0, 3], pose3d [B, J, 3]), on
-    the model's device, without gradients; for a MotionBERT mesh model
-    fn(clips [B, T, J, 3]) -> (verts [B, T, V0, 3], kp3d [B, T, 17, 3]),
-    f32 (`clip_serving_fn`).
+    the model's device, without gradients; for a model that brings its own
+    fold and forward (MotionBERT's, HMR 2.0), its forward's function
+    (`own_serving_fn`).
 
     `use_kernels=False` runs the kernels' plain versions on any device:
     the on-card numerics oracle of tests/test_torch_paths_cuda.py and the
@@ -177,8 +180,8 @@ def make_serving_fn(model, dtype: torch.dtype = torch.bfloat16,
     the JAX package. The weights and tables are
     derived once, by `serving_weights`. A call is the span `serve`, its
     stages the spans of the two forward functions."""
-    if isinstance(model, MeshRegressor):
-        return clip_serving_fn(model, dtype, use_kernels)
+    if hasattr(model, "serving_forward"):
+        return own_serving_fn(model, dtype, use_kernels)
     j = model.spec.gat.num_joint
     device = next(model.parameters()).device
     w, consts = serving_weights(model, dtype, use_kernels)
@@ -198,24 +201,23 @@ def make_serving_fn(model, dtype: torch.dtype = torch.bfloat16,
     return serve
 
 
-def clip_serving_fn(model: MeshRegressor,
-                    dtype: torch.dtype = torch.bfloat16,
-                    use_kernels: bool = True) -> ServingFn:
-    """MotionBERT's serving call: fn(clips [B, T, J, 3]) -> (verts [B, T,
-    V0, 3], kp3d [B, T, 17, 3]) in f32 metres, on the model's device,
-    without gradients; the backbone and head in `dtype`, the attentions on
-    K3 (its plain version with `use_kernels=False`), SMPL in f32. The
-    weights are derived once (`models.motionbert.fold_weights`). A call is
-    the span `serve`, its stages serve.mb_embed, serve.mb_blocks,
-    serve.mb_head and serve.mb_smpl."""
+def own_serving_fn(model, dtype: torch.dtype = torch.bfloat16,
+                   use_kernels: bool = True) -> ServingFn:
+    """The serving call of a model that brings its own fold and forward:
+    fn(x) -> the outputs of `model.serving_forward`, f32, on the model's
+    device, without gradients; products in `dtype`, the attentions on K3
+    (its plain version with `use_kernels=False`). The weights are derived
+    once (`model.serving_fold`). A call is the span `serve`, its stages
+    the spans of the model's forward (models/motionbert.py `mesh_forward`,
+    models/hmr2.py `hmr2_forward`)."""
     device = next(model.parameters()).device
-    w, consts = fold_weights(model, dtype, use_kernels)
+    w, consts = model.serving_fold(dtype, use_kernels)
 
     @torch.no_grad()
-    def serve(clips: torch.Tensor):
+    def serve(x: torch.Tensor):
         with span("serve"):
-            return mesh_forward(model.spec, w, consts,
-                                clips.to(device=device), dtype)
+            return model.serving_forward(w, consts, x.to(device=device),
+                                         dtype)
 
     return serve
 
@@ -229,13 +231,14 @@ def make_sharded_serving_fn(model: GATOR, world,
     and K2 (`make_serving_fn` over its replica of the model) and the mesh
     and pose rows are all-gathered back in row order. B must be a multiple
     of the world size; pad a ragged batch with `parallel.pad_to_multiple`.
-    A MotionBERT mesh model is served the same way, its rows clips.
+    MotionBERT's mesh model and HMR 2.0 are served the same way, their rows
+    clips and crops, each of their outputs gathered.
     """
     serve_rows = make_serving_fn(model, dtype=dtype)
 
     @torch.no_grad()
     def serve(pose2d: torch.Tensor):
-        mesh, pose3d = serve_rows(local_rows(pose2d, world))
-        return all_gather_rows(mesh, world), all_gather_rows(pose3d, world)
+        return tuple(all_gather_rows(out, world)
+                     for out in serve_rows(local_rows(pose2d, world)))
 
     return serve

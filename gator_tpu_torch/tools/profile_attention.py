@@ -18,8 +18,18 @@ and the temporal mode, [128 clips, 17 joints, 16, 8, 64] written through a
 permuted view, each beside its bound: q, k, v and out, 142.6 MB, at 3.35
 TB/s.
 
+Then K3 as HMR 2.0's serving call launches it (`vit_modes`: the ViT-H
+backbone's self-attention, 64 crops of 192 patch tokens, 16 heads of 80,
+and the decoder's cross-attention, one query against the 192 tokens, 8
+heads of 64; bf16, on views of one qkv or kv product), each beside its
+bytes bound (q, k, v and out at 3.35 TB/s, the widths read by
+benchmark/core/hmr2_counts.py from the cell's configuration, run from the
+checkout's root) and, for scale (not on the path), PyTorch's
+scaled_dot_product_attention on the same shapes.
+
 Last, sha256 digests of K3's outputs (`digests`) at both MotionBERT modes
-and at the eval shape with and without a bias, bf16 and f32, on seeded
+and at the eval shape with and without a bias, bf16 and f32, and at every
+head width up to 64 on both kernels (`head_width_digests`), on seeded
 inputs, through the public entry points only: the same tool run in an
 older checkout gives that tree's, so that two trees' K3 can be compared
 bit for bit in one call.
@@ -33,6 +43,7 @@ import re
 import sys
 
 import torch
+import torch.nn.functional as F
 
 from ..nn import cuda_lib
 from ..nn.fused_attention import (attention_plan, fused_attention,
@@ -79,6 +90,66 @@ def clip_modes(clips: int = 128, t: int = 16, j: int = 17) -> dict:
                 *spatial, 0.125)), "bound_ms": bound},
             "temporal": {"ms": time_ms(lambda: fused_attention_into(
                 *temporal, 0.125, out)), "bound_ms": bound}}
+
+
+def vit_modes(crops: int = 64) -> dict:
+    """{mode: {"ms", "bound_ms", "sdpa_ms"}} of K3's launches in HMR 2.0's
+    serving call (module docstring)."""
+    from benchmark.core import hmr2_counts, spec
+    d = hmr2_counts.dims(spec.config("hmr2-vith16-256x192"))
+    n, c, h = d["n"], d["c"], d["heads"]
+    hd, dh = d["inner"] // d["dim_head"], d["dim_head"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = torch.randn(crops, n, 3, h, c // h, generator=gen,
+                          device="cuda").bfloat16().unbind(2)
+    tok = torch.randn(crops, 1, hd, dh, generator=gen,
+                      device="cuda").bfloat16()
+    kv = torch.randn(crops, n, 2, hd, dh, generator=gen,
+                     device="cuda").bfloat16()
+    nbytes = hmr2_counts.k3_launch_bytes(d, crops)
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            *(t.transpose(1, 2) for t in (q, k, v)))
+
+    with torch.no_grad():
+        return {
+            "vit": {"ms": time_ms(lambda: fused_attention_into(
+                q, k, v, (c // h) ** -0.5)),
+                "bound_ms": nbytes["vit"] / 3.35e12 * 1e3,
+                "sdpa_ms": time_ms(lambda: sdpa(q, k, v))},
+            "cross": {"ms": time_ms(lambda: fused_attention_into(
+                tok, kv[:, :, 0], kv[:, :, 1], dh ** -0.5)),
+                "bound_ms": nbytes["cross"] / 3.35e12 * 1e3,
+                "sdpa_ms": time_ms(lambda: sdpa(tok, kv[:, :, 0],
+                                                kv[:, :, 1]))}}
+
+
+def head_width_digests() -> dict:
+    """{case: sha256[:16] of K3's output} at head widths 8, 16, 32 and 64,
+    bf16 and f32: the tiled kernel at 192 x 192 tokens and at one query
+    against 192 keys (B = 8, 4 heads), the short-row kernel at 17 x 17
+    (B = 64, 8 heads), on seeded inputs."""
+    def digest(t):
+        return hashlib.sha256(t.contiguous().view(torch.uint8).cpu()
+                              .numpy().tobytes()).hexdigest()[:16]
+
+    gen = torch.Generator(device="cuda").manual_seed(80)
+    out = {}
+    with torch.no_grad():
+        for dt in (torch.bfloat16, torch.float32):
+            for d in (8, 16, 32, 64):
+                for name, b, nq, nk, h in (("tiled", 8, 192, 192, 4),
+                                           ("tiled_q1", 8, 1, 192, 4),
+                                           ("short", 64, 17, 17, 8)):
+                    q = torch.randn(b, nq, h, d, generator=gen,
+                                    device="cuda").to(dt)
+                    k, v = (torch.randn(b, nk, h, d, generator=gen,
+                                        device="cuda").to(dt)
+                            for _ in range(2))
+                    out[f"{name}_d{d}_{str(dt)[6:]}"] = digest(
+                        fused_attention_into(q, k, v, d ** -0.5))
+    return out
 
 
 def digests() -> dict:
@@ -139,7 +210,8 @@ def main(argv=None):
                 "ms": ms, "max_abs_err": err, "chunk_keys": kc,
                 "ctas_per_sm": ctas}
     clip = clip_modes()
-    bits = digests()
+    vit = vit_modes()
+    bits = dict(digests(), **head_width_digests())
     regs = ptxas_report("fused_attention")
     print(f"K3 on {card}")
     for name, r in rows.items():
@@ -148,14 +220,17 @@ def main(argv=None):
     for mode, r in clip.items():
         print(f"  MotionBERT {mode:21s} {r['ms']:8.4f} ms  bound "
               f"{r['bound_ms']:.4f} ms (bytes)")
+    for mode, r in vit.items():
+        print(f"  HMR 2.0 {mode:24s} {r['ms']:8.4f} ms  bound "
+              f"{r['bound_ms']:.4f} ms (bytes)  SDPA {r['sdpa_ms']:.4f} ms")
     print("registers (spill store bytes):")
     for name, (n, spill) in regs.items():
         print(f"  {n:4d} ({spill})  {name}")
     print("output digests (sha256[:16]):")
     for name, d in bits.items():
-        print(f"  {name:16s} {d}")
+        print(f"  {name:20s} {d}")
     return {"card": card, "shapes": rows, "clip_modes": clip,
-            "registers": regs, "digests": bits}
+            "vit_modes": vit, "registers": regs, "digests": bits}
 
 
 if __name__ == "__main__":

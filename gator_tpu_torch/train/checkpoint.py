@@ -155,14 +155,17 @@ def load_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
     (best first, as the eval CLI picks; `pick_checkpoint`). A DataParallel
     "module." prefix is stripped, and so are the reference's buffer keys
     (`REFERENCE_BUFFERS`) that the model does not hold: a released
-    `.pth.tar` carries four. MotionBERT's layout ({"model": ...}) loads
-    too, without the keys the model's `checkpoint_ignored` prefixes name
-    (its SMPL layer's tables). Any other unknown or missing key raises."""
+    `.pth.tar` carries four. MotionBERT's layout ({"model": ...}) and HMR
+    2.0's Lightning one ({"state_dict": ...}) load too, without the keys
+    the model's `checkpoint_ignored` prefixes name (their SMPL layers'
+    tables, HMR 2.0's discriminator). Any other unknown or missing key
+    raises."""
     if osp.isdir(path):
         path = pick_checkpoint(path, pick_best=True)
     state = load_checkpoint(path)
-    if isinstance(state.get("model"), dict):
-        state = state["model"]
+    for layout in ("model", "state_dict"):
+        if isinstance(state.get(layout), dict):
+            state = state[layout]
     state = _strip_module(state.get("model_state_dict", state))
     own = model.state_dict()
     ignored = getattr(model, "checkpoint_ignored", ())
